@@ -1,0 +1,54 @@
+"""Carry the JAX package's parameters across to the port.
+
+The input is the reference's params as a nested dict of numpy arrays, its
+layers stacked along a leading axis, with bf16 leaves given as float32
+(numpy has no bf16 type that torch takes).  Norm scales stay float32 and
+every other leaf is cast back to bf16, which undoes that widening exactly.
+Dense weights keep the reference's ``(in, out)`` layout, since the port
+applies them as ``x @ w``: no transpose is needed.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+NORM_KEYS = frozenset({"norm1", "norm2", "final_norm"})
+
+
+def _leaf(name, a, device):
+    dtype = torch.float32 if name in NORM_KEYS else torch.bfloat16
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device, dtype)
+
+
+def _tree(d, fn):
+    return {k: _tree(v, fn) if isinstance(v, dict) else fn(k, v)
+            for k, v in d.items()}
+
+
+def tree_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    """One block's params, or any subtree of them (an attention or MLP
+    dict), from the reference's nested dict of numpy arrays."""
+    return _tree(tree, lambda k, a: _leaf(k, a, device))
+
+
+def params_from_jax(params: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    """The port's params (``layers`` as a list of per-block dicts) from the
+    reference's nested dict of numpy arrays."""
+    out = tree_from_jax({k: v for k, v in params.items() if k != "layers"},
+                        device)
+    n_layers = len(params["layers"]["norm1"])
+    out["layers"] = [tree_from_jax(_tree(params["layers"],
+                                         lambda k, a, i=i: a[i]), device)
+                     for i in range(n_layers)]
+    return out
+
+
+def to_device(tree, device):
+    """A copy of a params tree (dicts and lists of tensors) on ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)

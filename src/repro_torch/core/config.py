@@ -1,0 +1,94 @@
+"""Model configuration: the port's own copy of the reference's ``ModelConfig``.
+
+Every architecture is described by a frozen ``ModelConfig`` with the same
+fields, defaults and meaning as the JAX package's, so a config file reads the
+same in both packages.  The registry in ``repro_torch.configs`` maps
+``--arch <id>`` strings to full and reduced (smoke) configs.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0          # routed experts
+    top_k: int = 0
+    n_shared: int = 0           # shared (always-on) experts
+    d_ff_expert: int = 0        # per-expert hidden dim
+    capacity_factor: float = 1.25
+    router_z_coef: float = 1e-3
+    aux_loss_coef: float = 1e-2
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek multi-head latent attention."""
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0        # 0 => no q compression (V2-Lite)
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    version: int = 1            # 1 = mamba1 selective scan, 2 = mamba2 SSD
+    n_heads: int = 0            # mamba2 heads (d_inner / head_dim)
+    head_dim: int = 64
+    chunk: int = 256            # SSD chunk length
+
+
+@dataclass(frozen=True)
+class EncoderConfig:
+    """Encoder stack for enc-dec models (whisper)."""
+    n_layers: int = 12
+    n_ctx: int = 1500           # audio frames after conv stub
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                 # dense | moe | ssm | hybrid | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0           # 0 => d_model // n_heads
+    activation: str = "swiglu"  # swiglu | geglu | gelu
+    norm: str = "rmsnorm"
+    tie_embeddings: bool = False
+    rope_theta: float = 10_000.0
+    max_seq: int = 131_072
+    # attention pattern
+    window: int = 0             # sliding window size (0 = full)
+    local_global_ratio: int = 0 # e.g. 5 => 5 local : 1 global (gemma3)
+    # sub-configs
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+    encoder: Optional[EncoderConfig] = None
+    # hybrid (zamba2): attention block shared & inserted every k ssm blocks
+    hybrid_attn_every: int = 0
+    # vlm: number of prefix patch embeddings supplied by the (stub) vision tower
+    n_patches: int = 0
+    dtype: str = "bfloat16"
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    def param_count(self) -> int:
+        """Analytical parameter count of a dense config (embeddings + blocks)."""
+        d, hd = self.d_model, self.resolved_head_dim
+        n = self.vocab * d * (1 if self.tie_embeddings else 2)
+        attn = d * self.n_heads * hd * 2 + 2 * d * self.n_kv_heads * hd
+        gates = 2 if self.activation in ("swiglu", "geglu") else 1
+        mlp = (gates + 1) * d * self.d_ff
+        return n + self.n_layers * (attn + mlp + 2 * d)

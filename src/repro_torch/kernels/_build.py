@@ -1,0 +1,83 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled by ``nvcc``
+for Hopper (``sm_90a``) into ``build/kernels/lib<name>-<hash>.so`` at the root
+of the checkout, at first use, and loaded with ``ctypes``.  The hash covers
+the source and the flags, so an edited source is rebuilt and an unchanged
+one is not.  Only sources in this package are built.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: on PATH, else under ``$CUDA_HOME`` (default
+    ``/usr/local/cuda``).  Raises when there is none."""
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for path in (shutil.which("nvcc"), os.path.join(home, "bin", "nvcc")):
+        if path and os.path.isfile(path):
+            return path
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME="
+                       f"{home!r}: the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
+    """Compile every ``csrc/*.cu`` (or the named ones) not built yet: one
+    ``nvcc`` per source, all started together.  ``nvcc``'s output, with the
+    ``-Xptxas=-v`` register and shared-memory report, is kept beside each
+    library as ``.log``.  Raises if any build fails."""
+    if names is None:
+        names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    names = list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode:
+            failed.append(f"nvcc failed on {name}.cu:\n{log}")
+        else:
+            os.replace(tmp, out)   # atomic: a concurrent build never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: library_path(name) for name in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    with _lock:
+        if name not in _libs:
+            _libs[name] = ctypes.CDLL(str(build([name])[name]))
+        return _libs[name]

@@ -1,0 +1,463 @@
+// Flash attention forward for Hopper (sm_90a), CUDA C++.
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
+// (_flash_kernel, launched by flash_attention through pl.pallas_call) and
+// computes the same function: softmax(q k^T * D^-0.5 + mask) v with the
+// causal mask qpos >= kpos, the sliding-window mask qpos - kpos < window
+// (window > 0), masked scores set to the finite NEG_INF = -1e30, an online
+// softmax with float32 running max, running sum and accumulator, and the
+// output acc / max(l, 1e-30) in the input's type.  GQA/MQA: query head h of
+// batch b reads KV head b*Hkv + h/(H/Hkv); KV is never copied to H heads.
+//
+// What bounds it on the H100: at the serving shapes (bf16, D = 256,
+// S = 1024) the work is about 400 operations per byte of q, k, v and o,
+// above the card's ~295 bf16 operations per byte, so the bound is the
+// tensor cores' rate.  The bf16 kernel therefore does both products on the
+// tensor cores (mma.sync m16n8k16, bf16 in, float32 accumulate); wgmma and
+// TMA, which the full rate needs, come later.  The float32 kernel must match
+// the reference to 1e-4, which no tensor-core type gives, so it does its
+// products with float32 FMAs on the CUDA cores.  Against device memory, the
+// other bound, both keep the score tile, the softmax statistics and the
+// output accumulator on chip for the whole KV sweep, as the TPU kernel keeps
+// them in VMEM: q is read once, each K/V tile once per query tile, o written
+// once.
+//
+// Layout of the work.  The TPU grid (B*H, S/bq, S/bk) runs its KV axis in
+// order on one core and carries the statistics in VMEM scratch between grid
+// steps.  Here one block owns one 64-row query tile of one flat head and
+// walks the KV tiles in a loop.  Query tiles are issued last first, so that
+// the long causal rows start early.  KV tiles wholly above the causal
+// diagonal, or wholly before every row's window, are skipped.  A ragged
+// last tile (S not a multiple of the tile) is masked here: rows past S are
+// loaded as zeros and never stored, keys past S are masked.  D = 256 needs
+// more than the 48 KB of static shared memory, hence dynamic shared memory
+// and cudaFuncSetAttribute before the launch.
+//
+// bf16 kernel: 4 warps, each owning 16 query rows.  A warp's scores for a
+// KV tile are mma accumulators; their row max and row sum reduce over the
+// 4 lanes that share a row (2 xor shuffles); the exponentials are rounded
+// to bf16 and reused in registers as the A operand of the P.V product,
+// whose float32 accumulators hold the warp's 16 x D output.  Tiles are kept
+// in shared memory as bf16 with rows padded by 8 elements, so that the 8
+// rows a fragment load touches start in 8 different banks.
+//
+// float32 kernel: 256 threads; thread (ty, tx) = (tid / 16, tid % 16) owns
+// query rows ty + 16 i (i < 4), score columns tx + 16 j and output columns
+// tx + 16 e.  The 16 threads of a row are one half-warp, so row max and row
+// sum reduce with 4 xor shuffles.  Q and K rows are padded to D + 1 floats
+// so that the 16 threads reading 16 K rows hit 16 banks.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr float NEG_INF = -1e30f;
+constexpr int BQ = 64;         // query rows per block
+constexpr int NT = 256;        // threads per block (float32 kernel)
+constexpr int RPT = BQ / 16;   // query rows per thread
+
+// reductions over the 16 lanes of a half-warp (xor offsets below 16 stay in it)
+__device__ __forceinline__ float half_warp_max(float x) {
+  for (int off = 8; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+__device__ __forceinline__ float half_warp_sum(float x) {
+  for (int off = 8; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// ---------------------------------------------------------------------------
+// float32: FMAs on the CUDA cores
+
+template <int D> struct TilesF32 {
+  static constexpr int BK = D > 128 ? 32 : 64;   // keys per KV tile
+  static constexpr int LD = D + 1;               // padded Q/K row stride
+  static constexpr int LP = BK + 1;              // padded P row stride
+  static constexpr size_t smem_bytes =
+      sizeof(float) * (size_t(BQ) * LD + size_t(BK) * LD + size_t(BK) * D +
+                       size_t(BQ) * LP);
+};
+
+template <int D>
+__global__ void __launch_bounds__(NT)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     int H, int Hkv, int S, int causal, int window,
+                     float scale) {
+  using Tl = TilesF32<D>;
+  constexpr int BK = Tl::BK, LD = Tl::LD, LP = Tl::LP;
+  constexpr int CPT = BK / 16;   // score columns per thread
+  constexpr int DPT = D / 16;    // output columns per thread
+
+  extern __shared__ float smem[];
+  float* Qs = smem;              // [BQ][LD]
+  float* Ks = Qs + BQ * LD;      // [BK][LD]
+  float* Vs = Ks + BK * LD;      // [BK][D]
+  float* Ps = Vs + BK * D;       // [BQ][LP]
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // heavy tiles first
+  const int bh = blockIdx.y;                          // flat head b*H + h
+  const int b = bh / H, h = bh % H;
+  const long long kvh = (long long)b * Hkv + h / (H / Hkv);
+  const float* qp = q + (long long)bh * S * D;
+  const float* kp = k + kvh * S * D;
+  const float* vp = v + kvh * S * D;
+  float* op = o + (long long)bh * S * D;
+
+  for (int i = tid; i < BQ * D; i += NT) {
+    const int r = i / D, d = i % D;
+    Qs[r * LD + d] = q0 + r < S ? qp[(long long)(q0 + r) * D + d] : 0.f;
+  }
+
+  float m[RPT], l[RPT], acc[RPT][DPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < DPT; ++e) acc[i][e] = 0.f;
+  }
+
+  // KV tiles with at least one live key for some row of this query tile
+  int kt_begin = 0, kt_end = (S + BK - 1) / BK;
+  if (window > 0) kt_begin = max(0, q0 - window + 1) / BK;
+  if (causal) kt_end = min(kt_end, (q0 + BQ - 1) / BK + 1);
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();   // the previous tile's Ks/Vs/Ps are no longer read
+    for (int i = tid; i < BK * D; i += NT) {
+      const int c = i / D, d = i % D;
+      const bool in = k0 + c < S;
+      const long long g = (long long)(k0 + c) * D + d;
+      Ks[c * LD + d] = in ? kp[g] : 0.f;
+      Vs[c * D + d] = in ? vp[g] : 0.f;
+    }
+    __syncthreads();
+
+    float s[RPT][CPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float qv[RPT], kv[CPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) qv[i] = Qs[(ty + 16 * i) * LD + d];
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) kv[j] = Ks[(tx + 16 * j) * LD + d];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int qpos = q0 + ty + 16 * i;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const int kpos = k0 + tx + 16 * j;
+        const bool live = kpos < S && (!causal || qpos >= kpos) &&
+                          (window <= 0 || qpos - kpos < window);
+        s[i][j] = live ? s[i][j] * scale : NEG_INF;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], half_warp_max(mx));
+      const float corr = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        Ps[(ty + 16 * i) * LP + tx + 16 * j] = p;
+        sum += p;
+      }
+      l[i] = l[i] * corr + half_warp_sum(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int e = 0; e < DPT; ++e) acc[i][e] *= corr;
+    }
+    __syncthreads();
+
+#pragma unroll 2
+    for (int c = 0; c < BK; ++c) {
+      float pv[RPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) pv[i] = Ps[(ty + 16 * i) * LP + c];
+#pragma unroll
+      for (int e = 0; e < DPT; ++e) {
+        const float vv = Vs[c * D + tx + 16 * e];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) acc[i][e] = fmaf(pv[i], vv, acc[i][e]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int qpos = q0 + ty + 16 * i;
+    if (qpos >= S) continue;
+    const float denom = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int e = 0; e < DPT; ++e)
+      op[(long long)qpos * D + tx + 16 * e] = acc[i][e] / denom;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor-core products (mma.sync m16n8k16)
+
+constexpr int WARPS = 4;               // 16 query rows each
+constexpr int NTB = 32 * WARPS;        // threads per block (bf16 kernel)
+
+template <int D> struct TilesBf16 {
+  static constexpr int BK = D > 128 ? 32 : 64;   // keys per KV tile
+  static constexpr int LD = D + 8;               // padded bf16 row stride
+  static constexpr size_t smem_bytes =
+      sizeof(__nv_bfloat16) * size_t(BQ + 2 * BK) * LD;
+};
+
+// d += a * b for one 16x16 A (row-major fragment) and 16x8 B (column)
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+__device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return uint32_t(__bfloat16_as_ushort(lo)) |
+         (uint32_t(__bfloat16_as_ushort(hi)) << 16);
+}
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  return pack(__float2bfloat16(lo), __float2bfloat16(hi));
+}
+
+// rows [r0, r0 + rows) of a (S, D) matrix into shared rows of stride LD, in
+// 16-byte pieces; rows at or past S are zeros
+template <int D, int LD>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src, int r0,
+                                          int rows, int S) {
+  constexpr int PER_ROW = D / 8;
+  for (int i = threadIdx.x; i < rows * PER_ROW; i += NTB) {
+    const int r = i / PER_ROW, c = (i % PER_ROW) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < S)
+      val = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * D + c);
+    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTB)
+flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      __nv_bfloat16* __restrict__ o, int H, int Hkv, int S,
+                      int causal, int window, float scale) {
+  using Tl = TilesBf16<D>;
+  constexpr int BK = Tl::BK, LD = Tl::LD;
+  constexpr int NS = BK / 8;     // score n-tiles of 8 keys
+  constexpr int NO = D / 8;      // output n-tiles of 8 columns
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][LD]
+  __nv_bfloat16* Ks = Qs + BQ * LD;                                 // [BK][LD]
+  __nv_bfloat16* Vs = Ks + BK * LD;                                 // [BK][LD]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;   // fragment row group, column pair
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // heavy tiles first
+  const int bh = blockIdx.y;                          // flat head b*H + h
+  const int b = bh / H, h = bh % H;
+  const long long kvh = (long long)b * Hkv + h / (H / Hkv);
+  const __nv_bfloat16* qp = q + (long long)bh * S * D;
+  const __nv_bfloat16* kp = k + kvh * S * D;
+  const __nv_bfloat16* vp = v + kvh * S * D;
+  __nv_bfloat16* op = o + (long long)bh * S * D;
+
+  load_rows<D, LD>(Qs, qp, q0, BQ, S);
+
+  const int qw = q0 + 16 * warp;            // this warp's first query row
+  const int rows[2] = {qw + g, qw + g + 8};  // the two rows this lane holds
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  int kt_begin = 0, kt_end = (S + BK - 1) / BK;
+  if (window > 0) kt_begin = max(0, q0 - window + 1) / BK;
+  if (causal) kt_end = min(kt_end, (q0 + BQ - 1) / BK + 1);
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();   // the previous tile's Ks/Vs are no longer read
+    load_rows<D, LD>(Ks, kp, k0, BK, S);
+    load_rows<D, LD>(Vs, vp, k0, BK, S);
+    __syncthreads();
+    // every key of the tile masked for all 16 rows of this warp
+    if ((causal && k0 > qw + 15) ||
+        (window > 0 && k0 + BK - 1 < qw - window + 1))
+      continue;
+
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < D; kk += 16) {
+      const __nv_bfloat16* qa = Qs + (16 * warp + g) * LD + kk + 2 * t;
+      const uint32_t a[4] = {ld32(qa), ld32(qa + 8 * LD), ld32(qa + 8),
+                             ld32(qa + 8 * LD + 8)};
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const __nv_bfloat16* kb = Ks + (8 * j + g) * LD + kk + 2 * t;
+        mma_16816(s[j], a, ld32(kb), ld32(kb + 8));
+      }
+    }
+
+    // s[j][e] is row rows[e / 2], key k0 + 8 j + 2 t + (e & 1)
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qpos = rows[e / 2], kpos = k0 + 8 * j + 2 * t + (e & 1);
+        const bool live = kpos < S && (!causal || qpos >= kpos) &&
+                          (window <= 0 || qpos - kpos < window);
+        s[j][e] = live ? s[j][e] * scale : NEG_INF;
+        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+      }
+    float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      corr[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - m[e / 2]);
+        sum[e / 2] += s[j][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      l[r] = l[r] * corr[r] + sum[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      acc[n][0] *= corr[0];
+      acc[n][1] *= corr[0];
+      acc[n][2] *= corr[1];
+      acc[n][3] *= corr[1];
+    }
+
+    // O += P V: score tiles 2 kk and 2 kk + 1 form the A fragment of keys
+    // 16 kk .. 16 kk + 15; the B fragment pairs two consecutive V rows
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t a[4] = {pack(s[2 * kk][0], s[2 * kk][1]),
+                             pack(s[2 * kk][2], s[2 * kk][3]),
+                             pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const __nv_bfloat16* vb = Vs + (16 * kk + 2 * t) * LD + g;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        const __nv_bfloat16* vn = vb + 8 * n;
+        mma_16816(acc[n], a, pack(vn[0], vn[LD]),
+                  pack(vn[8 * LD], vn[9 * LD]));
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= S) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* orow = op + (long long)rows[r] * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<uint32_t*>(orow + 8 * n) =
+          pack(acc[n][2 * r] / denom, acc[n][2 * r + 1] / denom);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+
+template <typename T, typename Kernel>
+cudaError_t launch(Kernel kernel, int threads, size_t smem, const void* q,
+                   const void* k, const void* v, void* o, int B, int H,
+                   int Hkv, int S, int D, int causal, int window,
+                   cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + BQ - 1) / BQ, B * H);
+  kernel<<<grid, threads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), H, Hkv, S, causal, window,
+      (float)(1.0 / sqrt((double)D)));
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_d(int dtype, const void* q, const void* k, const void* v,
+                     void* o, int B, int H, int Hkv, int S, int causal,
+                     int window, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch<float>(flash_fwd_f32_kernel<D>, NT,
+                         TilesF32<D>::smem_bytes, q, k, v, o, B, H, Hkv, S,
+                         D, causal, window, stream);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(flash_fwd_bf16_kernel<D>, NTB,
+                                 TilesBf16<D>::smem_bytes, q, k, v, o, B, H,
+                                 Hkv, S, D, causal, window, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// q: (B, H, S, D), k and v: (B, Hkv, S, D), o: (B, H, S, D), all contiguous
+// and of one type: dtype 0 is float32, 1 is bfloat16 (16-byte aligned).  D is
+// one of 16, 32, 64, 96, 128, 256.  Returns the cudaError_t of the launch
+// (0 on success).
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
+                                   void* o, int B, int H, int Hkv, int S,
+                                   int D, int causal, int window, int dtype,
+                                   void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return (int)launch_d<16>(dtype, q, k, v, o, B, H, Hkv, S, causal, window, st);
+    case 32: return (int)launch_d<32>(dtype, q, k, v, o, B, H, Hkv, S, causal, window, st);
+    case 64: return (int)launch_d<64>(dtype, q, k, v, o, B, H, Hkv, S, causal, window, st);
+    case 96: return (int)launch_d<96>(dtype, q, k, v, o, B, H, Hkv, S, causal, window, st);
+    case 128: return (int)launch_d<128>(dtype, q, k, v, o, B, H, Hkv, S, causal, window, st);
+    case 256: return (int)launch_d<256>(dtype, q, k, v, o, B, H, Hkv, S, causal, window, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

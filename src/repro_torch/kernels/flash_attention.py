@@ -1,0 +1,74 @@
+"""Flash attention on Hopper: the wrapper of ``csrc/flash_attention.cu``.
+
+The CUDA kernel replaces the Pallas TPU kernel
+``repro/kernels/flash_attention.py`` (``_flash_kernel``).  This wrapper
+checks its inputs, allocates the output, launches on PyTorch's current
+stream and raises if the launch fails.  It takes CUDA tensors only; the plain
+version is ``repro_torch.kernels.ref.flash_attention_ref`` and
+``repro_torch.kernels.ops`` picks between the two by device.
+
+``flash_attention.launches`` counts the kernel's launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def _kernel():
+    fn = _build.load("flash_attention").flash_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention(q, k, v, *, causal=True, window=0):
+    """q: (B, H, S, D); k, v: (B, Hkv, S, D) with ``H % Hkv == 0``, all on
+    one CUDA device, all float32 or all bfloat16.  ``window > 0`` adds the
+    sliding-window mask ``qpos - kpos < window``.  Returns (B, H, S, D)."""
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError("flash_attention kernel takes q, k, v on one CUDA "
+                         f"device, got {q.device}, {k.device}, {v.device}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention kernel takes float32 or bfloat16 "
+                        f"q, k, v of one type, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q, k, v must be 4-d with k.shape == v.shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    if Hkv == 0 or H % Hkv or (k.shape[0], k.shape[2], k.shape[3]) != (B, S, D):
+        raise ValueError(f"k, v must be (B, Hkv, S, D) with H % Hkv == 0 for "
+                         f"q {tuple(q.shape)}, got {tuple(k.shape)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    # contiguous, and 16-byte aligned for the bf16 kernel's vector loads
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+               for t in (q.contiguous(), k.contiguous(), v.contiguous()))
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       out.data_ptr(), B, H, Hkv, S, D, int(causal),
+                       int(window), _DTYPES[q.dtype],
+                       torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"flash_attention kernel launch failed: "
+                           f"cudaError_t {rc}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

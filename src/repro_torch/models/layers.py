@@ -1,0 +1,92 @@
+"""Common layers: norms, RoPE, MLPs and their parameter init.
+
+Parameters are plain dicts of tensors.  A dense weight is kept in the JAX
+package's ``(in, out)`` layout and applied as ``x @ w``.  Init draws from an
+explicit ``torch.Generator`` with the reference's distributions and scales;
+the numbers differ from ``jax.random``'s, so tests carry the reference's
+parameters across with ``repro_torch.convert``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def dense_init(gen, in_dim, out_dim, *, dtype=torch.bfloat16, scale=None):
+    scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
+    w = torch.randn(in_dim, out_dim, generator=gen, device=gen.device,
+                    dtype=torch.float32) * scale
+    return w.to(dtype)
+
+
+def embed_init(gen, vocab, d_model, *, dtype=torch.bfloat16):
+    w = torch.randn(vocab, d_model, generator=gen, device=gen.device,
+                    dtype=torch.float32) * 0.02
+    return w.to(dtype)
+
+
+def norm_init(d_model, device):
+    # norm scales stay fp32
+    return torch.ones(d_model, dtype=torch.float32, device=device)
+
+
+def rmsnorm(x, scale, eps=1e-6):
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+def layernorm(x, scale, eps=1e-5):
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    return ((x32 - mu) * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+def apply_norm(kind, x, scale):
+    return rmsnorm(x, scale) if kind == "rmsnorm" else layernorm(x, scale)
+
+
+def rope_tables(positions, dim, theta):
+    """positions: (...,) integer -> cos/sin of shape positions.shape + (dim/2,)."""
+    inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                        device=positions.device) / dim))
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x: (..., S, D); cos/sin: broadcastable (..., S, D/2).  Rotates the two
+    halves of D (not interleaved pairs)."""
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+
+
+def mlp_init(gen, d_model, d_ff, activation, *, dtype=torch.bfloat16):
+    p = {"up": dense_init(gen, d_model, d_ff, dtype=dtype),
+         "down": dense_init(gen, d_ff, d_model, dtype=dtype)}
+    if activation in ("swiglu", "geglu"):
+        p["gate"] = dense_init(gen, d_model, d_ff, dtype=dtype)
+    return p
+
+
+def _act(name, x):
+    if name in ("swiglu", "silu"):
+        return F.silu(x)
+    return F.gelu(x, approximate="tanh")  # geglu and plain gelu
+
+
+def mlp_apply(p, x, activation):
+    up = x @ p["up"]
+    if "gate" in p:
+        up = _act(activation, x @ p["gate"]) * up
+    else:
+        up = _act(activation, up)
+    return up @ p["down"]

@@ -1,0 +1,155 @@
+"""Decoder-only transformer (dense family): init, prefill and decode.
+
+Entry points, as in the JAX package:
+  init_params(cfg, seed, device)                  -> params
+  init_cache(cfg, batch, max_seq, device)         -> cache
+  prefill_forward(cfg, params, batch, max_seq)    -> (last-token logits, cache)
+  decode_forward(cfg, params, cache, tokens, pos) -> (logits, cache)
+
+Params are a dict; ``params["layers"]`` is a list with one dict per block
+where the JAX package stacks the layers along a leading axis.  The cache
+keeps the reference's stacked (L, B, Hkv, max_seq, hd) layout, and decode
+updates it in place.  bf16 rounding follows the reference: embeddings and
+weights are bf16, norms and attention compute in fp32 and return bf16.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+
+from repro_torch.core.config import ModelConfig
+from repro_torch.core.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (apply_norm, dense_init, embed_init,
+                                       mlp_apply, mlp_init, norm_init,
+                                       rope_tables)
+
+
+def _check_family(cfg: ModelConfig):
+    if cfg.family != "dense" or cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense family is ported to repro_torch, "
+            f"not {cfg.family!r}")
+
+
+# ---------------------------------------------------------------------------
+# init
+
+
+def _block_init(gen, cfg: ModelConfig):
+    return {"norm1": norm_init(cfg.d_model, gen.device),
+            "attn": attn.attn_init(gen, cfg),
+            "norm2": norm_init(cfg.d_model, gen.device),
+            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.activation)}
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict:
+    """Random params from ``seed``, made on ``device`` by a generator there."""
+    _check_family(cfg)
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    p = {"embed": embed_init(gen, cfg.vocab, cfg.d_model),
+         "layers": [_block_init(gen, cfg) for _ in range(cfg.n_layers)],
+         "final_norm": norm_init(cfg.d_model, device)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# helpers
+
+
+def _window_schedule(cfg: ModelConfig) -> List[int]:
+    """Per-layer window sizes; 0 = full attention."""
+    if cfg.local_global_ratio > 0:
+        k = cfg.local_global_ratio + 1
+        return [0 if (i + 1) % k == 0 else cfg.window
+                for i in range(cfg.n_layers)]
+    return [cfg.window] * cfg.n_layers
+
+
+def _rope_for(cfg: ModelConfig, positions):
+    if cfg.rope_theta <= 0:
+        return None, None
+    return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+
+
+def _embed_tokens(cfg: ModelConfig, p, tokens):
+    x = p["embed"][tokens]
+    if cfg.name.startswith("gemma"):
+        # gemma embeds are scaled; the reference multiplies in bf16 by the
+        # scale rounded to bf16
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x.to(torch.bfloat16)
+
+
+def _logits(cfg: ModelConfig, p, x):
+    x = apply_norm(cfg.norm, x, p["final_norm"])
+    if cfg.tie_embeddings:
+        return x @ p["embed"].T
+    return x @ p["lm_head"]
+
+
+def _backbone(cfg: ModelConfig, p, x, positions):
+    """Returns (x, [(k, v) of each layer])."""
+    cos, sin = _rope_for(cfg, positions)
+    kvs = []
+    for pl, window in zip(p["layers"], _window_schedule(cfg)):
+        h, kv = attn.gqa_forward(pl["attn"],
+                                 apply_norm(cfg.norm, x, pl["norm1"]), cos,
+                                 sin, cfg=cfg, causal=True, window=window)
+        x = x + h
+        x = x + mlp_apply(pl["mlp"], apply_norm(cfg.norm, x, pl["norm2"]),
+                          cfg.activation)
+        kvs.append(kv)
+    return x, kvs
+
+
+# ---------------------------------------------------------------------------
+# serving: cache init / prefill / decode
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_seq,
+             cfg.resolved_head_dim)
+    device = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+
+
+def prefill_forward(cfg: ModelConfig, params, batch,
+                    max_seq: Optional[int] = None):
+    """Runs the full prompt, returns (last-token logits (B, 1, V), filled
+    cache).  ``batch["tokens"]``: (B, S) integer tensor on the params'
+    device."""
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    max_seq = max(max_seq or S, S)
+    x = _embed_tokens(cfg, params, tokens)
+    x, kvs = _backbone(cfg, params, x, torch.arange(S, device=x.device))
+    cache = init_cache(cfg, B, max_seq, x.device)
+    for li, (k, v) in enumerate(kvs):
+        cache["k"][li, :, :, :S] = k
+        cache["v"][li, :, :, :S] = v
+    return _logits(cfg, params, x[:, -1:]), cache
+
+
+def decode_forward(cfg: ModelConfig, params, cache, tokens, pos: int):
+    """One decode step.  tokens: (B, 1); pos: the position of this token.
+    Returns (logits (B, 1, V), cache), the cache updated in place."""
+    _check_family(cfg)
+    x = _embed_tokens(cfg, params, tokens)
+    cos, sin = _rope_for(cfg, torch.full((1,), pos, device=x.device))
+    for li, (pl, window) in enumerate(zip(params["layers"],
+                                          _window_schedule(cfg))):
+        h, _, _ = attn.gqa_decode(
+            pl["attn"], apply_norm(cfg.norm, x, pl["norm1"]),
+            cache["k"][li], cache["v"][li], cos, sin, cfg=cfg, pos=pos,
+            window=window)
+        x = x + h
+        x = x + mlp_apply(pl["mlp"], apply_norm(cfg.norm, x, pl["norm2"]),
+                          cfg.activation)
+    return _logits(cfg, params, x), cache
