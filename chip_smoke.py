@@ -18,7 +18,18 @@ printing a result:
 5. time the kernel at the serving shapes against its plain version and, as a
    yardstick only, ``F.scaled_dot_product_attention``, beside its bound;
 6. profile one prefill batch and 8 decode steps with ``torch.profiler``:
-   device time by kernel and the device's busy share of the wall time.
+   device time by kernel and the device's busy share of the wall time;
+7. hold the matmul and selective-scan kernels against their plain versions
+   on the card, in float32 and bf16, at the ``tests/test_kernels.py`` shapes
+   and tolerances, at ragged shapes and at every shape of the calibration's
+   ``"model"`` grid; then all three kernels at every shape of the
+   ``"model"`` and ``"full"`` grids on the calibration's own float32 inputs;
+8. time both at the ``"model"`` grid's shapes against their plain versions,
+   the library yardstick (``torch.matmul``; no PyTorch call computes a
+   selective scan) and their bound;
+9. run the calibration loop (``repro_torch.kernels.calibrate.measure``) on
+   the ``"model"`` and ``"full"`` grids, counting the three kernels'
+   launches, and print each kernel's fit.
 
 The line before the last is a JSON ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -39,15 +50,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import to_device  # noqa: E402
-from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import _build, calibrate, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import mamba_scan as ms  # noqa: E402
+from repro_torch.kernels import nvdla_matmul as mm  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve.step import (greedy, make_decode_step,  # noqa: E402
                                     make_prefill_step)
+from repro_torch.sim import hw  # noqa: E402
 
-PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}   # tests/test_kernels.py
 BF16_TOL = 2e-2              # tests/test_torch_serve.py
 KERNEL_CASES = [  # B, H, Hkv, S, D, causal, window
@@ -60,6 +72,23 @@ KERNEL_CASES = [  # B, H, Hkv, S, D, causal, window
     (4, 4, 1, 1000, 256, True, 512),        # ragged S
 ]
 SERVE = dict(requests=8, batch=4, prompt_len=1024, max_new=32)
+# tests/test_kernels.py tolerances: matmul rtol tol, atol tol * sqrt(K);
+# scan rtol tol, atol 4 tol
+MM_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+SCAN_TOL = {torch.float32: 2e-4, torch.bfloat16: 8e-2}
+MM_CASES = [  # M, N, K
+    (128, 128, 128), (256, 128, 384),       # tests/test_kernels.py
+    (512, 256, 256), (128, 512, 640),
+    (100, 72, 200), (17, 130, 33), (4, 6912, 1152),      # ragged edges
+] + list(calibrate.MODEL_GRIDS["matmul"])
+SCAN_CASES = [  # b, S, d, N
+    (1, 32, 16, 8), (2, 64, 32, 16),        # tests/test_kernels.py
+    (1, 128, 64, 8),
+    (1, 77, 40, 16), (3, 200, 130, 8),                   # ragged S and d
+] + list(calibrate.MODEL_GRIDS["mamba"])
+CAL_TOL = {"matmul": MM_TOL[torch.float32], "attention": TOL[torch.float32],
+           "mamba": SCAN_TOL[torch.float32]}   # calibration runs float32
+CALIBRATION = (("model", 3), ("full", 3))   # grid, repeat
 
 
 def log(*args):
@@ -97,6 +126,20 @@ def build_kernels():
                     log(f"  {name}: {line.strip()}")
 
 
+def _check(name, out, expect, rtol, atol):
+    """assert_allclose's rule, |out - expect| <= atol + rtol |expect|, on the
+    card; returns the largest error."""
+    diff = (out.float() - expect.float()).abs()
+    err = diff.max().item()
+    ok = bool((diff <= atol + rtol * expect.float().abs()).all()) \
+        and bool(torch.isfinite(out.float()).all())
+    log(f"{name}: max_abs_err {err:.3e} (rtol {rtol}, atol {atol:.3g}) "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"{name} mismatch: {err}")
+    return err
+
+
 def check_kernel():
     """Every case in fp32 and bf16, kernel vs plain version on the card.
     Returns the largest error at the serving shapes in bf16."""
@@ -107,17 +150,10 @@ def check_kernel():
             q, k, v = rand_qkv(B, H, Hkv, S, D, dtype)
             out = fa.flash_attention(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
-            expect = ref.flash_attention_ref(q, k, v, causal=causal,
-                                             window=window)
-            diff = (out.float() - expect.float()).abs()
-            err = diff.max().item()
-            tol = TOL[dtype]
-            ok = bool((diff <= tol + tol * expect.float().abs()).all())
-            log(f"kernel vs plain {case} {dtype}: max_abs_err {err:.3e} "
-                f"(tol {tol}) {'ok' if ok else 'MISMATCH'}")
-            if not ok:
-                raise AssertionError(f"flash_attention mismatch at {case} "
-                                     f"{dtype}: {err}")
+            err = _check(f"kernel vs plain {case} {dtype}", out,
+                         ref.flash_attention_ref(q, k, v, causal=causal,
+                                                 window=window),
+                         TOL[dtype], TOL[dtype])
             if D == 256 and dtype == torch.bfloat16:
                 worst = max(worst, err)
     return worst
@@ -223,7 +259,7 @@ def bound(B, H, Hkv, S, D, window, itemsize):
     live = sum(min(i + 1, window) if window else i + 1 for i in range(S))
     flops = 4 * D * B * H * live
     nbytes = (2 * B * H * S * D + 2 * B * Hkv * S * D) * itemsize
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    t_ops, t_bytes = flops / hw.PEAK_FLOPS_BF16, nbytes / hw.HBM_BW
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes"), flops, nbytes
 
@@ -304,11 +340,211 @@ def profile_serving(cfg, params, smi):
                 f"x{e.count:<5d} {e.key[:90]}")
 
 
+def _rand(shape, gen, dtype=torch.float32):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _matmul_inputs(M, N, K, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return _rand((M, K), g, dtype), _rand((K, N), g, dtype)
+
+
+def _scan_inputs(b, S, d, N, dtype, seed=0):
+    """As tests/test_kernels.py makes them: dt = softplus(z), A = -exp(0.3 z),
+    D = 1."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = _rand((b, S, d), g, dtype)
+    dt = F.softplus(_rand((b, S, d), g)).to(dtype)
+    B, C = _rand((b, S, N), g, dtype), _rand((b, S, N), g, dtype)
+    A = -torch.exp(0.3 * _rand((d, N), g))
+    return x, dt, B, C, A, torch.ones(d, device="cuda")
+
+
+def check_new_kernels():
+    """The matmul and scan kernels against their plain versions on the card.
+    Returns each kernel's largest float32 error over the model grid."""
+    model = {"matmul": calibrate.MODEL_GRIDS["matmul"],
+             "mamba_scan": calibrate.MODEL_GRIDS["mamba"]}
+    worst = {"matmul": 0.0, "mamba_scan": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = MM_TOL[dtype]
+        for M, N, K in MM_CASES:
+            a, b = _matmul_inputs(M, N, K, dtype)
+            out = mm.matmul(a, b)
+            torch.cuda.synchronize()
+            if out.dtype != dtype or out.shape != (M, N):
+                raise AssertionError(f"matmul gave {out.dtype} {out.shape}")
+            err = _check(f"matmul kernel vs plain {(M, N, K)} {dtype}", out,
+                         ref.matmul_ref(a, b), tol, tol * K ** 0.5)
+            if dtype == torch.float32 and (M, N, K) in model["matmul"]:
+                worst["matmul"] = max(worst["matmul"], err)
+        tol = SCAN_TOL[dtype]
+        for shape in SCAN_CASES:
+            args = _scan_inputs(*shape, dtype)
+            out = ms.mamba_scan(*args)
+            torch.cuda.synchronize()
+            if out.dtype != dtype or out.shape != args[0].shape:
+                raise AssertionError(f"scan gave {out.dtype} {out.shape}")
+            err = _check(f"mamba_scan kernel vs plain {shape} {dtype}", out,
+                         ref.mamba_scan_ref(*args), tol, 4 * tol)
+            if dtype == torch.float32 and shape in model["mamba_scan"]:
+                worst["mamba_scan"] = max(worst["mamba_scan"], err)
+    return worst
+
+
+def check_calibration_shapes():
+    """All three kernels against their plain versions on the card at every
+    shape of the ``"model"`` and ``"full"`` grids, on the calibration's own
+    float32 inputs (``calibrate._inputs``), at the float32 tolerances above.
+    Returns each kernel's largest error."""
+    plain = {"matmul": ref.matmul_ref, "attention": ref.flash_attention_ref,
+             "mamba": ref.mamba_scan_ref}
+    worst = dict.fromkeys(plain, 0.0)
+    for grid in ("model", "full"):
+        for kernel in calibrate.KERNELS:
+            for shape in calibrate.GRIDS[grid][kernel]:
+                args, _, _ = calibrate._inputs(kernel, shape,
+                                               torch.device("cuda"))
+                out = calibrate._CALLS[kernel](*args)
+                torch.cuda.synchronize()
+                tol = CAL_TOL[kernel]
+                atol = {"matmul": tol * shape[2] ** 0.5, "attention": tol,
+                        "mamba": 4 * tol}[kernel]
+                worst[kernel] = max(worst[kernel], _check(
+                    f"calibration {grid} {kernel} {tuple(shape)} kernel vs "
+                    "plain", out, plain[kernel](*args), tol, atol))
+    return worst
+
+
+def matmul_bound(M, N, K, dtype):
+    """Least time (ms): 2 M N K operations at the type's peak (float32 on the
+    CUDA cores, bf16 on the tensor cores) against a and b read once and c
+    written once at the HBM rate."""
+    itemsize = torch.finfo(dtype).bits // 8
+    peak = hw.PEAK_FLOPS if dtype == torch.float32 else hw.PEAK_FLOPS_BF16
+    terms = {"operations": 2 * M * N * K / peak,
+             "bytes": itemsize * (M * K + K * N + M * N) / hw.HBM_BW}
+    by = max(terms, key=terms.get)
+    return 1e3 * terms[by], by, terms
+
+
+def scan_bound(b, S, d, N, dtype):
+    """Least time (ms), the largest of three terms: the float32 operations
+    (the calibration's accounting, 10 b S d N) at the float32 peak; the
+    b S d N exponentials at the special-function units' rate; x, dt, B, C,
+    A, D read once and y written once at the HBM rate."""
+    itemsize = torch.finfo(dtype).bits // 8
+    terms = {"operations": calibrate.mamba_cost(b, S, d, N)[0] / hw.PEAK_FLOPS,
+             "exp": b * S * d * N / hw.EXP_RATE,
+             "bytes": (itemsize * (3 * b * S * d + 2 * b * S * N)
+                       + 4 * (d * N + d)) / hw.HBM_BW}
+    by = max(terms, key=terms.get)
+    return 1e3 * terms[by], by, terms
+
+
+def time_new_kernels(smi):
+    """Kernel, plain and library times (CUDA events) at the model grid's
+    shapes, in float32 and bf16.  Returns the float32 rows (the type the
+    calibration loop runs) by kernel."""
+    rows = {"matmul": [], "mamba_scan": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        for M, N, K in calibrate.MODEL_GRIDS["matmul"]:
+            a, b = _matmul_inputs(M, N, K, dtype, seed=2)
+            kernel_ms = cuda_ms(lambda: mm.matmul(a, b), 20)
+            plain = cuda_ms(lambda: ref.matmul_ref(a, b), 20)
+            lib = cuda_ms(lambda: torch.matmul(a, b), 20)
+            b_ms, by, terms = matmul_bound(M, N, K, dtype)
+            log(f"matmul {(M, N, K)} {dtype}: kernel {kernel_ms:.4f} ms "
+                f"({2 * M * N * K / kernel_ms / 1e9:.2f} TFLOP/s), plain "
+                f"{plain:.4f} ms, torch.matmul {lib:.4f} ms, bound "
+                f"{b_ms:.4f} ms by {by} (ops {1e3 * terms['operations']:.4f}"
+                f", bytes {1e3 * terms['bytes']:.4f} ms) = "
+                f"{100 * b_ms / kernel_ms:.2f}% of bound; card {smi}")
+            if dtype == torch.float32:
+                rows["matmul"].append(dict(ms=kernel_ms, plain_ms=plain,
+                                           library_ms=lib, bound_ms=b_ms,
+                                           bound_by=by))
+        for shape in calibrate.MODEL_GRIDS["mamba"]:
+            args = _scan_inputs(*shape, dtype, seed=2)
+            kernel_ms = cuda_ms(lambda: ms.mamba_scan(*args), 20)
+            plain = cuda_ms(lambda: ref.mamba_scan_ref(*args), 2)
+            b_ms, by, terms = scan_bound(*shape, dtype)
+            log(f"mamba_scan {shape} {dtype}: kernel {kernel_ms:.4f} ms, "
+                f"plain {plain:.4f} ms, library none, bound {b_ms:.4f} ms by "
+                f"{by} (ops {1e3 * terms['operations']:.4f}, exp "
+                f"{1e3 * terms['exp']:.4f}, bytes {1e3 * terms['bytes']:.4f}"
+                f" ms) = {100 * b_ms / kernel_ms:.2f}% of bound; card {smi}")
+            if dtype == torch.float32:
+                rows["mamba_scan"].append(dict(
+                    ms=kernel_ms, plain_ms=plain, library_ms=None,
+                    bound_ms=b_ms,
+                    bound_by="bytes" if by == "bytes" else "operations"))
+    return rows
+
+
+def run_calibration():
+    """The calibration loop on the card, the path that runs the matmul and
+    scan kernels: every count is set to 0 just before it and read just
+    after.  Returns the launches by kernel."""
+    wrappers = {"matmul": mm.matmul, "flash_attention": fa.flash_attention,
+                "mamba_scan": ms.mamba_scan}
+    for fn in wrappers.values():
+        fn.launches = 0
+    for grid, repeat in CALIBRATION:
+        t0 = time.perf_counter()
+        records, meta = calibrate.measure(grid=grid, repeat=repeat)
+        report = calibrate.build_report(records, meta)
+        log(f"calibration grid {grid} repeat {repeat} on {meta['device']} "
+            f"(backend {meta['backend']}, interpret {meta['interpret']}): "
+            f"{len(records)} samples in {time.perf_counter() - t0:.1f} s")
+        if meta["backend"] != "cuda" or meta["interpret"]:
+            raise AssertionError(f"calibration ran no kernel: {meta}")
+        for r in records:
+            log(f"  {r['kernel']} {tuple(r['shape'])}: "
+                f"{1e3 * r['measured_s']:.4f} ms, {r['flops'] / 1e9:.4f} "
+                f"GFLOP, {r['bytes'] / 1e6:.4f} MB")
+        for kernel, fit in report["kernels"].items():
+            f = fit["fitted"]
+            log(f"  fit {grid} {kernel}: roofline_mape "
+                f"{fit['roofline_mape']:.4g}, fitted_mape "
+                f"{fit['fitted_mape']:.4g}, peak_flops_eff "
+                f"{f['peak_flops_eff']}, bw_eff {f['bw_eff']}, overhead_s "
+                f"{f['overhead_s']}, table_max_rel_err "
+                f"{fit['table_max_rel_err']}")
+            if fit["table_max_rel_err"] != 0.0:
+                raise AssertionError(f"{kernel} table does not reproduce "
+                                     "its samples")
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    expect = {name: sum((1 + repeat) * len(calibrate.GRIDS[grid][kernel])
+                        for grid, repeat in CALIBRATION)
+              for name, kernel in (("matmul", "matmul"),
+                                   ("flash_attention", "attention"),
+                                   ("mamba_scan", "mamba"))}
+    log(f"kernel launches in the calibration loop: {launches} (expected "
+        f"{expect}: one warm-up and {CALIBRATION[0][1]} timed calls per "
+        "shape)")
+    if launches != expect:
+        raise AssertionError(f"calibration launches {launches} != {expect}")
+    return launches
+
+
+def _mean_row(rows):
+    """One launch of the model grid: the mean of each time over its shapes;
+    bound_by is that of the shape with the largest bound."""
+    out = {key: (None if rows[0][key] is None
+                 else sum(r[key] for r in rows) / len(rows))
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    out["bound_by"] = max(rows, key=lambda r: r["bound_ms"])["bound_by"]
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 1
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("float32 plain versions need TF32 off")
     name, smi = identify()
     build_kernels()
     max_err = check_kernel()
@@ -316,6 +552,12 @@ def main():
     cfg, params, launches = serve_full()
     rows = time_kernel(cfg, smi)
     profile_serving(cfg, params, smi)
+    del params
+    torch.cuda.empty_cache()
+    new_err = check_new_kernels()
+    cal_err = check_calibration_shapes()
+    new_rows = time_new_kernels(smi)
+    cal_launches = run_calibration()
     # one launch of the main path, averaged over its 26-layer local/global mix
     sched = T._window_schedule(cfg)
     mix = {w: sched.count(w) / len(sched) for w in rows}
@@ -328,7 +570,17 @@ def main():
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:99",
         "launches": launches, "max_abs_err": max_err,
-        **avg, "bound_by": by}]}))
+        **avg, "bound_by": by}] + [{
+            "name": kname, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+            "replaces": replaces, "launches": cal_launches[kname],
+            "max_abs_err": max(new_err[kname], cal_err[cal]),
+            **_mean_row(new_rows[kname])}
+        for kname, cal, src, replaces in (
+            ("matmul", "matmul", "nvdla_matmul",
+             "src/repro/kernels/nvdla_matmul.py:60"),
+            ("mamba_scan", "mamba", "mamba_scan",
+             "src/repro/kernels/mamba_scan.py:59"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,418 @@
+// Tiled matrix product for Hopper (sm_90a), CUDA C++.
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/nvdla_matmul.py
+// (_matmul_kernel, launched by matmul through pl.pallas_call) and computes
+// the same function: c = a @ b for a (M, K) and b (K, N), both row-major,
+// with a float32 accumulator over the whole K loop and c written once, in
+// the inputs' type.  The TPU kernel walks the grid (M/bm, N/bn, K/bk) with K
+// innermost on one core and keeps the accumulator in VMEM scratch between
+// grid steps (NVDLA's channel-block loop, outputs accumulated in place).
+// Here one block owns one output tile and walks K in a loop, with the
+// accumulator in registers.  The TPU kernel asserts that its blocks divide
+// M, N and K; this one takes any M, N and K and masks the ragged edges
+// itself: elements past an edge load as zeros and are never stored.  Its
+// tiles are its own: the Pallas bm/bn/bk and the TPU tiling chooser
+// (repro/core/tiling.py) have no counterpart here.
+//
+// What bounds it on the H100: a product of M rows does 2 M N K operations
+// on (M K + K N + M N) elements, so at M in the thousands it is bound by
+// the arithmetic rate and at M of a few rows (decoding) by reading b.
+//
+// bf16 kernel: the products run on the tensor cores (mma.sync m16n8k16,
+// bf16 in, float32 accumulate).  Tiles of a and b are staged in shared
+// memory as bf16 with rows padded by 8 elements, so that the 8 rows an
+// ldmatrix touches start in 8 different banks; a's fragments come from
+// ldmatrix, b's (b is k-major) from ldmatrix.trans.  A block of WM x WN
+// warps owns a (16 MT WM) x (8 NT WN) tile; each warp MT x NT mma tiles.
+//
+// float32 kernel: the reference tolerance (2e-4) rules out TF32, so the
+// products are float32 FMAs on the CUDA cores.  256 threads; thread
+// (ty, tx) = (tid / 16, tid % 16) owns rows ty TM .. ty TM + TM - 1 and
+// columns 4 tx .. 4 tx + 3 and 64 + 4 tx .. 64 + 4 tx + 3 of a (16 TM) x 128
+// tile.  a's tile is stored transposed (k-major) so that a thread's rows
+// are contiguous in shared memory.
+//
+// Both kernels keep a small variant for M of at most 16 rows (the decoding
+// shapes): its block holds 16 rows, so b is read once and not many times
+// over 128 rows of zeros.  Where the output tiles are too few to fill the
+// card's 132 SMs (a few rows by a narrow N), K is split over blocks, whose
+// float32 partials a second kernel sums: (4, 1152, 6912) has 9 output tiles.
+// Both kernels load the next K tile into registers while the current one is
+// multiplied.  wgmma, TMA and a pipelined ring of shared
+// tiles, which the card's full rate needs, come later.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// float32: FMAs on the CUDA cores
+
+constexpr int F_NT = 256;      // threads per block
+constexpr int F_BN = 128;      // columns per block
+
+// TM rows per thread (the block has 16 TM rows), F_BK k per shared tile
+template <int TM, int F_BK>
+__global__ void __launch_bounds__(F_NT)
+matmul_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                  float* __restrict__ c, float* __restrict__ ws, int M, int N,
+                  int K, int kchunk) {
+  constexpr int BM = 16 * TM;
+  constexpr int LDA = BM + 4;  // padded: the transposing store hits 32 banks
+  constexpr int A_LOADS = (BM * F_BK + F_NT - 1) / F_NT;
+  constexpr int B_LOADS = F_BK * F_BN / F_NT;
+  __shared__ __align__(16) float As[F_BK][LDA];   // a's tile, k-major
+  __shared__ __align__(16) float Bs[F_BK][F_BN];
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * F_BN;
+  const int kb = blockIdx.z * kchunk, ke = min(K, kb + kchunk);
+
+  float ra[A_LOADS], rb[B_LOADS];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int r = 0; r < A_LOADS; ++r) {
+      const int i = tid + r * F_NT, row = i / F_BK, gk = k0 + i % F_BK;
+      ra[r] = i < BM * F_BK && m0 + row < M && gk < K
+                  ? a[(long long)(m0 + row) * K + gk] : 0.f;
+    }
+#pragma unroll
+    for (int r = 0; r < B_LOADS; ++r) {
+      const int i = tid + r * F_NT, gk = k0 + i / F_BN, gn = n0 + i % F_BN;
+      rb[r] = gk < K && gn < N ? b[(long long)gk * N + gn] : 0.f;
+    }
+  };
+  auto store = [&]() {
+#pragma unroll
+    for (int r = 0; r < A_LOADS; ++r) {
+      const int i = tid + r * F_NT;
+      if (i < BM * F_BK) As[i % F_BK][i / F_BK] = ra[r];
+    }
+#pragma unroll
+    for (int r = 0; r < B_LOADS; ++r) {
+      const int i = tid + r * F_NT;
+      Bs[i / F_BN][i % F_BN] = rb[r];
+    }
+  };
+
+  float acc[TM][8];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  load(kb);
+  store();
+  __syncthreads();
+  for (int k0 = kb; k0 < ke; k0 += F_BK) {
+    const bool more = k0 + F_BK < ke;
+    if (more) load(k0 + F_BK);   // in flight while this tile is multiplied
+#pragma unroll
+    for (int kk = 0; kk < F_BK; ++kk) {
+      float av[TM], bv[8];
+      if constexpr (TM % 4 == 0) {
+#pragma unroll
+        for (int i = 0; i < TM; i += 4)
+          *reinterpret_cast<float4*>(av + i) =
+              *reinterpret_cast<const float4*>(&As[kk][ty * TM + i]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) av[i] = As[kk][ty * TM + i];
+      }
+      *reinterpret_cast<float4*>(bv) =
+          *reinterpret_cast<const float4*>(&Bs[kk][4 * tx]);
+      *reinterpret_cast<float4*>(bv + 4) =
+          *reinterpret_cast<const float4*>(&Bs[kk][64 + 4 * tx]);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();             // every thread is done with this tile
+    if (more) {
+      store();
+      __syncthreads();
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = m0 + ty * TM + i;
+    if (row >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = n0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
+      if (col >= N) continue;
+      if (ws)
+        ws[((long long)blockIdx.z * M + row) * N + col] = acc[i][j];
+      else
+        c[(long long)row * N + col] = acc[i][j];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor-core products (mma.sync m16n8k16)
+
+constexpr int H_BK = 32;            // k per shared tile
+constexpr int H_LD = H_BK + 8;      // padded row of a's tile
+
+// d += a * b for one 16x16 A (row-major fragment) and 16x8 B (column)
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// elements [row][col, col + 8) of a rows x cols row-major bf16 matrix, as 16
+// bytes; elements past an edge are zeros.  vec: cols % 8 == 0, so a whole
+// piece inside the matrix is 16-byte aligned (the base is).
+__device__ __forceinline__ uint4 load8(const __nv_bfloat16* m, int row,
+                                       int col, int rows, int cols,
+                                       bool vec) {
+  if (row >= rows || col >= cols) return make_uint4(0u, 0u, 0u, 0u);
+  const __nv_bfloat16* p = m + (long long)row * cols + col;
+  if (vec) return *reinterpret_cast<const uint4*>(p);
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t lo = col + 2 * i < cols ? __bfloat16_as_ushort(p[2 * i]) : 0u;
+    const uint32_t hi =
+        col + 2 * i + 1 < cols ? __bfloat16_as_ushort(p[2 * i + 1]) : 0u;
+    w[i] = lo | (hi << 16);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+template <int WM, int WN, int MT, int NT>
+__global__ void __launch_bounds__(32 * WM * WN)
+matmul_bf16_kernel(const __nv_bfloat16* __restrict__ a,
+                   const __nv_bfloat16* __restrict__ b,
+                   __nv_bfloat16* __restrict__ c, float* __restrict__ ws,
+                   int M, int N, int K, int kchunk) {
+  static_assert(NT % 2 == 0, "b's fragments load two n-tiles at a time");
+  constexpr int THREADS = 32 * WM * WN;
+  constexpr int BM = 16 * MT * WM, BN = 8 * NT * WN;
+  constexpr int LDB = BN + 8;                           // padded row of b's tile
+  constexpr int A_PIECES = BM * H_BK / 8, B_PIECES = H_BK * BN / 8;
+  constexpr int A_LOADS = (A_PIECES + THREADS - 1) / THREADS;
+  constexpr int B_LOADS = (B_PIECES + THREADS - 1) / THREADS;
+  __shared__ __align__(16) __nv_bfloat16 As[BM * H_LD];    // [BM][H_LD]
+  __shared__ __align__(16) __nv_bfloat16 Bs[H_BK * LDB];   // [H_BK][LDB]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / WN, wn = warp % WN;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int kb = blockIdx.z * kchunk, ke = min(K, kb + kchunk);
+  const bool vec_a = K % 8 == 0, vec_b = N % 8 == 0;
+
+  uint4 ra[A_LOADS], rb[B_LOADS];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int r = 0; r < A_LOADS; ++r) {
+      const int i = tid + r * THREADS;
+      const int row = i / (H_BK / 8), col = (i % (H_BK / 8)) * 8;
+      ra[r] = i < A_PIECES ? load8(a, m0 + row, k0 + col, M, K, vec_a)
+                           : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int r = 0; r < B_LOADS; ++r) {
+      const int i = tid + r * THREADS;
+      const int row = i / (BN / 8), col = (i % (BN / 8)) * 8;
+      rb[r] = i < B_PIECES ? load8(b, k0 + row, n0 + col, K, N, vec_b)
+                           : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  auto store = [&]() {
+#pragma unroll
+    for (int r = 0; r < A_LOADS; ++r) {
+      const int i = tid + r * THREADS;
+      if (i < A_PIECES)
+        *reinterpret_cast<uint4*>(As + (i / (H_BK / 8)) * H_LD +
+                                  (i % (H_BK / 8)) * 8) = ra[r];
+    }
+#pragma unroll
+    for (int r = 0; r < B_LOADS; ++r) {
+      const int i = tid + r * THREADS;
+      if (i < B_PIECES)
+        *reinterpret_cast<uint4*>(Bs + (i / (BN / 8)) * LDB +
+                                  (i % (BN / 8)) * 8) = rb[r];
+    }
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // ldmatrix addresses: lane l gives row l % 8 of matrix l / 8
+  const int lr = lane % 8 + 8 * ((lane / 8) & 1), lc = 8 * (lane / 16);
+
+  load(kb);
+  store();
+  __syncthreads();
+  for (int k0 = kb; k0 < ke; k0 += H_BK) {
+    const bool more = k0 + H_BK < ke;
+    if (more) load(k0 + H_BK);   // in flight while this tile is multiplied
+#pragma unroll
+    for (int kk = 0; kk < H_BK; kk += 16) {
+      uint32_t af[MT][4], bf[NT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)   // matrices: rows +0/+8 x k +0/+8
+        ldsm_x4(af[i], As + (wm * MT * 16 + i * 16 + lr) * H_LD + kk + lc);
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {   // matrices: k +0/+8 x n +0/+8
+        uint32_t r[4];
+        ldsm_x4_trans(r, Bs + (kk + lr) * LDB + wn * NT * 8 + j * 8 + lc);
+        bf[j][0] = r[0];
+        bf[j][1] = r[1];
+        bf[j + 1][0] = r[2];
+        bf[j + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_16816(acc[i][j], af[i], bf[j][0], bf[j][1]);
+    }
+    __syncthreads();             // every warp is done with this tile
+    if (more) {
+      store();
+      __syncthreads();
+    }
+  }
+
+  // acc[i][j][e] is row 16 i + lane / 4 + 8 (e / 2), column 8 j + 2 (lane % 4)
+  // + (e & 1) of this warp's tile
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = m0 + wm * MT * 16 + i * 16 + lane / 4 + 8 * (e / 2);
+        const int col = n0 + wn * NT * 8 + j * 8 + 2 * (lane % 4) + (e & 1);
+        if (row >= M || col >= N) continue;
+        if (ws)
+          ws[((long long)blockIdx.z * M + row) * N + col] = acc[i][j][e];
+        else
+          c[(long long)row * N + col] = __float2bfloat16(acc[i][j][e]);
+      }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+
+// the split-K partials of ws, (splits, M, N) float32, summed into c
+template <typename T>
+__global__ void splitk_sum_kernel(const float* __restrict__ ws,
+                                  T* __restrict__ c, long long mn,
+                                  int splits) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < mn;
+       i += (long long)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int z = 0; z < splits; ++z) s += ws[z * mn + i];
+    if constexpr (sizeof(T) == 4)
+      c[i] = s;
+    else
+      c[i] = __float2bfloat16(s);
+  }
+}
+
+constexpr int SMALL_M = 16;    // at most this many rows: the 16-row tiles
+constexpr int N_SM = 132;      // SMs of an H100 SXM
+constexpr int SPLIT_ALIGN = 32;   // a split's k range is whole tiles of both kernels
+constexpr int MIN_SPLIT_K = 256;  // the least k a split takes
+
+// k per split: when the output tiles would fill less than one wave of the
+// card, K is split over blocks (about two blocks per SM, each at least
+// MIN_SPLIT_K deep), their float32 partials summed by a second kernel
+int split_k(int M, int N, int K) {
+  const int bm = M <= SMALL_M ? 16 : 128;
+  const long long tiles = (long long)((M + bm - 1) / bm) * ((N + 127) / 128);
+  int splits = 1;
+  if (tiles < N_SM)
+    splits = max(1, min((int)((2 * N_SM + tiles - 1) / tiles), K / MIN_SPLIT_K));
+  const int per = (K + splits - 1) / splits;
+  return (per + SPLIT_ALIGN - 1) / SPLIT_ALIGN * SPLIT_ALIGN;
+}
+
+template <typename T, typename Kernel>
+cudaError_t launch(Kernel kernel, int threads, int bm, int bn, const void* a,
+                   const void* b, void* c, float* ws, int M, int N, int K,
+                   cudaStream_t stream) {
+  const int kchunk = split_k(M, N, K), splits = (K + kchunk - 1) / kchunk;
+  if (splits > 1 && !ws) return cudaErrorInvalidValue;
+  const dim3 grid((N + bn - 1) / bn, (M + bm - 1) / bm, splits);
+  kernel<<<grid, threads, 0, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(c),
+      splits > 1 ? ws : nullptr, M, N, K, kchunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long mn = (long long)M * N;
+  const int blocks = (int)min((mn + 255) / 256, (long long)4 * N_SM);
+  splitk_sum_kernel<T><<<blocks, 256, 0, stream>>>(ws, static_cast<T*>(c), mn,
+                                                   splits);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The number of K splits of an (M, N, K) product: above 1, nvdla_matmul needs
+// a float32 workspace of splits * M * N elements.
+extern "C" int nvdla_matmul_splits(int M, int N, int K) {
+  if (M < 1 || N < 1 || K < 1) return 1;
+  const int kchunk = split_k(M, N, K);
+  return (K + kchunk - 1) / kchunk;
+}
+
+// a: (M, K), b: (K, N), c: (M, N), all row-major, contiguous and of one type:
+// dtype 0 is float32, 1 is bfloat16 (16-byte aligned).  Any M, N, K >= 1.
+// ws: float32 workspace of nvdla_matmul_splits(M, N, K) * M * N elements, or
+// null when that is 1.  Returns the cudaError_t of the launch (0 on success).
+extern "C" int nvdla_matmul(const void* a, const void* b, void* c, void* ws,
+                            int M, int N, int K, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* w = static_cast<float*>(ws);
+  if (M < 1 || N < 1 || K < 1) return (int)cudaErrorInvalidValue;
+  const bool small = M <= SMALL_M;
+  if (dtype == 0)
+    return small ? (int)launch<float>(matmul_f32_kernel<1, 16>, F_NT, 16,
+                                      F_BN, a, b, c, w, M, N, K, st)
+                 : (int)launch<float>(matmul_f32_kernel<8, 8>, F_NT, 128,
+                                      F_BN, a, b, c, w, M, N, K, st);
+  if (dtype == 1)
+    return small
+               ? (int)launch<__nv_bfloat16>(matmul_bf16_kernel<1, 4, 1, 4>,
+                                            128, 16, 128, a, b, c, w, M, N, K,
+                                            st)
+               : (int)launch<__nv_bfloat16>(matmul_bf16_kernel<2, 4, 4, 4>,
+                                            256, 128, 128, a, b, c, w, M, N,
+                                            K, st);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,0 +1,74 @@
+"""Mamba1 selective scan on Hopper: the wrapper of ``csrc/mamba_scan.cu``.
+
+The CUDA kernel replaces the Pallas TPU kernel ``repro/kernels/mamba_scan.py``
+(``_scan_kernel``).  It takes any S and d; its block shapes are its own (the
+Pallas ``bd`` and ``chunk`` have no counterpart).  This wrapper checks its
+inputs, makes them contiguous, allocates the output, launches on PyTorch's
+current stream and raises if the launch fails.  It takes CUDA tensors only;
+the plain version is ``repro_torch.kernels.ref.mamba_scan_ref`` and
+``repro_torch.kernels.ops`` picks between the two by device.
+
+``mamba_scan.launches`` counts the kernel's launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+STATE_DIMS = (8, 16)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def _kernel():
+    fn = _build.load("mamba_scan").mamba_scan_fwd
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def mamba_scan(x, dt, B, C, A, D):
+    """x, dt: (b, S, d); B, C: (b, S, N), all float32 or all bfloat16;
+    A: (d, N) float32; D: (d,) float32; N in ``STATE_DIMS``; all on one CUDA
+    device.  Returns y: (b, S, d) in x's dtype."""
+    ts = (x, dt, B, C, A, D)
+    if not (x.is_cuda and all(t.device == x.device for t in ts)):
+        raise ValueError("mamba_scan kernel takes x, dt, B, C, A, D on one "
+                         f"CUDA device, got {[str(t.device) for t in ts]}")
+    if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in (dt, B, C)) \
+            or A.dtype != torch.float32 or D.dtype != torch.float32:
+        raise TypeError("mamba_scan kernel takes x, dt, B, C float32 or "
+                        "bfloat16 of one type and A, D float32, got "
+                        f"{[t.dtype for t in ts]}")
+    if x.dim() != 3 or 0 in x.shape:
+        raise ValueError(f"x must be a non-empty (b, S, d), got "
+                         f"{tuple(x.shape)}")
+    bsz, S, d = x.shape
+    N = B.shape[-1] if B.dim() == 3 else -1
+    if dt.shape != x.shape or B.shape != (bsz, S, N) or C.shape != B.shape \
+            or A.shape != (d, N) or D.shape != (d,):
+        raise ValueError("mamba_scan takes x, dt (b, S, d), B, C (b, S, N), "
+                         "A (d, N), D (d,), got "
+                         f"{[tuple(t.shape) for t in ts]}")
+    if N not in STATE_DIMS:
+        raise ValueError(f"state dim N={N} not in {STATE_DIMS}")
+    x, dt, B, C, A, D = (t.contiguous() for t in ts)
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = _kernel()(x.data_ptr(), dt.data_ptr(), B.data_ptr(),
+                       C.data_ptr(), A.data_ptr(), D.data_ptr(), y.data_ptr(),
+                       bsz, S, d, N, _DTYPES[x.dtype],
+                       torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"mamba_scan kernel launch failed: cudaError_t "
+                           f"{rc}")
+    mamba_scan.launches += 1
+    return y
+
+
+mamba_scan.launches = 0

@@ -7,15 +7,34 @@ launch fails: there is no fallback from the card to the plain version.
 from __future__ import annotations
 
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import mamba_scan as _mamba
+from repro_torch.kernels import nvdla_matmul as _matmul
 from repro_torch.kernels import ref
+
+
+def _dispatch(name, plain, kernel, device, *args, **kw):
+    if device.type == "cpu":
+        return plain(*args, **kw)
+    if device.type == "cuda":
+        return kernel(*args, **kw)
+    raise ValueError(f"{name}: no implementation for device {device}")
+
+
+def matmul(a, b):
+    """a: (M, K) @ b: (K, N) -> (M, N) in a's dtype, float32 accumulation."""
+    return _dispatch("matmul", ref.matmul_ref, _matmul.matmul, a.device, a, b)
 
 
 def flash_attention(q, k, v, *, causal=True, window=0):
     """q: (B, H, S, D); k, v: (B, Hkv, S, D).  KV stays at its native
     ``Hkv`` heads on both paths."""
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    if q.device.type == "cuda":
-        return _flash.flash_attention(q, k, v, causal=causal, window=window)
-    raise ValueError(f"flash_attention: no implementation for device "
-                     f"{q.device}")
+    return _dispatch("flash_attention", ref.flash_attention_ref,
+                     _flash.flash_attention, q.device, q, k, v,
+                     causal=causal, window=window)
+
+
+def mamba_scan(x, dt, B, C, A, D):
+    """x, dt: (b, S, d); B, C: (b, S, N); A: (d, N) and D: (d,) float32.
+    Returns y: (b, S, d) in x's dtype."""
+    return _dispatch("mamba_scan", ref.mamba_scan_ref, _mamba.mamba_scan,
+                     x.device, x, dt, B, C, A, D)

@@ -35,3 +35,32 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqc,bkcd->bkgqd", p, v.float())
     return out.reshape(B, H, S, D).to(q.dtype)
+
+
+def matmul_ref(a, b):
+    """a: (M, K) @ b: (K, N) -> (M, N): the product in float32, cast to
+    a's dtype.  On the card, float32 products run in full float32 only
+    while ``torch.backends.cuda.matmul.allow_tf32`` is False (the default)."""
+    return (a.float() @ b.float()).to(a.dtype)
+
+
+def mamba_scan_ref(x, dt, B, C, A, D):
+    """Mamba1 selective scan, a sequential loop over time in float32.
+
+    x, dt: (b, S, d); B, C: (b, S, N); A: (d, N); D: (d,).  With the state
+    h (b, d, N) starting at 0, each step computes
+    ``h = exp(dt_t A) h + (dt_t x_t) B_t`` and ``y_t = sum_n h C_t + D x_t``.
+    Returns y: (b, S, d) in x's dtype.
+    """
+    bsz, S, d = x.shape
+    xf, dtf, Bf, Cf = (t.float() for t in (x, dt, B, C))
+    A = A.float()
+    h = torch.zeros(bsz, d, B.shape[-1], dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        dt_t = dtf[:, t, :, None]                                   # (b, d, 1)
+        h = torch.exp(dt_t * A) * h \
+            + (dt_t * xf[:, t, :, None]) * Bf[:, t, None, :]
+        ys.append((h * Cf[:, t, None, :]).sum(-1))
+    y = torch.stack(ys, 1) + D.float() * xf
+    return y.to(x.dtype)

@@ -6,14 +6,18 @@ and no JAX:
 
   PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import time
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import to_device
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import calibrate, ops, ref
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mamba_scan as ms
+from repro_torch.kernels import nvdla_matmul as mm
 from repro_torch.launch.serve import serve
 from repro_torch.models import transformer as T
 
@@ -102,3 +106,117 @@ def test_serving_on_card_matches_cpu(cuda):
     expect = cpu_logits.float().numpy()
     np.testing.assert_allclose(gpu_logits.float().cpu().numpy(), expect,
                                rtol=2e-2, atol=2e-2 * np.abs(expect).max())
+
+
+MM_TOL = {"float32": (torch.float32, 2e-4),       # tests/test_kernels.py
+          "bfloat16": (torch.bfloat16, 2e-2)}
+SCAN_TOL = {"float32": (torch.float32, 2e-4),
+            "bfloat16": (torch.bfloat16, 8e-2)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(MM_TOL))
+@pytest.mark.parametrize("M,N,K", [
+    (128, 128, 128), (256, 128, 384),           # tests/test_kernels.py
+    (512, 256, 256), (128, 512, 640),
+    (100, 72, 200), (17, 130, 33), (1, 1, 1),   # ragged edges
+    (3, 5, 7), (4, 6912, 1152),
+    (4, 1152, 6912),                            # calibration model grid
+])
+def test_cuda_matmul_matches_plain(cuda, M, N, K, dtype):
+    """rtol tol, atol tol * sqrt(K), as tests/test_kernels.py."""
+    tdt, tol = MM_TOL[dtype]
+    rng = np.random.default_rng(0)
+    a, b = (torch.from_numpy(rng.standard_normal(s, np.float32)).to(cuda, tdt)
+            for s in ((M, K), (K, N)))
+    before = mm.matmul.launches
+    out = ops.matmul(a, b)
+    torch.cuda.synchronize()
+    assert mm.matmul.launches == before + 1
+    assert out.dtype == tdt and out.shape == (M, N)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.matmul_ref(a, b).float().cpu().numpy(),
+                               rtol=tol, atol=tol * K ** 0.5)
+
+
+@pytest.mark.gpu
+def test_cuda_matmul_takes_views(cuda):
+    """A transposed operand and one that starts off 16-byte alignment."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(64, 40, generator=g, device=cuda).bfloat16()
+    b = torch.randn(24, 40, generator=g, device=cuda).bfloat16().t()
+    a2 = torch.randn(64 * 40 + 1, generator=g, device=cuda) \
+        .bfloat16()[1:].view(64, 40)
+    assert a2.data_ptr() % 16
+    for x in (a, a2):
+        out = ops.matmul(x, b)
+        expect = ref.matmul_ref(x, b)
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   expect.float().cpu().numpy(), rtol=2e-2,
+                                   atol=2e-2 * 40 ** 0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(SCAN_TOL))
+@pytest.mark.parametrize("b,S,d,N", [
+    (1, 32, 16, 8), (2, 64, 32, 16), (1, 128, 64, 8),   # tests/test_kernels.py
+    (1, 77, 40, 16), (3, 200, 130, 8), (1, 1, 1, 16),   # ragged S and d
+    (1, 512, 8192, 16),                                 # model grid
+])
+def test_cuda_mamba_scan_matches_plain(cuda, b, S, d, N, dtype):
+    """rtol tol, atol 4 tol, as tests/test_kernels.py; inputs as that file
+    makes them (dt = softplus(z), A = -exp(0.3 z), D = 1)."""
+    tdt, tol = SCAN_TOL[dtype]
+    rng = np.random.default_rng(0)
+
+    def z(*s):
+        return torch.from_numpy(rng.standard_normal(s, np.float32)).to(cuda)
+
+    x = z(b, S, d).to(tdt)
+    dt = torch.nn.functional.softplus(z(b, S, d)).to(tdt)
+    B, C = z(b, S, N).to(tdt), z(b, S, N).to(tdt)
+    A, D = -torch.exp(0.3 * z(d, N)), torch.ones(d, device=cuda)
+    before = ms.mamba_scan.launches
+    out = ops.mamba_scan(x, dt, B, C, A, D)
+    torch.cuda.synchronize()
+    assert ms.mamba_scan.launches == before + 1
+    assert out.dtype == tdt and out.shape == (b, S, d)
+    expect = ref.mamba_scan_ref(x, dt, B, C, A, D)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               expect.float().cpu().numpy(), rtol=tol,
+                               atol=4 * tol)
+
+
+@pytest.mark.gpu
+def test_cuda_mamba_scan_refuses_other_state_dims(cuda):
+    x = torch.zeros(1, 4, 8, device=cuda)
+    B = torch.zeros(1, 4, 12, device=cuda)
+    with pytest.raises(ValueError, match="state dim"):
+        ms.mamba_scan(x, x, B, B, torch.zeros(8, 12, device=cuda),
+                      torch.zeros(8, device=cuda))
+
+
+@pytest.mark.gpu
+def test_calibration_on_card(cuda):
+    """The calibration loop over the reference's full grid on the card: the
+    kernels ran, and the measured table reproduces every sample."""
+    records, meta = calibrate.measure(grid="full", repeat=1)
+    assert meta["backend"] == "cuda" and meta["interpret"] is False
+    assert meta["device"] == torch.cuda.get_device_name(0)
+    assert len(records) == sum(len(g) for g in calibrate.FULL_GRIDS.values())
+    report = calibrate.build_report(records, meta)
+    for fit in report["kernels"].values():
+        assert fit["table_max_rel_err"] == 0.0
+
+
+@pytest.mark.gpu
+def test_calibration_times_the_card_not_the_host(cuda):
+    """A call that spends 2 ms on the host before a tiny launch is timed at
+    the launch's device time, far below the host's 2 ms."""
+    x = torch.ones(1024, device=cuda)
+
+    def call():
+        time.sleep(2e-3)
+        x.add_(1.0)
+
+    assert calibrate._best_of(call, 3, torch.device(cuda)) < 1e-3

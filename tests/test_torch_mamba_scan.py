@@ -1,0 +1,89 @@
+"""The port's selective scan held against the JAX package's.
+
+On the CPU the port's ``ops.mamba_scan`` runs its plain PyTorch version; it
+is compared with the JAX Pallas kernel in interpret mode at every
+``tests/test_kernels.py`` scan parametrization, at that file's tolerances
+(fp32 2e-4, bf16 8e-2, atol ``4 * tol``), and with the JAX oracle on a
+shape no Pallas block divides.  Inputs are made as that file makes them:
+dt = softplus(z), A = -exp(0.3 z), D = 1.  ``tests/test_torch_gpu.py``
+holds the CUDA kernel against the plain version on the card.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import mamba_scan as ms
+
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-4),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 8e-2)}
+
+
+def _inputs(seed, b, S, d, N):
+    """x, dt, B, C (cast to the working type by the caller), A, D float32."""
+    rng = np.random.default_rng(seed)
+    z = lambda *s: rng.standard_normal(s, np.float32)  # noqa: E731
+    x, dt = z(b, S, d), np.logaddexp(0, z(b, S, d)).astype(np.float32)
+    return (x, dt, z(b, S, N), z(b, S, N),
+            -np.exp(0.3 * z(d, N)).astype(np.float32),
+            np.ones(d, np.float32))
+
+
+def _jax(arrays, jdt):
+    return [jnp.asarray(a).astype(jdt) for a in arrays[:4]] \
+        + [jnp.asarray(a) for a in arrays[4:]]
+
+
+def _torch(arrays, tdt):
+    return [torch.from_numpy(a).to(tdt) for a in arrays[:4]] \
+        + [torch.from_numpy(a) for a in arrays[4:]]
+
+
+def _np(t):
+    return np.asarray(t.float() if isinstance(t, torch.Tensor) else t,
+                      np.float32)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,S,d,N,bd,chunk", [   # tests/test_kernels.py
+    (1, 32, 16, 8, 16, 16),
+    (2, 64, 32, 16, 16, 32),
+    (1, 128, 64, 8, 32, 64),
+])
+def test_mamba_scan_matches_jax_kernel(b, S, d, N, bd, chunk, dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    arrays = _inputs(0, b, S, d, N)
+    expect = jops.mamba_scan(*_jax(arrays, jdt), bd=bd, chunk=chunk)
+    out = ops.mamba_scan(*_torch(arrays, tdt))
+    assert out.dtype == tdt and out.shape == (b, S, d)
+    np.testing.assert_allclose(_np(out), _np(expect), rtol=tol, atol=tol * 4)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_version_matches_jax_oracle_ragged(dtype):
+    """S = 77 and d = 40, which no Pallas block divides."""
+    jdt, tdt, tol = DTYPES[dtype]
+    arrays = _inputs(1, 2, 77, 40, 16)
+    expect = jref.mamba_scan_ref(*_jax(arrays, jdt))
+    out = ref.mamba_scan_ref(*_torch(arrays, tdt))
+    assert out.dtype == tdt
+    np.testing.assert_allclose(_np(out), _np(expect), rtol=tol, atol=tol * 4)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    args = _torch(_inputs(2, 1, 8, 4, 8), torch.float32)
+    before = ms.mamba_scan.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        ms.mamba_scan(*args)
+    assert ms.mamba_scan.launches == before
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(["mamba_scan"])
