@@ -8,30 +8,42 @@ printing a result:
 1. identify the card (torch and nvidia-smi: name and power limit);
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` into
    ``build/kernels``;
-3. hold each kernel against its plain PyTorch version on the card, at the
-   ``tests/test_kernels.py`` shapes and at the serving shapes, with a ragged
-   length; then a 6-layer cut of gemma3_1b at full width served on the card
-   against the same params on the CPU (plain path) on one small input;
+3. hold the flash kernel against its plain PyTorch version on the card, at
+   the ``tests/test_kernels.py`` shapes, the serving shapes, head dims 64
+   and 128, ragged lengths and window edges, in the variant its shape rule
+   names (``flash_attention.variant``) and, where that is the Hopper
+   ``wgmma`` one, in the ``mma.sync`` one too; then a 6-layer cut of
+   gemma3_1b at full width served on the card against the same params on the
+   CPU (plain path) on one small input;
 4. serve gemma3_1b at full width (26 layers, random params from a seed):
    8 requests, batch 4, prompt 1024, 32 new tokens, through
-   ``repro_torch.launch.serve.serve``, counting the kernel's launches;
-5. time the kernel at the serving shapes against its plain version and, as a
-   yardstick only, ``F.scaled_dot_product_attention``, beside its bound;
+   ``repro_torch.launch.serve.serve``, counting the kernel's launches by
+   variant: all of them on the Hopper variant;
+5. time both bf16 variants at the serving shapes against the plain version
+   and, as a yardstick only, ``F.scaled_dot_product_attention``, beside the
+   bound, with each wrapper's host time per call;
 6. profile one prefill batch and 8 decode steps with ``torch.profiler``:
    device time by kernel and the device's busy share of the wall time;
 7. hold the matmul and selective-scan kernels against their plain versions
    on the card, in float32 and bf16, at the ``tests/test_kernels.py`` shapes
-   and tolerances, at ragged shapes and at every shape of the calibration's
-   ``"model"`` grid; then all three kernels at every shape of the
-   ``"model"`` and ``"full"`` grids on the calibration's own float32 inputs;
-8. time both at the ``"model"`` grid's shapes against their plain versions,
-   the library yardstick (``torch.matmul``; no PyTorch call computes a
-   selective scan) and their bound;
+   and tolerances, at ragged shapes, at M and N off the Hopper tile and K
+   over several turns of its ring, and at every shape of the calibration's
+   ``"model"`` grid (bf16 in the variant the shape rule names and, where
+   that is ``wgmma``, in ``mma.sync`` too); then all three kernels at every
+   shape of the ``"model"`` and ``"full"`` grids on the calibration's own
+   float32 inputs;
+8. time them at the ``"model"`` grid's shapes (bf16 in both variants)
+   against their plain versions, the library yardstick (``torch.matmul``; no
+   PyTorch call computes a selective scan) and their bound, with each
+   wrapper's host time per call;
 9. run the calibration loop (``repro_torch.kernels.calibrate.measure``) on
    the ``"model"`` and ``"full"`` grids, counting the three kernels'
    launches, and print each kernel's fit.
 
-The line before the last is a JSON ``kernels`` summary; the last line is
+Kernel times are CUDA events around back-to-back calls queued behind a
+device-side wait (``torch.cuda._sleep``) that outlasts their enqueue, so
+that they are the card's time and not the wrapper's host time.  The line
+before the last is a JSON ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -70,6 +82,15 @@ KERNEL_CASES = [  # B, H, Hkv, S, D, causal, window
     (4, 4, 1, 1024, 256, True, 512),        # gemma3_1b local layer
     (4, 4, 1, 1024, 256, True, 0),          # gemma3_1b global layer
     (4, 4, 1, 1000, 256, True, 512),        # ragged S
+    (4, 4, 1, 1024, 64, True, 0),           # the Hopper variant's other Ds
+    (4, 4, 1, 1024, 128, True, 512),
+    (2, 4, 2, 1000, 128, True, 0),          # ragged S, GQA
+    (1, 4, 1, 77, 256, True, 0),            # S below two tiles
+    (1, 4, 1, 77, 64, True, 30),
+    (2, 4, 1, 1024, 256, True, 64),         # window of one tile
+    (1, 4, 1, 1000, 128, True, 100),        # window off the tile grid
+    (1, 2, 1, 300, 256, False, 0),          # no causal mask
+    (1, 2, 1, 256, 64, False, 70),          # window without causal
 ]
 SERVE = dict(requests=8, batch=4, prompt_len=1024, max_new=32)
 # tests/test_kernels.py tolerances: matmul rtol tol, atol tol * sqrt(K);
@@ -80,6 +101,8 @@ MM_CASES = [  # M, N, K
     (128, 128, 128), (256, 128, 384),       # tests/test_kernels.py
     (512, 256, 256), (128, 512, 640),
     (100, 72, 200), (17, 130, 33), (4, 6912, 1152),      # ragged edges
+    (200, 6912, 1152), (4100, 1032, 1152),   # M, N off the Hopper tile
+    (512, 1024, 4096),                       # K: 64 turns of a 4-stage ring
 ] + list(calibrate.MODEL_GRIDS["matmul"])
 SCAN_CASES = [  # b, S, d, N
     (1, 32, 16, 8), (2, 64, 32, 16),        # tests/test_kernels.py
@@ -120,10 +143,14 @@ def build_kernels():
         f"into {_build.BUILD_DIR}")
     for name, path in libs.items():
         log_path = path.with_suffix(".log")
-        if log_path.exists():   # ptxas report of a fresh build
-            for line in log_path.read_text().splitlines():
-                if "Used" in line or "spill" in line:
-                    log(f"  {name}: {line.strip()}")
+        if log_path.exists():   # ptxas report of a fresh build, by kernel
+            for entry in log_path.read_text().split("Compiling entry")[1:]:
+                kernel = entry.split("'")[1]
+                kernel = kernel[kernel.find("GLOBAL__N_"):][-72:]
+                used = [line.split(":", 1)[-1].strip()
+                        for line in entry.splitlines()
+                        if "Used" in line or "spill" in line]
+                log(f"  {name} ...{kernel}: {'; '.join(used)}")
 
 
 def _check(name, out, expect, rtol, atol):
@@ -140,22 +167,46 @@ def _check(name, out, expect, rtol, atol):
     return err
 
 
+def _variants(rule, dtype, *shape):
+    """The variant the shape rule names and, where that is the Hopper one,
+    the ``mma.sync`` one beside it."""
+    name = rule(*shape, dtype)
+    return [name, "mma_sync"] if name == "wgmma" else [name]
+
+
+def _ran(fn, name, call):
+    """``call()`` after checking that it launched the kernel once, in the
+    variant ``name``."""
+    before = dict(fn.launches_by_variant)
+    out = call()
+    torch.cuda.synchronize()
+    ran = {k: n - before[k] for k, n in fn.launches_by_variant.items()
+           if n != before[k]}
+    if ran != {name: 1}:
+        raise AssertionError(f"expected one {name} launch, got {ran}")
+    return out
+
+
 def check_kernel():
-    """Every case in fp32 and bf16, kernel vs plain version on the card.
-    Returns the largest error at the serving shapes in bf16."""
+    """Every case in fp32 and bf16, kernel vs plain version on the card, in
+    each variant of ``_variants``.  Returns the largest error at the serving
+    shapes in bf16 of the variant serving runs."""
     worst = 0.0
     for case in KERNEL_CASES:
         B, H, Hkv, S, D, causal, window = case
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = rand_qkv(B, H, Hkv, S, D, dtype)
-            out = fa.flash_attention(q, k, v, causal=causal, window=window)
-            torch.cuda.synchronize()
-            err = _check(f"kernel vs plain {case} {dtype}", out,
-                         ref.flash_attention_ref(q, k, v, causal=causal,
-                                                 window=window),
-                         TOL[dtype], TOL[dtype])
-            if D == 256 and dtype == torch.bfloat16:
-                worst = max(worst, err)
+            expect = ref.flash_attention_ref(q, k, v, causal=causal,
+                                             window=window)
+            for name in _variants(fa.variant, dtype, D):
+                out = _ran(fa.flash_attention, name,
+                           lambda: fa.flash_attention(
+                               q, k, v, causal=causal, window=window,
+                               kernel=name))
+                err = _check(f"kernel {name} vs plain {case} {dtype}", out,
+                             expect, TOL[dtype], TOL[dtype])
+                if D == 256 and name == fa.variant(D, dtype) == "wgmma":
+                    worst = max(worst, err)
     return worst
 
 
@@ -212,15 +263,18 @@ def serve_full():
     params = T.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention.launches = 0
+    fa.reset_counts()
     stats = serve(cfg, device="cuda", seed=0, params=params, log=log, **SERVE)
     launches = fa.flash_attention.launches
+    by_variant = dict(fa.flash_attention.launches_by_variant)
     expect = cfg.n_layers * stats["batches"]
-    log(f"flash_attention launches in serving: {launches} (expected "
-        f"{cfg.n_layers} layers x {stats['batches']} prefill batches = "
-        f"{expect})")
-    if launches != expect:
-        raise AssertionError(f"{launches} flash launches, expected {expect}")
+    name = fa.variant(cfg.resolved_head_dim, torch.bfloat16)
+    log(f"flash_attention launches in serving: {launches}, by variant "
+        f"{by_variant} (expected {cfg.n_layers} layers x {stats['batches']} "
+        f"prefill batches = {expect}, all {name})")
+    if launches != expect or by_variant[name] != expect:
+        raise AssertionError(f"{by_variant} flash launches, expected "
+                             f"{expect} of {name}")
     if not stats["finite"]:
         raise AssertionError("non-finite logits")
     if stats["requests"] != SERVE["requests"]:
@@ -235,65 +289,123 @@ def serve_full():
         f"({tokens} tokens in {stats['seconds']:.3f} s)")
     log(f"max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    return cfg, params, launches
+    return cfg, params, launches, by_variant
 
 
-def cuda_ms(fn, iters):
+def cuda_ms(fn, iters, hold=True):
+    """Device ms a call: CUDA events around ``iters`` back-to-back calls,
+    after 3 warm-ups.  With ``hold``, the start event waits behind a
+    device-side sleep that outlasts the calls' enqueue (checked: the sleep
+    must still be running when the last call is queued, else it is doubled
+    and the run taken again), so the card runs them back to back whatever
+    the host's time.  The plain versions are timed without: their thousands
+    of small launches would fill the launch queue behind the sleep."""
     for _ in range(3):
         fn()
-    start, end = torch.cuda.Event(enable_timing=True), \
-        torch.cuda.Event(enable_timing=True)
+    cycles = 2_000_000
+    while True:
+        start, end = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        if hold:
+            torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued_in_time = not start.query()
+        torch.cuda.synchronize()
+        if queued_in_time or not hold:
+            return start.elapsed_time(end) / iters
+        if cycles > 1 << 34:
+            raise RuntimeError("the calls' enqueue outlasted a 2^34-cycle "
+                               "device-side sleep")
+        cycles *= 2
+
+
+def host_us(fn, calls=100):
+    """Host us a call: ``perf_counter`` over ``calls`` enqueues (argument
+    checks, allocation, tensor maps, the launch), the card left to run."""
+    fn()
     torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
+    t0 = time.perf_counter()
+    for _ in range(calls):
         fn()
-    end.record()
+    t = time.perf_counter() - t0
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return 1e6 * t / calls
 
 
-def bound(B, H, Hkv, S, D, window, itemsize):
+def bound(B, H, Hkv, S, D, window, dtype):
     """Least time (ms) for the work these inputs need: live (q, k) pairs
-    times 4 D operations at the bf16 tensor-core peak, against q, k, v read
-    once and o written once at the HBM rate."""
+    times 4 D operations at the type's peak (bf16 on the tensor cores,
+    float32 on the CUDA cores), against q, k, v read once and o written once
+    at the HBM rate."""
+    itemsize = torch.finfo(dtype).bits // 8
+    peak = hw.PEAK_FLOPS if dtype == torch.float32 else hw.PEAK_FLOPS_BF16
     live = sum(min(i + 1, window) if window else i + 1 for i in range(S))
     flops = 4 * D * B * H * live
     nbytes = (2 * B * H * S * D + 2 * B * Hkv * S * D) * itemsize
-    t_ops, t_bytes = flops / hw.PEAK_FLOPS_BF16, nbytes / hw.HBM_BW
+    t_ops, t_bytes = flops / peak, nbytes / hw.HBM_BW
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes"), flops, nbytes
 
 
-def time_kernel(cfg, smi):
-    B, H, Hkv, S, D = SERVE["batch"], cfg.n_heads, cfg.n_kv_heads, \
-        SERVE["prompt_len"], cfg.resolved_head_dim
+def _sdpa(q, k, v, window):
+    """The library yardstick: ``is_causal`` where there is no window, else
+    the window as an explicit mask."""
+    if not window:
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
+    pos = torch.arange(q.shape[2], device="cuda")
+    mask = (pos[:, None] >= pos[None, :]) \
+        & ((pos[:, None] - pos[None, :]) < window)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def time_flash(B, H, Hkv, S, D, window, dtype, smi, seed=2):
+    """Each variant of ``_variants`` at one shape: {variant: row} with the
+    kernel's device ms and host us a call, the plain version's and SDPA's
+    ms, and the bound."""
+    q, k, v = rand_qkv(B, H, Hkv, S, D, dtype, seed=seed)
+    lib = _sdpa(q, k, v, window)
+    lib_err = (lib().float() - ref.flash_attention_ref(
+        q, k, v, window=window).float()).abs().max().item()
+    plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, window=window),
+                    10, hold=False)
+    lib_ms = cuda_ms(lib, 20)
+    b_ms, b_by, flops, nbytes = bound(B, H, Hkv, S, D, window, dtype)
     rows = {}
-    for window in (cfg.window, 0):
-        q, k, v = rand_qkv(B, H, Hkv, S, D, torch.bfloat16, seed=2)
-        pos = torch.arange(S, device="cuda")
-        mask = pos[:, None] >= pos[None, :]
-        if window:
-            mask &= (pos[:, None] - pos[None, :]) < window
-        lib = (lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)) if not window else \
-            (lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, enable_gqa=True))
-        lib_err = (lib().float() - ref.flash_attention_ref(
-            q, k, v, window=window).float()).abs().max().item()
-        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, window=window), 50)
-        plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v,
-                                                        window=window), 20)
-        lib_ms = cuda_ms(lib, 50)
-        b_ms, b_by, flops, nbytes = bound(B, H, Hkv, S, D, window, 2)
-        rows[window] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms,
-                            bound_ms=b_ms, bound_by=b_by)
-        log(f"flash_attention B={B} H={H} Hkv={Hkv} S={S} D={D} bf16 "
-            f"window={window}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+    for name in _variants(fa.variant, dtype, D):
+        def call():
+            return fa.flash_attention(q, k, v, window=window, kernel=name)
+        ms = cuda_ms(call, 20)
+        rows[name] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms,
+                          bound_ms=b_ms, bound_by=b_by, host_us=host_us(call))
+        log(f"flash_attention {name} B={B} H={H} Hkv={Hkv} S={S} D={D} "
+            f"{dtype} window={window}: kernel {ms:.4f} ms (host "
+            f"{rows[name]['host_us']:.1f} us a call), plain {plain:.4f} ms, "
             f"SDPA {lib_ms:.4f} ms (max_abs_err vs plain {lib_err:.2e}), "
             f"bound {b_ms:.4f} ms by {b_by} ({flops / 1e9:.3f} GFLOP, "
             f"{nbytes / 1e6:.3f} MB), kernel {flops / ms / 1e9:.2f} TFLOP/s "
             f"= {100 * b_ms / ms:.2f}% of bound; card {smi}")
     return rows
+
+
+def time_kernel(cfg, smi):
+    """The serving shapes (bf16) by window: {window: {variant: row}}."""
+    B, H, Hkv, S, D = SERVE["batch"], cfg.n_heads, cfg.n_kv_heads, \
+        SERVE["prompt_len"], cfg.resolved_head_dim
+    return {window: time_flash(B, H, Hkv, S, D, window, torch.bfloat16, smi)
+            for window in (cfg.window, 0)}
+
+
+def time_flash_f32(smi):
+    """The float32 kernel at the calibration's ``"model"`` attention shapes
+    (causal, no window: what the calibration loop runs): its rows."""
+    return [time_flash(*shape, 0, torch.float32, smi)["fma"]
+            for shape in calibrate.MODEL_GRIDS["attention"]]
 
 
 def profile_serving(cfg, params, smi):
@@ -361,8 +473,9 @@ def _scan_inputs(b, S, d, N, dtype, seed=0):
 
 
 def check_new_kernels():
-    """The matmul and scan kernels against their plain versions on the card.
-    Returns each kernel's largest float32 error over the model grid."""
+    """The matmul and scan kernels against their plain versions on the card,
+    the matmul in each variant of ``_variants``.  Returns each kernel's
+    largest float32 error over the model grid."""
     model = {"matmul": calibrate.MODEL_GRIDS["matmul"],
              "mamba_scan": calibrate.MODEL_GRIDS["mamba"]}
     worst = {"matmul": 0.0, "mamba_scan": 0.0}
@@ -370,14 +483,17 @@ def check_new_kernels():
         tol = MM_TOL[dtype]
         for M, N, K in MM_CASES:
             a, b = _matmul_inputs(M, N, K, dtype)
-            out = mm.matmul(a, b)
-            torch.cuda.synchronize()
-            if out.dtype != dtype or out.shape != (M, N):
-                raise AssertionError(f"matmul gave {out.dtype} {out.shape}")
-            err = _check(f"matmul kernel vs plain {(M, N, K)} {dtype}", out,
-                         ref.matmul_ref(a, b), tol, tol * K ** 0.5)
-            if dtype == torch.float32 and (M, N, K) in model["matmul"]:
-                worst["matmul"] = max(worst["matmul"], err)
+            expect = ref.matmul_ref(a, b)
+            for name in _variants(mm.variant, dtype, M, N, K):
+                out = _ran(mm.matmul, name,
+                           lambda: mm.matmul(a, b, kernel=name))
+                if out.dtype != dtype or out.shape != (M, N):
+                    raise AssertionError(f"matmul gave {out.dtype} "
+                                         f"{out.shape}")
+                err = _check(f"matmul kernel {name} vs plain {(M, N, K)} "
+                             f"{dtype}", out, expect, tol, tol * K ** 0.5)
+                if dtype == torch.float32 and (M, N, K) in model["matmul"]:
+                    worst["matmul"] = max(worst["matmul"], err)
         tol = SCAN_TOL[dtype]
         for shape in SCAN_CASES:
             args = _scan_inputs(*shape, dtype)
@@ -443,41 +559,51 @@ def scan_bound(b, S, d, N, dtype):
 
 
 def time_new_kernels(smi):
-    """Kernel, plain and library times (CUDA events) at the model grid's
-    shapes, in float32 and bf16.  Returns the float32 rows (the type the
-    calibration loop runs) by kernel."""
+    """Kernel (each variant of ``_variants``), plain and library times (CUDA
+    events) and the wrappers' host time a call at the model grid's shapes,
+    in float32 and bf16.  Returns the float32 rows (the type the calibration
+    loop runs) by kernel."""
     rows = {"matmul": [], "mamba_scan": []}
     for dtype in (torch.float32, torch.bfloat16):
         for M, N, K in calibrate.MODEL_GRIDS["matmul"]:
             a, b = _matmul_inputs(M, N, K, dtype, seed=2)
-            kernel_ms = cuda_ms(lambda: mm.matmul(a, b), 20)
-            plain = cuda_ms(lambda: ref.matmul_ref(a, b), 20)
+            plain = cuda_ms(lambda: ref.matmul_ref(a, b), 20, hold=False)
             lib = cuda_ms(lambda: torch.matmul(a, b), 20)
             b_ms, by, terms = matmul_bound(M, N, K, dtype)
-            log(f"matmul {(M, N, K)} {dtype}: kernel {kernel_ms:.4f} ms "
-                f"({2 * M * N * K / kernel_ms / 1e9:.2f} TFLOP/s), plain "
-                f"{plain:.4f} ms, torch.matmul {lib:.4f} ms, bound "
-                f"{b_ms:.4f} ms by {by} (ops {1e3 * terms['operations']:.4f}"
-                f", bytes {1e3 * terms['bytes']:.4f} ms) = "
-                f"{100 * b_ms / kernel_ms:.2f}% of bound; card {smi}")
-            if dtype == torch.float32:
-                rows["matmul"].append(dict(ms=kernel_ms, plain_ms=plain,
-                                           library_ms=lib, bound_ms=b_ms,
-                                           bound_by=by))
+            for name in _variants(mm.variant, dtype, M, N, K):
+                def call():
+                    return mm.matmul(a, b, kernel=name)
+                kernel_ms, host = cuda_ms(call, 20), host_us(call)
+                tflops = 2 * M * N * K / kernel_ms / 1e9
+                log(f"matmul {name} {(M, N, K)} {dtype}: kernel "
+                    f"{kernel_ms:.4f} ms ({tflops:.2f} TFLOP/s; host "
+                    f"{host:.1f} us a call), plain {plain:.4f} "
+                    f"ms, torch.matmul {lib:.4f} ms, bound {b_ms:.4f} ms by "
+                    f"{by} (ops {1e3 * terms['operations']:.4f}, bytes "
+                    f"{1e3 * terms['bytes']:.4f} ms) = "
+                    f"{100 * b_ms / kernel_ms:.2f}% of bound; card {smi}")
+                if dtype == torch.float32:
+                    rows["matmul"].append(dict(
+                        ms=kernel_ms, plain_ms=plain, library_ms=lib,
+                        bound_ms=b_ms, bound_by=by, host_us=host))
         for shape in calibrate.MODEL_GRIDS["mamba"]:
             args = _scan_inputs(*shape, dtype, seed=2)
-            kernel_ms = cuda_ms(lambda: ms.mamba_scan(*args), 20)
-            plain = cuda_ms(lambda: ref.mamba_scan_ref(*args), 2)
+
+            def call():
+                return ms.mamba_scan(*args)
+            kernel_ms, host = cuda_ms(call, 20), host_us(call)
+            plain = cuda_ms(lambda: ref.mamba_scan_ref(*args), 2, hold=False)
             b_ms, by, terms = scan_bound(*shape, dtype)
-            log(f"mamba_scan {shape} {dtype}: kernel {kernel_ms:.4f} ms, "
-                f"plain {plain:.4f} ms, library none, bound {b_ms:.4f} ms by "
-                f"{by} (ops {1e3 * terms['operations']:.4f}, exp "
+            log(f"mamba_scan {shape} {dtype}: kernel {kernel_ms:.4f} ms "
+                f"(host {host:.1f} us a call), plain {plain:.4f} ms, library "
+                f"none, bound {b_ms:.4f} ms by {by} (ops "
+                f"{1e3 * terms['operations']:.4f}, exp "
                 f"{1e3 * terms['exp']:.4f}, bytes {1e3 * terms['bytes']:.4f}"
                 f" ms) = {100 * b_ms / kernel_ms:.2f}% of bound; card {smi}")
             if dtype == torch.float32:
                 rows["mamba_scan"].append(dict(
                     ms=kernel_ms, plain_ms=plain, library_ms=None,
-                    bound_ms=b_ms,
+                    bound_ms=b_ms, host_us=host,
                     bound_by="bytes" if by == "bytes" else "operations"))
     return rows
 
@@ -488,8 +614,9 @@ def run_calibration():
     after.  Returns the launches by kernel."""
     wrappers = {"matmul": mm.matmul, "flash_attention": fa.flash_attention,
                 "mamba_scan": ms.mamba_scan}
-    for fn in wrappers.values():
-        fn.launches = 0
+    mm.reset_counts()
+    fa.reset_counts()
+    ms.mamba_scan.launches = 0
     for grid, repeat in CALIBRATION:
         t0 = time.perf_counter()
         records, meta = calibrate.measure(grid=grid, repeat=repeat)
@@ -525,7 +652,15 @@ def run_calibration():
         "shape)")
     if launches != expect:
         raise AssertionError(f"calibration launches {launches} != {expect}")
-    return launches
+    by_variant = {
+        "matmul": dict(mm.matmul.launches_by_variant),
+        "flash_attention": dict(fa.flash_attention.launches_by_variant),
+        "mamba_scan": {"cuda": launches["mamba_scan"]}}
+    log(f"by variant: {by_variant}")
+    for name in ("matmul", "flash_attention"):   # float32: the FMA kernels
+        if by_variant[name]["fma"] != launches[name]:
+            raise AssertionError(f"{name} ran {by_variant[name]} in float32")
+    return launches, by_variant
 
 
 def _mean_row(rows):
@@ -533,7 +668,7 @@ def _mean_row(rows):
     bound_by is that of the shape with the largest bound."""
     out = {key: (None if rows[0][key] is None
                  else sum(r[key] for r in rows) / len(rows))
-           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms", "host_us")}
     out["bound_by"] = max(rows, key=lambda r: r["bound_ms"])["bound_by"]
     return out
 
@@ -549,7 +684,7 @@ def main():
     build_kernels()
     max_err = check_kernel()
     check_model_against_cpu()
-    cfg, params, launches = serve_full()
+    cfg, params, launches, by_variant = serve_full()
     rows = time_kernel(cfg, smi)
     profile_serving(cfg, params, smi)
     del params
@@ -557,23 +692,34 @@ def main():
     new_err = check_new_kernels()
     cal_err = check_calibration_shapes()
     new_rows = time_new_kernels(smi)
-    cal_launches = run_calibration()
-    # one launch of the main path, averaged over its 26-layer local/global mix
+    f32_flash = _mean_row(time_flash_f32(smi))
+    log(f"flash_attention fma, mean over the model grid (float32, what the "
+        f"calibration runs): {f32_flash}")
+    cal_launches, cal_by_variant = run_calibration()
+    # one launch of the main path, averaged over its 26-layer local/global
+    # mix, in each bf16 variant; the JSON line gives the one serving runs
     sched = T._window_schedule(cfg)
     mix = {w: sched.count(w) / len(sched) for w in rows}
-    avg = {key: sum(mix[w] * rows[w][key] for w in rows)
-           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    by = max(rows.values(), key=lambda r: r["bound_ms"])["bound_by"]
+    served = fa.variant(cfg.resolved_head_dim, torch.bfloat16)
+    avg = {name: {key: sum(mix[w] * rows[w][name][key] for w in rows)
+                  for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                              "host_us")}
+           for name in rows[0]}
+    log(f"flash_attention serving mix by variant: {avg}")
+    by = max(rows.values(),
+             key=lambda r: r[served]["bound_ms"])[served]["bound_by"]
     log(smi)   # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:99",
-        "launches": launches, "max_abs_err": max_err,
-        **avg, "bound_by": by}] + [{
+        "launches": launches, "launches_by_variant": by_variant,
+        "max_abs_err": max_err, **avg[served], "bound_by": by,
+        "ms_by_variant": {name: row["ms"] for name, row in avg.items()}}] + [{
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}.cu",
             "replaces": replaces, "launches": cal_launches[kname],
+            "launches_by_variant": cal_by_variant[kname],
             "max_abs_err": max(new_err[kname], cal_err[cal]),
             **_mean_row(new_rows[kname])}
         for kname, cal, src, replaces in (

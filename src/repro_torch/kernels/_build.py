@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/kernels/lib<name>-<hash>.so`` at the root
-of the checkout, at first use, and loaded with ``ctypes``.  The hash covers
-the source and the flags, so an edited source is rebuilt and an unchanged
-one is not.  Only sources in this package are built.
+of the checkout, at first use, and loaded with ``ctypes``.  The sources may
+include the shared headers ``csrc/*.cuh`` (``-I csrc``).  The hash covers
+the source, every header and the flags, so an edited source or header is
+rebuilt and an unchanged one is not.  Only sources in this package are
+built.
 """
 from __future__ import annotations
 
@@ -38,10 +40,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
@@ -59,7 +62,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         jobs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []

@@ -13,8 +13,11 @@
 // S = 1024) the work is about 400 operations per byte of q, k, v and o,
 // above the card's ~295 bf16 operations per byte, so the bound is the
 // tensor cores' rate.  The bf16 kernel therefore does both products on the
-// tensor cores (mma.sync m16n8k16, bf16 in, float32 accumulate); wgmma and
-// TMA, which the full rate needs, come later.  The float32 kernel must match
+// tensor cores.  Its Hopper variant (head dims 64, 128, 256) does them with
+// wgmma, fed by TMA through a ring of K/V tiles, the only way to the card's
+// full rate; other head dims keep mma.sync m16n8k16 (bf16 in, float32
+// accumulate).  Which variant runs is the caller's choice, by head dim and
+// type (flash_attention.py::variant).  The float32 kernel must match
 // the reference to 1e-4, which no tensor-core type gives, so it does its
 // products with float32 FMAs on the CUDA cores.  Against device memory, the
 // other bound, both keep the score tile, the softmax statistics and the
@@ -51,6 +54,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -407,6 +412,267 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 on Hopper: wgmma fed by TMA through a ring of K/V tiles
+
+// One warpgroup of 64 query rows a block, one stage of K and one of V: 97
+// KB at D = 256, so that two blocks share an SM and one's softmax overlaps
+// the other's products.  Measured at the serving shapes (H100, PERF.md),
+// this beat 128-row blocks of two warpgroups with a 2-stage ring (192 KB,
+// one block an SM) on both layers: the causal critical path is the heaviest
+// block's KV sweep, which a 64-row block runs in half the work.
+template <int D> struct TilesWg {
+  static constexpr int BQ = 64;          // query rows: one warpgroup
+  static constexpr int BK = 64;          // keys per KV tile
+  static constexpr int STAGES = 1;
+  static constexpr int THREADS = 128;
+  static constexpr int Q_BYTES = BQ * D * 2;    // D / 64 boxes [BQ][64]
+  static constexpr int KV_BYTES = BK * D * 2;   // D / 64 boxes [BK][64]
+  static constexpr size_t smem_bytes =
+      1024 + size_t(Q_BYTES) + 2 * STAGES * size_t(KV_BYTES) +
+      (1 + 3 * STAGES) * sizeof(uint64_t);
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One block owns 64 query rows of one flat head b*H + h.  Thread 0 also
+// loads: the block's Q once, then K and V tiles of 64 keys into the ring
+// (separate barriers for K and V, so that S = Q K^T starts while V still
+// streams in, and K's next tile streams in during the softmax and P V); the
+// last warp to release a stage refills it.  A dedicated producer warp would
+// cost registers: the register file is split between the SM's 4 schedulers,
+// and a warp beside two warpgroups leaves 168 registers a thread where the
+// products need about 190 at D = 256.  The warpgroup computes S (64 x 64) =
+// Q K^T by m64n64k16 wgmma from shared memory (both K-major); an online
+// softmax in exp2 with scale * log2(e) folded in, masks applied only on
+// tiles that cross the causal diagonal, the window's edge or S; then O
+// (64 x D) += P V by m64nDk16 wgmma with P from the S registers as bf16 and
+// V MN-major (transpose-B).  Q, K and V are seen through 3-d tensor maps
+// (D, S, heads), so that a ragged last tile arrives as zeros and not as the
+// next head's rows.  The block's KV range is its rows', so every tile has a
+// live key for some row.
+template <int D>
+__global__ void __launch_bounds__(TilesWg<D>::THREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       __nv_bfloat16* __restrict__ o, int H, int Hkv, int S,
+                       int causal, int window, float scale_log2) {
+  using Tl = TilesWg<D>;
+  using namespace hopper;
+  constexpr int BQ = Tl::BQ, BK = Tl::BK, STAGES = Tl::STAGES;
+  constexpr int Q_BYTES = Tl::Q_BYTES, KV_BYTES = Tl::KV_BYTES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align1024(smem_raw);       // [D/64][BQ][64]
+  unsigned char* Ks = Qs + Q_BYTES;              // [STAGES][D/64][BK][64]
+  unsigned char* Vs = Ks + STAGES * KV_BYTES;    // [STAGES][D/64][BK][64]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + STAGES * KV_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint32_t* k_released = reinterpret_cast<uint32_t*>(v_full + STAGES);
+  uint32_t* v_released = k_released + STAGES;
+
+  // block u: query tile nq - 1 - u / heads of flat head u % heads, the
+  // longest causal sweeps first
+  const int nq = (S + BQ - 1) / BQ, heads = gridDim.x / nq;
+  const int bh = blockIdx.x % heads;                   // flat head b*H + h
+  const int q0 = (nq - 1 - blockIdx.x / heads) * BQ;
+  const int b = bh / H, h = bh % H;
+  const int kvh = b * Hkv + h / (H / Hkv);
+  // KV tiles with a live key for some row of this block
+  int kt_begin = 0, kt_end = (S + BK - 1) / BK;
+  if (window > 0) kt_begin = max(0, q0 - window + 1) / BK;
+  if (causal) kt_end = min(kt_end, (q0 + BQ - 1) / BK + 1);
+  const int n_tiles = kt_end - kt_begin;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // K (or V) tile i of this block into stage i % STAGES (thread 0)
+  auto load = [&](const CUtensorMap* map, unsigned char* tiles,
+                  uint64_t* full, int i) {
+    const int s = i % STAGES, k0 = (kt_begin + i) * BK;
+    mbar_arrive_expect_tx(&full[s], KV_BYTES);
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c)
+      tma_load_3d(tiles + s * KV_BYTES + c * BK * 128, map, &full[s], 64 * c,
+                  k0, kvh);
+  };
+  // Each warp releases tile i of K (or V) once its products are done; the
+  // last of the block's warps to release it loads tile i + STAGES into the
+  // stage; nobody waits for a release.  The count only grows: every 4
+  // releases of a stage are one tile.
+  auto release = [&](const CUtensorMap* map, unsigned char* tiles,
+                     uint64_t* full, uint32_t* released, int i) {
+    if (lane == 0) {
+      __threadfence_block();   // this warp's reads of the stage are done
+      if ((atomicAdd(&released[i % STAGES], 1u) + 1) % 4 == 0) {
+        __threadfence_block();
+        if (i + STAGES < n_tiles) load(map, tiles, full, i + STAGES);
+      }
+    }
+    __syncwarp();
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      k_released[s] = v_released[s] = 0;
+    }
+    mbar_fence_init();
+    mbar_arrive_expect_tx(q_full, Q_BYTES);
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c)
+      tma_load_3d(Qs + c * BQ * 128, &map_q, q_full, 64 * c, q0, bh);
+    for (int i = 0; i < STAGES && i < n_tiles; ++i) {
+      load(&map_k, Ks, k_full, i);
+      load(&map_v, Vs, v_full, i);
+    }
+  }
+  __syncthreads();
+
+  const int row[2] = {q0 + 16 * warp + lane / 4,
+                      q0 + 16 * warp + lane / 4 + 8};
+  const int kcol = 2 * (lane % 4);
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // l: this lane's part
+  Acc<D> acc;
+  acc_zero(acc);
+  mbar_wait(q_full, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % STAGES, k0 = (kt_begin + i) * BK;
+    const uint32_t phase = (i / STAGES) & 1;
+    // some key of the tile masked for some row
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + BQ - 1 - window);
+    mbar_wait(&k_full[s], phase);
+    Acc<64> sc;
+    wgmma_fence();
+#pragma unroll
+    for (int st = 0; st < D / 16; ++st) {
+      const int c = st / 4, kk = st % 4;
+      wgmma_ss<0>(sc, desc_sw128(Qs + c * BQ * 128 + 32 * kk, 16, 1024),
+                  desc_sw128(Ks + s * KV_BYTES + c * BK * 128 + 32 * kk, 16,
+                             1024),
+                  st > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    acc_fence(sc);
+    release(&map_k, Ks, k_full, k_released, i);
+
+    // sc.r[4 j + e]: row row[e / 2], key k0 + 8 j + kcol + (e & 1)
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      float x = sc.r[r] * scale_log2;
+      if (edge) {
+        const int qpos = row[(r % 4) / 2];
+        const int kpos = k0 + 8 * (r / 4) + kcol + (r & 1);
+        const bool live = kpos < S && (!causal || qpos >= kpos) &&
+                          (window <= 0 || qpos - kpos < window);
+        x = live ? x : NEG_INF;
+      }
+      sc.r[r] = x;
+      mx[(r % 4) / 2] = fmaxf(mx[(r % 4) / 2], x);
+    }
+    float corr[2];
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      mx[h2] = fmaxf(mx[h2], __shfl_xor_sync(0xffffffffu, mx[h2], 1));
+      mx[h2] = fmaxf(mx[h2], __shfl_xor_sync(0xffffffffu, mx[h2], 2));
+      const float m_new = fmaxf(m[h2], mx[h2]);
+      corr[h2] = ex2(m[h2] - m_new);
+      m[h2] = m_new;
+      l[h2] *= corr[h2];
+    }
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      sc.r[r] = ex2(sc.r[r] - m[(r % 4) / 2]);
+      l[(r % 4) / 2] += sc.r[r];
+    }
+    // P as the A operand: keys 16 kk .. 16 kk + 15 are n-tiles 2 kk and
+    // 2 kk + 1 of the scores
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pa[kk][e] = pack(sc.r[8 * kk + 2 * e], sc.r[8 * kk + 2 * e + 1]);
+#pragma unroll
+    for (int r = 0; r < D / 2; ++r) acc.r[r] *= corr[(r % 4) / 2];
+
+    mbar_wait(&v_full[s], phase);
+    acc_fence(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs<1>(acc, pa[kk],
+                  desc_sw128(Vs + s * KV_BYTES + 2048 * kk, BK * 128, 1024),
+                  1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    acc_fence(acc);
+    release(&map_v, Vs, v_full, v_released, i);
+  }
+
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    l[h2] += __shfl_xor_sync(0xffffffffu, l[h2], 1);
+    l[h2] += __shfl_xor_sync(0xffffffffu, l[h2], 2);
+  }
+  __nv_bfloat16* op = o + (long long)bh * S * D;
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    if (row[h2] >= S) continue;
+    const float inv = 1.f / fmaxf(l[h2], 1e-30f);
+    __nv_bfloat16* orow = op + (long long)row[h2] * D + kcol;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+          pack(acc.r[4 * j + 2 * h2] * inv, acc.r[4 * j + 2 * h2 + 1] * inv);
+  }
+}
+
+// q (B, H, S, D) and k, v (B, Hkv, S, D) as 3-d tensor maps (D, S, heads)
+// of 64-element boxes
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                         int B, int H, int Hkv, int S, int causal, int window,
+                         cudaStream_t stream) {
+  using Tl = TilesWg<D>;
+  CUtensorMap map_q, map_k, map_v;
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint64_t q_dims[3] = {(cuuint64_t)D, (cuuint64_t)S,
+                                (cuuint64_t)B * H};
+  const cuuint64_t kv_dims[3] = {(cuuint64_t)D, (cuuint64_t)S,
+                                 (cuuint64_t)B * Hkv};
+  const cuuint32_t q_box[3] = {64, (cuuint32_t)Tl::BQ, 1};
+  const cuuint32_t kv_box[3] = {64, (cuuint32_t)Tl::BK, 1};
+  cudaError_t err =
+      hopper::make_map_bf16(&map_q, q, 3, q_dims, strides, q_box);
+  if (err == cudaSuccess)
+    err = hopper::make_map_bf16(&map_k, k, 3, kv_dims, strides, kv_box);
+  if (err == cudaSuccess)
+    err = hopper::make_map_bf16(&map_v, v, 3, kv_dims, strides, kv_box);
+  auto kernel = flash_fwd_wgmma_kernel<D>;
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)Tl::smem_bytes);
+  if (err != cudaSuccess) return err;
+  // one block per work unit (query tile, flat head)
+  const int grid = B * H * ((S + Tl::BQ - 1) / Tl::BQ);
+  kernel<<<grid, Tl::THREADS, Tl::smem_bytes, stream>>>(
+      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), H, Hkv, S, causal,
+      window, (float)(1.4426950408889634 / sqrt((double)D)));
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // launch
 
 template <typename T, typename Kernel>
@@ -425,39 +691,48 @@ cudaError_t launch(Kernel kernel, int threads, size_t smem, const void* q,
   return cudaGetLastError();
 }
 
+// Kernel variants, chosen by the caller (flash_attention.py::variant):
+// 0 float32 FMAs, 1 bf16 mma.sync, 2 bf16 wgmma with TMA (D of 64, 128, 256).
+enum Variant { kFma = 0, kMmaSync = 1, kWgmma = 2 };
+
 template <int D>
-cudaError_t launch_d(int dtype, const void* q, const void* k, const void* v,
-                     void* o, int B, int H, int Hkv, int S, int causal,
-                     int window, cudaStream_t stream) {
-  if (dtype == 0)
+cudaError_t launch_d(int dtype, int variant, const void* q, const void* k,
+                     const void* v, void* o, int B, int H, int Hkv, int S,
+                     int causal, int window, cudaStream_t stream) {
+  if (dtype == 0 && variant == kFma)
     return launch<float>(flash_fwd_f32_kernel<D>, NT,
                          TilesF32<D>::smem_bytes, q, k, v, o, B, H, Hkv, S,
                          D, causal, window, stream);
-  if (dtype == 1)
+  if (dtype == 1 && variant == kMmaSync)
     return launch<__nv_bfloat16>(flash_fwd_bf16_kernel<D>, NTB,
                                  TilesBf16<D>::smem_bytes, q, k, v, o, B, H,
                                  Hkv, S, D, causal, window, stream);
+  if constexpr (D % 64 == 0) {
+    if (dtype == 1 && variant == kWgmma)
+      return launch_wgmma<D>(q, k, v, o, B, H, Hkv, S, causal, window,
+                             stream);
+  }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q: (B, H, S, D), k and v: (B, Hkv, S, D), o: (B, H, S, D), all contiguous
-// and of one type: dtype 0 is float32, 1 is bfloat16 (16-byte aligned).  D is
-// one of 16, 32, 64, 96, 128, 256.  Returns the cudaError_t of the launch
-// (0 on success).
+// and of one type: dtype 0 is float32 (variant 0), 1 is bfloat16 (variant 1,
+// or 2 for D of 64, 128, 256), 16-byte aligned.  D is one of 16, 32,
+// 64, 96, 128, 256.  Returns the cudaError_t of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int B, int H, int Hkv, int S,
                                    int D, int causal, int window, int dtype,
-                                   void* stream) {
+                                   int variant, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return (int)launch_d<16>(dtype, q, k, v, o, B, H, Hkv, S, causal, window, st);
-    case 32: return (int)launch_d<32>(dtype, q, k, v, o, B, H, Hkv, S, causal, window, st);
-    case 64: return (int)launch_d<64>(dtype, q, k, v, o, B, H, Hkv, S, causal, window, st);
-    case 96: return (int)launch_d<96>(dtype, q, k, v, o, B, H, Hkv, S, causal, window, st);
-    case 128: return (int)launch_d<128>(dtype, q, k, v, o, B, H, Hkv, S, causal, window, st);
-    case 256: return (int)launch_d<256>(dtype, q, k, v, o, B, H, Hkv, S, causal, window, st);
+    case 16: return (int)launch_d<16>(dtype, variant, q, k, v, o, B, H, Hkv, S, causal, window, st);
+    case 32: return (int)launch_d<32>(dtype, variant, q, k, v, o, B, H, Hkv, S, causal, window, st);
+    case 64: return (int)launch_d<64>(dtype, variant, q, k, v, o, B, H, Hkv, S, causal, window, st);
+    case 96: return (int)launch_d<96>(dtype, variant, q, k, v, o, B, H, Hkv, S, causal, window, st);
+    case 128: return (int)launch_d<128>(dtype, variant, q, k, v, o, B, H, Hkv, S, causal, window, st);
+    case 256: return (int)launch_d<256>(dtype, variant, q, k, v, o, B, H, Hkv, S, causal, window, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -38,13 +38,27 @@
 // card's 132 SMs (a few rows by a narrow N), K is split over blocks, whose
 // float32 partials a second kernel sums: (4, 1152, 6912) has 9 output tiles.
 // Both kernels load the next K tile into registers while the current one is
-// multiplied.  wgmma, TMA and a pipelined ring of shared
-// tiles, which the card's full rate needs, come later.
+// multiplied.
+//
+// bf16 on Hopper (the wgmma variant), for M > 16 and K, N multiples of 8:
+// the card's full tensor-core rate needs wgmma, which reads its operands
+// from shared memory while the tiles stream in.  a's and b's tiles arrive by
+// TMA (128-byte swizzle, boxes of 64 bf16 on the inner dimension) in a
+// 3-stage ring guarded by mbarriers; a producer warpgroup keeps the loads in
+// flight and two consumer warpgroups multiply a 128 x 256 output tile, b
+// being MN-major (wgmma's transpose-B), and store it by TMA from shared
+// memory.  It never splits K.  The helpers it
+// shares with the flash kernel are in hopper.cuh.  Which variant runs is the
+// caller's choice (nvdla_matmul.py::variant): float32 takes the FMA kernel,
+// bf16 the wgmma one where TMA can describe the operands and M > 16, the
+// mma.sync one otherwise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -326,6 +340,178 @@ matmul_bf16_kernel(const __nv_bfloat16* __restrict__ a,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 on Hopper: wgmma fed by TMA through a ring of shared tiles
+
+namespace wg {
+constexpr int BM = 128, BN = 256, BK = 64;   // output tile, k per stage
+constexpr int STAGES = 3;
+constexpr int CONSUMERS = 2;                 // warpgroups of 64 rows each
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int A_BYTES = BM * BK * 2;         // one box [BM][64]
+constexpr int B_BYTES = BK * BN * 2;         // BN / 64 boxes [BK][64]
+constexpr int C_BYTES = 64 * BN * 2;         // BN / 64 boxes [64][64] a warpgroup
+constexpr size_t SMEM = 1024 + size_t(STAGES) * (A_BYTES + B_BYTES) +
+                        size_t(CONSUMERS) * C_BYTES +
+                        2 * STAGES * sizeof(uint64_t);
+}  // namespace wg
+
+// A persistent grid: block i owns output tiles i, i + gridDim.x, ... (BM x
+// BN each, N fastest), so that one tile's epilogue overlaps the loads of the
+// next.  Warpgroup CONSUMERS is the producer: one thread issues the TMA loads
+// of a's (BM x 64, K-major) and b's (64 x BN, MN-major) boxes into the
+// STAGES-deep ring, each stage guarded by a `full` barrier (TMA bytes) and an
+// `empty` one (one arrival per consumer warp); the ring runs on across tiles.
+// Consumer warpgroup w multiplies rows 64 w .. 64 w + 63 with m64n256k16
+// wgmma, keeping one stage's products in flight while it waits for the next.
+// Its epilogue writes the float32 accumulator as bf16 into its own shared
+// tile (the 128-byte-swizzled boxes a TMA load of c would write), and one
+// thread stores those boxes to c by TMA while the warpgroup goes on to its
+// next tile: register-to-global stores of 4 bytes cost 28% of the time
+// (PERF.md).  TMA writes nothing past M and N; a's and b's boxes arrive as
+// zeros there.  3 stages leave room for the two output tiles.
+__global__ void __launch_bounds__(wg::THREADS, 1)
+matmul_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                         const __grid_constant__ CUtensorMap map_b,
+                         const __grid_constant__ CUtensorMap map_c, int M,
+                         int N, int K) {
+  using namespace wg;
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* As = align1024(smem_raw);          // [STAGES][BM][64]
+  unsigned char* Bs = As + STAGES * A_BYTES;        // [STAGES][BN/64][BK][64]
+  unsigned char* Cs = Bs + STAGES * B_BYTES;        // [CONSUMERS][BN/64][64][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(Cs + CONSUMERS * C_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  const int tiles_n = (N + BN - 1) / BN;
+  const int tiles = tiles_n * ((M + BM - 1) / BM);
+  const int nk = (K + BK - 1) / BK;
+  const int wgi = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS * 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wgi == CONSUMERS) {   // producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == CONSUMERS * 128) {
+      int it = 0;   // k tiles loaded so far, over all this block's tiles
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t / tiles_n * BM, n0 = t % tiles_n * BN;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          mbar_arrive_expect_tx(&full[s], A_BYTES + B_BYTES);
+          tma_load_2d(As + s * A_BYTES, &map_a, &full[s], kt * BK, m0);
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            tma_load_2d(Bs + s * B_BYTES + j * BK * 128, &map_b, &full[s],
+                        n0 + 64 * j, kt * BK);
+        }
+      }
+    }
+  } else {                  // consumers
+    setmaxnreg_inc<232>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const bool storer = threadIdx.x % 128 == 0;
+    unsigned char* cs = Cs + wgi * C_BYTES;
+    Acc<BN> acc;
+    int it = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = t / tiles_n * BM, n0 = t % tiles_n * BN;
+      acc_zero(acc);
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(&full[s], (it / STAGES) & 1);
+        const unsigned char* a = As + s * A_BYTES + wgi * 64 * 128;
+        const unsigned char* b = Bs + s * B_BYTES;
+        acc_fence(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_ss<1>(acc, desc_sw128(a + 32 * kk, 16, 1024),
+                      desc_sw128(b + 2048 * kk, BK * 128, 1024), 1);
+        wgmma_commit();
+        acc_fence(acc);
+        wgmma_wait<1>();   // the previous stage's products are done
+        if (kt > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+      }
+      wgmma_wait<0>();
+      acc_fence(acc);
+      if (lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+
+      // the previous tile's stores have read this warpgroup's shared tile
+      if (storer) tma_store_wait_read();
+      bar_sync(1 + wgi, 128);
+      // acc.r[4 j + 2 h + e]: row 16 warp + lane / 4 + 8 h of the warpgroup's
+      // 64, column 8 j + 2 (lane % 4) + e; 16-byte piece j % 8 of box j / 8,
+      // swizzled by the row
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = warp * 16 + lane / 4 + 8 * h;
+          *reinterpret_cast<__nv_bfloat162*>(
+              cs + (j / 8) * 64 * 128 + r * 128 + ((j % 8) ^ (r % 8)) * 16 +
+              4 * (lane % 4)) =
+              __floats2bfloat162_rn(acc.r[4 * j + 2 * h],
+                                    acc.r[4 * j + 2 * h + 1]);
+        }
+      fence_proxy_async();
+      bar_sync(1 + wgi, 128);
+      if (storer) {
+#pragma unroll
+        for (int b = 0; b < BN / 64; ++b)
+          tma_store_2d(&map_c, cs + b * 64 * 128, n0 + 64 * b, m0 + 64 * wgi);
+        tma_store_commit();
+      }
+    }
+    if (storer) tma_store_wait();
+  }
+}
+
+// a (M, K) and b (K, N) as tensor maps of 64-element boxes; K % 8 == 0 and
+// N % 8 == 0 so that their row strides are whole 16-byte units
+cudaError_t launch_wgmma(const void* a, const void* b, void* c, int M, int N,
+                         int K, cudaStream_t stream) {
+  using namespace wg;
+  if (K % 8 || N % 8) return cudaErrorInvalidValue;
+  CUtensorMap map_a, map_b, map_c;
+  const cuuint64_t a_dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t a_strides[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t a_box[2] = {64, BM};
+  const cuuint64_t b_dims[2] = {(cuuint64_t)N, (cuuint64_t)K};
+  const cuuint64_t b_strides[1] = {(cuuint64_t)N * 2};
+  const cuuint32_t b_box[2] = {64, BK};
+  cudaError_t err =
+      hopper::make_map_bf16(&map_a, a, 2, a_dims, a_strides, a_box);
+  const cuuint64_t c_dims[2] = {(cuuint64_t)N, (cuuint64_t)M};
+  const cuuint32_t c_box[2] = {64, 64};
+  if (err == cudaSuccess)
+    err = hopper::make_map_bf16(&map_b, b, 2, b_dims, b_strides, b_box);
+  if (err == cudaSuccess)   // c's rows have b's stride
+    err = hopper::make_map_bf16(&map_c, c, 2, c_dims, b_strides, c_box);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(matmul_bf16_wgmma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)SMEM);
+  int device = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (long long)((N + BN - 1) / BN) * ((M + BM - 1) / BM);
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  matmul_bf16_wgmma_kernel<<<grid, THREADS, SMEM, stream>>>(
+      map_a, map_b, map_c, M, N, K);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // launch
 
 // the split-K partials of ws, (splits, M, N) float32, summed into c
@@ -383,30 +569,38 @@ cudaError_t launch(Kernel kernel, int threads, int bm, int bn, const void* a,
 
 }  // namespace
 
-// The number of K splits of an (M, N, K) product: above 1, nvdla_matmul needs
-// a float32 workspace of splits * M * N elements.
-extern "C" int nvdla_matmul_splits(int M, int N, int K) {
-  if (M < 1 || N < 1 || K < 1) return 1;
+// Kernel variants, chosen by the caller (nvdla_matmul.py::variant):
+// 0 float32 FMAs, 1 bf16 mma.sync, 2 bf16 wgmma with TMA.
+enum Variant { kFma = 0, kMmaSync = 1, kWgmma = 2 };
+
+// The number of K splits of an (M, N, K) product under a variant: above 1,
+// nvdla_matmul needs a float32 workspace of splits * M * N elements.  The
+// wgmma variant never splits.
+extern "C" int nvdla_matmul_splits(int M, int N, int K, int variant) {
+  if (M < 1 || N < 1 || K < 1 || variant == kWgmma) return 1;
   const int kchunk = split_k(M, N, K);
   return (K + kchunk - 1) / kchunk;
 }
 
 // a: (M, K), b: (K, N), c: (M, N), all row-major, contiguous and of one type:
-// dtype 0 is float32, 1 is bfloat16 (16-byte aligned).  Any M, N, K >= 1.
-// ws: float32 workspace of nvdla_matmul_splits(M, N, K) * M * N elements, or
-// null when that is 1.  Returns the cudaError_t of the launch (0 on success).
+// dtype 0 is float32 (variant 0), 1 is bfloat16 (variant 1, or 2 when
+// K % 8 == 0 and N % 8 == 0), 16-byte aligned.  Any M, N, K >= 1.  ws:
+// float32 workspace of nvdla_matmul_splits(M, N, K, variant) * M * N
+// elements, or null when that is 1.  Returns the cudaError_t of the launch
+// (0 on success).
 extern "C" int nvdla_matmul(const void* a, const void* b, void* c, void* ws,
-                            int M, int N, int K, int dtype, void* stream) {
+                            int M, int N, int K, int dtype, int variant,
+                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
   if (M < 1 || N < 1 || K < 1) return (int)cudaErrorInvalidValue;
   const bool small = M <= SMALL_M;
-  if (dtype == 0)
+  if (dtype == 0 && variant == kFma)
     return small ? (int)launch<float>(matmul_f32_kernel<1, 16>, F_NT, 16,
                                       F_BN, a, b, c, w, M, N, K, st)
                  : (int)launch<float>(matmul_f32_kernel<8, 8>, F_NT, 128,
                                       F_BN, a, b, c, w, M, N, K, st);
-  if (dtype == 1)
+  if (dtype == 1 && variant == kMmaSync)
     return small
                ? (int)launch<__nv_bfloat16>(matmul_bf16_kernel<1, 4, 1, 4>,
                                             128, 16, 128, a, b, c, w, M, N, K,
@@ -414,5 +608,7 @@ extern "C" int nvdla_matmul(const void* a, const void* b, void* c, void* ws,
                : (int)launch<__nv_bfloat16>(matmul_bf16_kernel<2, 4, 4, 4>,
                                             256, 128, 128, a, b, c, w, M, N,
                                             K, st);
+  if (dtype == 1 && variant == kWgmma)
+    return (int)launch_wgmma(a, b, c, M, N, K, st);
   return (int)cudaErrorInvalidValue;
 }

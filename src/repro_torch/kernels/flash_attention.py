@@ -7,7 +7,14 @@ stream and raises if the launch fails.  It takes CUDA tensors only; the plain
 version is ``repro_torch.kernels.ref.flash_attention_ref`` and
 ``repro_torch.kernels.ops`` picks between the two by device.
 
-``flash_attention.launches`` counts the kernel's launches.
+The kernel has variants, one chosen per call by ``variant(D, dtype)``, a
+rule by shape and type: bf16 at a head dim of 64, 128 or 256 takes the
+Hopper kernel (``"wgmma"``: wgmma fed by TMA), other bf16 head dims the
+``mma.sync`` kernel, float32 the FMA kernel.  A failed launch raises; no
+variant stands in for another.
+
+``flash_attention.launches`` counts the kernel's launches and
+``flash_attention.launches_by_variant`` splits them by variant.
 """
 from __future__ import annotations
 
@@ -19,22 +26,43 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
+WGMMA_HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# variant -> (code in csrc/flash_attention.cu, dtype it takes)
+VARIANTS = {"fma": (0, torch.float32), "mma_sync": (1, torch.bfloat16),
+            "wgmma": (2, torch.bfloat16)}
+
+
+def variant(D, dtype):
+    """The kernel variant for head dim ``D`` and ``dtype``: ``"wgmma"`` for
+    bf16 with D in ``WGMMA_HEAD_DIMS``, ``"mma_sync"`` for other bf16, and
+    ``"fma"`` for float32.  Raises on a head dim or type the kernel lacks."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"flash_attention kernel takes float32 or bfloat16, "
+                        f"got {dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    if dtype == torch.float32:
+        return "fma"
+    return "wgmma" if D in WGMMA_HEAD_DIMS else "mma_sync"
 
 
 @functools.cache
 def _kernel():
     fn = _build.load("flash_attention").flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def flash_attention(q, k, v, *, causal=True, window=0):
+def flash_attention(q, k, v, *, causal=True, window=0, kernel=None):
     """q: (B, H, S, D); k, v: (B, Hkv, S, D) with ``H % Hkv == 0``, all on
     one CUDA device, all float32 or all bfloat16.  ``window > 0`` adds the
-    sliding-window mask ``qpos - kpos < window``.  Returns (B, H, S, D)."""
+    sliding-window mask ``qpos - kpos < window``.  ``kernel`` names a
+    variant other than ``variant(D, dtype)`` (to time one against another);
+    it must take the inputs' type (and, for ``"wgmma"``, their head dim).
+    Returns (B, H, S, D)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention kernel takes q, k, v on one CUDA "
                          f"device, got {q.device}, {k.device}, {v.device}")
@@ -51,8 +79,11 @@ def flash_attention(q, k, v, *, causal=True, window=0):
     if Hkv == 0 or H % Hkv or (k.shape[0], k.shape[2], k.shape[3]) != (B, S, D):
         raise ValueError(f"k, v must be (B, Hkv, S, D) with H % Hkv == 0 for "
                          f"q {tuple(q.shape)}, got {tuple(k.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    name = variant(D, q.dtype) if kernel is None else kernel
+    if name not in VARIANTS or VARIANTS[name][1] != q.dtype or (
+            name == "wgmma" and D not in WGMMA_HEAD_DIMS):
+        raise ValueError(f"kernel variant {name!r} does not take {q.dtype} "
+                         f"at head dim {D}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     # contiguous, and 16-byte aligned for the bf16 kernel's vector loads
@@ -62,13 +93,20 @@ def flash_attention(q, k, v, *, causal=True, window=0):
     with torch.cuda.device(q.device):
         rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        out.data_ptr(), B, H, Hkv, S, D, int(causal),
-                       int(window), _DTYPES[q.dtype],
+                       int(window), _DTYPES[q.dtype], VARIANTS[name][0],
                        torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError_t {rc}")
     flash_attention.launches += 1
+    flash_attention.launches_by_variant[name] += 1
     return out
 
 
-flash_attention.launches = 0
+def reset_counts():
+    """Sets ``launches`` and every ``launches_by_variant`` count to 0."""
+    flash_attention.launches = 0
+    flash_attention.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+reset_counts()

@@ -94,3 +94,54 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(["flash_attention"])
+
+
+SERVING_SHAPES = [  # B, H, Hkv, S, D of the gemma3_1b serving path
+    (4, 4, 1, 1024, 256), (2, 4, 1, 600, 256), (1, 4, 1, 77, 256)]
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D", SERVING_SHAPES)
+def test_variant_rule_takes_hopper_kernel_at_serving_shapes(B, H, Hkv, S, D):
+    assert fa.variant(D, torch.bfloat16) == "wgmma"
+
+
+@pytest.mark.parametrize("D,dtype,expect", [
+    (64, torch.bfloat16, "wgmma"), (128, torch.bfloat16, "wgmma"),
+    (16, torch.bfloat16, "mma_sync"), (32, torch.bfloat16, "mma_sync"),
+    (96, torch.bfloat16, "mma_sync"),
+    (256, torch.float32, "fma"), (64, torch.float32, "fma"),
+    (16, torch.float32, "fma"),
+])
+def test_variant_rule_by_head_dim_and_type(D, dtype, expect):
+    """bf16 takes wgmma only where its 64-element TMA boxes tile D; float32
+    always takes the FMA kernel (no tensor-core type meets 1e-4)."""
+    assert fa.variant(D, dtype) == expect
+
+
+@pytest.mark.parametrize("D,dtype,exc", [
+    (48, torch.bfloat16, ValueError), (512, torch.float32, ValueError),
+    (64, torch.float16, TypeError), (256, torch.int32, TypeError)])
+def test_variant_rule_raises_on_unknown_head_dim_or_type(D, dtype, exc):
+    with pytest.raises(exc):
+        fa.variant(D, dtype)
+
+
+def test_every_variant_is_counted():
+    assert set(fa.flash_attention.launches_by_variant) == set(fa.VARIANTS)
+    assert {fa.variant(D, dt) for D in fa.HEAD_DIMS
+            for dt in (torch.float32, torch.bfloat16)} <= set(fa.VARIANTS)
+
+
+def test_library_path_covers_shared_headers(monkeypatch, tmp_path):
+    """Editing a header that the sources include rebuilds them: the library
+    path of every source changes with it."""
+    for src in _build.CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {n: _build.library_path(n)
+              for n in ("flash_attention", "nvdla_matmul")}
+    assert before == {n: _build.library_path(n) for n in before}
+    header = tmp_path / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build.library_path(n) for n in before}
+    assert all(after[n] != before[n] for n in before)

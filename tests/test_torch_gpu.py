@@ -6,6 +6,7 @@ and no JAX:
 
   PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
 import time
 
 import numpy as np
@@ -220,3 +221,103 @@ def test_calibration_times_the_card_not_the_host(cuda):
         x.add_(1.0)
 
     assert calibrate._best_of(call, 3, torch.device(cuda)) < 1e-3
+
+
+def _launched(fn, call):
+    """What ``call()`` returned, and the launches it added by variant."""
+    before = dict(fn.launches_by_variant)
+    out = call()
+    torch.cuda.synchronize()
+    return out, {k: n - before[k] for k, n in fn.launches_by_variant.items()
+                 if n != before[k]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["wgmma", "mma_sync"])
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window", [
+    (4, 4, 1, 1024, 256, True, 512),          # gemma3_1b local layer
+    (4, 4, 1, 1024, 256, True, 0),            # gemma3_1b global layer
+    (4, 4, 1, 1024, 64, True, 0),             # the Hopper variant's other Ds
+    (4, 4, 1, 1024, 128, True, 512),
+    (2, 4, 2, 1000, 128, True, 0),            # ragged S, GQA
+    (1, 4, 1, 77, 256, True, 0),              # S below two tiles
+    (1, 4, 1, 77, 64, True, 30),
+    (2, 4, 1, 1024, 256, True, 64),           # window of one tile
+    (1, 4, 1, 1000, 128, True, 100),          # window off the tile grid
+    (1, 2, 1, 300, 256, False, 0),            # no causal mask
+    (1, 2, 1, 256, 64, False, 70),            # window without causal
+])
+def test_cuda_flash_variants_match_plain(cuda, B, H, Hkv, S, D, causal,
+                                         window, kernel):
+    """Both bf16 variants at the head dims the Hopper one takes, at 3e-2
+    (tests/test_kernels.py); the shape rule names the Hopper one."""
+    assert fa.variant(D, torch.bfloat16) == "wgmma"
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               .to(cuda, torch.bfloat16)
+               for shape in ((B, H, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+    out, ran = _launched(fa.flash_attention, lambda: fa.flash_attention(
+        q, k, v, causal=causal, window=window, kernel=kernel))
+    assert ran == {kernel: 1}
+    expect = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               expect.float().cpu().numpy(), rtol=3e-2,
+                               atol=3e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["wgmma", "mma_sync"])
+@pytest.mark.parametrize("M,N,K", [
+    (128, 128, 128), (256, 128, 384),           # tests/test_kernels.py
+    (512, 256, 256), (128, 512, 640), (100, 72, 200),
+    (200, 6912, 1152), (4100, 1032, 1152),      # M, N off the Hopper tile
+    (512, 1024, 4096),                          # K over many ring turns
+    (4096, 1024, 1152), (1024, 6912, 1152),     # calibration model grid
+])
+def test_cuda_matmul_variants_match_plain(cuda, M, N, K, kernel):
+    """Both bf16 variants where the Hopper one applies, at rtol 2e-2, atol
+    2e-2 sqrt(K) (tests/test_kernels.py); the shape rule names the Hopper
+    one."""
+    assert mm.variant(M, N, K, torch.bfloat16) == "wgmma"
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    b = torch.randn(K, N, generator=g, device=cuda).bfloat16()
+    out, ran = _launched(mm.matmul, lambda: mm.matmul(a, b, kernel=kernel))
+    assert ran == {kernel: 1}
+    assert out.dtype == torch.bfloat16 and out.shape == (M, N)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.matmul_ref(a, b).float().cpu().numpy(),
+                               rtol=2e-2, atol=2e-2 * K ** 0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,dtype,shape", [
+    ("wgmma", torch.bfloat16, (130, 100, 64)),     # N off 8: no tensor map
+    ("wgmma", torch.float32, (128, 128, 128)),
+    ("fma", torch.bfloat16, (128, 128, 128)),
+    ("mma_sync", torch.float32, (128, 128, 128)),
+])
+def test_cuda_matmul_refuses_variant_off_its_rule(cuda, kernel, dtype,
+                                                  shape):
+    M, N, K = shape
+    a = torch.zeros(M, K, device=cuda, dtype=dtype)
+    b = torch.zeros(K, N, device=cuda, dtype=dtype)
+    with pytest.raises(ValueError, match="variant"):
+        mm.matmul(a, b, kernel=kernel)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim,variant", [(16, "mma_sync"),
+                                              (64, "wgmma")])
+def test_serving_launches_by_variant(cuda, head_dim, variant):
+    """One serve call on the smoke gemma3 (head dim 16) and on it at head
+    dim 64: every prefill layer launches the variant the rule names."""
+    cfg = dataclasses.replace(get_smoke_config("gemma3_1b"),
+                              head_dim=head_dim)
+    params = T.init_params(cfg, seed=0, device=cuda)
+    fa.reset_counts()
+    stats = serve(cfg, requests=4, batch=4, prompt_len=40, max_new=2,
+                  device=cuda, params=params, log=lambda *a: None)
+    assert stats["finite"]
+    assert fa.flash_attention.launches_by_variant == {
+        **dict.fromkeys(fa.VARIANTS, 0), variant: cfg.n_layers}

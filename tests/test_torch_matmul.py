@@ -95,3 +95,43 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(["nvdla_matmul"])
+
+
+MODEL_GRID_LARGE = [(4096, 1024, 1152), (4096, 6912, 1152),
+                    (1024, 6912, 1152)]   # calibrate.MODEL_GRIDS, M > 16
+
+
+@pytest.mark.parametrize("M,N,K", MODEL_GRID_LARGE + [
+    (4096, 1152, 1152), (4096, 2304, 6912),    # serving prefill projections
+    (200, 6912, 1152), (4100, 1032, 1152), (512, 1024, 4096), (17, 8, 8)])
+def test_variant_rule_takes_hopper_kernel_for_large_bf16(M, N, K):
+    assert mm.variant(M, N, K, torch.bfloat16) == "wgmma"
+
+
+@pytest.mark.parametrize("M,N,K,dtype,expect", [
+    (4, 1152, 6912, torch.bfloat16, "mma_sync"),     # decoding rows
+    (4, 262144, 1152, torch.bfloat16, "mma_sync"),
+    (16, 1024, 1152, torch.bfloat16, "mma_sync"),
+    (17, 130, 33, torch.bfloat16, "mma_sync"),       # K, N off 8
+    (128, 130, 128, torch.bfloat16, "mma_sync"),     # N off 8
+    (128, 128, 100, torch.bfloat16, "mma_sync"),     # K off 8
+    (4096, 6912, 1152, torch.float32, "fma"),
+    (4, 1152, 6912, torch.float32, "fma"),
+])
+def test_variant_rule_keeps_older_kernels(M, N, K, dtype, expect):
+    """float32, M <= 16 (split K) and row strides TMA cannot describe keep
+    the mma.sync / FMA kernels."""
+    assert mm.variant(M, N, K, dtype) == expect
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.int8])
+def test_variant_rule_raises_on_unknown_type(dtype):
+    with pytest.raises(TypeError):
+        mm.variant(128, 128, 128, dtype)
+
+
+def test_every_variant_is_counted():
+    assert set(mm.matmul.launches_by_variant) == set(mm.VARIANTS)
+    mm.reset_counts()
+    assert mm.matmul.launches == 0
+    assert set(mm.matmul.launches_by_variant.values()) == {0}
