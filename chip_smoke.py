@@ -28,17 +28,21 @@ printing a result:
    on the card, in float32 and bf16, at the ``tests/test_kernels.py`` shapes
    and tolerances, at ragged shapes, at M and N off the Hopper tile and K
    over several turns of its ring, and at every shape of the calibration's
-   ``"model"`` grid (bf16 in the variant the shape rule names and, where
-   that is ``wgmma``, in ``mma.sync`` too); then all three kernels at every
-   shape of the ``"model"`` and ``"full"`` grids on the calibration's own
-   float32 inputs;
-8. time them at the ``"model"`` grid's shapes (bf16 in both variants)
-   against their plain versions, the library yardstick (``torch.matmul``; no
-   PyTorch call computes a selective scan) and their bound, with each
-   wrapper's host time per call;
+   ``"model"`` grid, the matmul in the variant the shape rule names and
+   those beside it (``_BESIDE``: ``mma.sync`` beside bf16's ``wgmma``; the
+   FMA kernel beside float32's ``tf32x3`` and ``stream``); then all three
+   kernels at every shape of the
+   ``"model"`` and ``"full"`` grids on the calibration's own float32 inputs;
+8. time them at the ``"model"`` grid's shapes (the matmul in the same
+   variants) against their plain versions, the library yardstick
+   (``torch.matmul``; no PyTorch call computes a selective scan) and each
+   variant's bound, with each wrapper's host time per call, and split a
+   ``tf32x3`` call's device time between its split pass and its product
+   with ``torch.profiler``;
 9. run the calibration loop (``repro_torch.kernels.calibrate.measure``) on
    the ``"model"`` and ``"full"`` grids, counting the three kernels'
-   launches, and print each kernel's fit.
+   launches by variant (the float32 matmul's as its rule names them), and
+   print each kernel's fit.
 
 Kernel times are CUDA events around back-to-back calls queued behind a
 device-side wait (``torch.cuda._sleep``) that outlasts their enqueue, so
@@ -167,11 +171,15 @@ def _check(name, out, expect, rtol, atol):
     return err
 
 
+# the variants held and timed beside the one a shape rule names: the older
+# kernels it replaced
+_BESIDE = {"wgmma": ["mma_sync"], "tf32x3": ["fma"], "stream": ["fma"]}
+
+
 def _variants(rule, dtype, *shape):
-    """The variant the shape rule names and, where that is the Hopper one,
-    the ``mma.sync`` one beside it."""
+    """The variant the shape rule names and those of ``_BESIDE``."""
     name = rule(*shape, dtype)
-    return [name, "mma_sync"] if name == "wgmma" else [name]
+    return [name] + _BESIDE.get(name, [])
 
 
 def _ran(fn, name, call):
@@ -532,13 +540,18 @@ def check_calibration_shapes():
     return worst
 
 
-def matmul_bound(M, N, K, dtype):
-    """Least time (ms): 2 M N K operations at the type's peak (float32 on the
-    CUDA cores, bf16 on the tensor cores) against a and b read once and c
-    written once at the HBM rate."""
+def matmul_bound(M, N, K, dtype, variant):
+    """Least time (ms) of a variant: its operations at their peak (bf16 on
+    the tensor cores; float32 ``tf32x3`` as 3 x 2 M N K TF32 operations on
+    the tensor cores; float32 ``stream`` and ``fma`` as 2 M N K on the CUDA
+    cores) against a and b read once and c written once at the HBM rate."""
     itemsize = torch.finfo(dtype).bits // 8
-    peak = hw.PEAK_FLOPS if dtype == torch.float32 else hw.PEAK_FLOPS_BF16
-    terms = {"operations": 2 * M * N * K / peak,
+    if variant == "tf32x3":
+        ops = 3 * 2 * M * N * K / hw.PEAK_FLOPS_TF32
+    else:
+        ops = 2 * M * N * K / (hw.PEAK_FLOPS if dtype == torch.float32
+                               else hw.PEAK_FLOPS_BF16)
+    terms = {"operations": ops,
              "bytes": itemsize * (M * K + K * N + M * N) / hw.HBM_BW}
     by = max(terms, key=terms.get)
     return 1e3 * terms[by], by, terms
@@ -558,22 +571,49 @@ def scan_bound(b, S, d, N, dtype):
     return 1e3 * terms[by], by, terms
 
 
+def profile_tf32x3(call, shape, smi, calls=10):
+    """A ``tf32x3`` call's device time by kernel (the split pass and the
+    product) over ``calls`` calls, with ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    ms = {e.key: e.self_device_time_total / 1e3 / calls
+          for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    if not ms:
+        log(f"matmul tf32x3 {shape} profile: no device time in the trace "
+            "(not measured)")
+        return
+    split = sum(t for k, t in ms.items() if "tf32_split" in k)
+    total = sum(ms.values())
+    log(f"matmul tf32x3 {shape} profile: split pass {split:.4f} ms, product "
+        f"{total - split:.4f} ms a call ({100 * split / total:.1f}% split); "
+        f"card {smi}")
+
+
 def time_new_kernels(smi):
     """Kernel (each variant of ``_variants``), plain and library times (CUDA
     events) and the wrappers' host time a call at the model grid's shapes,
     in float32 and bf16.  Returns the float32 rows (the type the calibration
-    loop runs) by kernel."""
+    loop runs; the matmul's in the variant its rule names) by kernel, and
+    the float32 matmul's ms by variant and shape."""
     rows = {"matmul": [], "mamba_scan": []}
+    by_variant = {}
     for dtype in (torch.float32, torch.bfloat16):
         for M, N, K in calibrate.MODEL_GRIDS["matmul"]:
             a, b = _matmul_inputs(M, N, K, dtype, seed=2)
             plain = cuda_ms(lambda: ref.matmul_ref(a, b), 20, hold=False)
             lib = cuda_ms(lambda: torch.matmul(a, b), 20)
-            b_ms, by, terms = matmul_bound(M, N, K, dtype)
             for name in _variants(mm.variant, dtype, M, N, K):
                 def call():
                     return mm.matmul(a, b, kernel=name)
                 kernel_ms, host = cuda_ms(call, 20), host_us(call)
+                b_ms, by, terms = matmul_bound(M, N, K, dtype, name)
                 tflops = 2 * M * N * K / kernel_ms / 1e9
                 log(f"matmul {name} {(M, N, K)} {dtype}: kernel "
                     f"{kernel_ms:.4f} ms ({tflops:.2f} TFLOP/s; host "
@@ -582,10 +622,15 @@ def time_new_kernels(smi):
                     f"{by} (ops {1e3 * terms['operations']:.4f}, bytes "
                     f"{1e3 * terms['bytes']:.4f} ms) = "
                     f"{100 * b_ms / kernel_ms:.2f}% of bound; card {smi}")
-                if dtype == torch.float32:
+                if dtype != torch.float32:
+                    continue
+                by_variant.setdefault(name, {})[f"{M}x{N}x{K}"] = kernel_ms
+                if name == mm.variant(M, N, K, dtype):
                     rows["matmul"].append(dict(
                         ms=kernel_ms, plain_ms=plain, library_ms=lib,
                         bound_ms=b_ms, bound_by=by, host_us=host))
+                if name == "tf32x3":
+                    profile_tf32x3(call, (M, N, K), smi)
         for shape in calibrate.MODEL_GRIDS["mamba"]:
             args = _scan_inputs(*shape, dtype, seed=2)
 
@@ -605,7 +650,7 @@ def time_new_kernels(smi):
                     ms=kernel_ms, plain_ms=plain, library_ms=None,
                     bound_ms=b_ms, host_us=host,
                     bound_by="bytes" if by == "bytes" else "operations"))
-    return rows
+    return rows, by_variant
 
 
 def run_calibration():
@@ -657,9 +702,20 @@ def run_calibration():
         "flash_attention": dict(fa.flash_attention.launches_by_variant),
         "mamba_scan": {"cuda": launches["mamba_scan"]}}
     log(f"by variant: {by_variant}")
-    for name in ("matmul", "flash_attention"):   # float32: the FMA kernels
-        if by_variant[name]["fma"] != launches[name]:
-            raise AssertionError(f"{name} ran {by_variant[name]} in float32")
+    # float32: the matmul in the variants its rule names (stream for M <=
+    # 16, tf32x3 above), flash in its FMA kernel
+    rule = {}
+    for grid, repeat in CALIBRATION:
+        for shape in calibrate.GRIDS[grid]["matmul"]:
+            name = mm.variant(*shape, torch.float32)
+            rule[name] = rule.get(name, 0) + 1 + repeat
+    ran = {k: n for k, n in by_variant["matmul"].items() if n}
+    if ran != rule or sum(rule.values()) != launches["matmul"]:
+        raise AssertionError(f"matmul ran {ran} in float32, its rule names "
+                             f"{rule}")
+    if by_variant["flash_attention"]["fma"] != launches["flash_attention"]:
+        raise AssertionError(f"flash ran {by_variant['flash_attention']} in "
+                             "float32")
     return launches, by_variant
 
 
@@ -691,7 +747,8 @@ def main():
     torch.cuda.empty_cache()
     new_err = check_new_kernels()
     cal_err = check_calibration_shapes()
-    new_rows = time_new_kernels(smi)
+    new_rows, mm_by_variant = time_new_kernels(smi)
+    log(f"matmul float32 ms by variant and shape: {mm_by_variant}")
     f32_flash = _mean_row(time_flash_f32(smi))
     log(f"flash_attention fma, mean over the model grid (float32, what the "
         f"calibration runs): {f32_flash}")
@@ -721,7 +778,8 @@ def main():
             "replaces": replaces, "launches": cal_launches[kname],
             "launches_by_variant": cal_by_variant[kname],
             "max_abs_err": max(new_err[kname], cal_err[cal]),
-            **_mean_row(new_rows[kname])}
+            **_mean_row(new_rows[kname]),
+            **({"ms_by_variant": mm_by_variant} if kname == "matmul" else {})}
         for kname, cal, src, replaces in (
             ("matmul", "matmul", "nvdla_matmul",
              "src/repro/kernels/nvdla_matmul.py:60"),

@@ -1,22 +1,24 @@
-// Hopper (sm_90a) building blocks shared by the port's bf16 kernels
+// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
 // (flash_attention.cu, nvdla_matmul.cu): inline PTX for mbarriers, TMA
-// tensor loads and stores, wgmma shared-memory descriptors and products, and register
-// reallocation between warpgroups, plus the host-side encoding of a TMA
-// tensor map.
+// tensor loads and stores, wgmma shared-memory descriptors and products (bf16
+// and TF32), the TF32 hi/lo split, and register reallocation between
+// warpgroups, plus the host-side encoding of a TMA tensor map and the
+// one-time, per-device set-up of a persistent kernel's launch.
 //
 // The shared-memory layout every helper here assumes is the one a TMA load
-// with 128-byte swizzle writes: boxes whose inner dimension is 64 bf16
-// (128 bytes), each row's eight 16-byte pieces XOR-permuted by the row's
-// index mod 8, every box starting on a 1024-byte boundary.  A wgmma operand
-// is then described by desc_sw128:
+// with 128-byte swizzle writes: boxes whose inner dimension is 128 bytes (64
+// bf16 or 32 fp32), each row's eight 16-byte pieces XOR-permuted by the
+// row's index mod 8, every box starting on a 1024-byte boundary.  A wgmma
+// operand is then described by desc_sw128:
 //  - K-major (the reduction dimension contiguous, as a's rows in a @ b, or
 //    q's and k's rows in q k^T): SBO = 1024 bytes between groups of 8 rows,
-//    LBO unused; the k16 step kk inside a 64-wide box starts 32 kk bytes
+//    LBO unused; the 32-byte k step kk inside a box (k16 of bf16, k8 of
+//    TF32) starts 32 kk bytes further on.
+//  - MN-major, bf16 only (the output dimension contiguous, as b's rows in
+//    a @ b or v's rows in p v; the product's transpose-B bit is set): SBO =
+//    1024 bytes between groups of 8 k rows, LBO = the distance between boxes
+//    of 64 output columns; the k16 step kk starts 16 rows (2048 bytes)
 //    further on.
-//  - MN-major (the output dimension contiguous, as b's rows in a @ b or v's
-//    rows in p v; the product's transpose-B bit is set): SBO = 1024 bytes
-//    between groups of 8 k rows, LBO = the distance between boxes of 64
-//    output columns; the k16 step kk starts 16 rows (2048 bytes) further on.
 //
 // The tensor map is encoded on the host with cuTensorMapEncodeTiled, which
 // lives in the driver; it is reached through the runtime's entry-point query,
@@ -26,6 +28,7 @@
 #include <cuda.h>   // CUtensorMap and its enums: types only
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace hopper {
@@ -358,6 +361,125 @@ __device__ __forceinline__ void wgmma_rs(Acc<256>& d, const uint32_t (&a)[4],
         "n"(TB));
 }
 
+// d (+)= a b for a 64 x 8 tf32 A and an 8 x N tf32 B, float32 accumulate,
+// both read from shared memory and both K-major: TF32 wgmma has no transpose
+// bits, so an MN-major operand is transposed before it reaches shared memory.
+// A 128-byte swizzled row holds 32 fp32 values, so the k8 step kk inside a
+// box starts 32 kk bytes further on, as bf16's k16 step does.  The tensor
+// cores read the top 19 bits of each 32-bit operand (see tf32_split).
+// Generated text, one overload per N (112, 128, 256).
+__device__ __forceinline__ void wgmma_ss_tf32(Acc<112>& d, uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %58, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55"
+      "},"
+      " %56, %57, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d.r[0]), "+f"(d.r[1]), "+f"(d.r[2]), "+f"(d.r[3]), "+f"(d.r[4]), "+f"(d.r[5]),
+        "+f"(d.r[6]), "+f"(d.r[7]), "+f"(d.r[8]), "+f"(d.r[9]), "+f"(d.r[10]), "+f"(d.r[11]),
+        "+f"(d.r[12]), "+f"(d.r[13]), "+f"(d.r[14]), "+f"(d.r[15]), "+f"(d.r[16]), "+f"(d.r[17]),
+        "+f"(d.r[18]), "+f"(d.r[19]), "+f"(d.r[20]), "+f"(d.r[21]), "+f"(d.r[22]), "+f"(d.r[23]),
+        "+f"(d.r[24]), "+f"(d.r[25]), "+f"(d.r[26]), "+f"(d.r[27]), "+f"(d.r[28]), "+f"(d.r[29]),
+        "+f"(d.r[30]), "+f"(d.r[31]), "+f"(d.r[32]), "+f"(d.r[33]), "+f"(d.r[34]), "+f"(d.r[35]),
+        "+f"(d.r[36]), "+f"(d.r[37]), "+f"(d.r[38]), "+f"(d.r[39]), "+f"(d.r[40]), "+f"(d.r[41]),
+        "+f"(d.r[42]), "+f"(d.r[43]), "+f"(d.r[44]), "+f"(d.r[45]), "+f"(d.r[46]), "+f"(d.r[47]),
+        "+f"(d.r[48]), "+f"(d.r[49]), "+f"(d.r[50]), "+f"(d.r[51]), "+f"(d.r[52]), "+f"(d.r[53]),
+        "+f"(d.r[54]), "+f"(d.r[55])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_tf32(Acc<128>& d, uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "},"
+      " %64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d.r[0]), "+f"(d.r[1]), "+f"(d.r[2]), "+f"(d.r[3]), "+f"(d.r[4]), "+f"(d.r[5]),
+        "+f"(d.r[6]), "+f"(d.r[7]), "+f"(d.r[8]), "+f"(d.r[9]), "+f"(d.r[10]), "+f"(d.r[11]),
+        "+f"(d.r[12]), "+f"(d.r[13]), "+f"(d.r[14]), "+f"(d.r[15]), "+f"(d.r[16]), "+f"(d.r[17]),
+        "+f"(d.r[18]), "+f"(d.r[19]), "+f"(d.r[20]), "+f"(d.r[21]), "+f"(d.r[22]), "+f"(d.r[23]),
+        "+f"(d.r[24]), "+f"(d.r[25]), "+f"(d.r[26]), "+f"(d.r[27]), "+f"(d.r[28]), "+f"(d.r[29]),
+        "+f"(d.r[30]), "+f"(d.r[31]), "+f"(d.r[32]), "+f"(d.r[33]), "+f"(d.r[34]), "+f"(d.r[35]),
+        "+f"(d.r[36]), "+f"(d.r[37]), "+f"(d.r[38]), "+f"(d.r[39]), "+f"(d.r[40]), "+f"(d.r[41]),
+        "+f"(d.r[42]), "+f"(d.r[43]), "+f"(d.r[44]), "+f"(d.r[45]), "+f"(d.r[46]), "+f"(d.r[47]),
+        "+f"(d.r[48]), "+f"(d.r[49]), "+f"(d.r[50]), "+f"(d.r[51]), "+f"(d.r[52]), "+f"(d.r[53]),
+        "+f"(d.r[54]), "+f"(d.r[55]), "+f"(d.r[56]), "+f"(d.r[57]), "+f"(d.r[58]), "+f"(d.r[59]),
+        "+f"(d.r[60]), "+f"(d.r[61]), "+f"(d.r[62]), "+f"(d.r[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_tf32(Acc<256>& d, uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "},"
+      " %128, %129, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d.r[0]), "+f"(d.r[1]), "+f"(d.r[2]), "+f"(d.r[3]), "+f"(d.r[4]), "+f"(d.r[5]),
+        "+f"(d.r[6]), "+f"(d.r[7]), "+f"(d.r[8]), "+f"(d.r[9]), "+f"(d.r[10]), "+f"(d.r[11]),
+        "+f"(d.r[12]), "+f"(d.r[13]), "+f"(d.r[14]), "+f"(d.r[15]), "+f"(d.r[16]), "+f"(d.r[17]),
+        "+f"(d.r[18]), "+f"(d.r[19]), "+f"(d.r[20]), "+f"(d.r[21]), "+f"(d.r[22]), "+f"(d.r[23]),
+        "+f"(d.r[24]), "+f"(d.r[25]), "+f"(d.r[26]), "+f"(d.r[27]), "+f"(d.r[28]), "+f"(d.r[29]),
+        "+f"(d.r[30]), "+f"(d.r[31]), "+f"(d.r[32]), "+f"(d.r[33]), "+f"(d.r[34]), "+f"(d.r[35]),
+        "+f"(d.r[36]), "+f"(d.r[37]), "+f"(d.r[38]), "+f"(d.r[39]), "+f"(d.r[40]), "+f"(d.r[41]),
+        "+f"(d.r[42]), "+f"(d.r[43]), "+f"(d.r[44]), "+f"(d.r[45]), "+f"(d.r[46]), "+f"(d.r[47]),
+        "+f"(d.r[48]), "+f"(d.r[49]), "+f"(d.r[50]), "+f"(d.r[51]), "+f"(d.r[52]), "+f"(d.r[53]),
+        "+f"(d.r[54]), "+f"(d.r[55]), "+f"(d.r[56]), "+f"(d.r[57]), "+f"(d.r[58]), "+f"(d.r[59]),
+        "+f"(d.r[60]), "+f"(d.r[61]), "+f"(d.r[62]), "+f"(d.r[63]), "+f"(d.r[64]), "+f"(d.r[65]),
+        "+f"(d.r[66]), "+f"(d.r[67]), "+f"(d.r[68]), "+f"(d.r[69]), "+f"(d.r[70]), "+f"(d.r[71]),
+        "+f"(d.r[72]), "+f"(d.r[73]), "+f"(d.r[74]), "+f"(d.r[75]), "+f"(d.r[76]), "+f"(d.r[77]),
+        "+f"(d.r[78]), "+f"(d.r[79]), "+f"(d.r[80]), "+f"(d.r[81]), "+f"(d.r[82]), "+f"(d.r[83]),
+        "+f"(d.r[84]), "+f"(d.r[85]), "+f"(d.r[86]), "+f"(d.r[87]), "+f"(d.r[88]), "+f"(d.r[89]),
+        "+f"(d.r[90]), "+f"(d.r[91]), "+f"(d.r[92]), "+f"(d.r[93]), "+f"(d.r[94]), "+f"(d.r[95]),
+        "+f"(d.r[96]), "+f"(d.r[97]), "+f"(d.r[98]), "+f"(d.r[99]), "+f"(d.r[100]), "+f"(d.r[101]),
+        "+f"(d.r[102]), "+f"(d.r[103]), "+f"(d.r[104]), "+f"(d.r[105]), "+f"(d.r[106]), "+f"(d.r[107]),
+        "+f"(d.r[108]), "+f"(d.r[109]), "+f"(d.r[110]), "+f"(d.r[111]), "+f"(d.r[112]), "+f"(d.r[113]),
+        "+f"(d.r[114]), "+f"(d.r[115]), "+f"(d.r[116]), "+f"(d.r[117]), "+f"(d.r[118]), "+f"(d.r[119]),
+        "+f"(d.r[120]), "+f"(d.r[121]), "+f"(d.r[122]), "+f"(d.r[123]), "+f"(d.r[124]), "+f"(d.r[125]),
+        "+f"(d.r[126]), "+f"(d.r[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// x as a TF32 "hi" part and the TF32-rounded remainder "lo" (both with the
+// low 13 mantissa bits zero, rounded to nearest, ties away): hi + lo holds x
+// to about 2^-22 relative, so hi·hi + hi·lo + lo·hi on the tensor cores
+// drops only lo·lo (CUTLASS's 3xTF32).
+__device__ __forceinline__ float to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+__device__ __forceinline__ void tf32_split(float x, float& hi, float& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - hi);
+}
+
 // ---------------------------------------------------------------------------
 // warpgroup register reallocation: a producer warpgroup gives registers back,
 // the consumers take them (counts are multiples of 8 in [24, 256])
@@ -400,25 +522,67 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map of a row-major bf16 tensor of `rank` dimensions (2 or 3),
-// innermost first: dims[i] elements, strides[i] bytes between consecutive
-// indices of dimension i + 1, boxes of box[i] elements (box[0] = 64: one
-// 128-byte swizzled row), 128-byte swizzle, zeros outside the tensor.  The
-// base and every stride must be multiples of 16 bytes.  Returns a CUDA error
-// code, 0 on success.
-inline cudaError_t make_map_bf16(CUtensorMap* map, const void* base, int rank,
-                                 const cuuint64_t* dims,
-                                 const cuuint64_t* strides,
-                                 const cuuint32_t* box) {
+// A tensor map of a row-major tensor of `type` and `rank` dimensions (2 or
+// 3), innermost first: dims[i] elements, strides[i] bytes between
+// consecutive indices of dimension i + 1, boxes of box[i] elements (box[0]
+// elements make one 128-byte swizzled row: 64 bf16 or 32 fp32), 128-byte
+// swizzle, zeros outside the tensor.  The base and every stride must be
+// multiples of 16 bytes.  Returns a CUDA error code, 0 on success.
+inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type,
+                            const void* base, int rank,
+                            const cuuint64_t* dims, const cuuint64_t* strides,
+                            const cuuint32_t* box) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return cudaErrorNotSupported;
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-      const_cast<void*>(base), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides,
+      box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+inline cudaError_t make_map_bf16(CUtensorMap* map, const void* base, int rank,
+                                 const cuuint64_t* dims,
+                                 const cuuint64_t* strides,
+                                 const cuuint32_t* box) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims,
+                  strides, box);
+}
+
+// ---------------------------------------------------------------------------
+// host: launch set-up done once per device (the first 64; a device past
+// them is queried on every call)
+
+constexpr int CACHED_DEVICES = 64;
+
+// The current device and its SM count, the count read once per device
+inline cudaError_t device_sms(int* device, int* sms) {
+  static std::atomic<int> cached[CACHED_DEVICES];
+  cudaError_t err = cudaGetDevice(device);
+  if (err != cudaSuccess) return err;
+  const bool keep = *device >= 0 && *device < CACHED_DEVICES;
+  if (keep && (*sms = cached[*device].load(std::memory_order_relaxed)) > 0)
+    return cudaSuccess;
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, *device);
+  if (err == cudaSuccess && keep)
+    cached[*device].store(*sms, std::memory_order_relaxed);
+  return err;
+}
+
+// Raises `kernel`'s dynamic shared-memory limit to `bytes` on `device` once:
+// `done` is the caller's bit set of the devices where it is raised (a static
+// of its own for each kernel), so that later launches skip the call.
+template <typename Kernel>
+inline cudaError_t smem_limit_once(std::atomic<uint64_t>& done, Kernel kernel,
+                                   int bytes, int device) {
+  const uint64_t bit =
+      device >= 0 && device < CACHED_DEVICES ? uint64_t(1) << device : 0;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
 }
 
 }  // namespace hopper

@@ -25,20 +25,20 @@
 // ldmatrix, b's (b is k-major) from ldmatrix.trans.  A block of WM x WN
 // warps owns a (16 MT WM) x (8 NT WN) tile; each warp MT x NT mma tiles.
 //
-// float32 kernel: the reference tolerance (2e-4) rules out TF32, so the
-// products are float32 FMAs on the CUDA cores.  256 threads; thread
-// (ty, tx) = (tid / 16, tid % 16) owns rows ty TM .. ty TM + TM - 1 and
-// columns 4 tx .. 4 tx + 3 and 64 + 4 tx .. 64 + 4 tx + 3 of a (16 TM) x 128
-// tile.  a's tile is stored transposed (k-major) so that a thread's rows
-// are contiguous in shared memory.
+// float32 FMA kernel (variant "fma", named explicitly): the
+// products are float32 FMAs on the CUDA cores.  256 threads; thread (ty, tx)
+// = (tid / 16, tid % 16) owns rows ty TM .. ty TM + TM - 1 and columns
+// 4 tx .. 4 tx + 3 and 64 + 4 tx .. 64 + 4 tx + 3 of a (16 TM) x 128 tile.
+// a's tile is stored transposed (k-major) so that a thread's rows are
+// contiguous in shared memory.
 //
-// Both kernels keep a small variant for M of at most 16 rows (the decoding
-// shapes): its block holds 16 rows, so b is read once and not many times
-// over 128 rows of zeros.  Where the output tiles are too few to fill the
-// card's 132 SMs (a few rows by a narrow N), K is split over blocks, whose
-// float32 partials a second kernel sums: (4, 1152, 6912) has 9 output tiles.
-// Both kernels load the next K tile into registers while the current one is
-// multiplied.
+// The FMA and mma.sync kernels keep a small variant for M of at most 16
+// rows (the decoding shapes): its block holds 16 rows, so b is read once
+// and not many times over 128 rows of zeros.  Where the output tiles are too
+// few to fill the card's 132 SMs (a few rows by a narrow N), K is split over
+// blocks, whose float32 partials a second kernel sums: (4, 1152, 6912) has 9
+// output tiles.  Both load the next K tile into registers while the current
+// one is multiplied.
 //
 // bf16 on Hopper (the wgmma variant), for M > 16 and K, N multiples of 8:
 // the card's full tensor-core rate needs wgmma, which reads its operands
@@ -47,11 +47,29 @@
 // 3-stage ring guarded by mbarriers; a producer warpgroup keeps the loads in
 // flight and two consumer warpgroups multiply a 128 x 256 output tile, b
 // being MN-major (wgmma's transpose-B), and store it by TMA from shared
-// memory.  It never splits K.  The helpers it
-// shares with the flash kernel are in hopper.cuh.  Which variant runs is the
-// caller's choice (nvdla_matmul.py::variant): float32 takes the FMA kernel,
-// bf16 the wgmma one where TMA can describe the operands and M > 16, the
-// mma.sync one otherwise.
+// memory.  It never splits K.  The helpers it shares with the flash kernel
+// are in hopper.cuh.
+//
+// float32 with M > 16 (the tf32x3 variant): the reference tolerance (rtol
+// 2e-4, atol 2e-4 sqrt(K)) rules out one TF32 pass, and FMAs cap the product
+// at the CUDA cores' 67 TFLOP/s.  So a split pass writes each operand as a
+// TF32 "hi" part and a TF32 "lo" remainder, K-major and padded to K % 32 ==
+// 0 (b transposed: TF32 wgmma has no transpose-B), and a wgmma kernel on the
+// bf16 one's skeleton sums lo·hi + hi·lo + hi·hi into one float32
+// accumulator (CUTLASS's 3xTF32: only lo·lo, about 2^-22 relative, is
+// dropped), at up to a third of the 495 TFLOP/s TF32 rate.
+//
+// float32 with M <= 16 (the stream variant): the product reads b once and
+// is bound by that.  Each thread owns 4 adjacent columns, reads b as 16-byte
+// read-only loads, 8 k rows in flight, and uses each element M times from a
+// register; a's few rows come through the read-only cache as warp-wide
+// broadcasts.  Where the columns fill less than one wave, K is split and the
+// partials summed by the split-K sum kernel.
+//
+// Which variant runs is the caller's choice (nvdla_matmul.py::variant):
+// float32 takes tf32x3 for M > 16 and stream otherwise; bf16 the wgmma one
+// where TMA can describe the operands and M > 16, the mma.sync one
+// otherwise; fma is named explicitly.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -495,14 +513,12 @@ cudaError_t launch_wgmma(const void* a, const void* b, void* c, int M, int N,
     err = hopper::make_map_bf16(&map_b, b, 2, b_dims, b_strides, b_box);
   if (err == cudaSuccess)   // c's rows have b's stride
     err = hopper::make_map_bf16(&map_c, c, 2, c_dims, b_strides, c_box);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(matmul_bf16_wgmma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)SMEM);
   int device = 0, sms = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = hopper::device_sms(&device, &sms);
+  static std::atomic<uint64_t> smem_set{0};
   if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    err = hopper::smem_limit_once(smem_set, matmul_bf16_wgmma_kernel,
+                                  (int)SMEM, device);
   if (err != cudaSuccess) return err;
   const long long tiles = (long long)((N + BN - 1) / BN) * ((M + BM - 1) / BM);
   const int grid = (int)(tiles < sms ? tiles : sms);
@@ -530,10 +546,21 @@ __global__ void splitk_sum_kernel(const float* __restrict__ ws,
   }
 }
 
-constexpr int SMALL_M = 16;    // at most this many rows: the 16-row tiles
+constexpr int SMALL_M = 16;    // at most this many rows: 16-row tiles, stream
 constexpr int N_SM = 132;      // SMs of an H100 SXM
 constexpr int SPLIT_ALIGN = 32;   // a split's k range is whole tiles of both kernels
 constexpr int MIN_SPLIT_K = 256;  // the least k a split takes
+
+// the split-K partials of ws summed into c by splitk_sum_kernel
+template <typename T>
+cudaError_t sum_splits(const float* ws, void* c, int M, int N, int splits,
+                       cudaStream_t stream) {
+  const long long mn = (long long)M * N;
+  const int blocks = (int)min((mn + 255) / 256, (long long)4 * N_SM);
+  splitk_sum_kernel<T><<<blocks, 256, 0, stream>>>(ws, static_cast<T*>(c), mn,
+                                                   splits);
+  return cudaGetLastError();
+}
 
 // k per split: when the output tiles would fill less than one wave of the
 // card, K is split over blocks (about two blocks per SM, each at least
@@ -560,46 +587,420 @@ cudaError_t launch(Kernel kernel, int threads, int bm, int bn, const void* a,
       splits > 1 ? ws : nullptr, M, N, K, kchunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  const long long mn = (long long)M * N;
-  const int blocks = (int)min((mn + 255) / 256, (long long)4 * N_SM);
-  splitk_sum_kernel<T><<<blocks, 256, 0, stream>>>(ws, static_cast<T*>(c), mn,
-                                                   splits);
+  return sum_splits<T>(ws, c, M, N, splits, stream);
+}
+
+// ---------------------------------------------------------------------------
+// float32 on the tensor cores: three TF32 passes (the tf32x3 variant)
+
+namespace tf {
+constexpr int BM = 128, BK = 32;   // output rows a tile; k per stage (one
+                                   // 128-byte row of fp32)
+constexpr int STAGES = 3;
+constexpr int CONSUMERS = 2;                 // warpgroups of 64 rows each
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int A_BYTES = BM * BK * 4;         // one box [BM][32]: a_hi or a_lo
+template <int BN>                            // hi and lo of a's and b^T's
+constexpr int STAGE_BYTES = 2 * A_BYTES + 2 * BN * BK * 4;   // boxes
+template <int BN>
+constexpr size_t SMEM = 1024 + size_t(STAGES) * STAGE_BYTES<BN> +
+                        2 * STAGES * sizeof(uint64_t);
+constexpr int SPLIT_T = 64;                  // tile edge of the split pass
+}  // namespace tf
+
+// K rounded up to whole k stages: the split operands' row length
+inline int kpad(int K) { return (K + tf::BK - 1) / tf::BK * tf::BK; }
+
+// The split pass.  ws holds [a_hi; a_lo] as (2, M, Kp) and [bT_hi; bT_lo]
+// as (2, N, Kp) behind it, all K-major and zero past K.  A block turns one
+// 64 x 64 tile of a destination (rows x Kp) through shared memory: element
+// (r, k) is a[r][k] for a's tiles (which come first) and b[k][r] for b's,
+// read along the source's contiguous dimension and written along k, 16
+// loads a thread in flight.
+__global__ void __launch_bounds__(256)
+tf32_split_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                  float* __restrict__ ws, int M, int N, int K, int Kp) {
+  constexpr int T = tf::SPLIT_T, PER = T * T / 256;
+  __shared__ float t[T][T + 1];   // [r][k], padded against bank conflicts
+  const int kt = (Kp + T - 1) / T;
+  const long long a_tiles = (long long)((M + T - 1) / T) * kt;
+  long long tile = blockIdx.x;
+  const bool is_a = tile < a_tiles;
+  if (!is_a) tile -= a_tiles;
+  const int rows = is_a ? M : N;
+  const int r0 = (int)(tile / kt) * T, k0 = (int)(tile % kt) * T;
+  // element e of a thread: row e / T of the tile's source, e % T along it
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int e = threadIdx.x + 256 * j, i = e / T, x = e % T;
+    if (is_a) {
+      const int r = r0 + i, k = k0 + x;
+      t[i][x] = r < M && k < K ? a[(long long)r * K + k] : 0.f;
+    } else {
+      const int k = k0 + i, r = r0 + x;
+      t[x][i] = r < N && k < K ? b[(long long)k * N + r] : 0.f;
+    }
+  }
+  __syncthreads();
+  float* hi = is_a ? ws : ws + 2LL * M * Kp;
+  float* lo = hi + (long long)rows * Kp;
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int e = threadIdx.x + 256 * j, i = e / T, x = e % T;
+    const int r = r0 + i, k = k0 + x;
+    if (r >= rows || k >= Kp) continue;
+    float h, l;
+    hopper::tf32_split(t[i][x], h, l);
+    hi[(long long)r * Kp + k] = h;
+    lo[(long long)r * Kp + k] = l;
+  }
+}
+
+// The product, on the skeleton of matmul_bf16_wgmma_kernel (a
+// persistent grid, a TMA ring guarded by full / empty mbarriers, a producer
+// warpgroup, two consumer warpgroups of 64 rows), with four boxes a stage:
+// a_hi, a_lo (BM x 32) and bT_hi, bT_lo (BN x 32), each through a 3-d map
+// whose third index picks hi or lo (so that rows past M or N arrive as
+// zeros, not as the other part's rows).  Each k8 step issues m64nBNk8
+// three times, lo·hi and hi·lo before hi·hi, into one float32 accumulator.
+// The epilogue stores from registers: a float32 row piece of 8 columns is
+// one whole 32-byte sector.  What these stores cost was not measured (the
+// bf16 kernel's register stores cost 28% before it stored through shared
+// memory and TMA).  BN is 128 or 112 (tf32x3_bn).
+template <int BN>
+__global__ void __launch_bounds__(tf::THREADS, 1)
+matmul_tf32x3_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_b,
+                     float* __restrict__ c, int M, int N, int Kp) {
+  using namespace tf;
+  using namespace hopper;
+  constexpr int B_BYTES = BN * BK * 4, STAGE = STAGE_BYTES<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  // [STAGES][a_hi, a_lo, bT_hi, bT_lo]
+  unsigned char* ring = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE);
+  uint64_t* empty = full + STAGES;
+
+  const int tiles_n = (N + BN - 1) / BN;
+  const int tiles = tiles_n * ((M + BM - 1) / BM);
+  const int nk = Kp / BK;
+  const int wgi = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS * 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wgi == CONSUMERS) {   // producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == CONSUMERS * 128) {
+      int it = 0;   // k stages loaded so far, over all this block's tiles
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t / tiles_n * BM, n0 = t % tiles_n * BN;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % STAGES;
+          unsigned char* st = ring + s * STAGE;
+          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          mbar_arrive_expect_tx(&full[s], STAGE);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {   // 0: hi, 1: lo
+            tma_load_3d(st + h * A_BYTES, &map_a, &full[s], kt * BK, m0, h);
+            tma_load_3d(st + 2 * A_BYTES + h * B_BYTES, &map_b, &full[s],
+                        kt * BK, n0, h);
+          }
+        }
+      }
+    }
+  } else {                  // consumers
+    setmaxnreg_inc<232>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const bool even = N % 2 == 0;   // pieces (col, col + 1) 8-byte aligned
+    Acc<BN> acc;
+    int it = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = t / tiles_n * BM, n0 = t % tiles_n * BN;
+      acc_zero(acc);
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(&full[s], (it / STAGES) & 1);
+        const unsigned char* a_hi = ring + s * STAGE + wgi * 64 * 128;
+        const unsigned char* a_lo = a_hi + A_BYTES;
+        const unsigned char* b_hi = ring + s * STAGE + 2 * A_BYTES;
+        const unsigned char* b_lo = b_hi + B_BYTES;
+        acc_fence(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 8; ++kk) {
+          const uint64_t ah = desc_sw128(a_hi + 32 * kk, 16, 1024),
+                         al = desc_sw128(a_lo + 32 * kk, 16, 1024),
+                         bh = desc_sw128(b_hi + 32 * kk, 16, 1024),
+                         bl = desc_sw128(b_lo + 32 * kk, 16, 1024);
+          wgmma_ss_tf32(acc, al, bh, 1);
+          wgmma_ss_tf32(acc, ah, bl, 1);
+          wgmma_ss_tf32(acc, ah, bh, 1);
+        }
+        wgmma_commit();
+        acc_fence(acc);
+        wgmma_wait<1>();   // the previous stage's products are done
+        if (kt > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+      }
+      wgmma_wait<0>();
+      acc_fence(acc);
+      if (lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+
+      // acc.r[4 j + 2 h + e]: row 16 warp + lane / 4 + 8 h of the
+      // warpgroup's 64, column 8 j + 2 (lane % 4) + e
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + 64 * wgi + 16 * warp + lane / 4 + 8 * h;
+          const int col = n0 + 8 * j + 2 * (lane % 4);
+          if (row >= M || col >= N) continue;
+          float* out = c + (long long)row * N + col;
+          const float x = acc.r[4 * j + 2 * h], y = acc.r[4 * j + 2 * h + 1];
+          if (even && col + 1 < N) {
+            *reinterpret_cast<float2*>(out) = make_float2(x, y);
+          } else {
+            out[0] = x;
+            if (col + 1 < N) out[1] = y;
+          }
+        }
+    }
+  }
+}
+
+// the product's tile width: 128 or 112 columns, whichever takes the fewer
+// rounds of tiles over the SMs times its width (a last round of a few tiles
+// leaves most SMs idle; ties take 128)
+int tf32x3_bn(int M, int N, int sms) {
+  const long long tiles_m = (M + tf::BM - 1) / tf::BM;
+  auto cost = [&](long long bn) {
+    return ((N + bn - 1) / bn * tiles_m + sms - 1) / sms * bn;
+  };
+  return cost(112) < cost(128) ? 112 : 128;
+}
+
+// the product over the split operands in ws, BN columns a tile
+template <int BN>
+cudaError_t launch_tf32x3_product(const float* ws, float* c, int M, int N,
+                                  int Kp, int device, int sms,
+                                  cudaStream_t stream) {
+  using namespace tf;
+  // (Kp, rows, 2) maps: the third index picks hi or lo
+  CUtensorMap map_a, map_b;
+  const cuuint64_t row_bytes = (cuuint64_t)Kp * 4;
+  const cuuint64_t a_dims[3] = {(cuuint64_t)Kp, (cuuint64_t)M, 2};
+  const cuuint64_t a_strides[2] = {row_bytes, row_bytes * M};
+  const cuuint32_t a_box[3] = {BK, BM, 1};
+  const cuuint64_t b_dims[3] = {(cuuint64_t)Kp, (cuuint64_t)N, 2};
+  const cuuint64_t b_strides[2] = {row_bytes, row_bytes * N};
+  const cuuint32_t b_box[3] = {BK, BN, 1};
+  cudaError_t err = hopper::make_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                     ws, 3, a_dims, a_strides, a_box);
+  if (err == cudaSuccess)
+    err = hopper::make_map(&map_b, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                           ws + 2LL * M * Kp, 3, b_dims, b_strides, b_box);
+  static std::atomic<uint64_t> smem_set{0};
+  if (err == cudaSuccess)
+    err = hopper::smem_limit_once(smem_set, matmul_tf32x3_kernel<BN>,
+                                  (int)SMEM<BN>, device);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (long long)((N + BN - 1) / BN) * ((M + BM - 1) / BM);
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  matmul_tf32x3_kernel<BN><<<grid, THREADS, SMEM<BN>, stream>>>(
+      map_a, map_b, c, M, N, Kp);
   return cudaGetLastError();
+}
+
+// float32 elements of the split operands: a's and b^T's hi and lo, (M + N)
+// rows of Kp (nvdla_matmul.py::tf32x3_workspace computes the same)
+long long tf32x3_workspace(int M, int N, int K) {
+  return 2LL * kpad(K) * (M + N);
+}
+
+// ws: n_ws float32 elements, at least tf32x3_workspace(M, N, K), 16-byte
+// aligned.  The split pass, then the product on the same stream.
+cudaError_t launch_tf32x3(const float* a, const float* b, float* c, float* ws,
+                          long long n_ws, int M, int N, int K,
+                          cudaStream_t stream) {
+  using tf::SPLIT_T;
+  if (!ws || n_ws < tf32x3_workspace(M, N, K)) return cudaErrorInvalidValue;
+  const int Kp = kpad(K);
+  const long long split_tiles =
+      (long long)((M + SPLIT_T - 1) / SPLIT_T + (N + SPLIT_T - 1) / SPLIT_T) *
+      ((Kp + SPLIT_T - 1) / SPLIT_T);
+  tf32_split_kernel<<<(unsigned)split_tiles, 256, 0, stream>>>(a, b, ws, M, N,
+                                                               K, Kp);
+  cudaError_t err = cudaGetLastError();
+  int device = 0, sms = 0;
+  if (err == cudaSuccess) err = hopper::device_sms(&device, &sms);
+  if (err != cudaSuccess) return err;
+  return tf32x3_bn(M, N, sms) == 112
+             ? launch_tf32x3_product<112>(ws, c, M, N, Kp, device, sms, stream)
+             : launch_tf32x3_product<128>(ws, c, M, N, Kp, device, sms,
+                                          stream);
+}
+
+// ---------------------------------------------------------------------------
+// float32 decoding rows: b streamed once (the stream variant)
+
+constexpr int S_NT = 256;          // threads per block
+constexpr int S_BN = 4 * S_NT;     // columns per block, 4 a thread
+constexpr int S_U = 8;             // k rows in flight per thread
+
+// b[k][n .. n + 3] (zeros past N); vec: N % 4 == 0, so the piece is one
+// aligned 16-byte read-only load
+__device__ __forceinline__ float4 load_b4(const float* b, int k, int n, int N,
+                                          bool vec) {
+  const float* p = b + (long long)k * N + n;
+  if (vec) return __ldg(reinterpret_cast<const float4*>(p));
+  return make_float4(__ldg(p), n + 1 < N ? __ldg(p + 1) : 0.f,
+                     n + 2 < N ? __ldg(p + 2) : 0.f,
+                     n + 3 < N ? __ldg(p + 3) : 0.f);
+}
+
+// MT >= M rows a thread; the block's columns are blockIdx.x S_BN + 4 tid ..
+// + 3, its k range blockIdx.y kchunk .. + kchunk - 1.  With ws the block
+// writes its partial to ws[blockIdx.y], else the result to c.
+template <int MT>
+__global__ void __launch_bounds__(S_NT)
+matmul_f32_stream_kernel(const float* __restrict__ a,
+                         const float* __restrict__ b, float* __restrict__ c,
+                         float* __restrict__ ws, int M, int N, int K,
+                         int kchunk) {
+  const int n = blockIdx.x * S_BN + 4 * threadIdx.x;
+  if (n >= N) return;
+  const int kb = blockIdx.y * kchunk, ke = min(K, kb + kchunk);
+  const bool vec = N % 4 == 0;
+  float acc[MT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
+
+  for (int k0 = kb; k0 < ke; k0 += S_U) {
+    float4 bv[S_U];
+#pragma unroll
+    for (int u = 0; u < S_U; ++u)
+      bv[u] = k0 + u < ke ? load_b4(b, k0 + u, n, N, vec)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int u = 0; u < S_U; ++u)
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float av =
+            m < M && k0 + u < ke ? __ldg(a + (long long)m * K + k0 + u) : 0.f;
+        acc[m][0] = fmaf(av, bv[u].x, acc[m][0]);
+        acc[m][1] = fmaf(av, bv[u].y, acc[m][1]);
+        acc[m][2] = fmaf(av, bv[u].z, acc[m][2]);
+        acc[m][3] = fmaf(av, bv[u].w, acc[m][3]);
+      }
+  }
+
+  float* out = ws ? ws + (long long)blockIdx.y * M * N : c;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    if (m >= M) break;
+    float* p = out + (long long)m * N + n;
+    if (vec) {
+      *reinterpret_cast<float4*>(p) =
+          make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (n + j < N) p[j] = acc[m][j];
+    }
+  }
+}
+
+// k per split of the stream kernel: where its column blocks fill less than
+// one wave, K is split so that about 4 blocks an SM stream b, each at least
+// 64 k rows deep
+int stream_split_k(int N, int K) {
+  const int blocks_n = (N + S_BN - 1) / S_BN;
+  if (blocks_n >= N_SM) return K;
+  const int splits =
+      max(1, min((4 * N_SM + blocks_n - 1) / blocks_n, K / 64));
+  const int per = (K + splits - 1) / splits;
+  return (per + S_U - 1) / S_U * S_U;
+}
+
+template <int MT>
+cudaError_t launch_stream_mt(const float* a, const float* b, float* c,
+                             float* ws, int M, int N, int K,
+                             cudaStream_t stream) {
+  const int kchunk = stream_split_k(N, K), splits = (K + kchunk - 1) / kchunk;
+  if (splits > 1 && !ws) return cudaErrorInvalidValue;
+  const dim3 grid((N + S_BN - 1) / S_BN, splits);
+  matmul_f32_stream_kernel<MT><<<grid, S_NT, 0, stream>>>(
+      a, b, c, splits > 1 ? ws : nullptr, M, N, K, kchunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  return sum_splits<float>(ws, c, M, N, splits, stream);
+}
+
+// M rounded up to 4, 8 or 16 rows: the kernel is bound by b's bytes, so the
+// FMAs of the rows past M cost nothing
+cudaError_t launch_stream(const float* a, const float* b, float* c, float* ws,
+                          int M, int N, int K, cudaStream_t stream) {
+  if (M <= 4) return launch_stream_mt<4>(a, b, c, ws, M, N, K, stream);
+  if (M <= 8) return launch_stream_mt<8>(a, b, c, ws, M, N, K, stream);
+  if (M <= SMALL_M) return launch_stream_mt<16>(a, b, c, ws, M, N, K, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Kernel variants, chosen by the caller (nvdla_matmul.py::variant):
-// 0 float32 FMAs, 1 bf16 mma.sync, 2 bf16 wgmma with TMA.
-enum Variant { kFma = 0, kMmaSync = 1, kWgmma = 2 };
+// 0 float32 FMAs, 1 bf16 mma.sync, 2 bf16 wgmma with TMA, 3 float32 stream
+// (M <= 16), 4 float32 three TF32 passes on wgmma.
+enum Variant { kFma = 0, kMmaSync = 1, kWgmma = 2, kStream = 3, kTf32x3 = 4 };
 
-// The number of K splits of an (M, N, K) product under a variant: above 1,
-// nvdla_matmul needs a float32 workspace of splits * M * N elements.  The
-// wgmma variant never splits.
-extern "C" int nvdla_matmul_splits(int M, int N, int K, int variant) {
-  if (M < 1 || N < 1 || K < 1 || variant == kWgmma) return 1;
-  const int kchunk = split_k(M, N, K);
-  return (K + kchunk - 1) / kchunk;
+// float32 elements of the workspace an (M, N, K) product needs under a
+// variant: tf32x3's split operands; the split-K partials, splits * M * N,
+// of a variant that splits K over blocks (0 where it does not).  The wgmma
+// variant never splits.
+extern "C" long long nvdla_matmul_workspace(int M, int N, int K, int variant) {
+  if (M < 1 || N < 1 || K < 1 || variant == kWgmma) return 0;
+  if (variant == kTf32x3) return tf32x3_workspace(M, N, K);
+  const int kchunk =
+      variant == kStream ? stream_split_k(N, K) : split_k(M, N, K);
+  const int splits = (K + kchunk - 1) / kchunk;
+  return splits > 1 ? (long long)splits * M * N : 0;
 }
 
-// a: (M, K), b: (K, N), c: (M, N), all row-major, contiguous and of one type:
-// dtype 0 is float32 (variant 0), 1 is bfloat16 (variant 1, or 2 when
-// K % 8 == 0 and N % 8 == 0), 16-byte aligned.  Any M, N, K >= 1.  ws:
-// float32 workspace of nvdla_matmul_splits(M, N, K, variant) * M * N
-// elements, or null when that is 1.  Returns the cudaError_t of the launch
-// (0 on success).
+// a: (M, K), b: (K, N), c: (M, N), all row-major, contiguous and of one type,
+// 16-byte aligned: dtype 0 is float32 (variants 0, 3 with M <= 16, 4), 1 is
+// bfloat16 (variant 1, or 2 when K % 8 == 0 and N % 8 == 0).  Any M, N,
+// K >= 1.  ws: n_ws float32 elements, at least
+// nvdla_matmul_workspace(M, N, K, variant), or null when that is 0; a
+// shorter workspace is refused.  Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int nvdla_matmul(const void* a, const void* b, void* c, void* ws,
-                            int M, int N, int K, int dtype, int variant,
-                            void* stream) {
+                            long long n_ws, int M, int N, int K, int dtype,
+                            int variant, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
-  if (M < 1 || N < 1 || K < 1) return (int)cudaErrorInvalidValue;
+  if (M < 1 || N < 1 || K < 1 ||
+      (ws ? n_ws : 0) < nvdla_matmul_workspace(M, N, K, variant))
+    return (int)cudaErrorInvalidValue;
   const bool small = M <= SMALL_M;
+  const float *af = static_cast<const float*>(a),
+              *bf = static_cast<const float*>(b);
   if (dtype == 0 && variant == kFma)
     return small ? (int)launch<float>(matmul_f32_kernel<1, 16>, F_NT, 16,
                                       F_BN, a, b, c, w, M, N, K, st)
                  : (int)launch<float>(matmul_f32_kernel<8, 8>, F_NT, 128,
                                       F_BN, a, b, c, w, M, N, K, st);
+  if (dtype == 0 && variant == kStream)
+    return (int)launch_stream(af, bf, static_cast<float*>(c), w, M, N, K, st);
+  if (dtype == 0 && variant == kTf32x3)
+    return (int)launch_tf32x3(af, bf, static_cast<float*>(c), w, n_ws, M, N,
+                              K, st);
   if (dtype == 1 && variant == kMmaSync)
     return small
                ? (int)launch<__nv_bfloat16>(matmul_bf16_kernel<1, 4, 1, 4>,

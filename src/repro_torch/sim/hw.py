@@ -11,6 +11,8 @@ from __future__ import annotations
 # its roofline peak is float32 on the CUDA cores, not the tensor cores
 PEAK_FLOPS = 67e12           # float32, CUDA cores (NVIDIA H100 data sheet)
 PEAK_FLOPS_BF16 = 989e12     # bf16, tensor cores, dense (H100 data sheet)
+PEAK_FLOPS_TF32 = 494.7e12   # TF32, tensor cores, dense (H100 data sheet);
+                             # a float32-accurate product takes 3 passes
 HBM_BW = 3.35e12             # bytes/s, HBM3 (NVIDIA H100 data sheet)
 N_SMS = 132                  # streaming multiprocessors (Hopper white paper)
 SM_CLOCK_HZ = 1.98e9         # boost clock (NVIDIA H100 data sheet)

@@ -290,12 +290,82 @@ def test_cuda_matmul_variants_match_plain(cuda, M, N, K, kernel):
                                rtol=2e-2, atol=2e-2 * K ** 0.5)
 
 
+F32_TEST_SHAPES = [
+    (128, 128, 128), (256, 128, 384),           # tests/test_kernels.py
+    (512, 256, 256), (128, 512, 640),
+    (17, 130, 33), (100, 72, 200), (4100, 1032, 1150),   # off every tile
+    (512, 1024, 4096),                          # K over many ring turns
+] + list(calibrate.MODEL_GRIDS["matmul"])
+F32_DECODE_SHAPES = [   # M <= 16: the stream variant's rule
+    (1, 1, 1), (3, 5, 7), (16, 130, 33), (5, 1150, 100), (2, 1031, 4099),
+    (16, 1024, 1152), (4, 6912, 1152),
+] + [s for s in calibrate.MODEL_GRIDS["matmul"] if s[0] <= mm.SMALL_M]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,M,N,K", [
+    (kernel, *shape) for kernel in ("tf32x3", "fma")
+    for shape in F32_TEST_SHAPES] + [
+    ("stream", *shape) for shape in F32_DECODE_SHAPES])
+def test_cuda_matmul_fp32_variants_match_plain(cuda, kernel, M, N, K):
+    """Every float32 variant at rtol 2e-4, atol 2e-4 sqrt(K)
+    (tests/test_kernels.py): three TF32 passes and the FMA kernel at test,
+    ragged and model-grid shapes, the streaming kernel at decoding shapes;
+    each call launches the named variant once."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(M, K, generator=g, device=cuda)
+    b = torch.randn(K, N, generator=g, device=cuda)
+    out, ran = _launched(mm.matmul, lambda: mm.matmul(a, b, kernel=kernel))
+    assert ran == {kernel: 1}
+    assert out.dtype == torch.float32 and out.shape == (M, N)
+    np.testing.assert_allclose(out.cpu().numpy(),
+                               ref.matmul_ref(a, b).cpu().numpy(),
+                               rtol=2e-4, atol=2e-4 * K ** 0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,M,N,K", [
+    ("tf32x3", *shape) for shape in F32_TEST_SHAPES] + [
+    ("stream", 4, 1152, 6912), ("fma", 4, 1152, 6912),   # split K
+    ("mma_sync", 4, 1152, 6912)])
+def test_cuda_matmul_refuses_a_short_workspace(cuda, kernel, M, N, K):
+    """The kernel sizes its workspace as the wrapper does
+    (``tf32x3_workspace`` for tf32x3) and refuses one element less with
+    cudaErrorInvalidValue (1), before it launches anything."""
+    lib = mm._lib()
+    code = mm.VARIANTS[kernel][0]
+    dtype = mm.VARIANTS[kernel][1]
+    n_ws = lib.nvdla_matmul_workspace(M, N, K, code)
+    if kernel == "tf32x3":
+        assert n_ws == mm.tf32x3_workspace(M, N, K)
+    assert n_ws > 0
+    a = torch.zeros(M, K, device=cuda, dtype=dtype)
+    b = torch.zeros(K, N, device=cuda, dtype=dtype)
+    c = torch.full((M, N), 7.0, device=cuda, dtype=dtype)
+    ws = torch.empty(n_ws, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    for short in (n_ws - 1, 0):
+        assert lib.nvdla_matmul(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                ws.data_ptr(), short, M, N, K,
+                                mm._DTYPES[dtype], code, stream) == 1
+    torch.cuda.synchronize()
+    assert bool((c == 7).all())   # nothing ran
+    assert lib.nvdla_matmul(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                            ws.data_ptr(), n_ws, M, N, K, mm._DTYPES[dtype],
+                            code, stream) == 0
+    torch.cuda.synchronize()
+    assert bool((c == 0).all())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel,dtype,shape", [
     ("wgmma", torch.bfloat16, (130, 100, 64)),     # N off 8: no tensor map
     ("wgmma", torch.float32, (128, 128, 128)),
     ("fma", torch.bfloat16, (128, 128, 128)),
     ("mma_sync", torch.float32, (128, 128, 128)),
+    ("tf32x3", torch.bfloat16, (128, 128, 128)),
+    ("stream", torch.bfloat16, (4, 128, 128)),
+    ("stream", torch.float32, (17, 128, 128)),     # M above the decoding rows
 ])
 def test_cuda_matmul_refuses_variant_off_its_rule(cuda, kernel, dtype,
                                                   shape):

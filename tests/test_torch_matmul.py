@@ -15,7 +15,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import _build, calibrate, ops, ref
 from repro_torch.kernels import nvdla_matmul as mm
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-4),
@@ -115,12 +115,25 @@ def test_variant_rule_takes_hopper_kernel_for_large_bf16(M, N, K):
     (17, 130, 33, torch.bfloat16, "mma_sync"),       # K, N off 8
     (128, 130, 128, torch.bfloat16, "mma_sync"),     # N off 8
     (128, 128, 100, torch.bfloat16, "mma_sync"),     # K off 8
-    (4096, 6912, 1152, torch.float32, "fma"),
-    (4, 1152, 6912, torch.float32, "fma"),
-])
+    (4096, 6912, 1152, torch.float32, "tf32x3"),
+    (4, 1152, 6912, torch.float32, "stream"),
+    (4, 262144, 1152, torch.float32, "stream"),      # calibration model grid
+    (4096, 1024, 1152, torch.float32, "tf32x3"),
+    (1024, 6912, 1152, torch.float32, "tf32x3"),
+    (16, 1024, 1152, torch.float32, "stream"),       # the edge: M = 16, 17
+    (17, 1024, 1152, torch.float32, "tf32x3"),
+    (1, 3, 1, torch.float32, "stream"),
+    (128, 128, 100, torch.float32, "tf32x3"),        # ragged K, any N
+    (17, 130, 33, torch.float32, "tf32x3"),
+    (4, 130, 33, torch.float32, "stream"),
+    (4100, 1031, 1150, torch.float32, "tf32x3"),
+] + [(M, N, K, torch.float32, "tf32x3")             # calibration full grid
+     for M, N, K in calibrate.FULL_GRIDS["matmul"]])
 def test_variant_rule_keeps_older_kernels(M, N, K, dtype, expect):
-    """float32, M <= 16 (split K) and row strides TMA cannot describe keep
-    the mma.sync / FMA kernels."""
+    """bf16 with M <= 16 or row strides TMA cannot describe keeps the
+    mma.sync kernel; float32 takes the streaming kernel for M <= 16 and three
+    TF32 passes on wgmma above, for any K and N.  The FMA kernel runs only
+    when named."""
     assert mm.variant(M, N, K, dtype) == expect
 
 
@@ -135,3 +148,57 @@ def test_every_variant_is_counted():
     mm.reset_counts()
     assert mm.matmul.launches == 0
     assert set(mm.matmul.launches_by_variant.values()) == {0}
+
+
+@pytest.mark.parametrize("M,N,K,expect", [
+    (4096, 6912, 1152, 2 * 1152 * (4096 + 6912)),   # K a multiple of 32
+    (17, 130, 33, 2 * 64 * (17 + 130)),            # K padded to 64
+    (100, 72, 200, 2 * 224 * (100 + 72)),
+    (1, 1, 1, 2 * 32 * 2),
+    (4100, 1032, 1150, 2 * 1152 * (4100 + 1032)),
+])
+def test_tf32x3_workspace_holds_padded_split_operands(M, N, K, expect):
+    """a_hi, a_lo (M, Kp) and bT_hi, bT_lo (N, Kp), Kp = K rounded up to 32:
+    each part's rows are whole 128-byte TMA rows, so every part starts
+    16-byte aligned."""
+    n = mm.tf32x3_workspace(M, N, K)
+    assert n == expect
+    kp = n // (2 * (M + N))
+    assert kp % 32 == 0 and K <= kp < K + 32
+    assert (M * kp * 4) % 16 == 0 and (2 * M * kp * 4) % 16 == 0
+
+
+def _tf32(x):
+    """x (float32) rounded to TF32 as cvt.rna.tf32.f32 does: to nearest on
+    the int32 view (ties away from zero), the low 13 mantissa bits
+    cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+@pytest.mark.parametrize("M,N,K", [(128, 256, 6912), (64, 1152, 6912)])
+def test_three_tf32_passes_meet_the_fp32_tolerance(M, N, K):
+    """The tf32x3 design emulated in plain PyTorch: hi·hi + hi·lo + lo·hi in
+    float64 holds the float64 product at rtol 2e-4, atol 2e-4 sqrt(K)
+    (tests/test_kernels.py) at long K; one TF32 pass (hi·hi) does not, which
+    is why the kernel takes three."""
+    a, b = (torch.from_numpy(x) for x in _ab(4, M, N, K))
+    expect = (a.double() @ b.double()).numpy()
+    (a_hi, a_lo), (b_hi, b_lo) = _split(a), _split(b)
+    assert (a_hi.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert (a_lo.view(torch.int32) & 0x1FFF).eq(0).all()
+
+    def dot(x, y):
+        return x.double() @ y.double()
+
+    three = (dot(a_lo, b_hi) + dot(a_hi, b_lo) + dot(a_hi, b_hi)).numpy()
+    np.testing.assert_allclose(three, expect, rtol=2e-4, atol=2e-4 * K ** 0.5)
+    one = dot(a_hi, b_hi).numpy()
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(one, expect, rtol=2e-4,
+                                   atol=2e-4 * K ** 0.5)
