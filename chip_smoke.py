@@ -7,12 +7,14 @@ printing a result:
 
 1. identify the card (torch and nvidia-smi: name and power limit);
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` into
-   ``build/kernels``;
+   ``build/kernels``, and count the selective scan's SASS instructions per
+   (thread, timestep) in its loop over time (``cuobjdump -sass``);
 3. hold the flash kernel against its plain PyTorch version on the card, at
    the ``tests/test_kernels.py`` shapes, the serving shapes, head dims 64
-   and 128, ragged lengths and window edges, in the variant its shape rule
-   names (``flash_attention.variant``) and, where that is the Hopper
-   ``wgmma`` one, in the ``mma.sync`` one too; then a 6-layer cut of
+   and 128, ragged lengths and window edges, in float32 and bf16, in the
+   variant its shape rule names (``flash_attention.variant``) and beside
+   it the one it replaced (bf16 ``mma.sync`` beside ``wgmma``, float32
+   ``fma`` beside ``tf32x3``); then a 6-layer cut of
    gemma3_1b at full width served on the card against the same params on the
    CPU (plain path) on one small input;
 4. serve gemma3_1b at full width (26 layers, random params from a seed):
@@ -34,15 +36,16 @@ printing a result:
    kernels at every shape of the
    ``"model"`` and ``"full"`` grids on the calibration's own float32 inputs;
 8. time them at the ``"model"`` grid's shapes (the matmul in the same
-   variants) against their plain versions, the library yardstick
-   (``torch.matmul``; no PyTorch call computes a selective scan) and each
-   variant's bound, with each wrapper's host time per call, and split a
-   ``tf32x3`` call's device time between its split pass and its product
-   with ``torch.profiler``;
+   variants, float32 flash in ``tf32x3`` and ``fma``) against their plain
+   versions, the library yardstick (``torch.matmul``; SDPA in float32; no PyTorch call
+   computes a selective scan) and each variant's bound, with each
+   wrapper's host time per call, and split a matmul ``tf32x3`` call's
+   device time between its split pass and its product with
+   ``torch.profiler``;
 9. run the calibration loop (``repro_torch.kernels.calibrate.measure``) on
    the ``"model"`` and ``"full"`` grids, counting the three kernels'
-   launches by variant (the float32 matmul's as its rule names them), and
-   print each kernel's fit.
+   launches by variant (float32 matmul and flash as their rules name
+   them), and print each kernel's fit.
 
 Kernel times are CUDA events around back-to-back calls queued behind a
 device-side wait (``torch.cuda._sleep``) that outlasts their enqueue, so
@@ -54,6 +57,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -173,13 +177,16 @@ def _check(name, out, expect, rtol, atol):
 
 # the variants held and timed beside the one a shape rule names: the older
 # kernels it replaced
-_BESIDE = {"wgmma": ["mma_sync"], "tf32x3": ["fma"], "stream": ["fma"]}
+_BESIDE = {(fa, "wgmma"): ["mma_sync"], (fa, "tf32x3"): ["fma"],
+           (mm, "wgmma"): ["mma_sync"], (mm, "tf32x3"): ["fma"],
+           (mm, "stream"): ["fma"]}
 
 
-def _variants(rule, dtype, *shape):
-    """The variant the shape rule names and those of ``_BESIDE``."""
-    name = rule(*shape, dtype)
-    return [name] + _BESIDE.get(name, [])
+def _variants(kernel, dtype, *shape):
+    """The variant that the shape rule of ``kernel`` (the module ``fa`` or
+    ``mm``) names, and those ``_BESIDE`` it."""
+    name = kernel.variant(*shape, dtype)
+    return [name] + _BESIDE.get((kernel, name), [])
 
 
 def _ran(fn, name, call):
@@ -198,15 +205,16 @@ def _ran(fn, name, call):
 def check_kernel():
     """Every case in fp32 and bf16, kernel vs plain version on the card, in
     each variant of ``_variants``.  Returns the largest error at the serving
-    shapes in bf16 of the variant serving runs."""
-    worst = 0.0
+    shapes in bf16 of the variant serving runs, and the largest error of
+    float32 ``tf32x3``."""
+    worst, worst_f32 = 0.0, 0.0
     for case in KERNEL_CASES:
         B, H, Hkv, S, D, causal, window = case
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = rand_qkv(B, H, Hkv, S, D, dtype)
             expect = ref.flash_attention_ref(q, k, v, causal=causal,
                                              window=window)
-            for name in _variants(fa.variant, dtype, D):
+            for name in _variants(fa, dtype, D):
                 out = _ran(fa.flash_attention, name,
                            lambda: fa.flash_attention(
                                q, k, v, causal=causal, window=window,
@@ -215,7 +223,9 @@ def check_kernel():
                              expect, TOL[dtype], TOL[dtype])
                 if D == 256 and name == fa.variant(D, dtype) == "wgmma":
                     worst = max(worst, err)
-    return worst
+                if name == "tf32x3":
+                    worst_f32 = max(worst_f32, err)
+    return worst, worst_f32
 
 
 def _bf16_close(name, out, expect):
@@ -344,15 +354,20 @@ def host_us(fn, calls=100):
     return 1e6 * t / calls
 
 
-def bound(B, H, Hkv, S, D, window, dtype):
+def bound(B, H, Hkv, S, D, window, dtype, variant):
     """Least time (ms) for the work these inputs need: live (q, k) pairs
-    times 4 D operations at the type's peak (bf16 on the tensor cores,
-    float32 on the CUDA cores), against q, k, v read once and o written once
-    at the HBM rate."""
+    times 4 D operations at the variant's peak (bf16 on the tensor cores;
+    float32 ``tf32x3`` as 3 passes of TF32 on the tensor cores, like
+    ``matmul_bound``; float32 ``fma`` on the CUDA cores), against q, k, v
+    read once and o written once at the HBM rate."""
     itemsize = torch.finfo(dtype).bits // 8
-    peak = hw.PEAK_FLOPS if dtype == torch.float32 else hw.PEAK_FLOPS_BF16
     live = sum(min(i + 1, window) if window else i + 1 for i in range(S))
     flops = 4 * D * B * H * live
+    if variant == "tf32x3":
+        flops, peak = 3 * flops, hw.PEAK_FLOPS_TF32
+    else:
+        peak = hw.PEAK_FLOPS if dtype == torch.float32 \
+            else hw.PEAK_FLOPS_BF16
     nbytes = (2 * B * H * S * D + 2 * B * Hkv * S * D) * itemsize
     t_ops, t_bytes = flops / peak, nbytes / hw.HBM_BW
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -383,12 +398,13 @@ def time_flash(B, H, Hkv, S, D, window, dtype, smi, seed=2):
     plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, window=window),
                     10, hold=False)
     lib_ms = cuda_ms(lib, 20)
-    b_ms, b_by, flops, nbytes = bound(B, H, Hkv, S, D, window, dtype)
     rows = {}
-    for name in _variants(fa.variant, dtype, D):
+    for name in _variants(fa, dtype, D):
         def call():
             return fa.flash_attention(q, k, v, window=window, kernel=name)
         ms = cuda_ms(call, 20)
+        b_ms, b_by, flops, nbytes = bound(B, H, Hkv, S, D, window, dtype,
+                                          name)
         rows[name] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms,
                           bound_ms=b_ms, bound_by=b_by, host_us=host_us(call))
         log(f"flash_attention {name} B={B} H={H} Hkv={Hkv} S={S} D={D} "
@@ -411,9 +427,13 @@ def time_kernel(cfg, smi):
 
 def time_flash_f32(smi):
     """The float32 kernel at the calibration's ``"model"`` attention shapes
-    (causal, no window: what the calibration loop runs): its rows."""
-    return [time_flash(*shape, 0, torch.float32, smi)["fma"]
-            for shape in calibrate.MODEL_GRIDS["attention"]]
+    (causal, no window: what the calibration loop runs), ``tf32x3`` (the
+    rule's variant there) beside ``fma``: {variant: [row by shape]}."""
+    rows = {}
+    for shape in calibrate.MODEL_GRIDS["attention"]:
+        for name, row in time_flash(*shape, 0, torch.float32, smi).items():
+            rows.setdefault(name, []).append(row)
+    return rows
 
 
 def profile_serving(cfg, params, smi):
@@ -492,7 +512,7 @@ def check_new_kernels():
         for M, N, K in MM_CASES:
             a, b = _matmul_inputs(M, N, K, dtype)
             expect = ref.matmul_ref(a, b)
-            for name in _variants(mm.variant, dtype, M, N, K):
+            for name in _variants(mm, dtype, M, N, K):
                 out = _ran(mm.matmul, name,
                            lambda: mm.matmul(a, b, kernel=name))
                 if out.dtype != dtype or out.shape != (M, N):
@@ -601,7 +621,7 @@ def time_new_kernels(smi):
     events) and the wrappers' host time a call at the model grid's shapes,
     in float32 and bf16.  Returns the float32 rows (the type the calibration
     loop runs; the matmul's in the variant its rule names) by kernel, and
-    the float32 matmul's ms by variant and shape."""
+    the float32 ms by variant and shape of the matmul."""
     rows = {"matmul": [], "mamba_scan": []}
     by_variant = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -609,7 +629,7 @@ def time_new_kernels(smi):
             a, b = _matmul_inputs(M, N, K, dtype, seed=2)
             plain = cuda_ms(lambda: ref.matmul_ref(a, b), 20, hold=False)
             lib = cuda_ms(lambda: torch.matmul(a, b), 20)
-            for name in _variants(mm.variant, dtype, M, N, K):
+            for name in _variants(mm, dtype, M, N, K):
                 def call():
                     return mm.matmul(a, b, kernel=name)
                 kernel_ms, host = cuda_ms(call, 20), host_us(call)
@@ -633,24 +653,73 @@ def time_new_kernels(smi):
                     profile_tf32x3(call, (M, N, K), smi)
         for shape in calibrate.MODEL_GRIDS["mamba"]:
             args = _scan_inputs(*shape, dtype, seed=2)
+            plain = cuda_ms(lambda: ref.mamba_scan_ref(*args), 2, hold=False)
+            b_ms, by, terms = scan_bound(*shape, dtype)
 
             def call():
                 return ms.mamba_scan(*args)
             kernel_ms, host = cuda_ms(call, 20), host_us(call)
-            plain = cuda_ms(lambda: ref.mamba_scan_ref(*args), 2, hold=False)
-            b_ms, by, terms = scan_bound(*shape, dtype)
-            log(f"mamba_scan {shape} {dtype}: kernel {kernel_ms:.4f} ms "
+            log(f"mamba_scan L=4 {shape} {dtype}: kernel {kernel_ms:.4f} ms "
                 f"(host {host:.1f} us a call), plain {plain:.4f} ms, library "
                 f"none, bound {b_ms:.4f} ms by {by} (ops "
                 f"{1e3 * terms['operations']:.4f}, exp "
-                f"{1e3 * terms['exp']:.4f}, bytes {1e3 * terms['bytes']:.4f}"
-                f" ms) = {100 * b_ms / kernel_ms:.2f}% of bound; card {smi}")
+                f"{1e3 * terms['exp']:.4f}, bytes "
+                f"{1e3 * terms['bytes']:.4f} ms) = "
+                f"{100 * b_ms / kernel_ms:.2f}% of bound; card {smi}")
             if dtype == torch.float32:
                 rows["mamba_scan"].append(dict(
                     ms=kernel_ms, plain_ms=plain, library_ms=None,
                     bound_ms=b_ms, host_us=host,
                     bound_by="bytes" if by == "bytes" else "operations"))
     return rows, by_variant
+
+
+def _loops(lines):
+    """SASS lines of one function (``cuobjdump -sass``, branch targets as
+    addresses) -> [(address, instruction)] and its loops, as the (first,
+    last) addresses of each backward branch's range."""
+    ins, loops = [], []
+    for line in lines:
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if not m:
+            continue
+        addr = int(m.group(1), 16)
+        ins.append((addr, m.group(2)))
+        target = re.search(r"\bBRA\s+0x([0-9a-f]+)", m.group(2))
+        if target and int(target.group(1), 16) <= addr:
+            loops.append((int(target.group(1), 16), addr))
+    return ins, loops
+
+
+def scan_sass(lib, kernel):
+    """SASS instructions per (thread, timestep) of the scan's loop over
+    time, from ``cuobjdump -sass`` of the library ``lib``: in the function
+    whose name holds ``kernel``, the innermost loop with the most
+    exponentials (MUFU.EX2, which expf also ends in), its instructions over
+    its timesteps (its exponentials over the N / 4 states a thread holds,
+    N read from the name's template arguments).  Returns (instructions per
+    step, instructions, timesteps)."""
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    funcs = out.split("Function : ")[1:]
+    body = [f for f in funcs if kernel in f.splitlines()[0]]
+    if len(body) != 1:
+        raise AssertionError(f"{len(body)} SASS functions match {kernel}")
+    states = int(re.search(r"Li(\d+)E", body[0].splitlines()[0])[1]) // 4
+    ins, loops = _loops(body[0].splitlines())
+
+    def ex2(lo, hi):
+        return sum("MUFU.EX2" in t for a, t in ins if lo <= a <= hi)
+
+    live = [(lo, hi) for lo, hi in loops if ex2(lo, hi)]
+    inner = [(lo, hi) for lo, hi in live
+             if not any((a, b) != (lo, hi) and lo <= a and b <= hi
+                        for a, b in live)]
+    lo, hi = max(inner, key=lambda r: ex2(*r))
+    n = sum(lo <= a <= hi for a, _ in ins)
+    steps = ex2(lo, hi) / states
+    return n / steps, n, steps
 
 
 def run_calibration():
@@ -702,20 +771,23 @@ def run_calibration():
         "flash_attention": dict(fa.flash_attention.launches_by_variant),
         "mamba_scan": {"cuda": launches["mamba_scan"]}}
     log(f"by variant: {by_variant}")
-    # float32: the matmul in the variants its rule names (stream for M <=
-    # 16, tf32x3 above), flash in its FMA kernel
-    rule = {}
-    for grid, repeat in CALIBRATION:
-        for shape in calibrate.GRIDS[grid]["matmul"]:
-            name = mm.variant(*shape, torch.float32)
-            rule[name] = rule.get(name, 0) + 1 + repeat
-    ran = {k: n for k, n in by_variant["matmul"].items() if n}
-    if ran != rule or sum(rule.values()) != launches["matmul"]:
-        raise AssertionError(f"matmul ran {ran} in float32, its rule names "
-                             f"{rule}")
-    if by_variant["flash_attention"]["fma"] != launches["flash_attention"]:
-        raise AssertionError(f"flash ran {by_variant['flash_attention']} in "
-                             "float32")
+    # float32: each kernel in the variants its rule names (the matmul:
+    # stream for M <= 16, tf32x3 above; flash: tf32x3 at head dims 64, 128
+    # and 256, fma at the others)
+    rules = {"matmul": ("matmul", lambda shape: mm.variant(
+                 *shape, torch.float32)),
+             "flash_attention": ("attention", lambda shape: fa.variant(
+                 shape[-1], torch.float32))}
+    for wrapper, (kernel, rule_of) in rules.items():
+        rule = {}
+        for grid, repeat in CALIBRATION:
+            for shape in calibrate.GRIDS[grid][kernel]:
+                name = rule_of(shape)
+                rule[name] = rule.get(name, 0) + 1 + repeat
+        ran = {k: n for k, n in by_variant[wrapper].items() if n}
+        if ran != rule or sum(rule.values()) != launches[wrapper]:
+            raise AssertionError(f"{wrapper} ran {ran} in float32, its rule "
+                                 f"names {rule}")
     return launches, by_variant
 
 
@@ -738,7 +810,12 @@ def main():
         raise AssertionError("float32 plain versions need TF32 off")
     name, smi = identify()
     build_kernels()
-    max_err = check_kernel()
+    # the scan's loop over time, float32, N = 16
+    per_step, n, steps = scan_sass(_build.library_path("mamba_scan"),
+                                   "mamba_scan_kernelIfLi16EE")
+    log(f"mamba_scan L=4 SASS: {per_step:.2f} instructions per (thread, "
+        f"timestep) ({n} in a loop of {steps:g} steps)")
+    max_err, f32_err = check_kernel()
     check_model_against_cpu()
     cfg, params, launches, by_variant = serve_full()
     rows = time_kernel(cfg, smi)
@@ -749,9 +826,14 @@ def main():
     cal_err = check_calibration_shapes()
     new_rows, mm_by_variant = time_new_kernels(smi)
     log(f"matmul float32 ms by variant and shape: {mm_by_variant}")
-    f32_flash = _mean_row(time_flash_f32(smi))
-    log(f"flash_attention fma, mean over the model grid (float32, what the "
-        f"calibration runs): {f32_flash}")
+    f32_rows = time_flash_f32(smi)
+    f32_flash = {name: _mean_row(r) for name, r in f32_rows.items()}
+    shapes = ["x".join(map(str, shape))
+              for shape in calibrate.MODEL_GRIDS["attention"]]
+    for var, r in f32_flash.items():
+        log(f"flash_attention {var} float32, mean over the model grid (what "
+            f"the calibration runs): {r}; ms by shape "
+            f"{dict(zip(shapes, (x['ms'] for x in f32_rows[var])))}")
     cal_launches, cal_by_variant = run_calibration()
     # one launch of the main path, averaged over its 26-layer local/global
     # mix, in each bf16 variant; the JSON line gives the one serving runs
@@ -772,7 +854,16 @@ def main():
         "replaces": "src/repro/kernels/flash_attention.py:99",
         "launches": launches, "launches_by_variant": by_variant,
         "max_abs_err": max_err, **avg[served], "bound_by": by,
-        "ms_by_variant": {name: row["ms"] for name, row in avg.items()}}] + [{
+        "ms_by_variant": {name: row["ms"] for name, row in avg.items()}}, {
+        "name": "flash_attention_fp32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:99",
+        "launches": cal_launches["flash_attention"],
+        "launches_by_variant": cal_by_variant["flash_attention"],
+        "max_abs_err": max(f32_err, cal_err["attention"]),
+        **f32_flash[fa.variant(256, torch.float32)],
+        "ms_by_variant": {name: r["ms"] for name, r in f32_flash.items()}}
+    ] + [{
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}.cu",
             "replaces": replaces, "launches": cal_launches[kname],

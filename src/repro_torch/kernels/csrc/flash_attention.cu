@@ -17,13 +17,15 @@
 // wgmma, fed by TMA through a ring of K/V tiles, the only way to the card's
 // full rate; other head dims keep mma.sync m16n8k16 (bf16 in, float32
 // accumulate).  Which variant runs is the caller's choice, by head dim and
-// type (flash_attention.py::variant).  The float32 kernel must match
-// the reference to 1e-4, which no tensor-core type gives, so it does its
-// products with float32 FMAs on the CUDA cores.  Against device memory, the
-// other bound, both keep the score tile, the softmax statistics and the
-// output accumulator on chip for the whole KV sweep, as the TPU kernel keeps
-// them in VMEM: q is read once, each K/V tile once per query tile, o written
-// once.
+// type (flash_attention.py::variant).  The float32 kernel must match the
+// reference to 1e-4, which no single tensor-core type gives.  Its Hopper
+// variant (tf32x3, head dims 64, 128, 256) does each product as three TF32
+// passes on wgmma (CUTLASS's 3xTF32), bound by 3 x the work at the TF32
+// rate; other head dims keep float32 FMAs on the CUDA cores.  Against device
+// memory, the other bound, all keep the score tile, the softmax statistics
+// and the output accumulator on chip for the whole KV sweep, as the TPU
+// kernel keeps them in VMEM: q is read once, each K/V tile once per query
+// tile, o written once.
 //
 // Layout of the work.  The TPU grid (B*H, S/bq, S/bk) runs its KV axis in
 // order on one core and carries the statistics in VMEM scratch between grid
@@ -44,11 +46,11 @@
 // in shared memory as bf16 with rows padded by 8 elements, so that the 8
 // rows a fragment load touches start in 8 different banks.
 //
-// float32 kernel: 256 threads; thread (ty, tx) = (tid / 16, tid % 16) owns
-// query rows ty + 16 i (i < 4), score columns tx + 16 j and output columns
-// tx + 16 e.  The 16 threads of a row are one half-warp, so row max and row
-// sum reduce with 4 xor shuffles.  Q and K rows are padded to D + 1 floats
-// so that the 16 threads reading 16 K rows hit 16 banks.
+// float32 FMA kernel: 256 threads; thread (ty, tx) = (tid / 16, tid % 16)
+// owns query rows ty + 16 i (i < 4), score columns tx + 16 j and output
+// columns tx + 16 e.  The 16 threads of a row are one half-warp, so row max
+// and row sum reduce with 4 xor shuffles.  Q and K rows are padded to D + 1
+// floats so that the 16 threads reading 16 K rows hit 16 banks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -673,6 +675,432 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
+// float32 on Hopper: three TF32 passes on wgmma (the tf32x3 variant)
+
+// The split pass.  ws holds, each part a TF32 "hi" and its TF32-rounded
+// remainder "lo" (hopper::tf32_split):
+//   q_hi, q_lo   (B*H, S, D)      nq = B*H*S*D elements each
+//   k_hi, k_lo   (B*Hkv, S, D)    nk = B*Hkv*S*D elements each
+//   vt_hi, vt_lo (B*Hkv, D, Sp)   V transposed, keys contiguous, Sp = S
+//                                 rounded up to 4 (16-byte rows for TMA)
+// TF32 wgmma takes both operands K-major only: in P V the reduction runs
+// over keys, so V reaches shared memory with keys contiguous.  The first
+// vt_tiles blocks each turn one 64 x 64 tile of V through shared memory
+// (read along D, written along keys); the others split q and k elementwise,
+// 16 bytes a load.  Keys past S in a row of V^T are never read (the tensor
+// map ends at S) and are not written.
+constexpr int SPLIT_T = 64;
+constexpr int SPLIT_NT = 256;
+constexpr int SPLIT_V4 = 4;   // float4s a thread of an elementwise block
+
+inline long long vt_stride(int S) { return (S + 3) / 4 * 4; }
+
+__global__ void __launch_bounds__(SPLIT_NT)
+flash_tf32_split_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ ws,
+                        long long nq, long long nk, int S, int Sp, int D,
+                        int vt_tiles) {
+  __shared__ float t[SPLIT_T][SPLIT_T + 1];   // padded against bank conflicts
+  constexpr int PER = SPLIT_T * SPLIT_T / SPLIT_NT;
+  if ((int)blockIdx.x < vt_tiles) {
+    const int ds = D / SPLIT_T, ss = (S + SPLIT_T - 1) / SPLIT_T;
+    int tile = blockIdx.x;
+    const int d0 = tile % ds * SPLIT_T;
+    tile /= ds;
+    const int s0 = tile % ss * SPLIT_T, h = tile / ss;
+    const float* src = v + (long long)h * S * D;
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {   // t[key][d]
+      const int e = threadIdx.x + SPLIT_NT * j, i = e / SPLIT_T,
+                x = e % SPLIT_T;
+      t[i][x] = s0 + i < S ? src[(long long)(s0 + i) * D + d0 + x] : 0.f;
+    }
+    __syncthreads();
+    const long long nv = nk / S * Sp;   // elements of vt_hi
+    float* hi = ws + 2 * (nq + nk) + (long long)h * D * Sp;
+    float* lo = hi + nv;
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {   // row d0 + i of V^T, key s0 + x
+      const int e = threadIdx.x + SPLIT_NT * j, i = e / SPLIT_T,
+                x = e % SPLIT_T;
+      if (s0 + x >= S) continue;
+      float hv, lv;
+      hopper::tf32_split(t[x][i], hv, lv);
+      const long long g = (long long)(d0 + i) * Sp + s0 + x;
+      hi[g] = hv;
+      lo[g] = lv;
+    }
+    return;
+  }
+  const long long n4 = (nq + nk) / 4;
+  const long long e0 =
+      (long long)(blockIdx.x - vt_tiles) * SPLIT_NT * SPLIT_V4 + threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < SPLIT_V4; ++j) {
+    const long long e = e0 + (long long)SPLIT_NT * j;
+    if (e >= n4) break;
+    const long long x = 4 * e;   // q and k are whole float4s (D % 64 == 0)
+    const bool is_q = x < nq;
+    const float4 in = *reinterpret_cast<const float4*>(
+        is_q ? q + x : k + (x - nq));
+    float* hi = is_q ? ws + x : ws + 2 * nq + (x - nq);
+    float* lo = hi + (is_q ? nq : nk);
+    float4 h4, l4;
+    hopper::tf32_split(in.x, h4.x, l4.x);
+    hopper::tf32_split(in.y, h4.y, l4.y);
+    hopper::tf32_split(in.z, h4.z, l4.z);
+    hopper::tf32_split(in.w, h4.w, l4.w);
+    *reinterpret_cast<float4*>(hi) = h4;
+    *reinterpret_cast<float4*>(lo) = l4;
+  }
+}
+
+// One block of 64 query rows (one warpgroup).  Its shared memory:
+//   Q hi and lo, resident for the whole sweep: 2 x 64 x D x 4 bytes;
+//   a ring of STAGES items, each one of K hi, K lo, V^T hi, V^T lo of one
+//   tile of BK keys (BK x D x 4 bytes), loaded in that order, tile after
+//   tile;
+//   P hi and lo: 2 x 64 x BK x 4 bytes;
+// plus 1024 bytes of alignment and the barriers:
+//
+//   D     BK   Q hi+lo   item    ring             P hi+lo   total
+//   64    64   32 KB     16 KB   4 stages, 64 KB  32 KB     129 KB
+//   128   64   64 KB     32 KB   3 stages, 96 KB  32 KB     193 KB
+//   256   32   128 KB    32 KB   2 stages, 64 KB  16 KB     209 KB
+//
+// of the 227 KB a block may have: one block an SM.  At D = 256 the ring
+// holds only K hi and K lo of one tile, or V^T hi and lo; each item is
+// refilled as soon as the products that read it are done, so the next
+// item's load runs under the current products and the softmax.
+template <int D> struct TilesTf32 {
+  static constexpr int BQ = 64;                  // query rows: one warpgroup
+  static constexpr int BK = D > 128 ? 32 : 64;   // keys per KV tile
+  static constexpr int STAGES = D == 64 ? 4 : D == 128 ? 3 : 2;
+  static constexpr int THREADS = 128;
+  static constexpr int Q_BYTES = 2 * BQ * D * 4;   // [hi, lo][D/32][BQ][32]
+  static constexpr int ITEM = BK * D * 4;          // K: [D/32][BK][32];
+                                                   // V^T: [BK/32][D][32]
+  static constexpr int P_BYTES = 2 * BQ * BK * 4;  // [hi, lo][BK/32][BQ][32]
+  static constexpr size_t smem_bytes =
+      1024 + size_t(Q_BYTES) + size_t(STAGES) * ITEM + P_BYTES +
+      (1 + STAGES) * sizeof(uint64_t) + STAGES * sizeof(uint32_t);
+};
+
+// What flash_fwd_f32_kernel computes, with both products on the tensor
+// cores as CUTLASS's 3xTF32: S = Q K^T and O += P V each sum lo·hi, hi·lo
+// and hi·hi (only lo·lo, about 2^-22 relative, is dropped), from the split
+// pass's operands and P split in registers.  The skeleton is
+// flash_fwd_wgmma_kernel's: thread 0 loads Q (hi and lo) once and primes
+// the ring; the last warp to release an item refills its stage with the
+// item STAGES further on.  Each product is two commit groups: the passes
+// that read the hi item (lo·hi, then hi·hi, summing the small terms first),
+// then hi·lo; the hi item is released, and its stage refilled, while hi·lo
+// still runs.  S (64 x BK) is m64nBKk8 wgmma from shared memory; the online
+// softmax runs in exp2 with scale * log2(e) folded in, masks only on tiles
+// that cross the causal diagonal, the window's edge or S; P goes to shared
+// memory as hi and lo in the 128-byte swizzled layout a TMA load would
+// write (the A operand of TF32 wgmma from registers would cost 8 registers
+// a k8 step, and the 64 x 256 accumulator already takes 128); O (64 x D)
+// is m64nDk8 wgmma with P and V^T from shared memory.  Q, K and V^T are
+// read through 3-d tensor maps whose third index picks the head and the
+// part (hi or lo), so that rows and keys past S arrive as zeros.
+template <int D>
+__global__ void __launch_bounds__(TilesTf32<D>::THREADS, 1)
+flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_vt,
+                        float* __restrict__ o, int H, int Hkv, int S,
+                        int causal, int window, float scale_log2) {
+  using Tl = TilesTf32<D>;
+  using namespace hopper;
+  constexpr int BQ = Tl::BQ, BK = Tl::BK, STAGES = Tl::STAGES;
+  constexpr int ITEM = Tl::ITEM;
+  constexpr int QH = BQ * D * 4, PH = BQ * BK * 4;   // bytes of one part
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align1024(smem_raw);       // [hi, lo][D/32][BQ][32]
+  unsigned char* ring = Qs + Tl::Q_BYTES;        // [STAGES][ITEM]
+  unsigned char* Ps = ring + STAGES * ITEM;      // [hi, lo][BK/32][BQ][32]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Ps + Tl::P_BYTES);
+  uint64_t* full = q_full + 1;
+  uint32_t* released = reinterpret_cast<uint32_t*>(full + STAGES);
+
+  // block u: query tile nq - 1 - u / heads of flat head u % heads, the
+  // longest causal sweeps first
+  const int nq = (S + BQ - 1) / BQ, heads = gridDim.x / nq;
+  const int bh = blockIdx.x % heads;                   // flat head b*H + h
+  const int q0 = (nq - 1 - blockIdx.x / heads) * BQ;
+  const int b = bh / H, h = bh % H;
+  const int kv_heads = heads / H * Hkv;                // B*Hkv
+  const int kvh = b * Hkv + h / (H / Hkv);
+  int kt_begin = 0, kt_end = (S + BK - 1) / BK;
+  if (window > 0) kt_begin = max(0, q0 - window + 1) / BK;
+  if (causal) kt_end = min(kt_end, (q0 + BQ - 1) / BK + 1);
+  const int n_items = 4 * (kt_end - kt_begin);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // item i: kind i % 4 (K hi, K lo, V^T hi, V^T lo) of the block's KV tile
+  // i / 4, into stage i % STAGES (one thread)
+  auto load = [&](int i) {
+    const int s = i % STAGES, kind = i % 4, k0 = (kt_begin + i / 4) * BK;
+    const int head = (kind & 1) * kv_heads + kvh;
+    unsigned char* dst = ring + s * ITEM;
+    mbar_arrive_expect_tx(&full[s], ITEM);
+    if (kind < 2) {
+#pragma unroll
+      for (int c = 0; c < D / 32; ++c)
+        tma_load_3d(dst + c * BK * 128, &map_k, &full[s], 32 * c, k0, head);
+    } else {
+#pragma unroll
+      for (int c = 0; c < BK / 32; ++c)
+        tma_load_3d(dst + c * D * 128, &map_vt, &full[s], k0 + 32 * c, 0,
+                    head);
+    }
+  };
+  // Each warp releases item i once its products are done; the last of the
+  // 4 to release it loads item i + STAGES into the stage.  The count only
+  // grows: every 4 releases of a stage are one item.
+  auto release = [&](int i) {
+    if (lane == 0) {
+      __threadfence_block();   // this warp's reads of the stage are done
+      if ((atomicAdd(&released[i % STAGES], 1u) + 1) % 4 == 0) {
+        __threadfence_block();
+        if (i + STAGES < n_items) load(i + STAGES);
+      }
+    }
+    __syncwarp();
+  };
+  auto wait_item = [&](int i) {
+    mbar_wait(&full[i % STAGES], (i / STAGES) & 1);
+    return ring + (i % STAGES) * ITEM;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      released[s] = 0;
+    }
+    mbar_fence_init();
+    mbar_arrive_expect_tx(q_full, Tl::Q_BYTES);
+#pragma unroll
+    for (int part = 0; part < 2; ++part)
+#pragma unroll
+      for (int c = 0; c < D / 32; ++c)
+        tma_load_3d(Qs + part * QH + c * BQ * 128, &map_q, q_full, 32 * c,
+                    q0, part * heads + bh);
+    for (int i = 0; i < STAGES && i < n_items; ++i) load(i);
+  }
+  __syncthreads();
+
+  const int row[2] = {q0 + 16 * warp + lane / 4,
+                      q0 + 16 * warp + lane / 4 + 8};
+  const int kcol = 2 * (lane % 4);
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // l: this lane's part
+  Acc<D> acc;
+  acc_zero(acc);
+  const unsigned char* q_hi = Qs;
+  const unsigned char* q_lo = Qs + QH;
+  mbar_wait(q_full, 0);
+
+  for (int i = 0; i < n_items; i += 4) {
+    const int k0 = (kt_begin + i / 4) * BK;
+    // some key of the tile masked for some row
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + BQ - 1 - window);
+    Acc<BK> sc;
+    const unsigned char* k_hi = wait_item(i);
+    wgmma_fence();
+#pragma unroll
+    for (int st = 0; st < D / 8; ++st) {
+      const int off = st / 4 * BQ * 128 + 32 * (st % 4);
+      const uint64_t kb = desc_sw128(k_hi + st / 4 * BK * 128 + 32 * (st % 4),
+                                     16, 1024);
+      wgmma_ss_tf32(sc, desc_sw128(q_lo + off, 16, 1024), kb, st > 0);
+      wgmma_ss_tf32(sc, desc_sw128(q_hi + off, 16, 1024), kb, 1);
+    }
+    wgmma_commit();
+    const unsigned char* k_lo = wait_item(i + 1);
+    wgmma_fence();
+#pragma unroll
+    for (int st = 0; st < D / 8; ++st)
+      wgmma_ss_tf32(sc, desc_sw128(q_hi + st / 4 * BQ * 128 + 32 * (st % 4),
+                                   16, 1024),
+                    desc_sw128(k_lo + st / 4 * BK * 128 + 32 * (st % 4), 16,
+                               1024),
+                    1);
+    wgmma_commit();
+    wgmma_wait<1>();
+    release(i);
+    wgmma_wait<0>();
+    acc_fence(sc);
+    release(i + 1);
+
+    // sc.r[4 j + e]: row row[e / 2], key k0 + 8 j + kcol + (e & 1)
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int r = 0; r < BK / 2; ++r) {
+      float x = sc.r[r] * scale_log2;
+      if (edge) {
+        const int qpos = row[(r % 4) / 2];
+        const int kpos = k0 + 8 * (r / 4) + kcol + (r & 1);
+        const bool live = kpos < S && (!causal || qpos >= kpos) &&
+                          (window <= 0 || qpos - kpos < window);
+        x = live ? x : NEG_INF;
+      }
+      sc.r[r] = x;
+      mx[(r % 4) / 2] = fmaxf(mx[(r % 4) / 2], x);
+    }
+    float corr[2];
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      mx[h2] = fmaxf(mx[h2], __shfl_xor_sync(0xffffffffu, mx[h2], 1));
+      mx[h2] = fmaxf(mx[h2], __shfl_xor_sync(0xffffffffu, mx[h2], 2));
+      const float m_new = fmaxf(m[h2], mx[h2]);
+      corr[h2] = ex2(m[h2] - m_new);
+      m[h2] = m_new;
+      l[h2] *= corr[h2];
+    }
+    // P as hi and lo into shared memory, 128-byte swizzled: row rr, key x
+    // of box c is at c * BQ * 128 + rr * 128, 16-byte piece x / 4 XOR rr % 8
+#pragma unroll
+    for (int r = 0; r < BK / 2; r += 2) {
+      const int h2 = (r % 4) / 2, rr = 16 * warp + lane / 4 + 8 * h2;
+      const int x = (8 * (r / 4) + kcol) % 32, c = (8 * (r / 4)) / 32;
+      const float p0 = ex2(sc.r[r] - m[h2]), p1 = ex2(sc.r[r + 1] - m[h2]);
+      l[h2] += p0 + p1;
+      float2 hi, lo;
+      tf32_split(p0, hi.x, lo.x);
+      tf32_split(p1, hi.y, lo.y);
+      const int off = c * BQ * 128 + rr * 128 +
+                      ((((x >> 2) ^ (rr & 7)) << 4) | ((x & 3) << 2));
+      *reinterpret_cast<float2*>(Ps + off) = hi;
+      *reinterpret_cast<float2*>(Ps + PH + off) = lo;
+    }
+#pragma unroll
+    for (int r = 0; r < D / 2; ++r) acc.r[r] *= corr[(r % 4) / 2];
+    fence_proxy_async();   // P's plain stores, visible to wgmma
+    __syncthreads();       // every warp's rows of P are written
+
+    const unsigned char* v_hi = wait_item(i + 2);
+    acc_fence(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int st = 0; st < BK / 8; ++st) {
+      const int off = st / 4 * BQ * 128 + 32 * (st % 4);
+      const uint64_t vb = desc_sw128(v_hi + st / 4 * D * 128 + 32 * (st % 4),
+                                     16, 1024);
+      wgmma_ss_tf32(acc, desc_sw128(Ps + PH + off, 16, 1024), vb, 1);
+      wgmma_ss_tf32(acc, desc_sw128(Ps + off, 16, 1024), vb, 1);
+    }
+    wgmma_commit();
+    const unsigned char* v_lo = wait_item(i + 3);
+    wgmma_fence();
+#pragma unroll
+    for (int st = 0; st < BK / 8; ++st)
+      wgmma_ss_tf32(acc, desc_sw128(Ps + st / 4 * BQ * 128 + 32 * (st % 4),
+                                    16, 1024),
+                    desc_sw128(v_lo + st / 4 * D * 128 + 32 * (st % 4), 16,
+                               1024),
+                    1);
+    wgmma_commit();
+    wgmma_wait<1>();
+    release(i + 2);
+    wgmma_wait<0>();
+    acc_fence(acc);
+    release(i + 3);
+  }
+
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    l[h2] += __shfl_xor_sync(0xffffffffu, l[h2], 1);
+    l[h2] += __shfl_xor_sync(0xffffffffu, l[h2], 2);
+  }
+  float* op = o + (long long)bh * S * D;
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    if (row[h2] >= S) continue;
+    const float denom = fmaxf(l[h2], 1e-30f);
+    float* orow = op + (long long)row[h2] * D + kcol;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j) =
+          make_float2(acc.r[4 * j + 2 * h2] / denom,
+                      acc.r[4 * j + 2 * h2 + 1] / denom);
+  }
+}
+
+// float32 elements of the tf32x3 workspace: q and k hi/lo, v transposed
+// hi/lo with rows of vt_stride(S)
+long long tf32x3_workspace(int B, int H, int Hkv, int S, int D) {
+  return 2LL * S * D * ((long long)B * H + (long long)B * Hkv) +
+         2LL * B * Hkv * D * vt_stride(S);
+}
+
+// The split pass into ws (n_ws float32 elements, at least
+// tf32x3_workspace(...), 16-byte aligned), then the product over it, on one
+// stream.
+template <int D>
+cudaError_t launch_tf32x3(const float* q, const float* k, const float* v,
+                          float* o, float* ws, long long n_ws, int B, int H,
+                          int Hkv, int S, int causal, int window,
+                          cudaStream_t stream) {
+  using Tl = TilesTf32<D>;
+  if (!ws || n_ws < tf32x3_workspace(B, H, Hkv, S, D))
+    return cudaErrorInvalidValue;
+  const long long nq = (long long)B * H * S * D;
+  const long long nk = (long long)B * Hkv * S * D;
+  const int Sp = (int)vt_stride(S);
+  const long long vt_tiles =
+      (long long)B * Hkv * ((S + SPLIT_T - 1) / SPLIT_T) * (D / SPLIT_T);
+  const long long per_block = (long long)SPLIT_NT * SPLIT_V4 * 4;
+  const long long blocks = vt_tiles + (nq + nk + per_block - 1) / per_block;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_tf32_split_kernel<<<(unsigned)blocks, SPLIT_NT, 0, stream>>>(
+      q, k, v, ws, nq, nk, S, Sp, D, (int)vt_tiles);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  // (D, S, 2 B H), (D, S, 2 B Hkv) and (S, D, 2 B Hkv) maps: the third
+  // index picks the part (hi, lo) and the head
+  CUtensorMap map_q, map_k, map_vt;
+  const cuuint64_t row_strides[2] = {(cuuint64_t)D * 4, (cuuint64_t)S * D * 4};
+  const cuuint64_t q_dims[3] = {(cuuint64_t)D, (cuuint64_t)S,
+                                2 * (cuuint64_t)B * H};
+  const cuuint64_t k_dims[3] = {(cuuint64_t)D, (cuuint64_t)S,
+                                2 * (cuuint64_t)B * Hkv};
+  const cuuint64_t vt_dims[3] = {(cuuint64_t)S, (cuuint64_t)D,
+                                 2 * (cuuint64_t)B * Hkv};
+  const cuuint64_t vt_strides[2] = {(cuuint64_t)Sp * 4,
+                                    (cuuint64_t)D * Sp * 4};
+  const cuuint32_t q_box[3] = {32, (cuuint32_t)Tl::BQ, 1};
+  const cuuint32_t k_box[3] = {32, (cuuint32_t)Tl::BK, 1};
+  const cuuint32_t vt_box[3] = {32, (cuuint32_t)D, 1};
+  constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  err = hopper::make_map(&map_q, F32, ws, 3, q_dims, row_strides, q_box);
+  if (err == cudaSuccess)
+    err = hopper::make_map(&map_k, F32, ws + 2 * nq, 3, k_dims, row_strides,
+                           k_box);
+  if (err == cudaSuccess)
+    err = hopper::make_map(&map_vt, F32, ws + 2 * (nq + nk), 3, vt_dims,
+                           vt_strides, vt_box);
+  int device = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  static std::atomic<uint64_t> smem_set{0};
+  auto kernel = flash_fwd_tf32x3_kernel<D>;
+  if (err == cudaSuccess)
+    err = hopper::smem_limit_once(smem_set, kernel, (int)Tl::smem_bytes,
+                                  device);
+  if (err != cudaSuccess) return err;
+  // one block per work unit (query tile, flat head)
+  const int grid = B * H * ((S + Tl::BQ - 1) / Tl::BQ);
+  kernel<<<grid, Tl::THREADS, Tl::smem_bytes, stream>>>(
+      map_q, map_k, map_vt, o, H, Hkv, S, causal, window,
+      (float)(1.4426950408889634 / sqrt((double)D)));
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // launch
 
 template <typename T, typename Kernel>
@@ -692,13 +1120,15 @@ cudaError_t launch(Kernel kernel, int threads, size_t smem, const void* q,
 }
 
 // Kernel variants, chosen by the caller (flash_attention.py::variant):
-// 0 float32 FMAs, 1 bf16 mma.sync, 2 bf16 wgmma with TMA (D of 64, 128, 256).
-enum Variant { kFma = 0, kMmaSync = 1, kWgmma = 2 };
+// 0 float32 FMAs, 1 bf16 mma.sync, 2 bf16 wgmma with TMA, 3 float32 three
+// TF32 passes on wgmma (2 and 3: D of 64, 128, 256).
+enum Variant { kFma = 0, kMmaSync = 1, kWgmma = 2, kTf32x3 = 3 };
 
 template <int D>
 cudaError_t launch_d(int dtype, int variant, const void* q, const void* k,
-                     const void* v, void* o, int B, int H, int Hkv, int S,
-                     int causal, int window, cudaStream_t stream) {
+                     const void* v, void* o, float* ws, long long n_ws, int B,
+                     int H, int Hkv, int S, int causal, int window,
+                     cudaStream_t stream) {
   if (dtype == 0 && variant == kFma)
     return launch<float>(flash_fwd_f32_kernel<D>, NT,
                          TilesF32<D>::smem_bytes, q, k, v, o, B, H, Hkv, S,
@@ -711,28 +1141,48 @@ cudaError_t launch_d(int dtype, int variant, const void* q, const void* k,
     if (dtype == 1 && variant == kWgmma)
       return launch_wgmma<D>(q, k, v, o, B, H, Hkv, S, causal, window,
                              stream);
+    if (dtype == 0 && variant == kTf32x3)
+      return launch_tf32x3<D>(static_cast<const float*>(q),
+                              static_cast<const float*>(k),
+                              static_cast<const float*>(v),
+                              static_cast<float*>(o), ws, n_ws, B, H, Hkv, S,
+                              causal, window, stream);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// float32 elements of the workspace the tf32x3 variant needs (the split
+// operands); the other variants need none.
+extern "C" long long flash_attention_workspace(int B, int H, int Hkv, int S,
+                                               int D) {
+  if (B < 1 || H < 1 || Hkv < 1 || S < 1 || D < 1) return 0;
+  return tf32x3_workspace(B, H, Hkv, S, D);
+}
+
 // q: (B, H, S, D), k and v: (B, Hkv, S, D), o: (B, H, S, D), all contiguous
-// and of one type: dtype 0 is float32 (variant 0), 1 is bfloat16 (variant 1,
-// or 2 for D of 64, 128, 256), 16-byte aligned.  D is one of 16, 32,
-// 64, 96, 128, 256.  Returns the cudaError_t of the launch (0 on success).
+// and of one type: dtype 0 is float32 (variant 0, or 3 for D of 64, 128,
+// 256), 1 is bfloat16 (variant 1, or 2 for D of 64, 128, 256), 16-byte
+// aligned.  D is one of 16, 32, 64, 96, 128, 256.  ws: n_ws float32
+// elements, at least flash_attention_workspace(B, H, Hkv, S, D) for variant
+// 3 (a shorter workspace is refused), else unused.  Returns the cudaError_t
+// of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int B, int H, int Hkv, int S,
-                                   int D, int causal, int window, int dtype,
-                                   int variant, void* stream) {
+                                   void* o, void* ws, long long n_ws, int B,
+                                   int H, int Hkv, int S, int D, int causal,
+                                   int window, int dtype, int variant,
+                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* w = static_cast<float*>(ws);
+  if (!w) n_ws = 0;
   switch (D) {
-    case 16: return (int)launch_d<16>(dtype, variant, q, k, v, o, B, H, Hkv, S, causal, window, st);
-    case 32: return (int)launch_d<32>(dtype, variant, q, k, v, o, B, H, Hkv, S, causal, window, st);
-    case 64: return (int)launch_d<64>(dtype, variant, q, k, v, o, B, H, Hkv, S, causal, window, st);
-    case 96: return (int)launch_d<96>(dtype, variant, q, k, v, o, B, H, Hkv, S, causal, window, st);
-    case 128: return (int)launch_d<128>(dtype, variant, q, k, v, o, B, H, Hkv, S, causal, window, st);
-    case 256: return (int)launch_d<256>(dtype, variant, q, k, v, o, B, H, Hkv, S, causal, window, st);
+    case 16: return (int)launch_d<16>(dtype, variant, q, k, v, o, w, n_ws, B, H, Hkv, S, causal, window, st);
+    case 32: return (int)launch_d<32>(dtype, variant, q, k, v, o, w, n_ws, B, H, Hkv, S, causal, window, st);
+    case 64: return (int)launch_d<64>(dtype, variant, q, k, v, o, w, n_ws, B, H, Hkv, S, causal, window, st);
+    case 96: return (int)launch_d<96>(dtype, variant, q, k, v, o, w, n_ws, B, H, Hkv, S, causal, window, st);
+    case 128: return (int)launch_d<128>(dtype, variant, q, k, v, o, w, n_ws, B, H, Hkv, S, causal, window, st);
+    case 256: return (int)launch_d<256>(dtype, variant, q, k, v, o, w, n_ws, B, H, Hkv, S, causal, window, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -367,7 +367,46 @@ __device__ __forceinline__ void wgmma_rs(Acc<256>& d, const uint32_t (&a)[4],
 // A 128-byte swizzled row holds 32 fp32 values, so the k8 step kk inside a
 // box starts 32 kk bytes further on, as bf16's k16 step does.  The tensor
 // cores read the top 19 bits of each 32-bit operand (see tf32_split).
-// Generated text, one overload per N (112, 128, 256).
+// Generated text, one overload per N (32, 64: flash attention's score
+// tiles and its D = 64 output; 112, 128, 256).
+__device__ __forceinline__ void wgmma_ss_tf32(Acc<32>& d, uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "},"
+      " %16, %17, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d.r[0]), "+f"(d.r[1]), "+f"(d.r[2]), "+f"(d.r[3]), "+f"(d.r[4]), "+f"(d.r[5]),
+        "+f"(d.r[6]), "+f"(d.r[7]), "+f"(d.r[8]), "+f"(d.r[9]), "+f"(d.r[10]), "+f"(d.r[11]),
+        "+f"(d.r[12]), "+f"(d.r[13]), "+f"(d.r[14]), "+f"(d.r[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_tf32(Acc<64>& d, uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "},"
+      " %32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d.r[0]), "+f"(d.r[1]), "+f"(d.r[2]), "+f"(d.r[3]), "+f"(d.r[4]), "+f"(d.r[5]),
+        "+f"(d.r[6]), "+f"(d.r[7]), "+f"(d.r[8]), "+f"(d.r[9]), "+f"(d.r[10]), "+f"(d.r[11]),
+        "+f"(d.r[12]), "+f"(d.r[13]), "+f"(d.r[14]), "+f"(d.r[15]), "+f"(d.r[16]), "+f"(d.r[17]),
+        "+f"(d.r[18]), "+f"(d.r[19]), "+f"(d.r[20]), "+f"(d.r[21]), "+f"(d.r[22]), "+f"(d.r[23]),
+        "+f"(d.r[24]), "+f"(d.r[25]), "+f"(d.r[26]), "+f"(d.r[27]), "+f"(d.r[28]), "+f"(d.r[29]),
+        "+f"(d.r[30]), "+f"(d.r[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_ss_tf32(Acc<112>& d, uint64_t da,
                                               uint64_t db, int scale_d) {
   asm volatile(

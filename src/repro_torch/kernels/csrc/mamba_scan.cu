@@ -21,18 +21,38 @@
 // Layout of the work.  The TPU grid (b, d / bd, S / chunk) runs the chunk
 // axis in order and carries the (bd, N) state in VMEM scratch between grid
 // steps.  Here the state lives in registers for the whole sequence: L = 4
-// consecutive lanes own one (batch, channel) and N / L of its states each,
-// and add their parts of y_t with xor shuffles; consecutive channels are
-// consecutive in memory.  Four lanes per channel, not one, give 4x the
-// threads: at b = 1 and d = 8192 one thread per channel fills 64 blocks of
-// 128 on 132 SMs, and on the card 4 lanes were faster at every shape
-// measured, b = 4 and 8 included.  A chunk of TC timesteps of x and dt for
-// the block's channels, and of B and C (shared by all of them), is staged
-// in shared memory, and the next chunk is loaded into registers while this
-// one is scanned: the loop over time then waits on no load from device
-// memory.  Any S and d: channels past d keep zeros and store nothing.  exp
-// is expf, not the faster __expf: the reference tolerance is 2e-4 over
-// sequences of thousands of steps.
+// consecutive lanes own one (batch, channel) and N / L of its states each;
+// consecutive channels are consecutive in memory (L = 2 was slower at every
+// shape measured, PERF.md).  Several lanes per
+// channel, not one, give L times the threads: at b = 1 and d = 8192 one
+// thread per channel fills 64 blocks of 128 on 132 SMs.  A chunk of TC
+// timesteps of x and dt for the block's channels, and of B and C (shared by
+// all of them), is staged in shared memory, and the next chunk is loaded
+// into registers while this one is scanned: the loop over time then waits
+// on no load from device memory.  Each lane writes its part of y_t to
+// shared memory; after the chunk, the block sums the L parts of each
+// (t, channel) and stores y along the channels.  Any S and d: channels past
+// d keep zeros and store nothing; steps past S see x = dt = 0, which keeps
+// the state, and store nothing.
+//
+// The state step.  The loop over time is bound by instruction issue and by
+// the exponentials, not by memory.  The step's decay exp(dt A) is
+// 2^(dt A log2 e) on the special-function unit (ex2.approx, about 2 ulp),
+// with A scaled by log2 e once, where it is loaded: the precise expf it
+// replaces added a range reduction to each state step.  Scaling A adds one
+// float rounding to the exponent's argument, about 1e-6 relative at |dt A|
+// near 13; the decayed terms shrink, so the error does not grow along the
+// sequence (held at the reference tolerance 2e-4 over 2048 steps on the
+// card and in tests/test_torch_mamba_scan.py).  The .ftz form flushes a
+// decay below 2^-126 to zero: such a term weighs less than 1e-38 of the
+// state, and the form without .ftz costs extra instructions to rescale
+// subnormal results.  A lane reads its N / L consecutive values of B_t and
+// C_t as float4 (or float2) vectors, and y_t leaves the loop as one shared
+// store, with no shuffles and no device-memory store.  At L = 4 and N = 16
+// the loop is 29 SASS instructions a (thread, timestep) against 77.75 with
+// expf, shuffles and per-step stores (PERF.md, counted by chip_smoke.py):
+// 4 exponentials, 18 multiplies and FMAs, 5 shared-memory accesses, 2 of
+// loop control.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,8 +60,36 @@
 namespace {
 
 constexpr int NTS = 128;   // threads per block
-constexpr int L = 4;       // lanes per (batch, channel)
 constexpr int TC = 32;     // timesteps staged in shared memory at a time
+constexpr int L = 4;       // lanes per (batch, channel)
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// NL consecutive floats of shared memory at p (16-byte aligned for NL % 4
+// == 0, 8-byte for NL == 2) in vector reads
+template <int NL>
+__device__ __forceinline__ void read_vec(const float* p, float (&v)[NL]) {
+  if constexpr (NL % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < NL / 4; ++i) {
+      const float4 w = reinterpret_cast<const float4*>(p)[i];
+      v[4 * i] = w.x;
+      v[4 * i + 1] = w.y;
+      v[4 * i + 2] = w.z;
+      v[4 * i + 3] = w.w;
+    }
+  } else {
+    static_assert(NL == 2, "N / L states a lane: 2 or a multiple of 4");
+    const float2 w = *reinterpret_cast<const float2*>(p);
+    v[0] = w.x;
+    v[1] = w.y;
+  }
+}
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -64,7 +112,9 @@ mamba_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   constexpr int XL = TC * CH / NTS, BL = TC * N / NTS;   // loads per thread
   static_assert(N % L == 0 && 32 % L == 0, "L lanes split N states in a warp");
   static_assert(TC * CH % NTS == 0 && TC * N % NTS == 0, "whole loads");
-  __shared__ float Xs[TC][CH], Ds[TC][CH], Bs[TC][N], Cs[TC][N];
+  // Ps[t][tid]: each lane's part of y_t (lane part 0's holds D x_t too)
+  __shared__ __align__(16) float Xs[TC][CH], Ds[TC][CH], Bs[TC][N],
+      Cs[TC][N], Ps[TC][NTS];
 
   const int tid = threadIdx.x, part = tid % L, c = tid / L;
   const int ch0 = blockIdx.x * CH, ch = ch0 + c;
@@ -107,13 +157,13 @@ mamba_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
     }
   };
 
-  float a[NL], h[NL];
+  float a2[NL], h[NL];   // a2: A log2 e
 #pragma unroll
   for (int j = 0; j < NL; ++j) {
-    a[j] = live ? A[(long long)ch * N + part * NL + j] : 0.f;
+    a2[j] = live ? A[(long long)ch * N + part * NL + j] * LOG2E : 0.f;
     h[j] = 0.f;
   }
-  const float dv = live ? Dv[ch] : 0.f;
+  const float dv = live && part == 0 ? Dv[ch] : 0.f;
 
   load(0);
   store();
@@ -121,28 +171,37 @@ mamba_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   for (int t0 = 0; t0 < S; t0 += TC) {
     const bool more = t0 + TC < S;
     if (more) load(t0 + TC);     // in flight while this chunk is scanned
-    const int tn = min(TC, S - t0);
+    // every step of the chunk: past S, x = dt = 0 keeps h and y is not
+    // stored
 #pragma unroll 4
-    for (int t = 0; t < tn; ++t) {
+    for (int t = 0; t < TC; ++t) {
       const float xv = Xs[t][c], dtv = Ds[t][c], dx = dtv * xv;
-      float acc = 0.f;
+      float bv[NL], cv[NL], acc = dv * xv;
+      read_vec<NL>(&Bs[t][part * NL], bv);
+      read_vec<NL>(&Cs[t][part * NL], cv);
 #pragma unroll
       for (int j = 0; j < NL; ++j) {
-        const int n = part * NL + j;
-        h[j] = expf(dtv * a[j]) * h[j] + dx * Bs[t][n];
-        acc += h[j] * Cs[t][n];
+        h[j] = ex2(dtv * a2[j]) * h[j] + dx * bv[j];
+        acc += h[j] * cv[j];
       }
-#pragma unroll
-      for (int off = L / 2; off > 0; off >>= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (live && part == 0)
-        y[(row0 + t0 + t) * d + ch] = from_f<T>(acc + dv * xv);
+      Ps[t][tid] = acc;
     }
     __syncthreads();             // every thread is done with this chunk
-    if (more) {
-      store();
-      __syncthreads();
+    // y of the chunk: thread tid sums the L parts of channel ch0 + tid % CH
+    // at steps tid / CH + (NTS / CH) r, stored along the channels
+#pragma unroll
+    for (int r = 0; r < XL; ++r) {
+      const int i = tid + r * NTS, t = i / CH, cc = i % CH;
+      float part_y[L];
+      read_vec<L>(&Ps[t][cc * L], part_y);
+      float yv = 0.f;
+#pragma unroll
+      for (int p = 0; p < L; ++p) yv += part_y[p];
+      if (t0 + t < S && ch0 + cc < d)
+        y[(row0 + t0 + t) * d + ch0 + cc] = from_f<T>(yv);
     }
+    if (more) store();
+    __syncthreads();             // Ps is read; the next chunk is staged
   }
 }
 
@@ -172,8 +231,8 @@ cudaError_t launch_n(int N, const void* x, const void* dt, const void* B,
 
 // x, dt: (b, S, d); B, C: (b, S, N); y: (b, S, d), all contiguous and of one
 // type: dtype 0 is float32, 1 is bfloat16.  A: (d, N) and D: (d,) float32,
-// contiguous.  N is 8 or 16.  b, S, d >= 1.  Returns the cudaError_t of the
-// launch (0 on success).
+// contiguous.  N is 8 or 16.  b, S, d >= 1.
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int mamba_scan_fwd(const void* x, const void* dt, const void* B,
                               const void* C, const void* A, const void* D,
                               void* y, int b, int S, int d, int N, int dtype,

@@ -8,12 +8,17 @@ version is ``repro_torch.kernels.ref.flash_attention_ref`` and
 ``repro_torch.kernels.ops`` picks between the two by device.
 
 The kernel has variants, one chosen per call by ``variant(D, dtype)``, a
-rule by shape and type: bf16 at a head dim of 64, 128 or 256 takes the
-Hopper kernel (``"wgmma"``: wgmma fed by TMA), other bf16 head dims the
-``mma.sync`` kernel, float32 the FMA kernel.  A failed launch raises; no
+rule by shape and type.  At a head dim of 64, 128 or 256 (whole TMA boxes)
+bf16 takes ``"wgmma"`` (wgmma fed by TMA) and float32 takes ``"tf32x3"``:
+a split pass writes q, k and v transposed as TF32 hi and lo parts into a
+workspace whose length the library's ``flash_attention_workspace`` gives,
+and a wgmma kernel fed by TMA sums hi·hi + hi·lo + lo·hi for both products.  Other head
+dims take the ``mma.sync`` kernel (bf16) or the FMA kernel (float32,
+``"fma"``), which also runs when named.  A failed launch raises; no
 variant stands in for another.
 
-``flash_attention.launches`` counts the kernel's launches and
+``flash_attention.launches`` counts the kernel's launches (a tf32x3 call's
+split pass and product count once) and
 ``flash_attention.launches_by_variant`` splits them by variant.
 """
 from __future__ import annotations
@@ -30,30 +35,33 @@ WGMMA_HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # variant -> (code in csrc/flash_attention.cu, dtype it takes)
 VARIANTS = {"fma": (0, torch.float32), "mma_sync": (1, torch.bfloat16),
-            "wgmma": (2, torch.bfloat16)}
+            "wgmma": (2, torch.bfloat16), "tf32x3": (3, torch.float32)}
 
 
 def variant(D, dtype):
-    """The kernel variant for head dim ``D`` and ``dtype``: ``"wgmma"`` for
-    bf16 with D in ``WGMMA_HEAD_DIMS``, ``"mma_sync"`` for other bf16, and
-    ``"fma"`` for float32.  Raises on a head dim or type the kernel lacks."""
+    """The kernel variant for head dim ``D`` and ``dtype``: with D in
+    ``WGMMA_HEAD_DIMS``, ``"wgmma"`` for bf16 and ``"tf32x3"`` for float32;
+    otherwise ``"mma_sync"`` for bf16 and ``"fma"`` for float32.  Raises on
+    a head dim or type the kernel lacks."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, "
                         f"got {dtype}")
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
-    if dtype == torch.float32:
-        return "fma"
-    return "wgmma" if D in WGMMA_HEAD_DIMS else "mma_sync"
+    if D in WGMMA_HEAD_DIMS:
+        return "tf32x3" if dtype == torch.float32 else "wgmma"
+    return "fma" if dtype == torch.float32 else "mma_sync"
 
 
 @functools.cache
-def _kernel():
-    fn = _build.load("flash_attention").flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = _build.load("flash_attention")
+    lib.flash_attention_fwd.argtypes = [ctypes.c_void_p] * 5 \
+        + [ctypes.c_longlong] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.flash_attention_fwd.restype = ctypes.c_int
+    lib.flash_attention_workspace.argtypes = [ctypes.c_int] * 5
+    lib.flash_attention_workspace.restype = ctypes.c_longlong
+    return lib
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, kernel=None):
@@ -61,7 +69,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, kernel=None):
     one CUDA device, all float32 or all bfloat16.  ``window > 0`` adds the
     sliding-window mask ``qpos - kpos < window``.  ``kernel`` names a
     variant other than ``variant(D, dtype)`` (to time one against another);
-    it must take the inputs' type (and, for ``"wgmma"``, their head dim).
+    it must take the inputs' type (and, for ``"wgmma"`` and ``"tf32x3"``,
+    their head dim).
     Returns (B, H, S, D)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention kernel takes q, k, v on one CUDA "
@@ -81,7 +90,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, kernel=None):
                          f"q {tuple(q.shape)}, got {tuple(k.shape)}")
     name = variant(D, q.dtype) if kernel is None else kernel
     if name not in VARIANTS or VARIANTS[name][1] != q.dtype or (
-            name == "wgmma" and D not in WGMMA_HEAD_DIMS):
+            name in ("wgmma", "tf32x3") and D not in WGMMA_HEAD_DIMS):
         raise ValueError(f"kernel variant {name!r} does not take {q.dtype} "
                          f"at head dim {D}")
     if window < 0:
@@ -89,12 +98,19 @@ def flash_attention(q, k, v, *, causal=True, window=0, kernel=None):
     # contiguous, and 16-byte aligned for the bf16 kernel's vector loads
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
                for t in (q.contiguous(), k.contiguous(), v.contiguous()))
+    lib = _lib()
     out = torch.empty_like(q)
+    # the split operands of tf32x3 (the kernel refuses a shorter workspace)
+    ws, n_ws = None, 0
+    if name == "tf32x3":
+        n_ws = lib.flash_attention_workspace(B, H, Hkv, S, D)
+        ws = torch.empty(n_ws, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       out.data_ptr(), B, H, Hkv, S, D, int(causal),
-                       int(window), _DTYPES[q.dtype], VARIANTS[name][0],
-                       torch.cuda.current_stream().cuda_stream)
+        rc = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), n_ws, B, H, Hkv, S, D,
+            int(causal), int(window), _DTYPES[q.dtype], VARIANTS[name][0],
+            torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError_t {rc}")

@@ -109,12 +109,14 @@ def test_variant_rule_takes_hopper_kernel_at_serving_shapes(B, H, Hkv, S, D):
     (64, torch.bfloat16, "wgmma"), (128, torch.bfloat16, "wgmma"),
     (16, torch.bfloat16, "mma_sync"), (32, torch.bfloat16, "mma_sync"),
     (96, torch.bfloat16, "mma_sync"),
-    (256, torch.float32, "fma"), (64, torch.float32, "fma"),
-    (16, torch.float32, "fma"),
+    (256, torch.float32, "tf32x3"), (64, torch.float32, "tf32x3"),
+    (16, torch.float32, "fma"), (128, torch.float32, "tf32x3"),
+    (32, torch.float32, "fma"), (96, torch.float32, "fma"),
 ])
 def test_variant_rule_by_head_dim_and_type(D, dtype, expect):
-    """bf16 takes wgmma only where its 64-element TMA boxes tile D; float32
-    always takes the FMA kernel (no tensor-core type meets 1e-4)."""
+    """The Hopper variants (bf16 wgmma, float32 three TF32 passes on wgmma)
+    take D only where whole TMA boxes tile it; other head dims keep
+    mma.sync (bf16) and the FMA kernel (float32)."""
     assert fa.variant(D, dtype) == expect
 
 
@@ -145,3 +147,112 @@ def test_library_path_covers_shared_headers(monkeypatch, tmp_path):
     header.write_text(header.read_text() + "\n// edited\n")
     after = {n: _build.library_path(n) for n in before}
     assert all(after[n] != before[n] for n in before)
+
+
+def _tf32x3_workspace(B, H, Hkv, S, D):
+    """float32 elements of flash tf32x3's workspace, as the library's
+    ``flash_attention_workspace`` computes them: q and k split in place,
+    v transposed with rows padded to Sp = S rounded up to 4."""
+    sp = -(-S // 4) * 4
+    return 2 * S * D * B * (H + Hkv) + 2 * B * Hkv * D * sp
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,expect", [
+    (1, 4, 1, 1024, 256, 2 * 1024 * 256 * 5 + 2 * 256 * 1024),
+    (2, 4, 2, 128, 64, 2 * 128 * 64 * 2 * 6 + 2 * 2 * 2 * 64 * 128),
+    (1, 4, 1, 1000, 128, 2 * 1000 * 128 * 5 + 2 * 128 * 1000),
+    (2, 4, 2, 333, 128, 2 * 333 * 128 * 2 * 6 + 2 * 2 * 2 * 128 * 336),
+    (1, 2, 1, 77, 64, 2 * 77 * 64 * 3 + 2 * 64 * 80),
+])
+def test_tf32x3_workspace_holds_split_operands(B, H, Hkv, S, D, expect):
+    """q hi/lo (B*H, S, D), k hi/lo (B*Hkv, S, D) and v transposed, hi/lo
+    (B*Hkv, D, Sp) with Sp = S rounded up to 4: every part starts 16-byte
+    aligned and every row of V^T is whole 16-byte pieces, as TMA needs.
+    ``tests/test_torch_gpu.py`` holds the library's
+    ``flash_attention_workspace`` to the same counts on the card."""
+    n = _tf32x3_workspace(B, H, Hkv, S, D)
+    assert n == expect
+    nq, nk = B * H * S * D, B * Hkv * S * D
+    sp = (n - 2 * (nq + nk)) // (2 * B * Hkv * D)
+    assert sp % 4 == 0 and S <= sp < S + 4
+    assert all(4 * off % 16 == 0 for off in (nq, 2 * nq, 2 * nq + nk,
+                                             2 * (nq + nk)))
+
+
+def _tf32(x):
+    """x (float32) rounded to TF32 as cvt.rna.tf32.f32 does: to nearest on
+    the int32 view (ties away from zero), the low 13 mantissa bits
+    cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _flash_tf32(q, k, v, causal, window, bk, passes):
+    """The tf32x3 kernel's arithmetic in plain PyTorch: q, k, v^T and P
+    split into TF32 hi and lo; each product the float64 sum of ``passes``
+    (lo·hi, hi·lo, hi·hi, or hi·hi alone), rounded to float32 as the
+    tensor cores' float32 accumulator holds it; an online softmax over
+    tiles of ``bk`` keys in exp2 with scale * log2(e) folded in; the output
+    acc / max(l, 1e-30).  GQA: query head h reads KV head h // (H / Hkv)."""
+    B, H, S, D = q.shape
+    rep = H // k.shape[1]
+    k, v = (t.repeat_interleave(rep, dim=1) for t in (k, v))
+    scale_log2 = np.float32(1.4426950408889634 / D ** 0.5)
+
+    def prod(x, y):
+        (xh, xl), (yh, yl) = _split(x), _split(y)
+        terms = {"lo.hi": (xl, yh), "hi.lo": (xh, yl), "hi.hi": (xh, yh)}
+        return sum(a.double() @ b.double().transpose(-1, -2)
+                   for a, b in (terms[p] for p in passes)).float()
+
+    m = torch.full((B, H, S, 1), -1e30)
+    l = torch.zeros(B, H, S, 1)
+    acc = torch.zeros(B, H, S, D)
+    qpos = torch.arange(S)[:, None]
+    for k0 in range(0, S, bk):
+        kpos = torch.arange(k0, min(k0 + bk, S))[None, :]
+        live = torch.ones(S, kpos.shape[1], dtype=torch.bool)
+        if causal:
+            live &= qpos >= kpos
+        if window:
+            live &= qpos - kpos < window
+        s = prod(q, k[:, :, k0:k0 + bk]) * scale_log2
+        s = torch.where(live, s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + prod(p, v[:, :, k0:k0 + bk].transpose(-1, -2))
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)
+
+
+THREE = ("lo.hi", "hi.lo", "hi.hi")
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window,bk", [
+    (1, 1, 1, 1024, 256, True, 0, 32),       # a calibration head, D = 256
+    (1, 4, 2, 300, 128, True, 100, 64),      # windowed GQA, ragged S
+    (1, 2, 1, 200, 64, False, 0, 64),        # no causal mask
+])
+def test_three_tf32_passes_meet_the_fp32_tolerance(B, H, Hkv, S, D, causal,
+                                                   window, bk):
+    """The tf32x3 design emulated: three TF32 passes for both products hold
+    the float64 attention at the float32 tolerance, rtol = atol = 1e-4
+    (tests/test_kernels.py), and one pass (hi·hi) does not at D = 256,
+    which is why the kernel takes three."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(5, B, H, Hkv, S, D))
+    expect = ref.flash_attention_ref(q.double(), k.double(), v.double(),
+                                     causal=causal, window=window).numpy()
+    out = _flash_tf32(q, k, v, causal, window, bk, THREE)
+    np.testing.assert_allclose(out.numpy(), expect, rtol=1e-4, atol=1e-4)
+    if D == 256:
+        one = _flash_tf32(q, k, v, causal, window, bk, ("hi.hi",))
+        with pytest.raises(AssertionError):
+            np.testing.assert_allclose(one.numpy(), expect, rtol=1e-4,
+                                       atol=1e-4)

@@ -163,6 +163,7 @@ def test_cuda_matmul_takes_views(cuda):
     (1, 32, 16, 8), (2, 64, 32, 16), (1, 128, 64, 8),   # tests/test_kernels.py
     (1, 77, 40, 16), (3, 200, 130, 8), (1, 1, 1, 16),   # ragged S and d
     (1, 512, 8192, 16),                                 # model grid
+    (1, 2048, 256, 16), (2, 2048, 130, 8),              # 2048 steps
 ])
 def test_cuda_mamba_scan_matches_plain(cuda, b, S, d, N, dtype):
     """rtol tol, atol 4 tol, as tests/test_kernels.py; inputs as that file
@@ -391,3 +392,80 @@ def test_serving_launches_by_variant(cuda, head_dim, variant):
     assert stats["finite"]
     assert fa.flash_attention.launches_by_variant == {
         **dict.fromkeys(fa.VARIANTS, 0), variant: cfg.n_layers}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window", [
+    (2, 4, 2, 128, 64, True, 0),              # tests/test_kernels.py, D = 64
+    (1, 4, 1, 1024, 256, True, 0),            # calibration model grid
+    (4, 4, 1, 1024, 128, True, 512),
+    (1, 4, 1, 1000, 128, True, 0),            # ragged S
+    (2, 4, 1, 1000, 256, True, 512),          # ragged S, window
+    (2, 4, 1, 1024, 256, True, 64),           # window of one tile
+    (1, 4, 1, 77, 64, True, 30),              # S below two tiles
+    (1, 2, 1, 300, 256, False, 0),            # no causal mask
+    (1, 2, 1, 256, 64, False, 70),            # window without causal
+    (2, 4, 2, 333, 128, True, 0),             # GQA, S off 4 (padded V^T)
+])
+def test_cuda_flash_tf32x3_matches_plain(cuda, B, H, Hkv, S, D, causal,
+                                         window):
+    """Three TF32 passes at the float32 tolerance, rtol = atol = 1e-4
+    (tests/test_kernels.py); the shape rule names tf32x3 at these head
+    dims, and one call launches it once."""
+    assert fa.variant(D, torch.float32) == "tf32x3"
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               .to(cuda)
+               for shape in ((B, H, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+    out, ran = _launched(fa.flash_attention, lambda: fa.flash_attention(
+        q, k, v, causal=causal, window=window))
+    assert ran == {"tf32x3": 1}
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    expect = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(out.cpu().numpy(), expect.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Hkv,S,D,expect", [
+    (2, 4, 2, 128, 64, 2 * 128 * 64 * 2 * 6 + 2 * 2 * 2 * 64 * 128),
+    (1, 4, 1, 1000, 256, 2 * 1000 * 256 * 5 + 2 * 256 * 1000),
+    (2, 4, 2, 333, 128, 2 * 333 * 128 * 2 * 6 + 2 * 2 * 2 * 128 * 336)])
+def test_cuda_flash_tf32x3_refuses_a_short_workspace(cuda, B, H, Hkv, S, D,
+                                                     expect):
+    """The kernel sizes its workspace as q, k hi/lo and v transposed hi/lo
+    with rows padded to a multiple of 4 (the counts of
+    ``tests/test_torch_flash_attention.py``) and refuses one element less
+    with cudaErrorInvalidValue (1), before it launches anything."""
+    lib = fa._lib()
+    n_ws = lib.flash_attention_workspace(B, H, Hkv, S, D)
+    assert n_ws == expect
+    q = torch.zeros(B, H, S, D, device=cuda)
+    k = torch.zeros(B, Hkv, S, D, device=cuda)
+    o = torch.full_like(q, 7.0)
+    ws = torch.empty(n_ws, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    code = fa.VARIANTS["tf32x3"][0]
+
+    def call(n):
+        return lib.flash_attention_fwd(q.data_ptr(), k.data_ptr(),
+                                       k.data_ptr(), o.data_ptr(),
+                                       ws.data_ptr(), n, B, H, Hkv, S, D, 1,
+                                       0, 0, code, stream)
+
+    assert call(n_ws - 1) == 1 and call(0) == 1
+    torch.cuda.synchronize()
+    assert bool((o == 7).all())   # nothing ran
+    assert call(n_ws) == 0
+    torch.cuda.synchronize()
+    assert bool((o == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,dtype,D", [
+    ("tf32x3", torch.bfloat16, 64), ("tf32x3", torch.float32, 32),
+    ("tf32x3", torch.float32, 96), ("wgmma", torch.float32, 64)])
+def test_cuda_flash_refuses_variant_off_its_rule(cuda, kernel, dtype, D):
+    q = torch.zeros(1, 2, 64, D, device=cuda, dtype=dtype)
+    with pytest.raises(ValueError, match="variant"):
+        fa.flash_attention(q, q, q, kernel=kernel)
