@@ -45,7 +45,23 @@ printing a result:
 9. run the calibration loop (``repro_torch.kernels.calibrate.measure``) on
    the ``"model"`` and ``"full"`` grids, counting the three kernels'
    launches by variant (float32 matmul and flash as their rules name
-   them), and print each kernel's fit.
+   them), and print each kernel's fit;
+10. run the paper's Table-III networks (``repro_torch.core.graph``, params
+   from a seed) at batch 1 and 64 on the card and on the CPU (plain path)
+   with the same params and input: every convolution and FC node, fed the
+   card's inputs, at the float32 matmul tolerance; the logits at rtol 5e-4,
+   atol 5e-4 max|CPU logits|; the matmul's launches by variant along each
+   forward as the float32 rule names them (``GRAPH_LAUNCHES``);
+11. time each net's forward (median wall ms of 20 synchronized runs,
+   images/s), its products on the matmul kernel beside their bound and
+   ``torch.matmul`` on the same operands, and at batch 1 its device time,
+   split between the matmul kernels and the rest, over the wall time
+   (``torch.profiler``): the paper's accelerator-versus-framework
+   breakdown;
+12. run one camera frame (``repro_torch.launch.camera.run_frame``: a seeded
+   720x1280 raw frame, the ISP, CNN10 at batch 1) on the card against the
+   CPU (RGB frame and DNN input at atol 1e-5), counting its matmul
+   launches, and time it against the 33 ms frame budget.
 
 Kernel times are CUDA events around back-to-back calls queued behind a
 device-side wait (``torch.cuda._sleep``) that outlasts their enqueue, so
@@ -58,22 +74,28 @@ from __future__ import annotations
 import dataclasses
 import json
 import re
+import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.apps.paper_graphs import build_paper_graph  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.paper_nets import PAPER_NETS  # noqa: E402
 from repro_torch.convert import to_device  # noqa: E402
+from repro_torch.core import graph_ops  # noqa: E402
 from repro_torch.kernels import _build, calibrate, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.kernels import nvdla_matmul as mm  # noqa: E402
+from repro_torch.launch import camera  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve.step import (greedy, make_decode_step,  # noqa: E402
@@ -111,6 +133,11 @@ MM_CASES = [  # M, N, K
     (100, 72, 200), (17, 130, 33), (4, 6912, 1152),      # ragged edges
     (200, 6912, 1152), (4100, 1032, 1152),   # M, N off the Hopper tile
     (512, 1024, 4096),                       # K: 64 turns of a 4-stage ring
+    (784, 32, 9), (1024, 32, 27), (1024, 64, 27),   # graph path: K under
+    (1024, 192, 27),                                # one 32-wide TF32 row
+    (64, 10, 512), (64, 100, 300),           # logits: tf32x3 at batch 64,
+    (1, 10, 512), (1, 100, 300),             # stream at batch 1
+    (1, 10, 6272),                           # stream, N % 4 != 0, large K
 ] + list(calibrate.MODEL_GRIDS["matmul"])
 SCAN_CASES = [  # b, S, d, N
     (1, 32, 16, 8), (2, 64, 32, 16),        # tests/test_kernels.py
@@ -120,6 +147,23 @@ SCAN_CASES = [  # b, S, d, N
 CAL_TOL = {"matmul": MM_TOL[torch.float32], "attention": TOL[torch.float32],
            "mamba": SCAN_TOL[torch.float32]}   # calibration runs float32
 CALIBRATION = (("model", 3), ("full", 3))   # grid, repeat
+GRAPH_BATCHES = (1, 64)
+# the matmul's launches by variant along one forward of each Table-III net,
+# as nvdla_matmul.variant's float32 rule names them for the nets' conv and
+# FC shapes (M > 16 rows: tf32x3, else stream): {net: {batch: counts}}
+GRAPH_LAUNCHES = {
+    "minerva": {1: {"stream": 4}, 64: {"tf32x3": 4}},
+    "lenet5": {1: {"tf32x3": 2, "stream": 2}, 64: {"tf32x3": 4}},
+    "cnn10": {1: {"tf32x3": 4, "stream": 2}, 64: {"tf32x3": 6}},
+    "vgg16": {1: {"tf32x3": 7, "stream": 5}, 64: {"tf32x3": 12}},
+    "elu16": {1: {"tf32x3": 5, "stream": 6}, 64: {"tf32x3": 11}},
+}
+# logits, card against CPU: rtol, and atol as a share of max |CPU logits|;
+# looser than a node's because rounding compounds over up to 13 layers and
+# batch norm divides by a batch std (vgg16 at batch 64 reaches 1.4e-4)
+GRAPH_TOL = 5e-4
+GRAPH_RUNS = 20           # timed forwards (and camera frames) a median takes
+ISP_TOL = 1e-5            # RGB frame and DNN input, card against CPU
 
 
 def log(*args):
@@ -791,6 +835,188 @@ def run_calibration():
     return launches, by_variant
 
 
+def _products(g):
+    """The graph's convolution and matmul nodes: the products the matmul
+    kernel runs."""
+    return [g.nodes[k] for k in g.order
+            if g.nodes[k].op in ("convolution", "matmul")]
+
+
+def _path_launches(run):
+    """``run()`` with the matmul's counts set to 0 just before it; returns
+    its result and its launches by variant, read just after."""
+    mm.reset_counts()
+    out = run()
+    torch.cuda.synchronize()
+    return out, {k: n for k, n in mm.matmul.launches_by_variant.items() if n}
+
+
+def check_graphs():
+    """Each Table-III net at each batch of ``GRAPH_BATCHES`` on the card and
+    on the CPU with the same params and input.  Returns the graphs by (net,
+    batch), the matmul's launches by variant summed over the nets by batch,
+    and the largest error of a conv or FC node."""
+    graphs, by_batch, worst = {}, {}, 0.0
+    for net in PAPER_NETS.values():
+        for batch in GRAPH_BATCHES:
+            g = graphs[net.name, batch] = build_paper_graph(net, batch)
+            feeds = {"input": np.random.default_rng(batch).standard_normal(
+                (batch, *net.input_shape)).astype(np.float32)}
+            card, ran = _path_launches(lambda: g.values(feeds, device="cuda"))
+            expect = GRAPH_LAUNCHES[net.name][batch]
+            log(f"graph {net.name} batch {batch}: matmul launches {ran} "
+                f"(rule: {expect})")
+            if ran != expect:
+                raise AssertionError(f"{net.name} batch {batch} ran {ran}, "
+                                     f"the rule names {expect}")
+            for k, n in ran.items():
+                by_batch.setdefault(batch, {}).setdefault(k, 0)
+                by_batch[batch][k] += n
+            plan = g.fusion_plan()
+            for n in _products(g):
+                node = graph_ops.run_node(
+                    g, n, {i: card[i].cpu() for i in n.inputs}, plan)
+                w = card[n.inputs[1]]
+                K, N = w.numel() // w.shape[-1], w.shape[-1]
+                M = node.numel() // N
+                worst = max(worst, _check(
+                    f"graph {net.name} batch {batch} {n.name} {(M, N, K)} "
+                    f"{mm.variant(M, N, K, torch.float32)} vs plain on the "
+                    f"card's inputs", card[n.name].cpu(), node, MM_TOL[
+                        torch.float32], MM_TOL[torch.float32] * K ** 0.5))
+            cpu = g.values(feeds, device="cpu")
+            for o in g.outputs:
+                scale = cpu[o].abs().max().item()
+                err = _check(f"graph {net.name} batch {batch} {o} card vs "
+                             "CPU", card[o].cpu(), cpu[o], GRAPH_TOL,
+                             GRAPH_TOL * scale)
+                log(f"  {o}: max_abs_err / max|CPU| = {err / scale:.3e}")
+    return graphs, by_batch, worst
+
+
+def _is_matmul_kernel(key):
+    """Whether a profiled kernel is one of ``csrc/nvdla_matmul.cu``'s."""
+    return any(name in key for name in ("matmul_", "tf32_split_kernel",
+                                        "splitk_sum_kernel"))
+
+
+def profile_graph(forward, wall_ms, smi, runs=5):
+    """Device time of a forward by kernel over ``runs`` forwards: the matmul
+    kernels' share against the rest (im2col copies, pads, activations,
+    pools, norms), and the device's busy share of the median wall time
+    measured without the profiler (and of the profiled wall time, which
+    the profiler's host cost lengthens)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    forward()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            forward()
+        torch.cuda.synchronize()
+        prof_ms = 1e3 * (time.perf_counter() - t0) / runs
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    if not events:
+        log("  profile: no device time in the trace (not measured)")
+        return
+    total = sum(e.self_device_time_total for e in events) / 1e3 / runs
+    mm_ms = sum(e.self_device_time_total for e in events
+                if _is_matmul_kernel(e.key)) / 1e3 / runs
+    log(f"  profile (batch 1, {runs} forwards): device {total:.4f} ms a "
+        f"forward = matmul kernels {mm_ms:.4f} ({100 * mm_ms / total:.1f}%) "
+        f"+ other {total - mm_ms:.4f}; busy {100 * total / wall_ms:.1f}% of "
+        f"the {wall_ms:.4f} ms wall ({100 * total / prof_ms:.1f}% of the "
+        f"profiled {prof_ms:.4f} ms); card {smi}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"    {e.self_device_time_total / 1e3 / runs:9.4f} ms "
+            f"x{e.count // runs:<4d} {e.key[:90]}")
+
+
+def time_graphs(graphs, smi):
+    """Per net and batch: the forward's median wall ms over ``GRAPH_RUNS``
+    synchronized runs after 3 warm-ups, images/s, the matmul kernel's
+    device ms summed over the forward's products (each timed alone on the
+    forward's own operands) beside their summed bound and ``torch.matmul``
+    on the same operands, and at batch 1 the profiled breakdown."""
+    for (net, batch), g in graphs.items():
+        gen = torch.Generator(device="cuda").manual_seed(batch)
+        feeds = {"input": torch.randn(batch, *PAPER_NETS[net].input_shape,
+                                      generator=gen, device="cuda")}
+
+        def forward():
+            return g.execute(feeds, device="cuda")
+        for _ in range(3):
+            forward()
+        walls = []
+        for _ in range(GRAPH_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        wall = statistics.median(walls)
+        vals = g.values(feeds, device="cuda")
+        kernel_ms = library_ms = bound_ms = 0.0
+        for n in _products(g):
+            a, b, _ = graph_ops.matmul_operands(n, vals)
+            (M, K), N = a.shape, b.shape[1]
+            name = mm.variant(M, N, K, torch.float32)
+            k_ms = cuda_ms(lambda: mm.matmul(a, b), 20)
+            l_ms = cuda_ms(lambda: torch.matmul(a, b), 20)
+            b_ms = matmul_bound(M, N, K, torch.float32, name)[0]
+            log(f"  {net} batch {batch} {n.name} {(M, N, K)} {name}: kernel "
+                f"{k_ms:.4f} ms, torch.matmul {l_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({100 * b_ms / k_ms:.1f}%)")
+            kernel_ms, library_ms, bound_ms = (kernel_ms + k_ms,
+                                               library_ms + l_ms,
+                                               bound_ms + b_ms)
+        log(f"graph {net} batch {batch}: forward {wall:.4f} ms median of "
+            f"{GRAPH_RUNS} (min {min(walls):.4f}, max {max(walls):.4f}), "
+            f"{1e3 * batch / wall:.1f} images/s; its {len(_products(g))} "
+            f"products: matmul kernel {kernel_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({100 * bound_ms / kernel_ms:.1f}%), "
+            f"torch.matmul {library_ms:.4f} ms; card {smi}")
+        if batch == 1:
+            profile_graph(forward, wall, smi)
+
+
+def check_camera(smi):
+    """One 720x1280 frame (ISP, then CNN10 at batch 1) on the card against
+    the CPU, with the matmul's launches counted; then the median of
+    ``GRAPH_RUNS`` frames against the budget.  Returns the launches."""
+    g = build_paper_graph(PAPER_NETS["cnn10"], 1)
+    raw = camera.raw_frame(0)
+    camera.run_frame(raw, g, "cuda")        # warm-up
+    out, ran = _path_launches(lambda: camera.run_frame(raw, g, "cuda"))
+    log(f"camera frame {camera.FRAME_HW}: matmul launches {ran} (CNN10 at "
+        f"batch 1: {GRAPH_LAUNCHES['cnn10'][1]})")
+    if ran != GRAPH_LAUNCHES["cnn10"][1]:
+        raise AssertionError(f"camera frame ran {ran}")
+    cpu = camera.run_frame(raw, g, "cpu")
+    for key in ("rgb", "dnn_in"):
+        _check(f"camera {key} card vs CPU", out[key].cpu(), cpu[key], 0.0,
+               ISP_TOL)
+    _check("camera CNN10 logits card vs CPU", out["logits"].cpu(),
+           cpu["logits"], GRAPH_TOL,
+           GRAPH_TOL * cpu["logits"].abs().max().item())
+    if out["cls"] != cpu["cls"]:
+        raise AssertionError(f"class {out['cls']} on the card, {cpu['cls']} "
+                             "on the CPU")
+    frames = [camera.run_frame(raw, g, "cuda") for _ in range(GRAPH_RUNS)]
+    med = {k: statistics.median(f[k] for f in frames)
+           for k in ("isp_ms", "cnn_ms", "frame_ms")}
+    log(f"camera frame on the card, median of {GRAPH_RUNS}: ISP "
+        f"{med['isp_ms']:.4f} ms, CNN10 {med['cnn_ms']:.4f} ms, frame "
+        f"{med['frame_ms']:.4f} ms against {camera.BUDGET_MS:g} ms: "
+        f"{'MEETS' if med['frame_ms'] < camera.BUDGET_MS else 'MISSES'}; "
+        f"class {out['cls']}; CPU frame {cpu['frame_ms']:.3f} ms; card {smi}")
+    return ran
+
+
 def _mean_row(rows):
     """One launch of the model grid: the mean of each time over its shapes;
     bound_by is that of the shape with the largest bound."""
@@ -835,6 +1061,14 @@ def main():
             f"the calibration runs): {r}; ms by shape "
             f"{dict(zip(shapes, (x['ms'] for x in f32_rows[var])))}")
     cal_launches, cal_by_variant = run_calibration()
+    graphs, graph_by_batch, graph_err = check_graphs()
+    time_graphs(graphs, smi)
+    del graphs
+    camera_launches = check_camera(smi)
+    mm_by_path = {"calibration": cal_by_variant["matmul"],
+                  **{f"graph batch {b}": n for b, n in graph_by_batch.items()},
+                  "camera frame": camera_launches}
+    log(f"matmul launches by path: {mm_by_path}")
     # one launch of the main path, averaged over its 26-layer local/global
     # mix, in each bf16 variant; the JSON line gives the one serving runs
     sched = T._window_schedule(cfg)
@@ -868,9 +1102,12 @@ def main():
             "source": f"src/repro_torch/kernels/csrc/{src}.cu",
             "replaces": replaces, "launches": cal_launches[kname],
             "launches_by_variant": cal_by_variant[kname],
-            "max_abs_err": max(new_err[kname], cal_err[cal]),
+            "max_abs_err": max(new_err[kname], cal_err[cal],
+                               graph_err if kname == "matmul" else 0.0),
             **_mean_row(new_rows[kname]),
-            **({"ms_by_variant": mm_by_variant} if kname == "matmul" else {})}
+            **({"ms_by_variant": mm_by_variant,
+                "launches_by_path": mm_by_path} if kname == "matmul"
+               else {})}
         for kname, cal, src, replaces in (
             ("matmul", "matmul", "nvdla_matmul",
              "src/repro/kernels/nvdla_matmul.py:60"),

@@ -13,12 +13,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.apps.paper_graphs import build_paper_graph
 from repro_torch.configs import get_smoke_config
+from repro_torch.configs.paper_nets import PAPER_NETS
 from repro_torch.convert import to_device
+from repro_torch.core import graph_ops
 from repro_torch.kernels import calibrate, ops, ref
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import nvdla_matmul as mm
+from repro_torch.launch import camera
 from repro_torch.launch.serve import serve
 from repro_torch.models import transformer as T
 
@@ -469,3 +473,77 @@ def test_cuda_flash_refuses_variant_off_its_rule(cuda, kernel, dtype, D):
     q = torch.zeros(1, 2, 64, D, device=cuda, dtype=dtype)
     with pytest.raises(ValueError, match="variant"):
         fa.flash_attention(q, q, q, kernel=kernel)
+
+
+# the graph path: conv (im2col) and FC products of the Table-III nets
+GRAPH_MM_SHAPES = [
+    (784, 32, 9), (1024, 32, 27), (1024, 64, 27),    # K under one TF32 row
+    (1024, 192, 27), (784, 32, 288), (16384, 32, 288),
+    (64, 10, 512), (64, 100, 300), (65536, 64, 27),  # logits at batch 64
+    (1, 10, 512), (1, 100, 300), (1, 10, 6272),      # stream, N % 4 != 0
+    (1, 128, 6272), (16, 512, 4608), (4, 280, 1040),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,K", GRAPH_MM_SHAPES)
+def test_cuda_matmul_graph_shapes_match_plain(cuda, M, N, K):
+    """The conv and FC shapes of the paper's nets, float32, in the variant
+    the rule names, at rtol 2e-4, atol 2e-4 sqrt(K) (tests/test_kernels.py)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(M, K, generator=g, device=cuda)
+    b = torch.randn(K, N, generator=g, device=cuda)
+    out, ran = _launched(mm.matmul, lambda: ops.matmul(a, b))
+    assert ran == {mm.variant(M, N, K, torch.float32): 1}
+    assert out.dtype == torch.float32 and out.shape == (M, N)
+    np.testing.assert_allclose(out.cpu().numpy(),
+                               ref.matmul_ref(a, b).cpu().numpy(),
+                               rtol=2e-4, atol=2e-4 * K ** 0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,expect", [
+    (1, {"tf32x3": 4, "stream": 2}), (64, {"tf32x3": 6})])
+def test_graph_on_card_matches_cpu(cuda, batch, expect):
+    """CNN10 on the card against the CPU (plain path), same params and
+    input: each conv and FC node, fed the card's inputs, at the float32
+    matmul tolerance; the logits at rtol 5e-4, atol 5e-4 max|CPU logits|
+    (rounding compounds over the layers, and batch norm divides by a batch
+    std); every product on the kernel, as the rule names it."""
+    g = build_paper_graph(PAPER_NETS["cnn10"], batch)
+    feeds = {"input": np.random.default_rng(0).standard_normal(
+        (batch, 32, 32, 3)).astype(np.float32)}
+    card, ran = _launched(mm.matmul, lambda: g.values(feeds, device=cuda))
+    assert ran == expect
+    cpu = g.values(feeds, device="cpu")
+    for n in (g.nodes[k] for k in g.order):
+        if n.op not in ("convolution", "matmul"):
+            continue
+        node = graph_ops.run_node(g, n, {i: card[i].cpu() for i in n.inputs},
+                                  g.fusion_plan())
+        K = int(np.prod(g.nodes[n.inputs[1]].shape[:-1]))
+        np.testing.assert_allclose(card[n.name].cpu().numpy(), node.numpy(),
+                                   rtol=2e-4, atol=2e-4 * K ** 0.5,
+                                   err_msg=n.name)
+    e = cpu["logits"].numpy()
+    np.testing.assert_allclose(card["logits"].cpu().numpy(), e, rtol=5e-4,
+                               atol=5e-4 * np.abs(e).max())
+
+
+@pytest.mark.gpu
+def test_camera_frame_on_card(cuda):
+    """A seeded 720p frame through the ISP and CNN10 on the card against
+    the CPU: the RGB frame and the DNN input at atol 1e-5, CNN10's products
+    on the kernel (4 tf32x3, 2 stream)."""
+    g = build_paper_graph(PAPER_NETS["cnn10"])
+    raw = camera.raw_frame(0)
+    out, ran = _launched(mm.matmul, lambda: camera.run_frame(raw, g, cuda))
+    assert ran == {"tf32x3": 4, "stream": 2}
+    cpu = camera.run_frame(raw, g, "cpu")
+    for key in ("rgb", "dnn_in"):
+        assert out[key].device.type == "cuda"
+        np.testing.assert_allclose(out[key].cpu().numpy(),
+                                   cpu[key].numpy(), rtol=0, atol=1e-5)
+    e = cpu["logits"].numpy()
+    np.testing.assert_allclose(out["logits"].cpu().numpy(), e, rtol=5e-4,
+                               atol=5e-4 * np.abs(e).max())

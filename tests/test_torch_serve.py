@@ -306,7 +306,7 @@ def test_port_imports_no_jax_and_no_reference():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.startswith('jax')"
         " or m == 'repro' or m.startswith('repro.'))\n"
-        "assert len(mods) >= 28, mods\n"
+        "assert len(mods) >= 35, mods\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
