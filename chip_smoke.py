@@ -61,13 +61,33 @@ printing a result:
 12. run one camera frame (``repro_torch.launch.camera.run_frame``: a seeded
    720x1280 raw frame, the ISP, CNN10 at batch 1) on the card against the
    CPU (RGB frame and DNN input at atol 1e-5), counting its matmul
-   launches, and time it against the 33 ms frame budget.
+   launches, and time it against the 33 ms frame budget;
+13. hold the selective scan with its state (``h0`` in, h_S out) against its
+   plain version on the card, float32 at ``SCAN_TOL``: y and h_S from zeros
+   and from a random h0 at every ``SCAN_CASES`` shape and at
+   falcon_mamba_7b's serving shape (4, 1024, 8192, 16); and a prompt split
+   in two (the first part, then the rest from its h_S) against one call;
+14. run falcon_mamba_7b cut to 2 layers at full width on the card against
+   the same params on the CPU (plain path): 2 prompts of 300 tokens (off
+   the kernel's 32-step chunk), the prefill logits, the ``conv`` and
+   ``ssm`` caches and 2 decode steps fed the CPU's greedy tokens at
+   ``BF16_TOL``, with exactly 2 scan launches;
+15. serve falcon_mamba_7b at full width and depth (64 Mamba1 layers, bf16
+   params from a seed made on the card; gemma3_1b's are freed first): 8
+   requests, batch 4, prompt 1024, 32 new tokens, through ``serve``, with
+   exactly 64 x 2 = 128 scan launches and every logit finite;
+16. profile one falcon_mamba_7b prefill batch and 8 decode steps as in
+   phase 6, with the scan's share of the prefill's device time;
+17. time the scan at the serving shape with no state, with h_S out (what
+   prefill runs) and with h0 in and h_S out, beside its bound (the state's
+   bytes included) and its plain version.
 
 Kernel times are CUDA events around back-to-back calls queued behind a
 device-side wait (``torch.cuda._sleep``) that outlasts their enqueue, so
 that they are the card's time and not the wrapper's host time.  The line
-before the last is a JSON ``kernels`` summary; the last line is
-``{"ok": true, "device": {...}}``.
+before the last is a JSON ``kernels`` summary (the scan's entry: its
+launches by path, calibration and falcon_mamba_7b serving, and its times at
+the serving shape); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -164,6 +184,8 @@ GRAPH_LAUNCHES = {
 GRAPH_TOL = 5e-4
 GRAPH_RUNS = 20           # timed forwards (and camera frames) a median takes
 ISP_TOL = 1e-5            # RGB frame and DNN input, card against CPU
+FALCON_CUT = 2            # layers of the full-width card-against-CPU check
+FALCON_PROMPTS = (2, 300)  # prompts x tokens: 300 is off the 32-step chunk
 
 
 def log(*args):
@@ -337,6 +359,14 @@ def serve_full():
     if launches != expect or by_variant[name] != expect:
         raise AssertionError(f"{by_variant} flash launches, expected "
                              f"{expect} of {name}")
+    _log_serving(stats)
+    return cfg, params, launches, by_variant
+
+
+def _log_serving(stats):
+    """Checks a ``serve`` call of ``SERVE`` (every request served, every
+    logit finite) and logs its prefill ms a batch, decode ms a step, tok/s
+    and peak device memory."""
     if not stats["finite"]:
         raise AssertionError("non-finite logits")
     if stats["requests"] != SERVE["requests"]:
@@ -351,7 +381,6 @@ def serve_full():
         f"({tokens} tokens in {stats['seconds']:.3f} s)")
     log(f"max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    return cfg, params, launches, by_variant
 
 
 def cuda_ms(fn, iters, hold=True):
@@ -480,11 +509,12 @@ def time_flash_f32(smi):
     return rows
 
 
-def profile_serving(cfg, params, smi):
+def profile_serving(cfg, params, smi, kernel=None):
     """Device time by kernel over one prefill batch and over 8 decode steps,
     and the device's busy share: summed kernel time over the wall time of
     the profiled region (the profiler's own host cost lengthens the wall
-    time, so the share is a lower bound)."""
+    time, so the share is a lower bound).  With ``kernel``, also the share
+    of the device time taken by the kernels whose name holds it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     B, S, n = SERVE["batch"], SERVE["prompt_len"], 8
@@ -518,6 +548,11 @@ def profile_serving(cfg, params, smi):
         log(f"profile {phase} ({what}, B={B}): wall {wall_ms:.3f} ms, device "
             f"kernels {busy_ms:.3f} ms, busy {100 * busy_ms / wall_ms:.1f}%, "
             f"{sum(e.count for e in events)} device events; card {smi}")
+        if kernel:
+            k_ms = sum(e.self_device_time_total for e in events
+                       if kernel in e.key) / 1e3
+            log(f"  {kernel}: {k_ms:.3f} ms = {100 * k_ms / busy_ms:.1f}% of "
+                f"the {phase}'s device time")
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
             log(f"  {e.self_device_time_total / 1e3:9.3f} ms "
                 f"{100 * e.self_device_time_total / 1e3 / busy_ms:5.1f}% "
@@ -621,16 +656,18 @@ def matmul_bound(M, N, K, dtype, variant):
     return 1e3 * terms[by], by, terms
 
 
-def scan_bound(b, S, d, N, dtype):
+def scan_bound(b, S, d, N, dtype, states=0):
     """Least time (ms), the largest of three terms: the float32 operations
     (the calibration's accounting, 10 b S d N) at the float32 peak; the
     b S d N exponentials at the special-function units' rate; x, dt, B, C,
-    A, D read once and y written once at the HBM rate."""
+    A, D read once, y written once and ``states`` float32 (b, d, N) states
+    moved once (1: h_S written; 2: h0 read too) at the HBM rate."""
     itemsize = torch.finfo(dtype).bits // 8
     terms = {"operations": calibrate.mamba_cost(b, S, d, N)[0] / hw.PEAK_FLOPS,
              "exp": b * S * d * N / hw.EXP_RATE,
              "bytes": (itemsize * (3 * b * S * d + 2 * b * S * N)
-                       + 4 * (d * N + d)) / hw.HBM_BW}
+                       + 4 * (d * N + d) + 4 * states * b * d * N)
+             / hw.HBM_BW}
     by = max(terms, key=terms.get)
     return 1e3 * terms[by], by, terms
 
@@ -1017,6 +1054,149 @@ def check_camera(smi):
     return ran
 
 
+def _scan_serve_shape(cfg):
+    """(b, S, d_inner, N) of one falcon_mamba_7b prefill batch in ``SERVE``."""
+    return (SERVE["batch"], SERVE["prompt_len"],
+            cfg.ssm.expand * cfg.d_model, cfg.ssm.d_state)
+
+
+def check_scan_state(serve_shape):
+    """The scan with its state, float32, kernel against plain on the card:
+    y and h_S from zeros and from a random h0 at every ``SCAN_CASES`` shape
+    and at ``serve_shape``; then the prompt split in two at S / 2 + 3 (off
+    the 32-step chunk), the kernel on the first part and on the rest from
+    its h_S, against one call over the whole.  Returns the largest error."""
+    tol, worst = SCAN_TOL[torch.float32], 0.0
+    for shape in SCAN_CASES + [serve_shape]:
+        b, S, d, N = shape
+        args = _scan_inputs(*shape, torch.float32, seed=4)
+        h0 = torch.randn(b, d, N, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(5))
+        for start, h in (("zeros", None), ("h0", h0)):
+            y, hT = ms.mamba_scan(*args, h0=h, return_state=True)
+            ey, ehT = ref.mamba_scan_ref(*args, h0=h, return_state=True)
+            for what, out, expect in (("y", y, ey), ("h_S", hT, ehT)):
+                worst = max(worst, _check(
+                    f"mamba_scan from {start} {shape} {what} kernel vs plain",
+                    out, expect, tol, 4 * tol))
+        x, dt, B, C, A, D = args
+        cut = S // 2 + 3
+        y1, h1 = ms.mamba_scan(x[:, :cut], dt[:, :cut], B[:, :cut],
+                               C[:, :cut], A, D, h0=h0, return_state=True)
+        y2, h2 = ms.mamba_scan(x[:, cut:], dt[:, cut:], B[:, cut:],
+                               C[:, cut:], A, D, h0=h1, return_state=True)
+        y12 = torch.cat([y1, y2], 1)
+        for what, out, expect in (("y", y12, y), ("h_S", h2, hT)):
+            _check(f"mamba_scan {shape} split at {cut} {what} vs one call "
+                   f"(bit-equal: {torch.equal(out, expect)})", out, expect,
+                   tol, 4 * tol)
+    return worst
+
+
+def check_falcon_against_cpu():
+    """falcon_mamba_7b cut to ``FALCON_CUT`` layers at full width, params
+    from a seed made on the card and copied to the CPU: prefill logits, the
+    ``conv`` and ``ssm`` caches and 2 decode steps fed the CPU's greedy
+    tokens, on the card (the scan kernel) against the CPU (plain path)."""
+    cfg = dataclasses.replace(get_config("falcon_mamba_7b"),
+                              n_layers=FALCON_CUT)
+    gpu = T.init_params(cfg, seed=1, device="cuda")
+    cpu = to_device(gpu, "cpu")
+    B, S = FALCON_PROMPTS
+    tokens = torch.randint(0, cfg.vocab, (B, S),
+                           generator=torch.Generator().manual_seed(1))
+    log(f"falcon check: {cfg.name} cut to {cfg.n_layers} layers at d_model "
+        f"{cfg.d_model}, tokens {tuple(tokens.shape)}, card vs CPU")
+    before = ms.mamba_scan.launches
+    out, toks = {}, []
+    for dev, params in (("cpu", cpu), ("cuda", gpu)):
+        logits, cache = T.prefill_forward(cfg, params,
+                                          {"tokens": tokens.to(dev)},
+                                          max_seq=S + 2)
+        steps = [logits]
+        for i in range(2):   # both sides take the CPU's greedy tokens
+            if dev == "cpu":
+                toks.append(torch.argmax(logits[:, -1], -1, keepdim=True))
+            logits, cache = T.decode_forward(cfg, params, cache,
+                                             toks[i].to(dev), S + i)
+            steps.append(logits)
+        out[dev] = steps + [cache]
+    torch.cuda.synchronize()
+    launches = ms.mamba_scan.launches - before
+    log(f"  scan launches on the card: {launches} (expected {cfg.n_layers})")
+    if launches != cfg.n_layers:
+        raise AssertionError("falcon check did not go through the kernel "
+                             f"once a layer: {launches}")
+    for i in range(3):
+        _bf16_close(f"logits step {i}", out["cuda"][i], out["cpu"][i])
+    for key in ("conv", "ssm"):
+        _bf16_close(f"cache {key}", out["cuda"][3][key], out["cpu"][3][key])
+
+
+def _numel(tree):
+    if isinstance(tree, dict):
+        return sum(_numel(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_numel(v) for v in tree)
+    return tree.numel()
+
+
+def serve_falcon():
+    """falcon_mamba_7b at full width and depth through ``serve``; the scan's
+    count is set to 0 just before and read just after.  Returns the config,
+    the params and the scan's launches."""
+    cfg = get_config("falcon_mamba_7b")
+    params = T.init_params(cfg, seed=0, device="cuda")
+    log(f"serve: {cfg.name} full width, {cfg.n_layers} Mamba1 layers, "
+        f"d_model {cfg.d_model}, d_inner {cfg.ssm.expand * cfg.d_model}, N "
+        f"{cfg.ssm.d_state}, vocab {cfg.vocab}, {_numel(params) / 1e9:.3f} B "
+        f"params; {SERVE}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms.mamba_scan.launches = 0
+    stats = serve(cfg, device="cuda", seed=0, params=params, log=log, **SERVE)
+    launches = ms.mamba_scan.launches
+    expect = cfg.n_layers * stats["batches"]
+    log(f"mamba_scan launches in serving: {launches} (expected "
+        f"{cfg.n_layers} layers x {stats['batches']} prefill batches = "
+        f"{expect})")
+    if launches != expect:
+        raise AssertionError(f"{launches} scan launches, expected {expect}")
+    _log_serving(stats)
+    return cfg, params, launches
+
+
+def time_scan_serving(shape, smi):
+    """The scan at ``shape`` (float32) with no state, with h_S out (what
+    prefill runs) and with h0 in and h_S out: {state: row} of kernel ms,
+    host us a call, the plain version's ms (with both) and the bound."""
+    args = _scan_inputs(*shape, torch.float32, seed=2)
+    b, _, d, N = shape
+    h0 = torch.randn(b, d, N, device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(3))
+    plain = cuda_ms(lambda: ref.mamba_scan_ref(*args, h0=h0,
+                                               return_state=True),
+                    2, hold=False)
+    rows = {}
+    for name, kw, states in (("none", {}, 0),
+                             ("h_S", dict(return_state=True), 1),
+                             ("h0+h_S", dict(h0=h0, return_state=True), 2)):
+        def call():
+            return ms.mamba_scan(*args, **kw)
+        kernel_ms, host = cuda_ms(call, 20), host_us(call)
+        b_ms, by, terms = scan_bound(*shape, torch.float32, states=states)
+        log(f"mamba_scan serving shape {shape} state {name}: kernel "
+            f"{kernel_ms:.4f} ms (host {host:.1f} us a call), plain "
+            f"{plain:.4f} ms, library none, bound {b_ms:.4f} ms by {by} (ops "
+            f"{1e3 * terms['operations']:.4f}, exp {1e3 * terms['exp']:.4f}, "
+            f"bytes {1e3 * terms['bytes']:.4f} ms) = "
+            f"{100 * b_ms / kernel_ms:.2f}% of bound; card {smi}")
+        rows[name] = dict(ms=kernel_ms, plain_ms=plain, library_ms=None,
+                          bound_ms=b_ms, host_us=host,
+                          bound_by="bytes" if by == "bytes" else "operations")
+    return rows
+
+
 def _mean_row(rows):
     """One launch of the model grid: the mean of each time over its shapes;
     bound_by is that of the shape with the largest bound."""
@@ -1065,6 +1245,18 @@ def main():
     time_graphs(graphs, smi)
     del graphs
     camera_launches = check_camera(smi)
+    serve_shape = _scan_serve_shape(get_config("falcon_mamba_7b"))
+    state_err = check_scan_state(serve_shape)
+    check_falcon_against_cpu()
+    torch.cuda.empty_cache()
+    fcfg, fparams, scan_serve_launches = serve_falcon()
+    profile_serving(fcfg, fparams, smi, kernel="mamba_scan_kernel")
+    del fparams
+    torch.cuda.empty_cache()
+    scan_rows = time_scan_serving(serve_shape, smi)
+    scan_by_path = {"calibration": cal_launches["mamba_scan"],
+                    "falcon_mamba_7b serving": scan_serve_launches}
+    log(f"mamba_scan launches by path: {scan_by_path}")
     mm_by_path = {"calibration": cal_by_variant["matmul"],
                   **{f"graph batch {b}": n for b, n in graph_by_batch.items()},
                   "camera frame": camera_launches}
@@ -1096,23 +1288,25 @@ def main():
         "launches_by_variant": cal_by_variant["flash_attention"],
         "max_abs_err": max(f32_err, cal_err["attention"]),
         **f32_flash[fa.variant(256, torch.float32)],
-        "ms_by_variant": {name: r["ms"] for name, r in f32_flash.items()}}
-    ] + [{
-            "name": kname, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{src}.cu",
-            "replaces": replaces, "launches": cal_launches[kname],
-            "launches_by_variant": cal_by_variant[kname],
-            "max_abs_err": max(new_err[kname], cal_err[cal],
-                               graph_err if kname == "matmul" else 0.0),
-            **_mean_row(new_rows[kname]),
-            **({"ms_by_variant": mm_by_variant,
-                "launches_by_path": mm_by_path} if kname == "matmul"
-               else {})}
-        for kname, cal, src, replaces in (
-            ("matmul", "matmul", "nvdla_matmul",
-             "src/repro/kernels/nvdla_matmul.py:60"),
-            ("mamba_scan", "mamba", "mamba_scan",
-             "src/repro/kernels/mamba_scan.py:59"))]}))
+        "ms_by_variant": {name: r["ms"] for name, r in f32_flash.items()}}, {
+        "name": "matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/nvdla_matmul.cu",
+        "replaces": "src/repro/kernels/nvdla_matmul.py:60",
+        "launches": cal_launches["matmul"],
+        "launches_by_variant": cal_by_variant["matmul"],
+        "max_abs_err": max(new_err["matmul"], cal_err["matmul"], graph_err),
+        **_mean_row(new_rows["matmul"]), "ms_by_variant": mm_by_variant,
+        "launches_by_path": mm_by_path}, {
+        # the serving path's shape, with h_S out as prefill runs it
+        "name": "mamba_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan.py:59",
+        "launches": scan_serve_launches, "launches_by_path": scan_by_path,
+        "max_abs_err": max(new_err["mamba_scan"], cal_err["mamba"],
+                           state_err),
+        **scan_rows["h_S"], "shape": list(serve_shape),
+        "ms_by_state": {name: r["ms"] for name, r in scan_rows.items()},
+        "model_grid": _mean_row(new_rows["mamba_scan"])}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,9 @@
 """Architecture config registry.
 
 ``get_config(arch_id)`` returns the FULL config; ``get_smoke_config`` returns
-a reduced same-family config for CPU tests.  Only the dense family is ported
-so far; asking for any other architecture raises ``NotImplementedError``.
+a reduced same-family config for CPU tests.  The dense family and the ssm
+family (Mamba1) are ported so far; asking for any other architecture raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ ARCH_IDS: List[str] = [
     "tinyllama_1_1b",
     "gemma_2b",
     "phi3_mini_3_8b",
+    "falcon_mamba_7b",
 ]
 
 # architectures of the reference registry whose family the port lacks
@@ -25,7 +27,6 @@ UNPORTED = {
     "deepseek_v2_lite_16b": "moe",
     "internvl2_26b": "vlm",
     "zamba2_2_7b": "hybrid",
-    "falcon_mamba_7b": "ssm",
 }
 
 # accept dashed ids on the CLI

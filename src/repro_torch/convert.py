@@ -2,8 +2,11 @@
 
 The input is the reference's params as a nested dict of numpy arrays, its
 layers stacked along a leading axis, with bf16 leaves given as float32
-(numpy has no bf16 type that torch takes).  Norm scales stay float32 and
-every other leaf is cast back to bf16, which undoes that widening exactly.
+(numpy has no bf16 type that torch takes).  The leaves that are float32 in
+the reference stay float32 (``FLOAT32_KEYS``: the norm scales, and Mamba1's
+``A_log``, ``D`` and ``dt_bias``, where A_log = log(1..N) is not exact in
+bf16); every other leaf is cast back to bf16, which undoes that widening
+exactly.
 Dense weights keep the reference's ``(in, out)`` layout, since the port
 applies them as ``x @ w``: no transpose is needed.
 """
@@ -14,11 +17,12 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-NORM_KEYS = frozenset({"norm1", "norm2", "final_norm"})
+FLOAT32_KEYS = frozenset({"norm1", "norm2", "final_norm",
+                          "A_log", "D", "dt_bias"})
 
 
 def _leaf(name, a, device):
-    dtype = torch.float32 if name in NORM_KEYS else torch.bfloat16
+    dtype = torch.float32 if name in FLOAT32_KEYS else torch.bfloat16
     return torch.from_numpy(np.array(a, dtype=np.float32)).to(device, dtype)
 
 

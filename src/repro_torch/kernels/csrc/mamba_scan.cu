@@ -2,14 +2,18 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/mamba_scan.py
 // (_scan_kernel, launched by mamba_scan through pl.pallas_call) and computes
-// the same function.  For batch b, channel c and state n, from h = 0:
+// the same function.  For batch b, channel c and state n, from h_0 = h0
+// (zeros where no h0 is given):
 //
 //   h_t[n] = exp(dt_t[c] A[c, n]) h_{t-1}[n] + (dt_t[c] x_t[c]) B_t[n]
 //   y_t[c] = sum_n h_t[n] C_t[n] + D[c] x_t[c]
 //
 // x, dt: (b, S, d); B, C: (b, S, N), all float32 or all bfloat16; A: (d, N)
 // and D: (d,) float32; y: (b, S, d) in x's type.  The state and all
-// arithmetic are float32.
+// arithmetic are float32.  Beyond the Pallas kernel, which starts from zeros
+// and returns y only, it takes a starting state h0 and returns the final
+// state h_S (hT), each (b, d, N) float32 and each optional, as the model's
+// mamba1_forward does: a prompt's state carries into decode.
 //
 // What bounds it on the H100: per element of x it reads x and dt, writes y
 // and does N exponentials and about 4 N other operations; B and C are shared
@@ -33,7 +37,10 @@
 // shared memory; after the chunk, the block sums the L parts of each
 // (t, channel) and stores y along the channels.  Any S and d: channels past
 // d keep zeros and store nothing; steps past S see x = dt = 0, which keeps
-// the state, and store nothing.
+// the state, and store nothing.  The state enters the registers from h0
+// before the first chunk and leaves them for hT after the last, so the loop
+// over time is the same with or without them (its schedule is not: see the
+// note where h0 is loaded).
 //
 // The state step.  The loop over time is bound by instruction issue and by
 // the exponentials, not by memory.  The step's decay exp(dt A) is
@@ -106,7 +113,8 @@ __global__ void __launch_bounds__(NTS)
 mamba_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                   const T* __restrict__ Bm, const T* __restrict__ Cm,
                   const float* __restrict__ A, const float* __restrict__ Dv,
-                  T* __restrict__ y, int S, int d) {
+                  const float* __restrict__ h0, T* __restrict__ y,
+                  float* __restrict__ hT, int S, int d) {
   constexpr int NL = N / L;      // states per thread
   constexpr int CH = NTS / L;    // channels per block
   constexpr int XL = TC * CH / NTS, BL = TC * N / NTS;   // loads per thread
@@ -157,6 +165,8 @@ mamba_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
     }
   };
 
+  // this lane's N / L states of (batch, channel) in h0 and hT
+  const long long hs = ((long long)blockIdx.y * d + ch) * N + part * NL;
   float a2[NL], h[NL];   // a2: A log2 e
 #pragma unroll
   for (int j = 0; j < NL; ++j) {
@@ -164,6 +174,14 @@ mamba_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
     h[j] = 0.f;
   }
   const float dv = live && part == 0 ? Dv[ch] : 0.f;
+  // h0 in a branch of its own: as a select in the loop above
+  // (h = h0 ? h0[...] : 0), ptxas scheduled the loop over time's
+  // exponentials later and the scan took 22% longer, with or without h0
+  // (PERF.md)
+  if (live && h0) {
+#pragma unroll
+    for (int j = 0; j < NL; ++j) h[j] = __ldg(h0 + hs + j);
+  }
 
   load(0);
   store();
@@ -203,27 +221,34 @@ mamba_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
     if (more) store();
     __syncthreads();             // Ps is read; the next chunk is staged
   }
+  if (live && hT) {
+#pragma unroll
+    for (int j = 0; j < NL; ++j) hT[hs + j] = h[j];
+  }
 }
 
 template <typename T, int N>
 cudaError_t launch(const void* x, const void* dt, const void* B,
-                   const void* C, const float* A, const float* D, void* y,
-                   int b, int S, int d, cudaStream_t stream) {
+                   const void* C, const float* A, const float* D,
+                   const float* h0, void* y, float* hT, int b, int S, int d,
+                   cudaStream_t stream) {
   constexpr int CH = NTS / L;
   const dim3 grid((d + CH - 1) / CH, b);
   mamba_scan_kernel<T, N><<<grid, NTS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dt),
-      static_cast<const T*>(B), static_cast<const T*>(C), A, D,
-      static_cast<T*>(y), S, d);
+      static_cast<const T*>(B), static_cast<const T*>(C), A, D, h0,
+      static_cast<T*>(y), hT, S, d);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_n(int N, const void* x, const void* dt, const void* B,
-                     const void* C, const float* A, const float* D, void* y,
-                     int b, int S, int d, cudaStream_t st) {
-  if (N == 8) return launch<T, 8>(x, dt, B, C, A, D, y, b, S, d, st);
-  if (N == 16) return launch<T, 16>(x, dt, B, C, A, D, y, b, S, d, st);
+                     const void* C, const float* A, const float* D,
+                     const float* h0, void* y, float* hT, int b, int S, int d,
+                     cudaStream_t st) {
+  if (N == 8) return launch<T, 8>(x, dt, B, C, A, D, h0, y, hT, b, S, d, st);
+  if (N == 16)
+    return launch<T, 16>(x, dt, B, C, A, D, h0, y, hT, b, S, d, st);
   return cudaErrorInvalidValue;
 }
 
@@ -231,20 +256,25 @@ cudaError_t launch_n(int N, const void* x, const void* dt, const void* B,
 
 // x, dt: (b, S, d); B, C: (b, S, N); y: (b, S, d), all contiguous and of one
 // type: dtype 0 is float32, 1 is bfloat16.  A: (d, N) and D: (d,) float32,
-// contiguous.  N is 8 or 16.  b, S, d >= 1.
+// contiguous.  h0 (the starting state) and hT (the final state): (b, d, N)
+// float32, contiguous, each null where it is not wanted (h0 null: the state
+// starts at zeros).  N is 8 or 16.  b, S, d >= 1.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int mamba_scan_fwd(const void* x, const void* dt, const void* B,
                               const void* C, const void* A, const void* D,
-                              void* y, int b, int S, int d, int N, int dtype,
-                              void* stream) {
+                              const void* h0, void* y, void* hT, int b, int S,
+                              int d, int N, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b < 1 || S < 1 || d < 1 || b > 65535) return (int)cudaErrorInvalidValue;
   const float* Af = static_cast<const float*>(A);
   const float* Df = static_cast<const float*>(D);
+  const float* h0f = static_cast<const float*>(h0);
+  float* hTf = static_cast<float*>(hT);
   if (dtype == 0)
-    return (int)launch_n<float>(N, x, dt, B, C, Af, Df, y, b, S, d, st);
+    return (int)launch_n<float>(N, x, dt, B, C, Af, Df, h0f, y, hTf, b, S, d,
+                                st);
   if (dtype == 1)
-    return (int)launch_n<__nv_bfloat16>(N, x, dt, B, C, Af, Df, y, b, S, d,
-                                        st);
+    return (int)launch_n<__nv_bfloat16>(N, x, dt, B, C, Af, Df, h0f, y, hTf,
+                                        b, S, d, st);
   return (int)cudaErrorInvalidValue;
 }

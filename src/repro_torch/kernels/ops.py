@@ -33,8 +33,11 @@ def flash_attention(q, k, v, *, causal=True, window=0):
                      causal=causal, window=window)
 
 
-def mamba_scan(x, dt, B, C, A, D):
-    """x, dt: (b, S, d); B, C: (b, S, N); A: (d, N) and D: (d,) float32.
-    Returns y: (b, S, d) in x's dtype."""
+def mamba_scan(x, dt, B, C, A, D, h0=None, return_state=False):
+    """x, dt: (b, S, d); B, C: (b, S, N); A: (d, N) and D: (d,) float32;
+    h0: the starting state (b, d, N) float32, zeros if None.  Returns y:
+    (b, S, d) in x's dtype, and with ``return_state`` the pair (y, h_S),
+    h_S the final state (b, d, N) float32."""
     return _dispatch("mamba_scan", ref.mamba_scan_ref, _mamba.mamba_scan,
-                     x.device, x, dt, B, C, A, D)
+                     x.device, x, dt, B, C, A, D, h0=h0,
+                     return_state=return_state)

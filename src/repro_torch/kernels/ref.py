@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.mamba_scan import check_state
+
 NEG_INF = -1e30
 
 
@@ -44,23 +46,29 @@ def matmul_ref(a, b):
     return (a.float() @ b.float()).to(a.dtype)
 
 
-def mamba_scan_ref(x, dt, B, C, A, D):
+def mamba_scan_ref(x, dt, B, C, A, D, h0=None, return_state=False):
     """Mamba1 selective scan, a sequential loop over time in float32.
 
     x, dt: (b, S, d); B, C: (b, S, N); A: (d, N); D: (d,).  With the state
-    h (b, d, N) starting at 0, each step computes
-    ``h = exp(dt_t A) h + (dt_t x_t) B_t`` and ``y_t = sum_n h C_t + D x_t``.
-    Returns y: (b, S, d) in x's dtype.
+    h (b, d, N) starting at ``h0`` ((b, d, N) float32; 0 if None), each step
+    computes ``h = exp(dt_t A) h + (dt_t x_t) B_t`` and
+    ``y_t = sum_n h C_t + D x_t``.  Returns y: (b, S, d) in x's dtype, and
+    with ``return_state`` the pair (y, h_S), h_S the final state.
     """
     bsz, S, d = x.shape
     xf, dtf, Bf, Cf = (t.float() for t in (x, dt, B, C))
     A = A.float()
-    h = torch.zeros(bsz, d, B.shape[-1], dtype=torch.float32, device=x.device)
+    if h0 is None:
+        h = torch.zeros(bsz, d, B.shape[-1], dtype=torch.float32,
+                        device=x.device)
+    else:
+        check_state(h0, x, B.shape[-1])
+        h = h0
     ys = []
     for t in range(S):
         dt_t = dtf[:, t, :, None]                                   # (b, d, 1)
         h = torch.exp(dt_t * A) * h \
             + (dt_t * xf[:, t, :, None]) * Bf[:, t, None, :]
         ys.append((h * Cf[:, t, None, :]).sum(-1))
-    y = torch.stack(ys, 1) + D.float() * xf
-    return y.to(x.dtype)
+    y = (torch.stack(ys, 1) + D.float() * xf).to(x.dtype)
+    return (y, h) if return_state else y

@@ -1,11 +1,15 @@
 """Serving launcher: a request queue feeds fixed-size batches; each batch is
-prefilled, then decoded greedily token by token against its KV cache.
+prefilled, then decoded greedily token by token against its cache (the KV
+cache of the dense family, the conv tail and SSM state of the ssm family).
 
 ``serve(cfg, ...)`` runs the loop for any ported config and returns its
-counts and timings; the CLI runs an arch's smoke config:
+counts and timings; the CLI runs an arch's smoke config, or with ``--full``
+its full config (random params from a seed, made on the device):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_1b --requests 8
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon_mamba_7b \
+      --full --prompt-len 1024 --max-new 32
 """
 from __future__ import annotations
 
@@ -15,7 +19,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.config import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import transformer as T
@@ -91,8 +95,11 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=12)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--full", action="store_true",
+                    help="serve the arch's full config, not its smoke config")
     args = ap.parse_args(argv)
-    serve(get_smoke_config(args.arch), requests=args.requests,
+    cfg = (get_config if args.full else get_smoke_config)(args.arch)
+    serve(cfg, requests=args.requests,
           batch=args.batch, prompt_len=args.prompt_len, max_new=args.max_new,
           device=args.device)
 

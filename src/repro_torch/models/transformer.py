@@ -1,4 +1,4 @@
-"""Decoder-only transformer (dense family): init, prefill and decode.
+"""Decoder-only models (dense and ssm families): init, prefill and decode.
 
 Entry points, as in the JAX package:
   init_params(cfg, seed, device)                  -> params
@@ -8,9 +8,12 @@ Entry points, as in the JAX package:
 
 Params are a dict; ``params["layers"]`` is a list with one dict per block
 where the JAX package stacks the layers along a leading axis.  The cache
-keeps the reference's stacked (L, B, Hkv, max_seq, hd) layout, and decode
-updates it in place.  bf16 rounding follows the reference: embeddings and
-weights are bf16, norms and attention compute in fp32 and return bf16.
+keeps the reference's stacked layouts, and decode updates it in place: the
+dense family's (L, B, Hkv, max_seq, hd) ``k`` and ``v``; the ssm family's
+(Mamba1 blocks, no attention, no MLP) ``conv`` (L, B, d_inner, d_conv-1) bf16
+and ``ssm`` (L, B, d_inner, N) float32.  bf16 rounding follows the
+reference: embeddings and weights are bf16, norms and attention compute in
+fp32 and return bf16.
 """
 from __future__ import annotations
 
@@ -21,16 +24,20 @@ import torch
 from repro_torch.core.config import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_norm, dense_init, embed_init,
                                        mlp_apply, mlp_init, norm_init,
                                        rope_tables)
 
 
 def _check_family(cfg: ModelConfig):
+    if cfg.family == "ssm" and cfg.ssm is not None and cfg.ssm.version == 1:
+        return
     if cfg.family != "dense" or cfg.mla is not None:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family is ported to repro_torch, "
-            f"not {cfg.family!r}")
+            f"{cfg.name}: only the dense family and the ssm family's Mamba1 "
+            f"are ported to repro_torch, not {cfg.family!r}"
+            + (f" version {cfg.ssm.version}" if cfg.ssm else ""))
 
 
 # ---------------------------------------------------------------------------
@@ -38,6 +45,9 @@ def _check_family(cfg: ModelConfig):
 
 
 def _block_init(gen, cfg: ModelConfig):
+    if cfg.family == "ssm":
+        return {"norm1": norm_init(cfg.d_model, gen.device),
+                "ssm": ssm_mod.mamba1_init(gen, cfg)}
     return {"norm1": norm_init(cfg.d_model, gen.device),
             "attn": attn.attn_init(gen, cfg),
             "norm2": norm_init(cfg.d_model, gen.device),
@@ -93,7 +103,16 @@ def _logits(cfg: ModelConfig, p, x):
 
 
 def _backbone(cfg: ModelConfig, p, x, positions):
-    """Returns (x, [(k, v) of each layer])."""
+    """Returns (x, [the state of each layer]): (k, v) in the dense family,
+    dict(conv, ssm) in the ssm family."""
+    if cfg.family == "ssm":
+        states = []
+        for pl in p["layers"]:
+            h, st = ssm_mod.mamba1_forward(
+                pl["ssm"], apply_norm(cfg.norm, x, pl["norm1"]), cfg)
+            x = x + h
+            states.append(st)
+        return x, states
     cos, sin = _rope_for(cfg, positions)
     kvs = []
     for pl, window in zip(p["layers"], _window_schedule(cfg)):
@@ -112,9 +131,16 @@ def _backbone(cfg: ModelConfig, p, x, positions):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
+    device = resolve_device(device)
+    if cfg.family == "ssm":
+        s = cfg.ssm
+        d_in = s.expand * cfg.d_model
+        return {"conv": torch.zeros(cfg.n_layers, batch, d_in, s.d_conv - 1,
+                                    dtype=torch.bfloat16, device=device),
+                "ssm": torch.zeros(cfg.n_layers, batch, d_in, s.d_state,
+                                   dtype=torch.float32, device=device)}
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_seq,
              cfg.resolved_head_dim)
-    device = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
 
@@ -129,11 +155,14 @@ def prefill_forward(cfg: ModelConfig, params, batch,
     B, S = tokens.shape
     max_seq = max(max_seq or S, S)
     x = _embed_tokens(cfg, params, tokens)
-    x, kvs = _backbone(cfg, params, x, torch.arange(S, device=x.device))
+    x, states = _backbone(cfg, params, x, torch.arange(S, device=x.device))
     cache = init_cache(cfg, B, max_seq, x.device)
-    for li, (k, v) in enumerate(kvs):
-        cache["k"][li, :, :, :S] = k
-        cache["v"][li, :, :, :S] = v
+    for li, st in enumerate(states):
+        if cfg.family == "ssm":
+            cache["conv"][li] = st["conv"]
+            cache["ssm"][li] = st["ssm"]
+        else:
+            cache["k"][li, :, :, :S], cache["v"][li, :, :, :S] = st
     return _logits(cfg, params, x[:, -1:]), cache
 
 
@@ -142,6 +171,15 @@ def decode_forward(cfg: ModelConfig, params, cache, tokens, pos: int):
     Returns (logits (B, 1, V), cache), the cache updated in place."""
     _check_family(cfg)
     x = _embed_tokens(cfg, params, tokens)
+    if cfg.family == "ssm":
+        for li, pl in enumerate(params["layers"]):
+            h, new = ssm_mod.mamba1_decode(
+                pl["ssm"], apply_norm(cfg.norm, x, pl["norm1"]),
+                {"conv": cache["conv"][li], "ssm": cache["ssm"][li]}, cfg)
+            x = x + h
+            cache["conv"][li] = new["conv"]
+            cache["ssm"][li] = new["ssm"]
+        return _logits(cfg, params, x), cache
     cos, sin = _rope_for(cfg, torch.full((1,), pos, device=x.device))
     for li, (pl, window) in enumerate(zip(params["layers"],
                                           _window_schedule(cfg))):

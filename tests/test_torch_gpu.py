@@ -193,6 +193,110 @@ def test_cuda_mamba_scan_matches_plain(cuda, b, S, d, N, dtype):
                                atol=4 * tol)
 
 
+def _scan_args(cuda, b, S, d, N, dtype=torch.float32, seed=0):
+    """x, dt, B, C in ``dtype``, A, D as tests/test_kernels.py makes them,
+    and a float32 starting state h0."""
+    rng = np.random.default_rng(seed)
+
+    def z(*s):
+        return torch.from_numpy(rng.standard_normal(s, np.float32)).to(cuda)
+
+    x = z(b, S, d).to(dtype)
+    dt = torch.nn.functional.softplus(z(b, S, d)).to(dtype)
+    B, C = z(b, S, N).to(dtype), z(b, S, N).to(dtype)
+    return (x, dt, B, C, -torch.exp(0.3 * z(d, N)), torch.ones(d, device=cuda),
+            z(b, d, N))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("dtype", list(SCAN_TOL))
+@pytest.mark.parametrize("b,S,d,N", [
+    (1, 32, 16, 8), (2, 64, 32, 16), (1, 128, 64, 8),   # tests/test_kernels.py
+    (1, 77, 40, 16), (3, 200, 130, 8), (2, 300, 256, 16),   # ragged S
+])
+def test_cuda_mamba_scan_state_matches_plain(cuda, b, S, d, N, dtype,
+                                             with_h0):
+    """y and the final state, from zeros or from h0, at the scan's
+    tolerances (the state at the float32 one: it is float32 in both)."""
+    tdt, tol = SCAN_TOL[dtype]
+    *args, h0 = _scan_args(cuda, b, S, d, N, tdt)
+    h0 = h0 if with_h0 else None
+    before = ms.mamba_scan.launches
+    y, hT = ops.mamba_scan(*args, h0=h0, return_state=True)
+    torch.cuda.synchronize()
+    assert ms.mamba_scan.launches == before + 1
+    assert hT.shape == (b, d, N) and hT.dtype == torch.float32
+    ey, ehT = ref.mamba_scan_ref(*args, h0=h0, return_state=True)
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               ey.float().cpu().numpy(), rtol=tol,
+                               atol=4 * tol)
+    np.testing.assert_allclose(hT.cpu().numpy(), ehT.cpu().numpy(),
+                               rtol=2e-4, atol=8e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,S,d,N,cut", [(2, 300, 130, 16, 137),
+                                         (1, 64, 64, 8, 32)])
+def test_cuda_mamba_scan_split_prompt_equals_one_call(cuda, b, S, d, N, cut):
+    """The kernel on the first ``cut`` steps, then on the rest from that
+    final state, equals one call over the whole, bit for bit: the state
+    leaves the registers and comes back unchanged, and steps past S keep
+    it (x = dt = 0)."""
+    x, dt, B, C, A, D, h0 = _scan_args(cuda, b, S, d, N)
+    y, hT = ops.mamba_scan(x, dt, B, C, A, D, h0=h0, return_state=True)
+    y1, h1 = ops.mamba_scan(x[:, :cut], dt[:, :cut], B[:, :cut], C[:, :cut],
+                            A, D, h0=h0, return_state=True)
+    y2, h2 = ops.mamba_scan(x[:, cut:], dt[:, cut:], B[:, cut:], C[:, cut:],
+                            A, D, h0=h1, return_state=True)
+    assert torch.equal(torch.cat([y1, y2], 1), y)
+    assert torch.equal(h2, hT)
+
+
+@pytest.mark.gpu
+def test_cuda_mamba_scan_refuses_a_mismatched_state(cuda):
+    x, dt, B, C, A, D, h0 = _scan_args(cuda, 2, 9, 40, 16)
+    before = ms.mamba_scan.launches
+    for bad in (h0.cpu(), h0.double(), h0[:, :, :8], h0[0]):
+        with pytest.raises(ValueError, match="h0"):
+            ms.mamba_scan(x, dt, B, C, A, D, h0=bad)
+    assert ms.mamba_scan.launches == before
+
+
+@pytest.mark.gpu
+def test_serving_falcon_mamba_on_card(cuda):
+    """The SMOKE falcon_mamba_7b served on the card: every prefill runs the
+    scan kernel once a layer.  Then one prefill and 2 decode steps on the
+    card and on the CPU (plain path) from the same params and prompts:
+    logits and cache agree to bf16 precision (2e-2, as in
+    tests/test_torch_serve.py)."""
+    cfg = get_smoke_config("falcon_mamba_7b")
+    params = T.init_params(cfg, seed=0, device="cpu")
+    gpu = to_device(params, cuda)
+    before = ms.mamba_scan.launches
+    stats = serve(cfg, requests=6, batch=4, prompt_len=40, max_new=3,
+                  device=cuda, params=gpu, log=lambda *a: None)
+    assert ms.mamba_scan.launches - before == cfg.n_layers * 2
+    assert stats["finite"] and stats["requests"] == 6
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (4, 37)))
+    out, toks = {}, []
+    for key, dev, p in (("cpu", "cpu", params), ("card", cuda, gpu)):
+        logits, cache = T.prefill_forward(cfg, p, {"tokens": tokens.to(dev)})
+        steps = [logits]
+        for i in range(2):   # both sides take the CPU's greedy tokens
+            if key == "cpu":
+                toks.append(torch.argmax(logits[:, -1], -1, keepdim=True))
+            logits, cache = T.decode_forward(cfg, p, cache, toks[i].to(dev),
+                                             37 + i)
+            steps.append(logits)
+        out[key] = [t.float().cpu().numpy()
+                    for t in steps + [cache["conv"], cache["ssm"]]]
+    for got, expect in zip(out["card"], out["cpu"]):
+        np.testing.assert_allclose(got, expect, rtol=2e-2,
+                                   atol=2e-2 * np.abs(expect).max())
+
+
 @pytest.mark.gpu
 def test_cuda_mamba_scan_refuses_other_state_dims(cuda):
     x = torch.zeros(1, 4, 8, device=cuda)

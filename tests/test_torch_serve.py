@@ -78,13 +78,14 @@ def test_configs_match_reference(arch):
 def test_unported_family_raises():
     with pytest.raises(NotImplementedError, match="encdec"):
         tconfigs.get_config("whisper_small")
-    with pytest.raises(NotImplementedError, match="ssm"):
-        tconfigs.get_smoke_config("falcon-mamba-7b")
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        tconfigs.get_smoke_config("zamba2-2-7b")
     with pytest.raises(KeyError):
         tconfigs.get_config("nope")
 
 
-@pytest.mark.parametrize("arch", ["gemma3_1b", "tinyllama_1_1b"])
+@pytest.mark.parametrize("arch", ["gemma3_1b", "tinyllama_1_1b",
+                                  "falcon_mamba_7b"])
 def test_converted_params_match_own_init(arch):
     """The converter yields the tree, shapes and dtypes of the port's own
     init, bf16 survives the float32 carry exactly, and the port's init draws
@@ -237,12 +238,14 @@ def test_gqa_decode_matches_jax(arch, window):
 # the whole slice
 
 
-@pytest.mark.parametrize("arch", ["gemma3_1b", "tinyllama_1_1b"])
+@pytest.mark.parametrize("arch", ["gemma3_1b", "tinyllama_1_1b",
+                                  "falcon_mamba_7b"])
 def test_prefill_and_teacher_forced_decode_match_jax(arch):
-    """Prefill logits and the filled KV cache, then 4 decode steps fed the
-    JAX package's greedy tokens (free-running tokens could part at a bf16
-    argmax tie).  The prompt (20) is longer than gemma3's smoke window (8),
-    so the local layers' window mask is exercised."""
+    """Prefill logits and the filled cache (KV, or falcon_mamba_7b's conv
+    tail and SSM state), then 4 decode steps fed the JAX package's greedy
+    tokens (free-running tokens could part at a bf16 argmax tie).  The
+    prompt (20) is longer than gemma3's smoke window (8), so the local
+    layers' window mask is exercised."""
     jcfg = jconfigs.get_smoke_config(arch)
     tcfg = tconfigs.get_smoke_config(arch)
     jparams, np_params = _jax_params(jcfg)
@@ -257,7 +260,8 @@ def test_prefill_and_teacher_forced_decode_match_jax(arch):
         max_seq=S + n_dec)
     assert tlog.shape == (B, 1, tcfg.vocab)
     _assert_bf16_close(tlog, jlog)
-    for key in ("k", "v"):
+    assert tcache.keys() == jcache.keys()
+    for key in tcache:
         assert tcache[key].shape == jcache[key].shape
         _assert_bf16_close(tcache[key], jcache[key])
     for i in range(n_dec):
@@ -268,7 +272,7 @@ def test_prefill_and_teacher_forced_decode_match_jax(arch):
         tlog, tcache = TT.decode_forward(tcfg, tparams, tcache,
                                          torch.from_numpy(tok), S + i)
         _assert_bf16_close(tlog, jlog)
-    for key in ("k", "v"):
+    for key in tcache:
         _assert_bf16_close(tcache[key], jcache[key])
 
 
@@ -306,7 +310,8 @@ def test_port_imports_no_jax_and_no_reference():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.startswith('jax')"
         " or m == 'repro' or m.startswith('repro.'))\n"
-        "assert len(mods) >= 35, mods\n"
+        "assert 'repro_torch.models.ssm' in mods, mods\n"
+        "assert len(mods) >= 37, mods\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
