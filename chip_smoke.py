@@ -10,11 +10,13 @@ printing a result:
    ``build/kernels``, and count the selective scan's SASS instructions per
    (thread, timestep) in its loop over time (``cuobjdump -sass``);
 3. hold the flash kernel against its plain PyTorch version on the card, at
-   the ``tests/test_kernels.py`` shapes, the serving shapes, head dims 64
-   and 128, ragged lengths and window edges, in float32 and bf16, in the
-   variant its shape rule names (``flash_attention.variant``) and beside
-   it the one it replaced (bf16 ``mma.sync`` beside ``wgmma``, float32
-   ``fma`` beside ``tf32x3``); then a 6-layer cut of
+   the ``tests/test_kernels.py`` shapes, the serving shapes, every other
+   head dim (16, 32 and 96 in padded TMA boxes, phi3_mini_3_8b's prefill
+   among them), ragged lengths, lengths below one tile and window edges,
+   in float32 and bf16, in the variant its rule names
+   (``flash_attention.variant``) and beside it the one it replaced (bf16
+   ``mma.sync`` beside ``wgmma``, float32 ``fma`` beside ``tf32x3``); then
+   a 6-layer cut of
    gemma3_1b at full width served on the card against the same params on the
    CPU (plain path) on one small input;
 4. serve gemma3_1b at full width (26 layers, random params from a seed):
@@ -45,7 +47,7 @@ printing a result:
 9. run the calibration loop (``repro_torch.kernels.calibrate.measure``) on
    the ``"model"`` and ``"full"`` grids, counting the three kernels'
    launches by variant (float32 matmul and flash as their rules name
-   them), and print each kernel's fit;
+   them: flash all ``tf32x3``), and print each kernel's fit;
 10. run the paper's Table-III networks (``repro_torch.core.graph``, params
    from a seed) at batch 1 and 64 on the card and on the CPU (plain path)
    with the same params and input: every convolution and FC node, fed the
@@ -80,14 +82,30 @@ printing a result:
    phase 6, with the scan's share of the prefill's device time;
 17. time the scan at the serving shape with no state, with h_S out (what
    prefill runs) and with h0 in and h_S out, beside its bound (the state's
-   bytes included) and its plain version.
+   bytes included) and its plain version;
+18. run phi3_mini_3_8b cut to 4 layers at full width (d_model 3072, 32
+   heads of head dim 96, MHA) on the card against the same params on the
+   CPU (plain path): 2 prompts of 300 tokens, the prefill logits, the KV
+   cache and 2 decode steps at ``BF16_TOL``, with exactly 4 flash launches
+   of the variant the rule names at D = 96;
+19. serve phi3_mini_3_8b at full width and depth (32 layers, bf16 params
+   from a seed made on the card) under ``SERVE``, with exactly 32 x 2 = 64
+   flash launches, all of that variant, and every logit finite;
+20. profile one phi3_mini_3_8b prefill batch and 8 decode steps as in
+   phase 6, with the flash kernel's share of the prefill's device time;
+21. time both types' variants at phi3_mini_3_8b's prefill shape at head
+   dims 16, 32 and 96, and float32 at the ``"full"`` grid's attention
+   shapes of those head dims, beside the plain version, SDPA and the bound
+   (whose exponential term decides bf16 at D <= 32).
 
 Kernel times are CUDA events around back-to-back calls queued behind a
 device-side wait (``torch.cuda._sleep``) that outlasts their enqueue, so
 that they are the card's time and not the wrapper's host time.  The line
-before the last is a JSON ``kernels`` summary (the scan's entry: its
-launches by path, calibration and falcon_mamba_7b serving, and its times at
-the serving shape); the last line is ``{"ok": true, "device": {...}}``.
+before the last is a JSON ``kernels`` summary (flash's launches by path:
+gemma3_1b serving, phi3_mini_3_8b serving, calibration, and its times at
+head dims 16, 32 and 96; the scan's entry: its launches by path,
+calibration and falcon_mamba_7b serving, and its times at the serving
+shape); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -141,8 +159,23 @@ KERNEL_CASES = [  # B, H, Hkv, S, D, causal, window
     (1, 4, 1, 1000, 128, True, 100),        # window off the tile grid
     (1, 2, 1, 300, 256, False, 0),          # no causal mask
     (1, 2, 1, 256, 64, False, 70),          # window without causal
+    (4, 32, 32, 1024, 96, True, 0),         # phi3_mini_3_8b prefill
+    (4, 32, 32, 1024, 16, True, 0),         # padded boxes: D 16 and 32
+    (4, 32, 32, 1024, 32, True, 0),
+    (2, 4, 2, 1000, 96, True, 0),           # ragged S, GQA
+    (1, 4, 1, 77, 16, True, 30),            # S below two tiles, window
+    (1, 4, 2, 50, 96, True, 0),             # S below one tile
+    (1, 2, 1, 300, 16, False, 0),           # no causal mask
+    (1, 2, 2, 256, 96, False, 70),          # window without causal
+    (2, 4, 1, 1000, 32, True, 100),         # window off the tile grid
 ]
 SERVE = dict(requests=8, batch=4, prompt_len=1024, max_new=32)
+# the head dims off whole 128-byte TMA boxes, and phi3_mini_3_8b's prefill
+# attention in SERVE at each (causal): B, H, Hkv, S, D
+SMALL_D = (16, 32, 96)
+PHI3_PREFILL = [(SERVE["batch"], get_config("phi3_mini_3_8b").n_heads,
+                 get_config("phi3_mini_3_8b").n_kv_heads, SERVE["prompt_len"],
+                 D) for D in SMALL_D]
 # tests/test_kernels.py tolerances: matmul rtol tol, atol tol * sqrt(K);
 # scan rtol tol, atol 4 tol
 MM_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
@@ -186,6 +219,8 @@ GRAPH_RUNS = 20           # timed forwards (and camera frames) a median takes
 ISP_TOL = 1e-5            # RGB frame and DNN input, card against CPU
 FALCON_CUT = 2            # layers of the full-width card-against-CPU check
 FALCON_PROMPTS = (2, 300)  # prompts x tokens: 300 is off the 32-step chunk
+PHI3_CUT = 4               # layers of phi3_mini_3_8b's card-against-CPU check
+PHI3_PROMPTS = (2, 300)    # prompts x tokens: 300 is off the 64-row tile
 
 
 def log(*args):
@@ -306,32 +341,40 @@ def _bf16_close(name, out, expect):
         raise AssertionError(f"{name}: card and CPU disagree ({err})")
 
 
-def check_model_against_cpu():
-    """Six layers of gemma3_1b at full width (5 local, 1 global), prompt 600
-    (> window 512): prefill logits and cache plus 2 teacher-forced decode
-    steps on the card (through the kernel) against the CPU (plain path)."""
-    cfg = dataclasses.replace(get_config("gemma3_1b"), n_layers=6)
+def check_model_against_cpu(arch="gemma3_1b", n_layers=6, prompts=(2, 600)):
+    """``arch`` cut to ``n_layers`` at full width, ``prompts`` (count,
+    tokens): prefill logits and cache plus 2 teacher-forced decode steps on
+    the card (through the kernel, once a layer, in the variant the rule
+    names) against the CPU (plain path).  gemma3_1b: 6 layers (5 local, 1
+    global), prompt 600 (> window 512)."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
     cpu = T.init_params(cfg, seed=1, device="cpu")
     gpu = to_device(cpu, "cuda")
-    tokens = torch.randint(0, cfg.vocab, (2, 600),
+    B, S = prompts
+    tokens = torch.randint(0, cfg.vocab, (B, S),
                            generator=torch.Generator().manual_seed(1))
-    log(f"model check: {cfg.name} cut to {cfg.n_layers} layers, tokens "
+    log(f"model check: {cfg.name} cut to {cfg.n_layers} layers at d_model "
+        f"{cfg.d_model}, head dim {cfg.resolved_head_dim}, tokens "
         f"{tuple(tokens.shape)}, card vs CPU")
-    before = fa.flash_attention.launches
+    name = fa.variant(cfg.resolved_head_dim, torch.bfloat16)
+    before = fa.flash_attention.launches_by_variant[name]
     out, toks = {}, []
     for dev, params in (("cpu", cpu), ("cuda", gpu)):
         logits, cache = T.prefill_forward(cfg, params,
                                           {"tokens": tokens.to(dev)},
-                                          max_seq=602)
+                                          max_seq=S + 2)
         steps = [logits]
         for i in range(2):   # both sides take the CPU's greedy tokens
             if dev == "cpu":
                 toks.append(torch.argmax(logits[:, -1], -1, keepdim=True))
             logits, cache = T.decode_forward(cfg, params, cache,
-                                             toks[i].to(dev), 600 + i)
+                                             toks[i].to(dev), S + i)
             steps.append(logits)
         out[dev] = steps + [cache]
-    if fa.flash_attention.launches - before != cfg.n_layers:
+    ran = fa.flash_attention.launches_by_variant[name] - before
+    log(f"  flash launches on the card: {ran} of {name} (expected "
+        f"{cfg.n_layers})")
+    if ran != cfg.n_layers:
         raise AssertionError("model check did not go through the kernel")
     for i in range(3):
         _bf16_close(f"logits step {i}", out["cuda"][i], out["cpu"][i])
@@ -339,11 +382,17 @@ def check_model_against_cpu():
         _bf16_close(f"cache {key}", out["cuda"][3][key], out["cpu"][3][key])
 
 
-def serve_full():
-    cfg = get_config("gemma3_1b")
+def serve_full(arch="gemma3_1b"):
+    """``arch`` at full width and depth through ``serve``, params from a
+    seed made on the card; the flash counts are set to 0 just before and
+    read just after: one launch a layer a prefill batch, all of the variant
+    the rule names at its head dim.  Returns the config, the params, the
+    launches and the launches by variant."""
+    cfg = get_config(arch)
     log(f"serve: {cfg.name} full width, {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.param_count() / 1e9:.3f} B "
-        f"params; {SERVE}")
+        f"{cfg.d_model}, {cfg.n_heads} heads on {cfg.n_kv_heads} of head dim "
+        f"{cfg.resolved_head_dim}, vocab {cfg.vocab}, "
+        f"{cfg.param_count() / 1e9:.3f} B params; {SERVE}")
     params = T.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -428,23 +477,28 @@ def host_us(fn, calls=100):
 
 
 def bound(B, H, Hkv, S, D, window, dtype, variant):
-    """Least time (ms) for the work these inputs need: live (q, k) pairs
-    times 4 D operations at the variant's peak (bf16 on the tensor cores;
-    float32 ``tf32x3`` as 3 passes of TF32 on the tensor cores, like
-    ``matmul_bound``; float32 ``fma`` on the CUDA cores), against q, k, v
-    read once and o written once at the HBM rate."""
+    """Least time (ms) for the work these inputs need, the largest of three
+    terms: live (q, k) pairs times 4 D operations at the variant's peak
+    (bf16 on the tensor cores; float32 ``tf32x3`` as 3 passes of TF32 on
+    the tensor cores, like ``matmul_bound``; float32 ``fma`` on the CUDA
+    cores); one exponential a live pair at the special-function units'
+    rate, as ``scan_bound`` counts them (it decides bf16 at D <= 32); q, k,
+    v read once and o written once at the HBM rate.  Returns (ms, the term
+    that sets it, {term: seconds}, operations, bytes)."""
     itemsize = torch.finfo(dtype).bits // 8
-    live = sum(min(i + 1, window) if window else i + 1 for i in range(S))
-    flops = 4 * D * B * H * live
+    live = B * H * sum(min(i + 1, window) if window else i + 1
+                       for i in range(S))   # causal
+    flops = 4 * D * live
     if variant == "tf32x3":
         flops, peak = 3 * flops, hw.PEAK_FLOPS_TF32
     else:
         peak = hw.PEAK_FLOPS if dtype == torch.float32 \
             else hw.PEAK_FLOPS_BF16
     nbytes = (2 * B * H * S * D + 2 * B * Hkv * S * D) * itemsize
-    t_ops, t_bytes = flops / peak, nbytes / hw.HBM_BW
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes"), flops, nbytes
+    terms = {"operations": flops / peak, "exp": live / hw.EXP_RATE,
+             "bytes": nbytes / hw.HBM_BW}
+    by = max(terms, key=terms.get)
+    return 1e3 * terms[by], by, terms, flops, nbytes
 
 
 def _sdpa(q, k, v, window):
@@ -476,15 +530,19 @@ def time_flash(B, H, Hkv, S, D, window, dtype, smi, seed=2):
         def call():
             return fa.flash_attention(q, k, v, window=window, kernel=name)
         ms = cuda_ms(call, 20)
-        b_ms, b_by, flops, nbytes = bound(B, H, Hkv, S, D, window, dtype,
-                                          name)
+        b_ms, b_by, terms, flops, nbytes = bound(B, H, Hkv, S, D, window,
+                                                 dtype, name)
         rows[name] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms,
-                          bound_ms=b_ms, bound_by=b_by, host_us=host_us(call))
+                          bound_ms=b_ms, host_us=host_us(call),
+                          bound_by="bytes" if b_by == "bytes"
+                          else "operations", bound_term=b_by)
         log(f"flash_attention {name} B={B} H={H} Hkv={Hkv} S={S} D={D} "
             f"{dtype} window={window}: kernel {ms:.4f} ms (host "
             f"{rows[name]['host_us']:.1f} us a call), plain {plain:.4f} ms, "
             f"SDPA {lib_ms:.4f} ms (max_abs_err vs plain {lib_err:.2e}), "
-            f"bound {b_ms:.4f} ms by {b_by} ({flops / 1e9:.3f} GFLOP, "
+            f"bound {b_ms:.4f} ms by {b_by} (ops "
+            f"{1e3 * terms['operations']:.4f}, exp {1e3 * terms['exp']:.4f}, "
+            f"bytes {1e3 * terms['bytes']:.4f} ms; {flops / 1e9:.3f} GFLOP, "
             f"{nbytes / 1e6:.3f} MB), kernel {flops / ms / 1e9:.2f} TFLOP/s "
             f"= {100 * b_ms / ms:.2f}% of bound; card {smi}")
     return rows
@@ -496,6 +554,21 @@ def time_kernel(cfg, smi):
         SERVE["prompt_len"], cfg.resolved_head_dim
     return {window: time_flash(B, H, Hkv, S, D, window, torch.bfloat16, smi)
             for window in (cfg.window, 0)}
+
+
+def time_flash_small(smi):
+    """The head dims 16, 32 and 96 (``SMALL_D``): both types at
+    phi3_mini_3_8b's prefill shape at each, and float32 at the ``full``
+    calibration grid's attention shapes of those head dims (what the
+    calibration loop runs there), causal, no window: {(shape, type):
+    {variant: row}}."""
+    full = [s for s in calibrate.GRIDS["full"]["attention"]
+            if s[-1] in SMALL_D]
+    cases = [(shape, dtype) for shape in PHI3_PREFILL
+             for dtype in (torch.bfloat16, torch.float32)] \
+        + [(shape, torch.float32) for shape in full]
+    return {(shape, dtype): time_flash(*shape, 0, dtype, smi)
+            for shape, dtype in cases}
 
 
 def time_flash_f32(smi):
@@ -1207,6 +1280,20 @@ def _mean_row(rows):
     return out
 
 
+def _head_dim_rows(small):
+    """``time_flash_small``'s rows for the JSON line: by type and shape,
+    each variant's ms beside the plain version's, SDPA's and the bound (with
+    the term that sets it)."""
+    out = {}
+    for (shape, dtype), rows in small.items():
+        first = next(iter(rows.values()))
+        out[f"{str(dtype)[6:]} {'x'.join(map(str, shape))}"] = {
+            "ms_by_variant": {name: r["ms"] for name, r in rows.items()},
+            **{k: first[k] for k in ("plain_ms", "library_ms", "bound_ms",
+                                     "bound_term")}}
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1257,6 +1344,17 @@ def main():
     scan_by_path = {"calibration": cal_launches["mamba_scan"],
                     "falcon_mamba_7b serving": scan_serve_launches}
     log(f"mamba_scan launches by path: {scan_by_path}")
+    check_model_against_cpu("phi3_mini_3_8b", PHI3_CUT, PHI3_PROMPTS)
+    torch.cuda.empty_cache()
+    pcfg, pparams, _, phi3_by_variant = serve_full("phi3_mini_3_8b")
+    profile_serving(pcfg, pparams, smi, kernel="flash_fwd_")
+    del pparams
+    torch.cuda.empty_cache()
+    small = time_flash_small(smi)
+    flash_by_path = {"gemma3_1b serving": by_variant,
+                     "phi3_mini_3_8b serving": phi3_by_variant,
+                     "calibration": cal_by_variant["flash_attention"]}
+    log(f"flash_attention launches by path: {flash_by_path}")
     mm_by_path = {"calibration": cal_by_variant["matmul"],
                   **{f"graph batch {b}": n for b, n in graph_by_batch.items()},
                   "camera frame": camera_launches}
@@ -1279,8 +1377,10 @@ def main():
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:99",
         "launches": launches, "launches_by_variant": by_variant,
+        "launches_by_path": flash_by_path,
         "max_abs_err": max_err, **avg[served], "bound_by": by,
-        "ms_by_variant": {name: row["ms"] for name, row in avg.items()}}, {
+        "ms_by_variant": {name: row["ms"] for name, row in avg.items()},
+        "head_dims": _head_dim_rows(small)}, {
         "name": "flash_attention_fp32", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:99",

@@ -12,16 +12,19 @@
 // What bounds it on the H100: at the serving shapes (bf16, D = 256,
 // S = 1024) the work is about 400 operations per byte of q, k, v and o,
 // above the card's ~295 bf16 operations per byte, so the bound is the
-// tensor cores' rate.  The bf16 kernel therefore does both products on the
-// tensor cores.  Its Hopper variant (head dims 64, 128, 256) does them with
-// wgmma, fed by TMA through a ring of K/V tiles, the only way to the card's
-// full rate; other head dims keep mma.sync m16n8k16 (bf16 in, float32
-// accumulate).  Which variant runs is the caller's choice, by head dim and
-// type (flash_attention.py::variant).  The float32 kernel must match the
-// reference to 1e-4, which no single tensor-core type gives.  Its Hopper
-// variant (tf32x3, head dims 64, 128, 256) does each product as three TF32
-// passes on wgmma (CUTLASS's 3xTF32), bound by 3 x the work at the TF32
-// rate; other head dims keep float32 FMAs on the CUDA cores.  Against device
+// tensor cores' rate; at D <= 32 the one exponential of each (q, k) pair
+// costs more than its 4 D operations on the tensor cores, and the
+// special-function units' rate bounds it.  The bf16 kernel does both
+// products on the tensor cores: its Hopper variant with wgmma, fed by TMA
+// through a ring of K/V tiles, the only way to the card's full rate; the
+// older variant with mma.sync m16n8k16 (bf16 in, float32 accumulate).  The
+// float32 kernel must match the reference to 1e-4, which no single
+// tensor-core type gives: its Hopper variant (tf32x3) does each product as
+// three TF32 passes on wgmma (CUTLASS's 3xTF32), bound by 3 x the work at
+// the TF32 rate; the older variant does float32 FMAs on the CUDA cores.
+// Every variant takes every head dim (16, 32, 64, 96, 128, 256); which one
+// runs is the caller's choice, by head dim and type
+// (flash_attention.py::variant, set by the card's times).  Against device
 // memory, the other bound, all keep the score tile, the softmax statistics
 // and the output accumulator on chip for the whole KV sweep, as the TPU
 // kernel keeps them in VMEM: q is read once, each K/V tile once per query
@@ -422,13 +425,26 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 // this beat 128-row blocks of two warpgroups with a 2-stage ring (192 KB,
 // one block an SM) on both layers: the causal critical path is the heaviest
 // block's KV sweep, which a 64-row block runs in half the work.
+//
+// Rows of Q, K and V arrive in whole 128-byte boxes of 64 columns, NB = DP
+// / 64 of them, DP being D rounded up to 64 (64 at D 16 and 32, 128 at D
+// 96): the tensor maps end at D, so TMA writes zeros past it, and the
+// barriers expect the boxes' full bytes, zeros included (counted from D, a
+// padded box would leave the barrier short and its wait would trap).  No
+// product reads the padding: Q K^T reduces over D / 16 k-steps and P V
+// runs at N = D.  At D 16 and 32 a block takes 25 KB and some 70
+// registers a thread (ptxas), so 6-7 blocks share an SM as the launch
+// bounds stand; there the exponentials, one a (q, k) pair, and not the
+// products set the least time (PERF.md).
 template <int D> struct TilesWg {
   static constexpr int BQ = 64;          // query rows: one warpgroup
   static constexpr int BK = 64;          // keys per KV tile
   static constexpr int STAGES = 1;
   static constexpr int THREADS = 128;
-  static constexpr int Q_BYTES = BQ * D * 2;    // D / 64 boxes [BQ][64]
-  static constexpr int KV_BYTES = BK * D * 2;   // D / 64 boxes [BK][64]
+  static constexpr int DP = (D + 63) / 64 * 64;  // D padded to whole boxes
+  static constexpr int NB = DP / 64;             // boxes of a row
+  static constexpr int Q_BYTES = BQ * DP * 2;    // NB boxes [BQ][64]
+  static constexpr int KV_BYTES = BK * DP * 2;   // NB boxes [BK][64]
   static constexpr size_t smem_bytes =
       1024 + size_t(Q_BYTES) + 2 * STAGES * size_t(KV_BYTES) +
       (1 + 3 * STAGES) * sizeof(uint64_t);
@@ -449,12 +465,13 @@ __device__ __forceinline__ float ex2(float x) {
 // and a warp beside two warpgroups leaves 168 registers a thread where the
 // products need about 190 at D = 256.  The warpgroup computes S (64 x 64) =
 // Q K^T by m64n64k16 wgmma from shared memory (both K-major); an online
-// softmax in exp2 with scale * log2(e) folded in, masks applied only on
-// tiles that cross the causal diagonal, the window's edge or S; then O
-// (64 x D) += P V by m64nDk16 wgmma with P from the S registers as bf16 and
-// V MN-major (transpose-B).  Q, K and V are seen through 3-d tensor maps
-// (D, S, heads), so that a ragged last tile arrives as zeros and not as the
-// next head's rows.  The block's KV range is its rows', so every tile has a
+// softmax in exp2 with scale * log2(e) folded in (the scale from the real
+// D), masks applied only on tiles that cross the causal diagonal, the
+// window's edge or S; then O (64 x D) += P V by m64nDk16 wgmma with P from
+// the S registers as bf16 and V MN-major (transpose-B): at D = 96 it reads
+// V's box 0 and the first half of box 1.  Q, K and V are seen through 3-d
+// tensor maps (D, S, heads), so that a ragged last tile arrives as zeros
+// and not as the next head's rows.  The block's KV range is its rows', so every tile has a
 // live key for some row.
 template <int D>
 __global__ void __launch_bounds__(TilesWg<D>::THREADS, 1)
@@ -466,11 +483,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   using Tl = TilesWg<D>;
   using namespace hopper;
   constexpr int BQ = Tl::BQ, BK = Tl::BK, STAGES = Tl::STAGES;
-  constexpr int Q_BYTES = Tl::Q_BYTES, KV_BYTES = Tl::KV_BYTES;
+  constexpr int Q_BYTES = Tl::Q_BYTES, KV_BYTES = Tl::KV_BYTES, NB = Tl::NB;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* Qs = align1024(smem_raw);       // [D/64][BQ][64]
-  unsigned char* Ks = Qs + Q_BYTES;              // [STAGES][D/64][BK][64]
-  unsigned char* Vs = Ks + STAGES * KV_BYTES;    // [STAGES][D/64][BK][64]
+  unsigned char* Qs = align1024(smem_raw);       // [NB][BQ][64]
+  unsigned char* Ks = Qs + Q_BYTES;              // [STAGES][NB][BK][64]
+  unsigned char* Vs = Ks + STAGES * KV_BYTES;    // [STAGES][NB][BK][64]
   uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + STAGES * KV_BYTES);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + STAGES;
@@ -497,7 +514,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const int s = i % STAGES, k0 = (kt_begin + i) * BK;
     mbar_arrive_expect_tx(&full[s], KV_BYTES);
 #pragma unroll
-    for (int c = 0; c < D / 64; ++c)
+    for (int c = 0; c < NB; ++c)
       tma_load_3d(tiles + s * KV_BYTES + c * BK * 128, map, &full[s], 64 * c,
                   k0, kvh);
   };
@@ -527,7 +544,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_fence_init();
     mbar_arrive_expect_tx(q_full, Q_BYTES);
 #pragma unroll
-    for (int c = 0; c < D / 64; ++c)
+    for (int c = 0; c < NB; ++c)
       tma_load_3d(Qs + c * BQ * 128, &map_q, q_full, 64 * c, q0, bh);
     for (int i = 0; i < STAGES && i < n_tiles; ++i) {
       load(&map_k, Ks, k_full, i);
@@ -640,7 +657,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 }
 
 // q (B, H, S, D) and k, v (B, Hkv, S, D) as 3-d tensor maps (D, S, heads)
-// of 64-element boxes
+// of 64-element boxes (wider than the tensor at D 16 and 32)
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                          int B, int H, int Hkv, int S, int causal, int window,
@@ -686,9 +703,11 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
 // TF32 wgmma takes both operands K-major only: in P V the reduction runs
 // over keys, so V reaches shared memory with keys contiguous.  The first
 // vt_tiles blocks each turn one 64 x 64 tile of V through shared memory
-// (read along D, written along keys); the others split q and k elementwise,
-// 16 bytes a load.  Keys past S in a row of V^T are never read (the tensor
-// map ends at S) and are not written.
+// (read along D, written along keys), ceil(D / 64) tiles across D with
+// columns past D masked on the read and the write (D 16, 32 and 96 are not
+// whole tiles); the others split q and k elementwise, 16 bytes a load.
+// Keys past S in a row of V^T are never read (the tensor map ends at S)
+// and are not written.
 constexpr int SPLIT_T = 64;
 constexpr int SPLIT_NT = 256;
 constexpr int SPLIT_V4 = 4;   // float4s a thread of an elementwise block
@@ -704,7 +723,8 @@ flash_tf32_split_kernel(const float* __restrict__ q,
   __shared__ float t[SPLIT_T][SPLIT_T + 1];   // padded against bank conflicts
   constexpr int PER = SPLIT_T * SPLIT_T / SPLIT_NT;
   if ((int)blockIdx.x < vt_tiles) {
-    const int ds = D / SPLIT_T, ss = (S + SPLIT_T - 1) / SPLIT_T;
+    const int ds = (D + SPLIT_T - 1) / SPLIT_T;
+    const int ss = (S + SPLIT_T - 1) / SPLIT_T;
     int tile = blockIdx.x;
     const int d0 = tile % ds * SPLIT_T;
     tile /= ds;
@@ -714,7 +734,8 @@ flash_tf32_split_kernel(const float* __restrict__ q,
     for (int j = 0; j < PER; ++j) {   // t[key][d]
       const int e = threadIdx.x + SPLIT_NT * j, i = e / SPLIT_T,
                 x = e % SPLIT_T;
-      t[i][x] = s0 + i < S ? src[(long long)(s0 + i) * D + d0 + x] : 0.f;
+      t[i][x] = s0 + i < S && d0 + x < D
+                    ? src[(long long)(s0 + i) * D + d0 + x] : 0.f;
     }
     __syncthreads();
     const long long nv = nk / S * Sp;   // elements of vt_hi
@@ -724,7 +745,7 @@ flash_tf32_split_kernel(const float* __restrict__ q,
     for (int j = 0; j < PER; ++j) {   // row d0 + i of V^T, key s0 + x
       const int e = threadIdx.x + SPLIT_NT * j, i = e / SPLIT_T,
                 x = e % SPLIT_T;
-      if (s0 + x >= S) continue;
+      if (s0 + x >= S || d0 + i >= D) continue;
       float hv, lv;
       hopper::tf32_split(t[x][i], hv, lv);
       const long long g = (long long)(d0 + i) * Sp + s0 + x;
@@ -740,7 +761,7 @@ flash_tf32_split_kernel(const float* __restrict__ q,
   for (int j = 0; j < SPLIT_V4; ++j) {
     const long long e = e0 + (long long)SPLIT_NT * j;
     if (e >= n4) break;
-    const long long x = 4 * e;   // q and k are whole float4s (D % 64 == 0)
+    const long long x = 4 * e;   // q and k are whole float4s (D % 4 == 0)
     const bool is_q = x < nq;
     const float4 in = *reinterpret_cast<const float4*>(
         is_q ? q + x : k + (x - nq));
@@ -756,32 +777,44 @@ flash_tf32_split_kernel(const float* __restrict__ q,
   }
 }
 
-// One block of 64 query rows (one warpgroup).  Its shared memory:
-//   Q hi and lo, resident for the whole sweep: 2 x 64 x D x 4 bytes;
-//   a ring of STAGES items, each one of K hi, K lo, V^T hi, V^T lo of one
-//   tile of BK keys (BK x D x 4 bytes), loaded in that order, tile after
-//   tile;
+// One block of 64 query rows (one warpgroup).  Q and K rows arrive in
+// whole 128-byte boxes of 32 columns, NB = DP / 32 of them, DP being D
+// rounded up to 32 (32 at D 16): TMA writes zeros past D, and the
+// barriers expect the boxes' full bytes.  V^T is D rows of keys, whole at
+// every D.  No product reads the padding: Q K^T reduces over D / 8
+// k-steps and P V runs at N = D.  Its shared memory:
+//   Q hi and lo, resident for the whole sweep: 2 x 64 x DP x 4 bytes;
+//   a ring of STAGES items, each one of K hi, K lo (BK x DP x 4 bytes),
+//   V^T hi, V^T lo (D x BK x 4 bytes) of one tile of BK keys, loaded in
+//   that order, tile after tile, each stage as large as the larger;
 //   P hi and lo: 2 x 64 x BK x 4 bytes;
 // plus 1024 bytes of alignment and the barriers:
 //
-//   D     BK   Q hi+lo   item    ring             P hi+lo   total
-//   64    64   32 KB     16 KB   4 stages, 64 KB  32 KB     129 KB
-//   128   64   64 KB     32 KB   3 stages, 96 KB  32 KB     193 KB
-//   256   32   128 KB    32 KB   2 stages, 64 KB  16 KB     209 KB
+//   D       BK   Q hi+lo   item    ring             P hi+lo   total
+//   16, 32  64   16 KB     8 KB    4 stages, 32 KB  32 KB     81 KB
+//   64      64   32 KB     16 KB   4 stages, 64 KB  32 KB     129 KB
+//   96      64   48 KB     24 KB   3 stages, 72 KB  32 KB     153 KB
+//   128     64   64 KB     32 KB   3 stages, 96 KB  32 KB     193 KB
+//   256     32   128 KB    32 KB   2 stages, 64 KB  16 KB     209 KB
 //
-// of the 227 KB a block may have: one block an SM.  At D = 256 the ring
-// holds only K hi and K lo of one tile, or V^T hi and lo; each item is
-// refilled as soon as the products that read it are done, so the next
-// item's load runs under the current products and the softmax.
+// of the 227 KB a block may have: one block an SM from D = 64 on, two at
+// D 16 and 32.  At D = 256 the ring holds only K hi and K lo of one tile,
+// or V^T hi and lo; each item is refilled as soon as the products that
+// read it are done, so the next item's load runs under the current
+// products and the softmax.
 template <int D> struct TilesTf32 {
   static constexpr int BQ = 64;                  // query rows: one warpgroup
   static constexpr int BK = D > 128 ? 32 : 64;   // keys per KV tile
-  static constexpr int STAGES = D == 64 ? 4 : D == 128 ? 3 : 2;
+  static constexpr int STAGES = D <= 64 ? 4 : D <= 128 ? 3 : 2;
   static constexpr int THREADS = 128;
-  static constexpr int Q_BYTES = 2 * BQ * D * 4;   // [hi, lo][D/32][BQ][32]
-  static constexpr int ITEM = BK * D * 4;          // K: [D/32][BK][32];
-                                                   // V^T: [BK/32][D][32]
+  static constexpr int DP = (D + 31) / 32 * 32;    // D padded to whole boxes
+  static constexpr int NB = DP / 32;               // boxes of a Q or K row
+  static constexpr int Q_BYTES = 2 * BQ * DP * 4;  // [hi, lo][NB][BQ][32]
+  static constexpr int K_BYTES = BK * DP * 4;      // K: [NB][BK][32]
+  static constexpr int VT_BYTES = BK * D * 4;      // V^T: [BK/32][D][32]
+  static constexpr int ITEM = K_BYTES;             // a stage (>= VT_BYTES)
   static constexpr int P_BYTES = 2 * BQ * BK * 4;  // [hi, lo][BK/32][BQ][32]
+  static_assert(VT_BYTES <= ITEM && D % 8 == 0, "V^T boxes of D rows");
   static constexpr size_t smem_bytes =
       1024 + size_t(Q_BYTES) + size_t(STAGES) * ITEM + P_BYTES +
       (1 + STAGES) * sizeof(uint64_t) + STAGES * sizeof(uint32_t);
@@ -815,10 +848,10 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap map_q,
   using Tl = TilesTf32<D>;
   using namespace hopper;
   constexpr int BQ = Tl::BQ, BK = Tl::BK, STAGES = Tl::STAGES;
-  constexpr int ITEM = Tl::ITEM;
-  constexpr int QH = BQ * D * 4, PH = BQ * BK * 4;   // bytes of one part
+  constexpr int ITEM = Tl::ITEM, NB = Tl::NB;
+  constexpr int QH = BQ * Tl::DP * 4, PH = BQ * BK * 4;   // bytes of a part
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* Qs = align1024(smem_raw);       // [hi, lo][D/32][BQ][32]
+  unsigned char* Qs = align1024(smem_raw);       // [hi, lo][NB][BQ][32]
   unsigned char* ring = Qs + Tl::Q_BYTES;        // [STAGES][ITEM]
   unsigned char* Ps = ring + STAGES * ITEM;      // [hi, lo][BK/32][BQ][32]
   uint64_t* q_full = reinterpret_cast<uint64_t*>(Ps + Tl::P_BYTES);
@@ -845,12 +878,13 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap map_q,
     const int s = i % STAGES, kind = i % 4, k0 = (kt_begin + i / 4) * BK;
     const int head = (kind & 1) * kv_heads + kvh;
     unsigned char* dst = ring + s * ITEM;
-    mbar_arrive_expect_tx(&full[s], ITEM);
     if (kind < 2) {
+      mbar_arrive_expect_tx(&full[s], Tl::K_BYTES);
 #pragma unroll
-      for (int c = 0; c < D / 32; ++c)
+      for (int c = 0; c < NB; ++c)
         tma_load_3d(dst + c * BK * 128, &map_k, &full[s], 32 * c, k0, head);
     } else {
+      mbar_arrive_expect_tx(&full[s], Tl::VT_BYTES);
 #pragma unroll
       for (int c = 0; c < BK / 32; ++c)
         tma_load_3d(dst + c * D * 128, &map_vt, &full[s], k0 + 32 * c, 0,
@@ -886,7 +920,7 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int part = 0; part < 2; ++part)
 #pragma unroll
-      for (int c = 0; c < D / 32; ++c)
+      for (int c = 0; c < NB; ++c)
         tma_load_3d(Qs + part * QH + c * BQ * 128, &map_q, q_full, 32 * c,
                     q0, part * heads + bh);
     for (int i = 0; i < STAGES && i < n_items; ++i) load(i);
@@ -1052,7 +1086,8 @@ cudaError_t launch_tf32x3(const float* q, const float* k, const float* v,
   const long long nk = (long long)B * Hkv * S * D;
   const int Sp = (int)vt_stride(S);
   const long long vt_tiles =
-      (long long)B * Hkv * ((S + SPLIT_T - 1) / SPLIT_T) * (D / SPLIT_T);
+      (long long)B * Hkv * ((S + SPLIT_T - 1) / SPLIT_T) *
+      ((D + SPLIT_T - 1) / SPLIT_T);
   const long long per_block = (long long)SPLIT_NT * SPLIT_V4 * 4;
   const long long blocks = vt_tiles + (nq + nk + per_block - 1) / per_block;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -1121,7 +1156,7 @@ cudaError_t launch(Kernel kernel, int threads, size_t smem, const void* q,
 
 // Kernel variants, chosen by the caller (flash_attention.py::variant):
 // 0 float32 FMAs, 1 bf16 mma.sync, 2 bf16 wgmma with TMA, 3 float32 three
-// TF32 passes on wgmma (2 and 3: D of 64, 128, 256).
+// TF32 passes on wgmma; each at every head dim of flash_attention_fwd.
 enum Variant { kFma = 0, kMmaSync = 1, kWgmma = 2, kTf32x3 = 3 };
 
 template <int D>
@@ -1137,17 +1172,14 @@ cudaError_t launch_d(int dtype, int variant, const void* q, const void* k,
     return launch<__nv_bfloat16>(flash_fwd_bf16_kernel<D>, NTB,
                                  TilesBf16<D>::smem_bytes, q, k, v, o, B, H,
                                  Hkv, S, D, causal, window, stream);
-  if constexpr (D % 64 == 0) {
-    if (dtype == 1 && variant == kWgmma)
-      return launch_wgmma<D>(q, k, v, o, B, H, Hkv, S, causal, window,
-                             stream);
-    if (dtype == 0 && variant == kTf32x3)
-      return launch_tf32x3<D>(static_cast<const float*>(q),
-                              static_cast<const float*>(k),
-                              static_cast<const float*>(v),
-                              static_cast<float*>(o), ws, n_ws, B, H, Hkv, S,
-                              causal, window, stream);
-  }
+  if (dtype == 1 && variant == kWgmma)
+    return launch_wgmma<D>(q, k, v, o, B, H, Hkv, S, causal, window, stream);
+  if (dtype == 0 && variant == kTf32x3)
+    return launch_tf32x3<D>(static_cast<const float*>(q),
+                            static_cast<const float*>(k),
+                            static_cast<const float*>(v),
+                            static_cast<float*>(o), ws, n_ws, B, H, Hkv, S,
+                            causal, window, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -1162,11 +1194,10 @@ extern "C" long long flash_attention_workspace(int B, int H, int Hkv, int S,
 }
 
 // q: (B, H, S, D), k and v: (B, Hkv, S, D), o: (B, H, S, D), all contiguous
-// and of one type: dtype 0 is float32 (variant 0, or 3 for D of 64, 128,
-// 256), 1 is bfloat16 (variant 1, or 2 for D of 64, 128, 256), 16-byte
-// aligned.  D is one of 16, 32, 64, 96, 128, 256.  ws: n_ws float32
-// elements, at least flash_attention_workspace(B, H, Hkv, S, D) for variant
-// 3 (a shorter workspace is refused), else unused.  Returns the cudaError_t
+// and of one type: dtype 0 is float32 (variant 0 or 3), 1 is bfloat16
+// (variant 1 or 2), 16-byte aligned.  D is one of 16, 32, 64, 96, 128,
+// 256.  ws: n_ws float32 elements, at least flash_attention_workspace(B, H,
+// Hkv, S, D) for variant 3 (a shorter workspace is refused), else unused.  Returns the cudaError_t
 // of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, void* ws, long long n_ws, int B,

@@ -18,7 +18,11 @@
 //    a @ b or v's rows in p v; the product's transpose-B bit is set): SBO =
 //    1024 bytes between groups of 8 k rows, LBO = the distance between boxes
 //    of 64 output columns; the k16 step kk starts 16 rows (2048 bytes)
-//    further on.
+//    further on.  A product narrower than a box (N = 16 or 32) reads the
+//    first N columns of each swizzled row.
+// A box may be wider than the tensor (a head dim of 16, 32 or 96 in boxes
+// of 64 bf16 or 32 fp32): TMA writes zeros past the tensor's edge, and
+// those bytes count toward the barrier's transaction bytes like the rest.
 //
 // The tensor map is encoded on the host with cuTensorMapEncodeTiled, which
 // lives in the driver; it is reached through the runtime's entry-point query,
@@ -195,8 +199,9 @@ __device__ __forceinline__ void acc_fence(Acc<N>& d) {
 // wgmma_rs from registers in the mma.sync m16n8k16 A layout (rows 16 w ..
 // 16 w + 15 for warp w).  TB = 1 marks B as MN-major (transpose-B).
 // Generated text: one overload per N the kernels use (64 and 256 from
-// shared memory; 64, 128 and 256 from registers), as the instruction names
-// every accumulator register.
+// shared memory; 16, 32, 64, 96, 128 and 256 from registers: flash
+// attention's P V at N = D), as the instruction names every accumulator
+// register.
 template <int TB>
 __device__ __forceinline__ void wgmma_ss(Acc<64>& d, uint64_t da, uint64_t db,
                                          int scale_d) {
@@ -264,6 +269,43 @@ __device__ __forceinline__ void wgmma_ss(Acc<256>& d, uint64_t da, uint64_t db,
 }
 
 template <int TB>
+__device__ __forceinline__ void wgmma_rs(Acc<16>& d, const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "},"
+      " {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n"
+      "}\n"
+      : "+f"(d.r[0]), "+f"(d.r[1]), "+f"(d.r[2]), "+f"(d.r[3]), "+f"(d.r[4]), "+f"(d.r[5]),
+        "+f"(d.r[6]), "+f"(d.r[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(Acc<32>& d, const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "},"
+      " {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
+      "}\n"
+      : "+f"(d.r[0]), "+f"(d.r[1]), "+f"(d.r[2]), "+f"(d.r[3]), "+f"(d.r[4]), "+f"(d.r[5]),
+        "+f"(d.r[6]), "+f"(d.r[7]), "+f"(d.r[8]), "+f"(d.r[9]), "+f"(d.r[10]), "+f"(d.r[11]),
+        "+f"(d.r[12]), "+f"(d.r[13]), "+f"(d.r[14]), "+f"(d.r[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+template <int TB>
 __device__ __forceinline__ void wgmma_rs(Acc<64>& d, const uint32_t (&a)[4],
                                          uint64_t db, int scale_d) {
   asm volatile(
@@ -282,6 +324,32 @@ __device__ __forceinline__ void wgmma_rs(Acc<64>& d, const uint32_t (&a)[4],
         "+f"(d.r[18]), "+f"(d.r[19]), "+f"(d.r[20]), "+f"(d.r[21]), "+f"(d.r[22]), "+f"(d.r[23]),
         "+f"(d.r[24]), "+f"(d.r[25]), "+f"(d.r[26]), "+f"(d.r[27]), "+f"(d.r[28]), "+f"(d.r[29]),
         "+f"(d.r[30]), "+f"(d.r[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(Acc<96>& d, const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "},"
+      " {%48, %49, %50, %51}, %52, p, 1, 1, %54;\n"
+      "}\n"
+      : "+f"(d.r[0]), "+f"(d.r[1]), "+f"(d.r[2]), "+f"(d.r[3]), "+f"(d.r[4]), "+f"(d.r[5]),
+        "+f"(d.r[6]), "+f"(d.r[7]), "+f"(d.r[8]), "+f"(d.r[9]), "+f"(d.r[10]), "+f"(d.r[11]),
+        "+f"(d.r[12]), "+f"(d.r[13]), "+f"(d.r[14]), "+f"(d.r[15]), "+f"(d.r[16]), "+f"(d.r[17]),
+        "+f"(d.r[18]), "+f"(d.r[19]), "+f"(d.r[20]), "+f"(d.r[21]), "+f"(d.r[22]), "+f"(d.r[23]),
+        "+f"(d.r[24]), "+f"(d.r[25]), "+f"(d.r[26]), "+f"(d.r[27]), "+f"(d.r[28]), "+f"(d.r[29]),
+        "+f"(d.r[30]), "+f"(d.r[31]), "+f"(d.r[32]), "+f"(d.r[33]), "+f"(d.r[34]), "+f"(d.r[35]),
+        "+f"(d.r[36]), "+f"(d.r[37]), "+f"(d.r[38]), "+f"(d.r[39]), "+f"(d.r[40]), "+f"(d.r[41]),
+        "+f"(d.r[42]), "+f"(d.r[43]), "+f"(d.r[44]), "+f"(d.r[45]), "+f"(d.r[46]), "+f"(d.r[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
         "n"(TB));
 }
@@ -367,8 +435,25 @@ __device__ __forceinline__ void wgmma_rs(Acc<256>& d, const uint32_t (&a)[4],
 // A 128-byte swizzled row holds 32 fp32 values, so the k8 step kk inside a
 // box starts 32 kk bytes further on, as bf16's k16 step does.  The tensor
 // cores read the top 19 bits of each 32-bit operand (see tf32_split).
-// Generated text, one overload per N (32, 64: flash attention's score
-// tiles and its D = 64 output; 112, 128, 256).
+// Generated text, one overload per N (flash attention's output at N = D:
+// 16, 32, 64, 96, 128, 256, and its 64-key score tiles; the matmul's 112,
+// 128, 256).
+__device__ __forceinline__ void wgmma_ss_tf32(Acc<16>& d, uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "},"
+      " %8, %9, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d.r[0]), "+f"(d.r[1]), "+f"(d.r[2]), "+f"(d.r[3]), "+f"(d.r[4]), "+f"(d.r[5]),
+        "+f"(d.r[6]), "+f"(d.r[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_ss_tf32(Acc<32>& d, uint64_t da,
                                               uint64_t db, int scale_d) {
   asm volatile(
@@ -404,6 +489,30 @@ __device__ __forceinline__ void wgmma_ss_tf32(Acc<64>& d, uint64_t da,
         "+f"(d.r[18]), "+f"(d.r[19]), "+f"(d.r[20]), "+f"(d.r[21]), "+f"(d.r[22]), "+f"(d.r[23]),
         "+f"(d.r[24]), "+f"(d.r[25]), "+f"(d.r[26]), "+f"(d.r[27]), "+f"(d.r[28]), "+f"(d.r[29]),
         "+f"(d.r[30]), "+f"(d.r[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_tf32(Acc<96>& d, uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "},"
+      " %48, %49, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d.r[0]), "+f"(d.r[1]), "+f"(d.r[2]), "+f"(d.r[3]), "+f"(d.r[4]), "+f"(d.r[5]),
+        "+f"(d.r[6]), "+f"(d.r[7]), "+f"(d.r[8]), "+f"(d.r[9]), "+f"(d.r[10]), "+f"(d.r[11]),
+        "+f"(d.r[12]), "+f"(d.r[13]), "+f"(d.r[14]), "+f"(d.r[15]), "+f"(d.r[16]), "+f"(d.r[17]),
+        "+f"(d.r[18]), "+f"(d.r[19]), "+f"(d.r[20]), "+f"(d.r[21]), "+f"(d.r[22]), "+f"(d.r[23]),
+        "+f"(d.r[24]), "+f"(d.r[25]), "+f"(d.r[26]), "+f"(d.r[27]), "+f"(d.r[28]), "+f"(d.r[29]),
+        "+f"(d.r[30]), "+f"(d.r[31]), "+f"(d.r[32]), "+f"(d.r[33]), "+f"(d.r[34]), "+f"(d.r[35]),
+        "+f"(d.r[36]), "+f"(d.r[37]), "+f"(d.r[38]), "+f"(d.r[39]), "+f"(d.r[40]), "+f"(d.r[41]),
+        "+f"(d.r[42]), "+f"(d.r[43]), "+f"(d.r[44]), "+f"(d.r[45]), "+f"(d.r[46]), "+f"(d.r[47])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -564,8 +673,8 @@ inline EncodeTiled encode_tiled() {
 // A tensor map of a row-major tensor of `type` and `rank` dimensions (2 or
 // 3), innermost first: dims[i] elements, strides[i] bytes between
 // consecutive indices of dimension i + 1, boxes of box[i] elements (box[0]
-// elements make one 128-byte swizzled row: 64 bf16 or 32 fp32), 128-byte
-// swizzle, zeros outside the tensor.  The base and every stride must be
+// elements make one 128-byte swizzled row: 64 bf16 or 32 fp32, which may
+// exceed dims[0]), 128-byte swizzle, zeros outside the tensor.  The base and every stride must be
 // multiples of 16 bytes.  Returns a CUDA error code, 0 on success.
 inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type,
                             const void* base, int rank,

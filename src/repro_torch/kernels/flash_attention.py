@@ -8,14 +8,16 @@ version is ``repro_torch.kernels.ref.flash_attention_ref`` and
 ``repro_torch.kernels.ops`` picks between the two by device.
 
 The kernel has variants, one chosen per call by ``variant(D, dtype)``, a
-rule by shape and type.  At a head dim of 64, 128 or 256 (whole TMA boxes)
-bf16 takes ``"wgmma"`` (wgmma fed by TMA) and float32 takes ``"tf32x3"``:
-a split pass writes q, k and v transposed as TF32 hi and lo parts into a
-workspace whose length the library's ``flash_attention_workspace`` gives,
-and a wgmma kernel fed by TMA sums hi·hi + hi·lo + lo·hi for both products.  Other head
-dims take the ``mma.sync`` kernel (bf16) or the FMA kernel (float32,
-``"fma"``), which also runs when named.  A failed launch raises; no
-variant stands in for another.
+rule by type.  bf16 takes ``"wgmma"`` (wgmma fed by TMA) and float32 takes
+``"tf32x3"``: a split pass writes q, k and v transposed as TF32 hi and lo
+parts into a workspace whose length the library's
+``flash_attention_workspace`` gives, and a wgmma kernel fed by TMA sums
+hi·hi + hi·lo + lo·hi for both products.  Both take every head dim of
+``HEAD_DIMS``; at 16, 32 and 96 a row is padded to whole 128-byte TMA
+boxes with zeros that no product reads.  The card's times put them ahead
+of the older kernels at every head dim (PERF.md), which run when named:
+``mma.sync`` (bf16, ``"mma_sync"``) and FMAs on the CUDA cores (float32,
+``"fma"``).  A failed launch raises; no variant stands in for another.
 
 ``flash_attention.launches`` counts the kernel's launches (a tf32x3 call's
 split pass and product count once) and
@@ -31,7 +33,6 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
-WGMMA_HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # variant -> (code in csrc/flash_attention.cu, dtype it takes)
 VARIANTS = {"fma": (0, torch.float32), "mma_sync": (1, torch.bfloat16),
@@ -39,18 +40,15 @@ VARIANTS = {"fma": (0, torch.float32), "mma_sync": (1, torch.bfloat16),
 
 
 def variant(D, dtype):
-    """The kernel variant for head dim ``D`` and ``dtype``: with D in
-    ``WGMMA_HEAD_DIMS``, ``"wgmma"`` for bf16 and ``"tf32x3"`` for float32;
-    otherwise ``"mma_sync"`` for bf16 and ``"fma"`` for float32.  Raises on
-    a head dim or type the kernel lacks."""
+    """The kernel variant for head dim ``D`` and ``dtype``: ``"wgmma"`` for
+    bf16 and ``"tf32x3"`` for float32 at every head dim.  Raises on a head
+    dim or type the kernel lacks."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, "
                         f"got {dtype}")
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
-    if D in WGMMA_HEAD_DIMS:
-        return "tf32x3" if dtype == torch.float32 else "wgmma"
-    return "fma" if dtype == torch.float32 else "mma_sync"
+    return "tf32x3" if dtype == torch.float32 else "wgmma"
 
 
 @functools.cache
@@ -69,8 +67,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, kernel=None):
     one CUDA device, all float32 or all bfloat16.  ``window > 0`` adds the
     sliding-window mask ``qpos - kpos < window``.  ``kernel`` names a
     variant other than ``variant(D, dtype)`` (to time one against another);
-    it must take the inputs' type (and, for ``"wgmma"`` and ``"tf32x3"``,
-    their head dim).
+    it must take the inputs' type.
     Returns (B, H, S, D)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention kernel takes q, k, v on one CUDA "
@@ -88,11 +85,12 @@ def flash_attention(q, k, v, *, causal=True, window=0, kernel=None):
     if Hkv == 0 or H % Hkv or (k.shape[0], k.shape[2], k.shape[3]) != (B, S, D):
         raise ValueError(f"k, v must be (B, Hkv, S, D) with H % Hkv == 0 for "
                          f"q {tuple(q.shape)}, got {tuple(k.shape)}")
-    name = variant(D, q.dtype) if kernel is None else kernel
-    if name not in VARIANTS or VARIANTS[name][1] != q.dtype or (
-            name in ("wgmma", "tf32x3") and D not in WGMMA_HEAD_DIMS):
-        raise ValueError(f"kernel variant {name!r} does not take {q.dtype} "
-                         f"at head dim {D}")
+    name = variant(D, q.dtype)   # raises on a head dim the kernel lacks
+    if kernel is not None:
+        name = kernel
+    if name not in VARIANTS or VARIANTS[name][1] != q.dtype:
+        raise ValueError(f"kernel variant {name!r} does not take "
+                         f"{q.dtype}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     # contiguous, and 16-byte aligned for the bf16 kernel's vector loads

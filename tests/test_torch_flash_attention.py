@@ -7,6 +7,8 @@ it is compared with the JAX Pallas kernel in interpret mode at every
 ragged length.  ``tests/test_torch_gpu.py`` holds the CUDA kernel against
 the plain version on the card.
 """
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,7 +25,10 @@ KERNEL_CASES = [  # B, H, Hkv, S, D, bq, bk, causal, window (test_kernels.py)
     (2, 4, 2, 128, 64, 64, 32, True, 0),      # GQA
     (1, 2, 1, 256, 32, 128, 64, True, 48),    # MQA + sliding window
     (1, 2, 2, 128, 32, 64, 64, False, 0),     # non-causal (encoder)
+    (2, 4, 2, 128, 16, 64, 64, True, 0),      # head dims in padded boxes:
+    (1, 2, 1, 256, 96, 128, 64, True, 48),    # 16 (GQA), 96 (MQA, window)
 ]
+ROOT = Path(__file__).resolve().parents[1]
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
 
@@ -107,16 +112,17 @@ def test_variant_rule_takes_hopper_kernel_at_serving_shapes(B, H, Hkv, S, D):
 
 @pytest.mark.parametrize("D,dtype,expect", [
     (64, torch.bfloat16, "wgmma"), (128, torch.bfloat16, "wgmma"),
-    (16, torch.bfloat16, "mma_sync"), (32, torch.bfloat16, "mma_sync"),
-    (96, torch.bfloat16, "mma_sync"),
+    (16, torch.bfloat16, "wgmma"), (32, torch.bfloat16, "wgmma"),
+    (96, torch.bfloat16, "wgmma"),
     (256, torch.float32, "tf32x3"), (64, torch.float32, "tf32x3"),
-    (16, torch.float32, "fma"), (128, torch.float32, "tf32x3"),
-    (32, torch.float32, "fma"), (96, torch.float32, "fma"),
+    (16, torch.float32, "tf32x3"), (128, torch.float32, "tf32x3"),
+    (32, torch.float32, "tf32x3"), (96, torch.float32, "tf32x3"),
 ])
 def test_variant_rule_by_head_dim_and_type(D, dtype, expect):
     """The Hopper variants (bf16 wgmma, float32 three TF32 passes on wgmma)
-    take D only where whole TMA boxes tile it; other head dims keep
-    mma.sync (bf16) and the FMA kernel (float32)."""
+    take every head dim, those off whole TMA boxes (16, 32, 96) in padded
+    boxes: the card's times put them ahead of mma.sync and the FMA kernel
+    at each (PERF.md), which run only when named."""
     assert fa.variant(D, dtype) == expect
 
 
@@ -163,6 +169,9 @@ def _tf32x3_workspace(B, H, Hkv, S, D):
     (1, 4, 1, 1000, 128, 2 * 1000 * 128 * 5 + 2 * 128 * 1000),
     (2, 4, 2, 333, 128, 2 * 333 * 128 * 2 * 6 + 2 * 2 * 2 * 128 * 336),
     (1, 2, 1, 77, 64, 2 * 77 * 64 * 3 + 2 * 64 * 80),
+    (1, 4, 1, 1000, 16, 2 * 1000 * 16 * 5 + 2 * 16 * 1000),   # the padded
+    (2, 4, 2, 333, 32, 2 * 333 * 32 * 2 * 6 + 2 * 2 * 2 * 32 * 336),  # box
+    (4, 32, 32, 1024, 96, 2 * 1024 * 96 * 4 * 64 + 2 * 4 * 32 * 96 * 1024),
 ])
 def test_tf32x3_workspace_holds_split_operands(B, H, Hkv, S, D, expect):
     """q hi/lo (B*H, S, D), k hi/lo (B*Hkv, S, D) and v transposed, hi/lo
@@ -192,24 +201,18 @@ def _split(x):
     return hi, _tf32(x - hi)
 
 
-def _flash_tf32(q, k, v, causal, window, bk, passes):
-    """The tf32x3 kernel's arithmetic in plain PyTorch: q, k, v^T and P
-    split into TF32 hi and lo; each product the float64 sum of ``passes``
-    (lo·hi, hi·lo, hi·hi, or hi·hi alone), rounded to float32 as the
-    tensor cores' float32 accumulator holds it; an online softmax over
-    tiles of ``bk`` keys in exp2 with scale * log2(e) folded in; the output
-    acc / max(l, 1e-30).  GQA: query head h reads KV head h // (H / Hkv)."""
+def _online_softmax(q, k, v, causal, window, bk, prod, scale_dim=None,
+                    p_round=None):
+    """The Hopper kernels' attention: an online softmax over tiles of
+    ``bk`` keys in exp2 with scale * log2(e) folded in, the scale that of
+    head dim ``scale_dim`` (q's by default); ``prod(x, y)`` takes the
+    place of x @ y^T for both products, P rounded by ``p_round`` before P
+    V; the output acc / max(l, 1e-30).  GQA: query head h reads KV head
+    h // (H / Hkv)."""
     B, H, S, D = q.shape
     rep = H // k.shape[1]
     k, v = (t.repeat_interleave(rep, dim=1) for t in (k, v))
-    scale_log2 = np.float32(1.4426950408889634 / D ** 0.5)
-
-    def prod(x, y):
-        (xh, xl), (yh, yl) = _split(x), _split(y)
-        terms = {"lo.hi": (xl, yh), "hi.lo": (xh, yl), "hi.hi": (xh, yh)}
-        return sum(a.double() @ b.double().transpose(-1, -2)
-                   for a, b in (terms[p] for p in passes)).float()
-
+    scale_log2 = np.float32(1.4426950408889634 / (scale_dim or D) ** 0.5)
     m = torch.full((B, H, S, 1), -1e30)
     l = torch.zeros(B, H, S, 1)
     acc = torch.zeros(B, H, S, D)
@@ -227,9 +230,35 @@ def _flash_tf32(q, k, v, causal, window, bk, passes):
         corr = torch.exp2(m - m_new)
         p = torch.exp2(s - m_new)
         l = l * corr + p.sum(-1, keepdim=True)
+        if p_round is not None:
+            p = p_round(p)
         acc = acc * corr + prod(p, v[:, :, k0:k0 + bk].transpose(-1, -2))
         m = m_new
     return acc / torch.clamp(l, min=1e-30)
+
+
+def _flash_tf32(q, k, v, causal, window, bk, passes, scale_dim=None):
+    """The tf32x3 kernel's arithmetic in plain PyTorch: q, k, v^T and P
+    split into TF32 hi and lo; each product the float64 sum of ``passes``
+    (lo·hi, hi·lo, hi·hi, or hi·hi alone), rounded to float32 as the
+    tensor cores' float32 accumulator holds it."""
+    def prod(x, y):
+        (xh, xl), (yh, yl) = _split(x), _split(y)
+        terms = {"lo.hi": (xl, yh), "hi.lo": (xh, yl), "hi.hi": (xh, yh)}
+        return sum(a.double() @ b.double().transpose(-1, -2)
+                   for a, b in (terms[p] for p in passes)).float()
+    return _online_softmax(q, k, v, causal, window, bk, prod, scale_dim)
+
+
+def _flash_bf16(q, k, v, causal, window, scale_dim=None):
+    """The bf16 wgmma kernel's arithmetic in plain PyTorch: q, k, v and P
+    in bf16, both products summed in float64 and held in float32 (the
+    accumulator's type), tiles of 64 keys."""
+    def prod(x, y):
+        return (x.bfloat16().double()
+                @ y.bfloat16().double().transpose(-1, -2)).float()
+    return _online_softmax(q, k, v, causal, window, 64, prod, scale_dim,
+                           p_round=lambda p: p.bfloat16().float())
 
 
 THREE = ("lo.hi", "hi.lo", "hi.hi")
@@ -239,6 +268,9 @@ THREE = ("lo.hi", "hi.lo", "hi.hi")
     (1, 1, 1, 1024, 256, True, 0, 32),       # a calibration head, D = 256
     (1, 4, 2, 300, 128, True, 100, 64),      # windowed GQA, ragged S
     (1, 2, 1, 200, 64, False, 0, 64),        # no causal mask
+    (1, 2, 2, 256, 16, True, 0, 64),         # the padded-box head dims
+    (1, 4, 2, 200, 32, True, 50, 64),
+    (1, 2, 1, 300, 96, False, 0, 64),
 ])
 def test_three_tf32_passes_meet_the_fp32_tolerance(B, H, Hkv, S, D, causal,
                                                    window, bk):
@@ -256,3 +288,47 @@ def test_three_tf32_passes_meet_the_fp32_tolerance(B, H, Hkv, S, D, causal,
         with pytest.raises(AssertionError):
             np.testing.assert_allclose(one.numpy(), expect, rtol=1e-4,
                                        atol=1e-4)
+
+
+@pytest.mark.parametrize("D", [16, 32, 96])
+@pytest.mark.parametrize("design", ["bf16", "tf32x3"])
+def test_padded_boxes_leave_the_output_unchanged(design, D):
+    """The Hopper kernels' design at head dims off whole 128-byte TMA boxes:
+    q, k and v zero-padded from D to DP (D rounded up to 64 bf16 or 32 fp32
+    columns, as TMA fills a box past the tensor's edge) give, with the
+    softmax scale of the real D, the unpadded output in their first D
+    columns and zeros past them; the scale of DP would not."""
+    DP = -(-D // 64) * 64 if design == "bf16" else -(-D // 32) * 32
+    q, k, v = (torch.from_numpy(a) for a in _qkv(6, 1, 4, 2, 200, D))
+    pad = [torch.nn.functional.pad(t, (0, DP - D)) for t in (q, k, v)]
+
+    def run(q, k, v, scale_dim=None):
+        if design == "bf16":
+            return _flash_bf16(q, k, v, True, 50, scale_dim)
+        return _flash_tf32(q, k, v, True, 50, 64, THREE, scale_dim)
+    out = run(q, k, v)
+    padded = run(*pad, scale_dim=D)
+    assert padded.shape[-1] == DP
+    np.testing.assert_allclose(padded[..., :D].numpy(), out.numpy(),
+                               rtol=1e-6, atol=1e-6)
+    assert not padded[..., D:].any()
+    if DP != D:
+        wrong = run(*pad)   # the scale of DP
+        assert (wrong[..., :D] - out).abs().max().item() > 1e-3
+
+
+def test_flash_bound_counts_the_exponentials(monkeypatch):
+    """``chip_smoke.py::bound`` takes the largest of operations, one
+    exponential a live pair and bytes: bf16 at head dim 16 (phi3's prefill
+    shape) is set by the exponentials, at 256 (gemma3_1b's) by the
+    operations."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke
+    ms, by, terms = chip_smoke.bound(4, 32, 32, 1024, 16, 0, torch.bfloat16,
+                                     "wgmma")[:3]
+    live = 4 * 32 * 1024 * 1025 // 2
+    assert by == "exp" and terms["exp"] == live / chip_smoke.hw.EXP_RATE
+    assert ms == 1e3 * terms["exp"] > 1e3 * terms["operations"]
+    ms, by, terms = chip_smoke.bound(4, 4, 1, 1024, 256, 0, torch.bfloat16,
+                                     "wgmma")[:3]
+    assert by == "operations" and terms["operations"] > terms["exp"]

@@ -332,6 +332,24 @@ def test_calibration_times_the_card_not_the_host(cuda):
     assert calibrate._best_of(call, 3, torch.device(cuda)) < 1e-3
 
 
+# head dims off whole 128-byte TMA boxes (16, 32, 96: padded boxes):
+# B, H, Hkv, S, D, causal, window
+SMALL_D_CASES = [
+    (4, 32, 32, 1024, 96, True, 0),           # phi3_mini_3_8b prefill
+    (2, 4, 2, 1000, 96, True, 0),             # ragged S, GQA
+    (1, 4, 1, 50, 96, True, 0),               # S below one tile, MQA
+    (2, 4, 1, 1000, 96, True, 100),           # window off the tile grid
+    (1, 2, 2, 256, 96, False, 70),            # window without causal
+    (2, 4, 2, 1000, 16, True, 0),
+    (1, 4, 1, 77, 16, True, 30),              # S below two tiles, window
+    (1, 2, 1, 300, 16, False, 0),             # no causal mask
+    (1, 4, 1, 40, 16, True, 0),               # S below one tile
+    (2, 4, 2, 333, 32, True, 0),              # S off 4 (padded V^T rows)
+    (1, 4, 1, 1000, 32, True, 64),            # window of one tile
+    (1, 2, 1, 256, 32, False, 0),
+]
+
+
 def _launched(fn, call):
     """What ``call()`` returned, and the launches it added by variant."""
     before = dict(fn.launches_by_variant)
@@ -355,11 +373,11 @@ def _launched(fn, call):
     (1, 4, 1, 1000, 128, True, 100),          # window off the tile grid
     (1, 2, 1, 300, 256, False, 0),            # no causal mask
     (1, 2, 1, 256, 64, False, 70),            # window without causal
-])
+] + SMALL_D_CASES)
 def test_cuda_flash_variants_match_plain(cuda, B, H, Hkv, S, D, causal,
                                          window, kernel):
-    """Both bf16 variants at the head dims the Hopper one takes, at 3e-2
-    (tests/test_kernels.py); the shape rule names the Hopper one."""
+    """Both bf16 variants at every head dim, at 3e-2 (tests/test_kernels.py);
+    the rule names the Hopper one."""
     assert fa.variant(D, torch.bfloat16) == "wgmma"
     rng = np.random.default_rng(0)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
@@ -486,11 +504,12 @@ def test_cuda_matmul_refuses_variant_off_its_rule(cuda, kernel, dtype,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("head_dim,variant", [(16, "mma_sync"),
-                                              (64, "wgmma")])
+@pytest.mark.parametrize("head_dim,variant", [(16, "wgmma"), (64, "wgmma"),
+                                              (96, "wgmma")])
 def test_serving_launches_by_variant(cuda, head_dim, variant):
     """One serve call on the smoke gemma3 (head dim 16) and on it at head
-    dim 64: every prefill layer launches the variant the rule names."""
+    dims 64 and 96: every prefill layer launches the variant the rule
+    names."""
     cfg = dataclasses.replace(get_smoke_config("gemma3_1b"),
                               head_dim=head_dim)
     params = T.init_params(cfg, seed=0, device=cuda)
@@ -535,10 +554,32 @@ def test_cuda_flash_tf32x3_matches_plain(cuda, B, H, Hkv, S, D, causal,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["tf32x3", "fma"])
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window", SMALL_D_CASES)
+def test_cuda_flash_fp32_variants_match_plain(cuda, B, H, Hkv, S, D, causal,
+                                              window, kernel):
+    """Both float32 variants at the head dims off whole TMA boxes, at
+    rtol = atol = 1e-4 (tests/test_kernels.py); the rule names tf32x3."""
+    assert fa.variant(D, torch.float32) == "tf32x3"
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               .to(cuda)
+               for shape in ((B, H, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+    out, ran = _launched(fa.flash_attention, lambda: fa.flash_attention(
+        q, k, v, causal=causal, window=window, kernel=kernel))
+    assert ran == {kernel: 1}
+    expect = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(out.cpu().numpy(), expect.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("B,H,Hkv,S,D,expect", [
     (2, 4, 2, 128, 64, 2 * 128 * 64 * 2 * 6 + 2 * 2 * 2 * 64 * 128),
     (1, 4, 1, 1000, 256, 2 * 1000 * 256 * 5 + 2 * 256 * 1000),
-    (2, 4, 2, 333, 128, 2 * 333 * 128 * 2 * 6 + 2 * 2 * 2 * 128 * 336)])
+    (2, 4, 2, 333, 128, 2 * 333 * 128 * 2 * 6 + 2 * 2 * 2 * 128 * 336),
+    (1, 4, 1, 1000, 16, 2 * 1000 * 16 * 5 + 2 * 16 * 1000),
+    (2, 4, 2, 333, 96, 2 * 333 * 96 * 2 * 6 + 2 * 2 * 2 * 96 * 336)])
 def test_cuda_flash_tf32x3_refuses_a_short_workspace(cuda, B, H, Hkv, S, D,
                                                      expect):
     """The kernel sizes its workspace as q, k hi/lo and v transposed hi/lo
@@ -571,8 +612,8 @@ def test_cuda_flash_tf32x3_refuses_a_short_workspace(cuda, B, H, Hkv, S, D,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel,dtype,D", [
-    ("tf32x3", torch.bfloat16, 64), ("tf32x3", torch.float32, 32),
-    ("tf32x3", torch.float32, 96), ("wgmma", torch.float32, 64)])
+    ("tf32x3", torch.bfloat16, 64), ("mma_sync", torch.float32, 96),
+    ("fma", torch.bfloat16, 16), ("wgmma", torch.float32, 64)])
 def test_cuda_flash_refuses_variant_off_its_rule(cuda, kernel, dtype, D):
     q = torch.zeros(1, 2, 64, D, device=cuda, dtype=dtype)
     with pytest.raises(ValueError, match="variant"):

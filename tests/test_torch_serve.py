@@ -64,6 +64,22 @@ def _jax_params(cfg):
     return params, _to_numpy(params)
 
 
+# smoke configs of each package: an arch, or "arch@head_dim" for its smoke
+# config with that head dim (phi3_mini_3_8b's full head dim, 96, is off
+# whole TMA boxes; its smoke config's is 16)
+SMOKE_CASES = ["gemma3_1b", "tinyllama_1_1b", "falcon_mamba_7b",
+               "phi3_mini_3_8b", "phi3_mini_3_8b@96"]
+
+
+def _smoke_configs(case):
+    arch, _, head_dim = case.partition("@")
+    cfgs = (jconfigs.get_smoke_config(arch), tconfigs.get_smoke_config(arch))
+    if head_dim:
+        cfgs = tuple(dataclasses.replace(c, head_dim=int(head_dim))
+                     for c in cfgs)
+    return cfgs
+
+
 # ---------------------------------------------------------------------------
 # configs and params
 
@@ -84,14 +100,13 @@ def test_unported_family_raises():
         tconfigs.get_config("nope")
 
 
-@pytest.mark.parametrize("arch", ["gemma3_1b", "tinyllama_1_1b",
-                                  "falcon_mamba_7b"])
+@pytest.mark.parametrize("arch", SMOKE_CASES)
 def test_converted_params_match_own_init(arch):
     """The converter yields the tree, shapes and dtypes of the port's own
     init, bf16 survives the float32 carry exactly, and the port's init draws
     with the reference's scales."""
-    cfg = tconfigs.get_smoke_config(arch)
-    jparams, jnp_params = _jax_params(jconfigs.get_smoke_config(arch))
+    jcfg, cfg = _smoke_configs(arch)
+    jparams, jnp_params = _jax_params(jcfg)
     conv = convert.params_from_jax(jnp_params)
     own = TT.init_params(cfg, seed=0, device="cpu")
     flat_conv = dict(_flatten(conv))
@@ -238,16 +253,15 @@ def test_gqa_decode_matches_jax(arch, window):
 # the whole slice
 
 
-@pytest.mark.parametrize("arch", ["gemma3_1b", "tinyllama_1_1b",
-                                  "falcon_mamba_7b"])
+@pytest.mark.parametrize("arch", SMOKE_CASES)
 def test_prefill_and_teacher_forced_decode_match_jax(arch):
     """Prefill logits and the filled cache (KV, or falcon_mamba_7b's conv
     tail and SSM state), then 4 decode steps fed the JAX package's greedy
     tokens (free-running tokens could part at a bf16 argmax tie).  The
     prompt (20) is longer than gemma3's smoke window (8), so the local
-    layers' window mask is exercised."""
-    jcfg = jconfigs.get_smoke_config(arch)
-    tcfg = tconfigs.get_smoke_config(arch)
+    layers' window mask is exercised.  phi3_mini_3_8b also runs at its
+    full head dim, 96."""
+    jcfg, tcfg = _smoke_configs(arch)
     jparams, np_params = _jax_params(jcfg)
     tparams = convert.params_from_jax(np_params)
     B, S, n_dec = 2, 20, 4
