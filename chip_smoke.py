@@ -56,8 +56,8 @@ printing a result:
    forward as the float32 rule names them (``GRAPH_LAUNCHES``);
 11. time each net's forward (median wall ms of 20 synchronized runs,
    images/s), its products on the matmul kernel beside their bound and
-   ``torch.matmul`` on the same operands, and at batch 1 its device time,
-   split between the matmul kernels and the rest, over the wall time
+   ``torch.matmul`` on the same operands, and at each batch its device
+   time, split between the matmul kernels and the rest, over the wall time
    (``torch.profiler``): the paper's accelerator-versus-framework
    breakdown;
 12. run one camera frame (``repro_torch.launch.camera.run_frame``: a seeded
@@ -96,7 +96,24 @@ printing a result:
 21. time both types' variants at phi3_mini_3_8b's prefill shape at head
    dims 16, 32 and 96, and float32 at the ``"full"`` grid's attention
    shapes of those head dims, beside the plain version, SDPA and the bound
-   (whose exponential term decides bf16 at D <= 32).
+   (whose exponential term decides bf16 at D <= 32);
+22. price each Table-III net at batch 1 and 64, not cut, with the port's
+   simulator (``repro_torch.sim``): ``Graph.program`` at the default
+   16,384-element tiles and at one tile a node, run on one H100
+   (``EngineConfig()``: one worker, the hbm interface, the H100's
+   constants) under the roofline, under the measured table of phase 9's
+   ``model`` grid (``calibrate.table_backend``) and under the table with
+   the matmul wrapper's host time a call (phase 8) charged a dispatch;
+   each price (makespan, accelerator / transfer / host shares, op count,
+   the engine's CPU time) beside phase 11's wall, device and matmul ms, and
+   price over measured.  Asserts: every makespan finite and positive, the
+   op count the sum of the chosen tilings' tile counts, the table
+   reproducing its samples, and no kernel launched.  First, one small
+   device copy's time (the tiling target's per-copy latency);
+23. price the camera frame (the ISP's stages at 720x1280 on the
+   accelerator, then CNN10 at batch 1) and its two parts under the same
+   three backends beside phase 12's ms, and once on ``camera_soc()`` (ISP
+   on the frontend CPU, CNN10 on 4 accelerators at the H100's rates).
 
 Kernel times are CUDA events around back-to-back calls queued behind a
 device-side wait (``torch.cuda._sleep``) that outlasts their enqueue, so
@@ -111,6 +128,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -124,6 +142,8 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import sim  # noqa: E402
+from repro_torch.apps.camera import camera_program, camera_soc  # noqa: E402
 from repro_torch.apps.paper_graphs import build_paper_graph  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.paper_nets import PAPER_NETS  # noqa: E402
@@ -138,6 +158,9 @@ from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve.step import (greedy, make_decode_step,  # noqa: E402
                                     make_prefill_step)
+from repro_torch.core.tensor import TensorSpec  # noqa: E402
+from repro_torch.core.tiling import H100 as H100_TILING  # noqa: E402
+from repro_torch.core.tiling import choose_tiling  # noqa: E402
 from repro_torch.sim import hw  # noqa: E402
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}   # tests/test_kernels.py
@@ -879,15 +902,18 @@ def scan_sass(lib, kernel):
 def run_calibration():
     """The calibration loop on the card, the path that runs the matmul and
     scan kernels: every count is set to 0 just before it and read just
-    after.  Returns the launches by kernel."""
+    after.  Returns the launches by kernel and by variant, and the records
+    by grid (phase 22 prices the nets from the ``model`` grid's)."""
     wrappers = {"matmul": mm.matmul, "flash_attention": fa.flash_attention,
                 "mamba_scan": ms.mamba_scan}
     mm.reset_counts()
     fa.reset_counts()
     ms.mamba_scan.launches = 0
+    records_by_grid = {}
     for grid, repeat in CALIBRATION:
         t0 = time.perf_counter()
         records, meta = calibrate.measure(grid=grid, repeat=repeat)
+        records_by_grid[grid] = records
         report = calibrate.build_report(records, meta)
         log(f"calibration grid {grid} repeat {repeat} on {meta['device']} "
             f"(backend {meta['backend']}, interpret {meta['interpret']}): "
@@ -942,7 +968,7 @@ def run_calibration():
         if ran != rule or sum(rule.values()) != launches[wrapper]:
             raise AssertionError(f"{wrapper} ran {ran} in float32, its rule "
                                  f"names {rule}")
-    return launches, by_variant
+    return launches, by_variant, records_by_grid
 
 
 def _products(g):
@@ -1032,11 +1058,11 @@ def profile_graph(forward, wall_ms, smi, runs=5):
               and e.self_device_time_total > 0]
     if not events:
         log("  profile: no device time in the trace (not measured)")
-        return
+        return None
     total = sum(e.self_device_time_total for e in events) / 1e3 / runs
     mm_ms = sum(e.self_device_time_total for e in events
                 if _is_matmul_kernel(e.key)) / 1e3 / runs
-    log(f"  profile (batch 1, {runs} forwards): device {total:.4f} ms a "
+    log(f"  profile ({runs} forwards): device {total:.4f} ms a "
         f"forward = matmul kernels {mm_ms:.4f} ({100 * mm_ms / total:.1f}%) "
         f"+ other {total - mm_ms:.4f}; busy {100 * total / wall_ms:.1f}% of "
         f"the {wall_ms:.4f} ms wall ({100 * total / prof_ms:.1f}% of the "
@@ -1044,6 +1070,7 @@ def profile_graph(forward, wall_ms, smi, runs=5):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"    {e.self_device_time_total / 1e3 / runs:9.4f} ms "
             f"x{e.count // runs:<4d} {e.key[:90]}")
+    return {"device_ms": total, "matmul_ms": mm_ms}
 
 
 def time_graphs(graphs, smi):
@@ -1051,7 +1078,10 @@ def time_graphs(graphs, smi):
     synchronized runs after 3 warm-ups, images/s, the matmul kernel's
     device ms summed over the forward's products (each timed alone on the
     forward's own operands) beside their summed bound and ``torch.matmul``
-    on the same operands, and at batch 1 the profiled breakdown."""
+    on the same operands, and the profiled breakdown.  Returns, by (net,
+    batch), the median wall ms and the profile's device and matmul ms a
+    forward (None where the trace held no device time)."""
+    measured = {}
     for (net, batch), g in graphs.items():
         gen = torch.Generator(device="cuda").manual_seed(batch)
         feeds = {"input": torch.randn(batch, *PAPER_NETS[net].input_shape,
@@ -1090,14 +1120,18 @@ def time_graphs(graphs, smi):
             f"products: matmul kernel {kernel_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({100 * bound_ms / kernel_ms:.1f}%), "
             f"torch.matmul {library_ms:.4f} ms; card {smi}")
-        if batch == 1:
-            profile_graph(forward, wall, smi)
+        prof = profile_graph(forward, wall, smi) or {}
+        measured[net, batch] = {"wall_ms": wall,
+                                "device_ms": prof.get("device_ms"),
+                                "matmul_ms": prof.get("matmul_ms")}
+    return measured
 
 
 def check_camera(smi):
     """One 720x1280 frame (ISP, then CNN10 at batch 1) on the card against
     the CPU, with the matmul's launches counted; then the median of
-    ``GRAPH_RUNS`` frames against the budget.  Returns the launches."""
+    ``GRAPH_RUNS`` frames against the budget.  Returns the launches and the
+    median ISP, CNN10 and frame ms."""
     g = build_paper_graph(PAPER_NETS["cnn10"], 1)
     raw = camera.raw_frame(0)
     camera.run_frame(raw, g, "cuda")        # warm-up
@@ -1124,7 +1158,7 @@ def check_camera(smi):
         f"{med['frame_ms']:.4f} ms against {camera.BUDGET_MS:g} ms: "
         f"{'MEETS' if med['frame_ms'] < camera.BUDGET_MS else 'MISSES'}; "
         f"class {out['cls']}; CPU frame {cpu['frame_ms']:.3f} ms; card {smi}")
-    return ran
+    return ran, med
 
 
 def _scan_serve_shape(cfg):
@@ -1270,6 +1304,150 @@ def time_scan_serving(shape, smi):
     return rows
 
 
+def copy_latency(smi, elems=16384):
+    """Log the device ms of one small copy (``elems`` float32, the default
+    tile of ``Graph.program``), back to back: the per-copy latency of the
+    tiling target (``core/tiling.py::H100``)."""
+    src = torch.randn(elems, device="cuda")
+    dst = torch.empty_like(src)
+    t = cuda_ms(lambda: dst.copy_(src), 200)
+    log(f"one {4 * elems // 1024} KiB device copy, back to back: {t:.6f} ms "
+        f"(tiling target's copy latency {1e3 * H100_TILING.copy_latency_s:g} "
+        f"ms); card {smi}")
+
+
+def _tile_counts(g, max_tile_elems):
+    """Each compute node's tile count as ``choose_tiling`` chooses it at the
+    H100's target, the node's tensor as ``from_graph`` views it."""
+    counts = {}
+    for name in g.order:
+        n = g.nodes[name]
+        if n.op in ("input", "weight"):
+            continue
+        shape4 = tuple(n.shape) if len(n.shape) == 4 else \
+            (1, 1, 1, math.prod(n.shape))
+        counts[name] = max(choose_tiling(
+            TensorSpec(shape4, "NHWC", "float32"), max_tile_elems,
+            reduce_dim="C" if n.op in ("convolution", "matmul") else None)
+            .n_tiles, 1)
+    return counts
+
+
+def _price(program, config):
+    """One engine run: the result and the engine's own CPU seconds."""
+    t0 = time.thread_time()
+    res = sim.run(program, config)
+    return res, time.thread_time() - t0
+
+
+def _price_configs(table, host_s):
+    """The three backends of phases 22-23 on one H100 (one worker, the hbm
+    interface, the H100's constants): the roofline, the measured table, and
+    the table with the matmul wrapper's host time charged a dispatch."""
+    return {"roofline": sim.EngineConfig(),
+            "table": sim.EngineConfig(cost_backend=table),
+            "table+host": sim.EngineConfig(cost_backend=table,
+                                           host_dispatch_s=host_s)}
+
+
+def _price_line(label, res, cpu_s, wall_ms, device_ms=None):
+    """Log one price beside the card's wall ms and, where profiled, its
+    device ms."""
+    f = res.breakdown.fractions()
+    mk = 1e3 * res.makespan
+    if not (math.isfinite(mk) and mk > 0):
+        raise AssertionError(f"{label}: makespan {mk} ms")
+    by_device = f"{mk / device_ms:.4f}" if device_ms else "not measured"
+    log(f"  {label}: priced {mk:.6f} ms (accelerator "
+        f"{100 * f['accelerator']:.1f}%, transfer {100 * f['transfer']:.1f}%"
+        f", host {100 * f['host']:.1f}%), {len(res.program.ops)} ops, engine "
+        f"{cpu_s:.3f} s CPU; price / wall {mk / wall_ms:.4f}, price / "
+        f"device {by_device}")
+
+
+def check_table(table, records):
+    """The table still returns each of its samples' seconds exactly."""
+    for r in records:
+        got = table.op_time(sim.CostedOp("sample", flops=r["flops"],
+                                         op_kind=r["kind"]))
+        if got != r["measured_s"]:
+            raise AssertionError(f"table gives {got} s for {r['kind']} "
+                                 f"{r['shape']}, measured {r['measured_s']}")
+
+
+def price_nets(table, host_s, measured, smi):
+    """Phase 22: each Table-III net at each batch, not cut, lowered by
+    ``Graph.program`` at the default 16,384-element tiles and at one tile a
+    node, priced on one H100 under the roofline, the measured ``table`` and
+    the table with ``host_s`` a dispatch, beside the card's median wall ms
+    and profiled device and matmul ms (phase 11)."""
+    kinds = sorted({kind for kind, _, _ in table.samples})
+    log(f"price: table of {len(table.samples)} samples ({kinds}); host "
+        f"dispatch {1e6 * host_s:.1f} us (the matmul wrapper's host time a "
+        f"call, phase 8); card {smi}")
+    for net in PAPER_NETS.values():
+        for batch in GRAPH_BATCHES:
+            g = build_paper_graph(net, batch)
+            card = measured[net.name, batch]
+            dev, mmk = card["device_ms"], card["matmul_ms"]
+            log(f"price {net.name} batch {batch}: card wall "
+                f"{card['wall_ms']:.4f} ms, device "
+                + (f"{dev:.4f} ms, matmul {mmk:.4f} ms ({100 * mmk / dev:.1f}"
+                   f"% of device, {100 * mmk / card['wall_ms']:.1f}% of wall)"
+                   if dev else "not measured"))
+            one = max(math.prod(n.shape) for n in g.nodes.values()
+                      if n.op not in ("input", "weight"))
+            for tiling, elems in (("16384", 16384), ("node", one)):
+                prog = g.program(batch, max_tile_elems=elems)
+                counts = _tile_counts(g, elems)
+                if len(prog.ops) != sum(counts.values()):
+                    raise AssertionError(f"{net.name} {len(prog.ops)} ops, "
+                                         f"tilings {sum(counts.values())}")
+                if tiling == "node" and set(counts.values()) != {1}:
+                    raise AssertionError(f"{net.name} tiles at {elems}")
+                for name, cfg in _price_configs(table, host_s).items():
+                    res, cpu_s = _price(prog, cfg)
+                    _price_line(f"{net.name} b{batch} tiles {tiling} "
+                                f"{name}", res, cpu_s, card["wall_ms"], dev)
+
+
+def price_frame(table, host_s, frame_ms, smi):
+    """Phase 23: the camera frame (the ISP's stages at 720x1280, then CNN10
+    at batch 1) priced as in phase 22 beside phase 12's ms, and once on the
+    camera SoC (ISP on the frontend CPU, CNN10 on 4 H100-rate
+    accelerators)."""
+    cnn10 = build_paper_graph(PAPER_NETS["cnn10"], 1).program(1)
+    isp = camera_program(camera.FRAME_HW, camera.DNN_HW,
+                         device_class="accel")
+    frame = isp.then(cnn10, name="frame")
+    log(f"price camera frame {camera.FRAME_HW}: card ISP "
+        f"{frame_ms['isp_ms']:.4f} ms, CNN10 {frame_ms['cnn_ms']:.4f} ms, "
+        f"frame {frame_ms['frame_ms']:.4f} ms; card {smi}")
+    for name, cfg in _price_configs(table, host_s).items():
+        for part, prog, key in (("ISP", isp, "isp_ms"),
+                                ("CNN10", cnn10, "cnn_ms"),
+                                ("frame", frame, "frame_ms")):
+            res, cpu_s = _price(prog, cfg)
+            _price_line(f"{part} {name}", res, cpu_s, frame_ms[key])
+    soc = camera_soc()
+    res, cpu_s = _price(camera_program(camera.FRAME_HW, camera.DNN_HW)
+                        .then(cnn10, name="frame"),
+                        sim.EngineConfig(topology=soc))
+    _price_line(f"frame on {soc.name} ({soc.describe()}) roofline", res,
+                cpu_s, frame_ms["frame_ms"])
+    log(f"  per device: {res.per_device}")
+    if not {"cpu0", "acc0"} <= set(res.per_device):
+        raise AssertionError(f"frame on the SoC ran on {set(res.per_device)}")
+
+
+def _counts():
+    """Every kernel wrapper's launch count."""
+    return (mm.matmul.launches, dict(mm.matmul.launches_by_variant),
+            fa.flash_attention.launches,
+            dict(fa.flash_attention.launches_by_variant),
+            ms.mamba_scan.launches)
+
+
 def _mean_row(rows):
     """One launch of the model grid: the mean of each time over its shapes;
     bound_by is that of the shape with the largest bound."""
@@ -1327,11 +1505,11 @@ def main():
         log(f"flash_attention {var} float32, mean over the model grid (what "
             f"the calibration runs): {r}; ms by shape "
             f"{dict(zip(shapes, (x['ms'] for x in f32_rows[var])))}")
-    cal_launches, cal_by_variant = run_calibration()
+    cal_launches, cal_by_variant, cal_records = run_calibration()
     graphs, graph_by_batch, graph_err = check_graphs()
-    time_graphs(graphs, smi)
+    graph_ms = time_graphs(graphs, smi)
     del graphs
-    camera_launches = check_camera(smi)
+    camera_launches, frame_ms = check_camera(smi)
     serve_shape = _scan_serve_shape(get_config("falcon_mamba_7b"))
     state_err = check_scan_state(serve_shape)
     check_falcon_against_cpu()
@@ -1351,6 +1529,18 @@ def main():
     del pparams
     torch.cuda.empty_cache()
     small = time_flash_small(smi)
+    # phases 22-23: the simulator's price of each net and the frame, from
+    # the model grid's table, beside the card's times; they launch nothing
+    counts = _counts()
+    copy_latency(smi)
+    host_s = 1e-6 * _mean_row(new_rows["matmul"])["host_us"]
+    table = calibrate.table_backend(cal_records["model"])
+    check_table(table, cal_records["model"])
+    price_nets(table, host_s, graph_ms, smi)
+    price_frame(table, host_s, frame_ms, smi)
+    if _counts() != counts:
+        raise AssertionError(f"pricing changed the launch counts: {counts} "
+                             f"-> {_counts()}")
     flash_by_path = {"gemma3_1b serving": by_variant,
                      "phi3_mini_3_8b serving": phi3_by_variant,
                      "calibration": cal_by_variant["flash_attention"]}

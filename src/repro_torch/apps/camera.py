@@ -9,8 +9,12 @@ default) or a matrix-product library.
 
 Raw input: (H, W) Bayer-mosaic (RGGB) sensor values in [0, 1), H and W even.
 
-The simulator builders of the reference (``camera_program``, ``camera_soc``,
-``frame_sweep``, ``soc_frame_sweep``) are not ported yet (ROADMAP Queue 1).
+The simulator's view of the frame: ``camera_program`` prices the ISP's
+stages as ``CostedOp``s, composable with a net's program
+(``camera_program(...).then(graph.program())``), and ``camera_soc`` is the
+camera SoC topology (a frontend device feeding the NN accelerators).  The
+reference's frame sweeps (``frame_sweep``, ``soc_frame_sweep``) wait for
+the port's sweep layer.
 """
 from __future__ import annotations
 
@@ -108,3 +112,82 @@ def camera_pipeline(raw, dnn_hw=(32, 32)):
     rgb = gamma(rgb)
     rgb = sharpen(rgb)
     return rgb, downsample(rgb, dnn_hw)
+
+
+# ---------------------------------------------------------------------------
+# the simulator's view of the frame (as repro/apps/camera.py)
+
+
+def camera_program(hw=(720, 1280), dnn_hw=(32, 32), device_class="cpu"):
+    """Per-stage (flops, bytes) costs of the ISP at the given raw size.
+
+    ``device_class`` places the stages on the SoC frontend (``"cpu"`` |
+    ``"dsp"``); flat configs have no such device and fall back to the
+    accelerator pool."""
+    from repro_torch.sim.ir import BYTES_PER_ELEM, CostedOp, Program
+
+    H, W = hw
+    px = float(H * W)
+    rgb = 3.0 * px
+    # (name, flops, elems_in, elems_out); flops from the stage's arithmetic:
+    # stencil stages count kernel taps, pointwise stages 1-2 ops/elem
+    stages = [
+        ("hot_pixel", 6.0 * px, px, px),            # 4-neighbour min/max+clip
+        ("deinterleave", px, px, px),               # pure data movement
+        ("demosaic", 2.0 * 9.0 * rgb, px, rgb),     # bilinear 3x3 upsample
+        ("white_balance", rgb, rgb, rgb),
+        ("color_correct", 2.0 * 9.0 * px, rgb, rgb),  # 3x3 CCM per pixel
+        ("gamma", 2.0 * rgb, rgb, rgb),             # pow: transcendental
+        ("sharpen", 2.0 * 9.0 * rgb, rgb, rgb),     # 3x3 stencil per channel
+        ("downsample", rgb, rgb, 3.0 * dnn_hw[0] * dnn_hw[1]),
+    ]
+    ops = []
+    prev = None
+    for name, flops, ein, eout in stages:
+        ops.append(CostedOp(
+            name=f"isp/{name}",
+            flops=flops,
+            bytes_in=BYTES_PER_ELEM * ein,
+            bytes_out=BYTES_PER_ELEM * eout,
+            transcendentals=eout if name == "gamma" else 0.0,
+            deps=(prev,) if prev else (),
+            phase="isp",
+            device_class=device_class))
+        prev = f"isp/{name}"
+    return Program(ops, name="camera_isp", source="custom",
+                   meta={"hw": hw, "dnn_hw": dnn_hw,
+                         "device_class": device_class})
+
+
+# frontend peak flops per kind, embedded-SoC scale: an in-order CPU
+# cluster vs a vector DSP (the camera ISP is stencil/pointwise code both
+# can run; the DSP is the paper's specialized-frontend alternative).
+# SMAUG's modeled SoC, the JAX package's values: not the H100's.
+FRONTEND_PEAK = {"cpu": 5e10, "dsp": 2e11}
+
+
+def camera_soc(n_accels=4, frontend="cpu", *, link_ports=4.0,
+               frontend_peak_flops=None, frontend_interface="acp",
+               accel_peak_flops=None, accel_datapath_scale=None, name=""):
+    """A camera SoC topology: one ``frontend`` device (``"cpu"`` |
+    ``"dsp"``) feeding ``n_accels`` NN accelerators over one shared HBM
+    link with ``link_ports`` ports — the object SMAUG's camera-SoC-tuning
+    study sweeps.  The frontend defaults to the fused/resident ``acp``
+    interface (ISP stencils stream through on-chip line buffers, Halide
+    style) while the accelerators inherit the flat config's interface and
+    stream their tiles over the shared link.  Accelerator fields left
+    ``None`` inherit the flat ``EngineConfig`` (peak flops, datapath
+    scale), so a bare ``EngineConfig(topology=camera_soc())`` puts H100
+    accelerators beside the modeled frontend."""
+    from repro_torch.sim.hw import Device, Link, SoCTopology
+
+    fpeak = (FRONTEND_PEAK.get(frontend, FRONTEND_PEAK["cpu"])
+             if frontend_peak_flops is None else frontend_peak_flops)
+    devices = (Device(f"{frontend}0", kind=frontend, peak_flops=fpeak,
+                      interface=frontend_interface),)
+    devices += tuple(Device(f"acc{i}", peak_flops=accel_peak_flops,
+                            datapath_scale=accel_datapath_scale)
+                     for i in range(n_accels))
+    return SoCTopology(
+        devices=devices, links=(Link("hbm", ports=link_ports),),
+        name=name or f"{frontend}+{n_accels}acc/p{link_ports:g}")

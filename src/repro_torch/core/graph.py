@@ -18,8 +18,12 @@ Example (the paper's residual unit):
         add("add", x, act, activation="relu")
     g.write_graph("residual")
 
-The simulator views of the reference (``program()``, ``tile_tasks()``) are
-not ported yet (ROADMAP Queue 1, pricing with the measured H100 table).
+The simulator views (``program()``, ``tile_tasks()``) lower a graph to the
+port's engine IR (``repro_torch.sim.ir.from_graph``), so a net is priced
+without running it:
+
+    g = build_paper_graph(PAPER_NETS["cnn10"], 1)
+    res = engine.run(g.program(1), engine.EngineConfig())
 """
 from __future__ import annotations
 
@@ -173,6 +177,28 @@ class Graph:
                     if c.op in ("relu", "gelu"):
                         plan[c.name] = n.name
         return plan
+
+    # -- simulation views ----------------------------------------------------
+    def program(self, batch: int = 1, max_tile_elems: int = 16384,
+                target=None):
+        """Lower to a ``repro_torch.sim`` Program (the engine's IR), tiled
+        for ``target`` (``None``: the H100's; see ``core/tiling.py``)."""
+        from repro_torch.sim.ir import from_graph
+        return from_graph(self, batch=batch, max_tile_elems=max_tile_elems,
+                          target=target)
+
+    def tile_tasks(self, batch: int = 1, max_tile_elems: int = 16384,
+                   target=None):
+        """TileTask view of :meth:`program` (``core/scheduler.py``): each
+        tile's roofline compute and HBM time at the H100's constants."""
+        from repro_torch.core.scheduler import TileTask
+        from repro_torch.sim import hw
+        return [TileTask(name=op.name,
+                         duration=max(op.flops / hw.PEAK_FLOPS, 1e-9),
+                         transfer=op.bytes / hw.HBM_BW,
+                         affinity=op.affinity, deps=op.deps)
+                for op in self.program(batch, max_tile_elems, target).ops]
+
 
 
 def current_graph() -> Graph:

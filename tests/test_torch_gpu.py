@@ -692,3 +692,22 @@ def test_camera_frame_on_card(cuda):
     e = cpu["logits"].numpy()
     np.testing.assert_allclose(out["logits"].cpu().numpy(), e, rtol=5e-4,
                                atol=5e-4 * np.abs(e).max())
+
+
+@pytest.mark.gpu
+def test_cnn10_priced_from_the_card_table(cuda):
+    """cnn10 at batch 1 priced on one H100 from a ``quick``-grid calibration
+    timed on the card: finite and positive, and the table gives each of its
+    samples' measured seconds back exactly."""
+    from repro_torch import sim
+    records, meta = calibrate.measure(grid="quick", repeat=2)
+    assert meta["backend"] == "cuda" and not meta["interpret"]
+    table = calibrate.table_backend(records)
+    for r in records:
+        assert table.op_time(sim.CostedOp("s", flops=r["flops"],
+                                          op_kind=r["kind"])) == \
+            r["measured_s"]
+    prog = build_paper_graph(PAPER_NETS["cnn10"], 1).program(1)
+    for cfg in (sim.EngineConfig(), sim.EngineConfig(cost_backend=table)):
+        res = sim.run(prog, cfg)
+        assert np.isfinite(res.makespan) and res.makespan > 0

@@ -325,7 +325,8 @@ def test_port_imports_no_jax_and_no_reference():
         "bad = sorted(m for m in sys.modules if m.startswith('jax')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "assert 'repro_torch.models.ssm' in mods, mods\n"
-        "assert len(mods) >= 37, mods\n"
+        "assert 'repro_torch.sim.engine' in mods, mods\n"
+        "assert len(mods) >= 47, mods\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
