@@ -113,7 +113,33 @@ printing a result:
 23. price the camera frame (the ISP's stages at 720x1280 on the
    accelerator, then CNN10 at batch 1) and its two parts under the same
    three backends beside phase 12's ms, and once on ``camera_soc()`` (ISP
-   on the frontend CPU, CNN10 on 4 accelerators at the H100's rates).
+   on the frontend CPU, CNN10 on 4 accelerators at the H100's rates);
+24. the accelerator-size study (Fig 19/20): the 720x1280 frame (ISP, then
+   CNN10 at batch 1) through ``apps.camera.frame_sweep`` over
+   ``benchmarks/bench_camera.py``'s PE grid (8 workers x 1, 4 x 0.5, 2 x
+   0.25 of the H100's peak, acp, 4 ports) and one H100, under the roofline
+   at 16,384-element tiles and under phase 9's ``model``-grid table at one
+   tile a node; each point's frame, ISP and DNN ms against 33 ms, the
+   one-H100 point over phase 12's measured ms; every sweep result equal to
+   ``engine.run`` of its config;
+25. the camera-SoC tuning study: ``apps.camera.soc_frame_sweep`` over
+   ``benchmarks/bench_soc.py``'s 16 topologies ({cpu, dsp} frontend x {1,
+   2, 4, 8} accelerators x {1, 4} shared ports; CNN10 at 2,048-element
+   tiles) on its embedded base point and with H100-rate accelerators: each
+   topology's makespan, ISP, frontend and mean accelerator utilisation and
+   energy, and the sweep's CPU seconds; every device in ``per_device``;
+26. the analytic cost model (``sim.CostModel``): gemma3_1b's decode chain at
+   ``SERVE``'s shape (5,000 ops) over a 64 x 64 grid of peak flops and HBM
+   bandwidth (1/64 to 4x the H100's), numpy on the host against the
+   ``torch`` backend on the card (rtol 1e-9, both wall times, the card's
+   time a point) and its ``torch.func`` gradient against central
+   differences (rtol 5e-2, atol 1e-3); the one-H100 roofline price of a
+   decode step beside phase 4's measured ms; ``sweep.batched`` over the
+   same grid on CNN10 at one tile a node (``relaxation_err == 0`` on a
+   chain, else the bracket) and ``sweep.optimize`` for the cheapest design
+   that keeps CNN10 at phase 12's measured ms, and that fits the frame in
+   33 ms (verified on the exact engine; the torch backend on a chain).
+   Phases 22-26 launch no kernel: the counts are asserted unchanged.
 
 Kernel times are CUDA events around back-to-back calls queued behind a
 device-side wait (``torch.cuda._sleep``) that outlasts their enqueue, so
@@ -143,7 +169,9 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import sim  # noqa: E402
-from repro_torch.apps.camera import camera_program, camera_soc  # noqa: E402
+from repro_torch.apps.camera import (camera_program,  # noqa: E402
+                                     camera_soc, frame_sweep,
+                                     soc_frame_sweep)
 from repro_torch.apps.paper_graphs import build_paper_graph  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.paper_nets import PAPER_NETS  # noqa: E402
@@ -162,6 +190,7 @@ from repro_torch.core.tensor import TensorSpec  # noqa: E402
 from repro_torch.core.tiling import H100 as H100_TILING  # noqa: E402
 from repro_torch.core.tiling import choose_tiling  # noqa: E402
 from repro_torch.sim import hw  # noqa: E402
+from repro_torch.sim.sweep import batched, lower_graph, optimize  # noqa: E402
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}   # tests/test_kernels.py
 BF16_TOL = 2e-2              # tests/test_torch_serve.py
@@ -244,6 +273,25 @@ FALCON_CUT = 2            # layers of the full-width card-against-CPU check
 FALCON_PROMPTS = (2, 300)  # prompts x tokens: 300 is off the 32-step chunk
 PHI3_CUT = 4               # layers of phi3_mini_3_8b's card-against-CPU check
 PHI3_PROMPTS = (2, 300)    # prompts x tokens: 300 is off the 64-row tile
+# phase 24: benchmarks/bench_camera.py:27's PE grid, (workers, PE fraction)
+# on its base point (acp, 4 ports), then one H100 (EngineConfig())
+PE_GRID = ((8, 1.0), (4, 0.5), (2, 0.25))
+# phase 25: benchmarks/bench_soc.py:43-56, frontends x accelerators x shared
+# ports, and its embedded base point (SMAUG's SoC regime, not the card's)
+SOC_GRID = [(frontend, n, ports) for frontend in ("cpu", "dsp")
+            for n in (1, 2, 4, 8) for ports in (1.0, 4.0)]
+SOC_BASE = sim.EngineConfig(interface="dma", peak_flops=1.28e11,
+                            hbm_bw=25.6e9, vmem_bw=1e12, host_dispatch_s=1e-6)
+SOC_TILE = 2048
+# phase 26: gemma3_1b's decode chain at SERVE's shape (625 tokens x 8 ops =
+# 5,000 ops) priced over 64 x 64 points, peak_flops and hbm_bw each
+# geometric from 1/64 of the H100's value to 4x it
+DECODE_CHAIN = dict(n_tokens=625, ops_per_token=8,
+                    seq_len=SERVE["prompt_len"], batch=SERVE["batch"])
+GRID_SIDE = 64
+H100_POINT = {"peak_flops": hw.PEAK_FLOPS, "hbm_bw": hw.HBM_BW}
+SPACE = {k: (v / 64, 4 * v) for k, v in H100_POINT.items()}
+GRAD_Z = np.array([[0.3, 0.7], [0.5, 0.5], [0.9, 0.1], [0.1, 0.9]])
 
 
 def log(*args):
@@ -410,7 +458,8 @@ def serve_full(arch="gemma3_1b"):
     seed made on the card; the flash counts are set to 0 just before and
     read just after: one launch a layer a prefill batch, all of the variant
     the rule names at its head dim.  Returns the config, the params, the
-    launches and the launches by variant."""
+    launches, the launches by variant and the decode ms of each token
+    step."""
     cfg = get_config(arch)
     log(f"serve: {cfg.name} full width, {cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.n_heads} heads on {cfg.n_kv_heads} of head dim "
@@ -431,14 +480,14 @@ def serve_full(arch="gemma3_1b"):
     if launches != expect or by_variant[name] != expect:
         raise AssertionError(f"{by_variant} flash launches, expected "
                              f"{expect} of {name}")
-    _log_serving(stats)
-    return cfg, params, launches, by_variant
+    decode_ms = _log_serving(stats)
+    return cfg, params, launches, by_variant, decode_ms
 
 
 def _log_serving(stats):
     """Checks a ``serve`` call of ``SERVE`` (every request served, every
     logit finite) and logs its prefill ms a batch, decode ms a step, tok/s
-    and peak device memory."""
+    and peak device memory; returns the decode ms of each token step."""
     if not stats["finite"]:
         raise AssertionError("non-finite logits")
     if stats["requests"] != SERVE["requests"]:
@@ -453,6 +502,7 @@ def _log_serving(stats):
         f"({tokens} tokens in {stats['seconds']:.3f} s)")
     log(f"max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return per_tok
 
 
 def cuda_ms(fn, iters, hold=True):
@@ -1375,6 +1425,14 @@ def check_table(table, records):
                                  f"{r['shape']}, measured {r['measured_s']}")
 
 
+def _one_tile_a_node(g):
+    """The largest compute node's elements: ``Graph.program`` at this
+    ``max_tile_elems`` gives every node one tile, as the card launches one
+    matmul a conv or FC node."""
+    return max(math.prod(n.shape) for n in g.nodes.values()
+               if n.op not in ("input", "weight"))
+
+
 def price_nets(table, host_s, measured, smi):
     """Phase 22: each Table-III net at each batch, not cut, lowered by
     ``Graph.program`` at the default 16,384-element tiles and at one tile a
@@ -1395,9 +1453,8 @@ def price_nets(table, host_s, measured, smi):
                 + (f"{dev:.4f} ms, matmul {mmk:.4f} ms ({100 * mmk / dev:.1f}"
                    f"% of device, {100 * mmk / card['wall_ms']:.1f}% of wall)"
                    if dev else "not measured"))
-            one = max(math.prod(n.shape) for n in g.nodes.values()
-                      if n.op not in ("input", "weight"))
-            for tiling, elems in (("16384", 16384), ("node", one)):
+            for tiling, elems in (("16384", 16384),
+                                  ("node", _one_tile_a_node(g))):
                 prog = g.program(batch, max_tile_elems=elems)
                 counts = _tile_counts(g, elems)
                 if len(prog.ops) != sum(counts.values()):
@@ -1438,6 +1495,200 @@ def price_frame(table, host_s, frame_ms, smi):
     log(f"  per device: {res.per_device}")
     if not {"cpu0", "acc0"} <= set(res.per_device):
         raise AssertionError(f"frame on the SoC ran on {set(res.per_device)}")
+
+
+def _pe_configs(**kw):
+    """Phase 24's grid: ``PE_GRID``'s points at the H100's rates scaled by
+    the PE fraction, then one H100."""
+    return [sim.EngineConfig(n_workers=w, interface="acp", hbm_ports=4,
+                             peak_flops=hw.PEAK_FLOPS * f, datapath_scale=f,
+                             **kw) for w, f in PE_GRID] + \
+        [sim.EngineConfig(**kw)]
+
+
+def pe_study(table, frame_ms, smi):
+    """Phase 24: the Fig 19/20 accelerator-size study.  The 720x1280 frame
+    (ISP, then CNN10 at batch 1) through ``frame_sweep`` over ``PE_GRID``
+    and one H100, under the roofline at 16,384-element tiles and under the
+    ``model`` grid's measured table at one tile a node; each point's frame,
+    ISP and DNN ms against the 33 ms budget, the one-H100 point beside
+    phase 12's measured ms.  Asserts each sweep result equal to
+    ``engine.run`` of its config."""
+    g = build_paper_graph(PAPER_NETS["cnn10"], 1)
+    labels = [f"{w} workers x {f:g} PE" for w, f in PE_GRID] + ["one H100"]
+    log(f"accelerator-size study (Fig 19/20): frame {camera.FRAME_HW} + "
+        f"CNN10 batch 1; card ISP {frame_ms['isp_ms']:.4f} ms, CNN10 "
+        f"{frame_ms['cnn_ms']:.4f} ms, frame {frame_ms['frame_ms']:.4f} ms "
+        f"(phase 12); card {smi}")
+    for name, elems, kw in (
+            ("roofline, 16384-element tiles", 16384, {}),
+            ("table, one tile a node", _one_tile_a_node(g),
+             {"cost_backend": table})):
+        configs = _pe_configs(**kw)
+        t0, c0 = time.perf_counter(), time.thread_time()
+        frame, results = frame_sweep(lower_graph(g, 1, elems), configs,
+                                     camera.FRAME_HW, camera.DNN_HW)
+        wall_s, cpu_s = time.perf_counter() - t0, time.thread_time() - c0
+        log(f"  {name}: {len(frame.ops)} ops, {len(configs)} points, sweep "
+            f"{1e3 * wall_s:.3f} ms wall, {cpu_s:.4f} s CPU")
+        for label, cfg, res in zip(labels, configs, results):
+            exact = sim.run(frame, cfg)
+            if (res.makespan, res.breakdown) != (exact.makespan,
+                                                 exact.breakdown):
+                raise AssertionError(f"{name} {label}: sweep {res.makespan}"
+                                     f" s, engine.run {exact.makespan} s")
+            mk, isp = 1e3 * res.makespan, 1e3 * res.per_phase["isp"]
+            if not (math.isfinite(mk) and mk > 0):
+                raise AssertionError(f"{name} {label}: frame {mk} ms")
+            log(f"    {label}: frame {mk:.6f} ms, ISP {isp:.6f} ms, DNN "
+                f"{mk - isp:.6f} ms; meets {camera.BUDGET_MS:g} ms: "
+                f"{mk < camera.BUDGET_MS}")
+        mk, isp = 1e3 * results[-1].makespan, 1e3 * results[-1].per_phase[
+            "isp"]
+        log(f"    one H100, priced / measured: ISP "
+            f"{isp / frame_ms['isp_ms']:.4f}, CNN10 "
+            f"{(mk - isp) / frame_ms['cnn_ms']:.4f}, frame "
+            f"{mk / frame_ms['frame_ms']:.4f}")
+
+
+def soc_study(smi):
+    """Phase 25: the camera-SoC tuning study.  ``soc_frame_sweep`` over
+    ``SOC_GRID``'s 16 topologies (CNN10 at 2,048-element tiles), on
+    bench_soc's embedded base point and with the accelerators at the H100's
+    rates (``EngineConfig()``); each topology's makespan, ISP, frontend and
+    mean accelerator utilisation and energy.  Asserts every device of each
+    topology in its ``per_device``."""
+    dnn = lower_graph(build_paper_graph(PAPER_NETS["cnn10"], 1), 1, SOC_TILE)
+    topos = [camera_soc(n, f, link_ports=p) for f, n, p in SOC_GRID]
+    for name, base in (("embedded base (bench_soc.BASE)", SOC_BASE),
+                       ("H100 accelerators (EngineConfig())", None)):
+        t0, c0 = time.perf_counter(), time.thread_time()
+        cells = soc_frame_sweep(dnn, topos, base, camera.FRAME_HW,
+                                camera.DNN_HW)
+        wall_s, cpu_s = time.perf_counter() - t0, time.thread_time() - c0
+        log(f"camera-SoC study, {name}: {len(cells)} topologies, CNN10 at "
+            f"{SOC_TILE}-element tiles ({len(dnn.ops)} ops), sweep "
+            f"{1e3 * wall_s:.3f} ms wall ({len(cells) / wall_s:.1f} points/s)"
+            f", {cpu_s:.4f} s CPU; card {smi}")
+        for topo, frame, res in cells:
+            missing = {d.name for d in topo.devices} - set(res.per_device)
+            if missing or not (math.isfinite(res.makespan)
+                               and res.makespan > 0):
+                raise AssertionError(f"{topo.name}: {res.makespan} s, "
+                                     f"devices {missing} idle")
+            util = res.device_utilization()
+            accel = [util[d.name] for d in topo.devices if d.kind == "accel"]
+            log(f"  {topo.name}: makespan {1e3 * res.makespan:.6f} ms, ISP "
+                f"{1e3 * res.per_phase['isp']:.6f} ms, frontend util "
+                f"{util[topo.devices[0].name]:.4f}, accelerator util mean "
+                f"{sum(accel) / len(accel):.4f}, energy "
+                f"{res.energy['total_j']:.6e} J")
+
+
+def _axes():
+    """``SPACE``'s two axes, ``GRID_SIDE`` geometric points each."""
+    return [np.geomspace(lo, hi, GRID_SIDE) for lo, hi in SPACE.values()]
+
+
+def _design(params):
+    return ", ".join(f"{k} {v:.6e} ({v / H100_POINT[k]:.4f} H100)"
+                     for k, v in params.items())
+
+
+def analytic_layer(decode_ms, frame_ms, smi):
+    """Phase 26: the analytic cost model.  (1) gemma3_1b's decode chain at
+    ``DECODE_CHAIN`` over the 4,096-point grid, numpy on the host against
+    torch on the card (rtol 1e-9), and the torch gradient against central
+    differences; (2) the one-H100 roofline price of a decode step beside
+    phase 4's measured ms; (3) ``batched`` over the grid on CNN10 at one
+    tile a node and ``optimize`` for the cheapest design that keeps CNN10 at
+    the card's measured ms, and that fits the frame in 33 ms."""
+    cfg = get_config("gemma3_1b")
+    prog = sim.from_decode(cfg, **DECODE_CHAIN)
+    host = sim.CostModel(prog, backend="numpy")
+    card = sim.CostModel(prog, backend="torch", device="cuda")
+    P = np.tile(host.params0, (GRID_SIDE ** 2, 1))
+    for field, values in zip(SPACE, np.meshgrid(*_axes(), indexing="ij")):
+        P[:, sim.PARAM_FIELDS.index(field)] = values.ravel()
+    t0 = time.perf_counter()
+    ms_np = host.makespans(P)
+    np_s = time.perf_counter() - t0
+    card.makespans(P[:8])      # the op arrays cross to the card once
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    ms_t = card.makespans(P)
+    end.record()
+    end.synchronize()
+    t_s = time.perf_counter() - t0
+    err = float(np.max(np.abs(ms_t - ms_np) / ms_np))
+    log(f"cost model: {cfg.name} decode chain ({len(prog.ops)} ops) over "
+        f"{len(P)} points: numpy on the host {1e3 * np_s:.3f} ms wall; "
+        f"torch on the card {1e3 * t_s:.3f} ms wall (CUDA events "
+        f"{start.elapsed_time(end):.3f} ms), {1e6 * t_s / len(P):.3f} us a "
+        f"point; max rel diff {err:.3e} (rtol 1e-9); card {smi}")
+    np.testing.assert_allclose(ms_t, ms_np, rtol=1e-9, atol=0)
+    g_t = card.objective(SPACE).grad(GRAD_Z)
+    g_np = host.objective(SPACE).grad(GRAD_Z)
+    log(f"  log-makespan gradient at z {GRAD_Z.tolist()}: torch.func "
+        f"{g_t.tolist()}, central differences {g_np.tolist()}")
+    np.testing.assert_allclose(g_t, g_np, rtol=5e-2, atol=1e-3)
+
+    step = sim.from_decode(cfg, n_tokens=SERVE["max_new"], ops_per_token=8,
+                           seq_len=SERVE["prompt_len"], batch=SERVE["batch"])
+    res = sim.run(step, sim.EngineConfig())
+    price = 1e3 * res.makespan / SERVE["max_new"]
+    f = res.breakdown.fractions()
+    med = statistics.median(decode_ms)
+    log(f"  {cfg.name} decode at SERVE's shape, one H100 roofline: "
+        f"{price:.6f} ms a step (accelerator {100 * f['accelerator']:.1f}%,"
+        f" transfer {100 * f['transfer']:.1f}%) beside phase 4's measured "
+        f"{med:.4f} ms a step (median; {min(decode_ms):.4f}-"
+        f"{max(decode_ms):.4f}): price / measured {price / med:.4f}")
+
+    g = build_paper_graph(PAPER_NETS["cnn10"], 1)
+    dnn = lower_graph(g, 1, _one_tile_a_node(g))
+    base = sim.EngineConfig()
+    model = sim.CostModel(dnn, base, backend="numpy")
+    configs = [hw.apply_params(base, dict(zip(SPACE, point)))
+               for point in zip(*(v.ravel() for v in np.meshgrid(
+                   *_axes(), indexing="ij")))]
+    t0 = time.perf_counter()
+    bs = batched(dnn, configs, top_k=3)
+    b_s = time.perf_counter() - t0
+    best = bs.best()
+    log(f"  batched: CNN10 one tile a node ({len(dnn.ops)} ops, chain "
+        f"{bs.is_chain}) over {len(configs)} points, backend {bs.backend}, "
+        f"{1e3 * b_s:.3f} ms wall; fastest verified "
+        f"{_design({k: getattr(best['config'], k) for k in SPACE})}: "
+        f"{1e3 * best['exact_s']:.6f} ms, relaxation_err "
+        f"{best['relaxation_err']}")
+    for v in bs.verified:
+        i = v["index"]
+        if bs.is_chain and v["relaxation_err"] != 0.0:
+            raise AssertionError(f"chain relaxation_err {v}")
+        if not bs.lower[i] <= v["exact_s"] <= bs.upper[i]:
+            raise AssertionError(f"bracket {bs.lower[i]} {v['exact_s']} "
+                                 f"{bs.upper[i]}")
+    for name, target_ms in (("CNN10 at the card's ms", frame_ms["cnn_ms"]),
+                            ("the frame in 33 ms",
+                             camera.BUDGET_MS - frame_ms["isp_ms"])):
+        t0 = time.perf_counter()
+        opt = optimize(dnn, SPACE, base_config=base,
+                       target_s=1e-3 * target_ms, device="cuda")
+        o_s = time.perf_counter() - t0
+        log(f"  optimize, {name} (target {target_ms:.4f} ms): "
+            f"{_design(opt.params)}; exact {1e3 * opt.exact_s:.6f} ms, "
+            f"feasible {opt.feasible}, n_evals {opt.n_evals}, backend "
+            f"{opt.backend} (the lowering is "
+            f"{'a chain' if model.is_chain else 'a DAG'}), relaxation_err "
+            f"{opt.relaxation_err:.3e}, {1e3 * o_s:.1f} ms wall")
+        want = "torch" if model.is_chain else "numpy"
+        if (opt.backend != want or opt.feasible is not True
+                or opt.exact_s != sim.run(dnn, opt.config).makespan
+                or abs(opt.relaxation_err) > 1e-9):
+            raise AssertionError(f"optimize {name}: {opt}")
 
 
 def _counts():
@@ -1488,7 +1739,7 @@ def main():
         f"timestep) ({n} in a loop of {steps:g} steps)")
     max_err, f32_err = check_kernel()
     check_model_against_cpu()
-    cfg, params, launches, by_variant = serve_full()
+    cfg, params, launches, by_variant, decode_ms = serve_full()
     rows = time_kernel(cfg, smi)
     profile_serving(cfg, params, smi)
     del params
@@ -1524,7 +1775,7 @@ def main():
     log(f"mamba_scan launches by path: {scan_by_path}")
     check_model_against_cpu("phi3_mini_3_8b", PHI3_CUT, PHI3_PROMPTS)
     torch.cuda.empty_cache()
-    pcfg, pparams, _, phi3_by_variant = serve_full("phi3_mini_3_8b")
+    pcfg, pparams, _, phi3_by_variant, _ = serve_full("phi3_mini_3_8b")
     profile_serving(pcfg, pparams, smi, kernel="flash_fwd_")
     del pparams
     torch.cuda.empty_cache()
@@ -1538,6 +1789,11 @@ def main():
     check_table(table, cal_records["model"])
     price_nets(table, host_s, graph_ms, smi)
     price_frame(table, host_s, frame_ms, smi)
+    # phases 24-26: the design-space studies and the analytic cost model;
+    # no kernel wrapper runs in them either
+    pe_study(table, frame_ms, smi)
+    soc_study(smi)
+    analytic_layer(decode_ms, frame_ms, smi)
     if _counts() != counts:
         raise AssertionError(f"pricing changed the launch counts: {counts} "
                              f"-> {_counts()}")

@@ -12,9 +12,10 @@ Raw input: (H, W) Bayer-mosaic (RGGB) sensor values in [0, 1), H and W even.
 The simulator's view of the frame: ``camera_program`` prices the ISP's
 stages as ``CostedOp``s, composable with a net's program
 (``camera_program(...).then(graph.program())``), and ``camera_soc`` is the
-camera SoC topology (a frontend device feeding the NN accelerators).  The
-reference's frame sweeps (``frame_sweep``, ``soc_frame_sweep``) wait for
-the port's sweep layer.
+camera SoC topology (a frontend device feeding the NN accelerators).
+``frame_sweep`` and ``soc_frame_sweep`` run the paper's accelerator-size
+and camera-SoC studies over a config or topology grid through
+``repro_torch.sim.sweep``.
 """
 from __future__ import annotations
 
@@ -191,3 +192,57 @@ def camera_soc(n_accels=4, frontend="cpu", *, link_ports=4.0,
     return SoCTopology(
         devices=devices, links=(Link("hbm", ports=link_ports),),
         name=name or f"{frontend}+{n_accels}acc/p{link_ports:g}")
+
+
+def frame_sweep(dnn_program, configs, hw=(720, 1280), dnn_hw=(32, 32),
+                name="frame", frontend_class="cpu"):
+    """Whole-frame design-space sweep: ISP program composed with the DNN
+    program, evaluated under every SoC config through the batched
+    ``repro_torch.sim.sweep`` layer (one lowering + shared dependency plan).
+
+    Returns ``(frame_program, [EngineResult per config])`` — the Fig 19/20
+    accelerator-size study is one call with a PE-scaled config grid, and
+    the camera-SoC-tuning study is the same call with topology-bearing
+    configs (``EngineConfig(topology=camera_soc(...))``), where the ISP
+    stages land on the frontend device and the DNN tiles on the
+    accelerators in ONE simulated execution.
+    """
+    from repro_torch.sim.sweep import sweep
+
+    frame = camera_program(hw, dnn_hw, device_class=frontend_class) \
+        .then(dnn_program, name=name)
+    return frame, sweep(frame, configs)
+
+
+def soc_frame_sweep(dnn_program, topologies, base_config=None,
+                    hw=(720, 1280), dnn_hw=(32, 32), name="frame"):
+    """Camera-SoC-tuning sweep over a grid of ``camera_soc`` topologies.
+
+    The frontend class of each composed frame program follows the
+    topology's frontend device kind, so a ``dsp`` SoC runs the ISP on its
+    DSP.  Topologies sharing a frontend kind share one composed frame
+    program, so the whole group goes through ``sweep`` as one batch (one
+    lowering + one dependency plan per kind, not per cell).  Returns
+    ``[(topology, frame_program, EngineResult)]`` in grid order — one
+    heterogeneous simulated execution per SoC.  ``base_config`` defaults
+    to ``EngineConfig()``: accelerators at one H100's rates."""
+    import dataclasses
+
+    from repro_torch.sim.engine import EngineConfig
+    from repro_torch.sim.sweep import sweep
+
+    base = base_config if base_config is not None else EngineConfig()
+    topologies = list(topologies)
+    kinds = [next((d.kind for d in t.devices if d.kind in ("cpu", "dsp")),
+                  "cpu") for t in topologies]
+    out = [None] * len(topologies)
+    for kind in dict.fromkeys(kinds):           # unique, grid order
+        idxs = [i for i, k in enumerate(kinds) if k == kind]
+        frame = camera_program(hw, dnn_hw, device_class=kind) \
+            .then(dnn_program, name=f"{name}/{kind}")
+        results = sweep(frame, [
+            dataclasses.replace(base, topology=topologies[i])
+            for i in idxs])
+        for i, res in zip(idxs, results):
+            out[i] = (topologies[i], frame, res)
+    return out

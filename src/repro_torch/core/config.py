@@ -85,10 +85,66 @@ class ModelConfig:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
 
     def param_count(self) -> int:
-        """Analytical parameter count of a dense config (embeddings + blocks)."""
-        d, hd = self.d_model, self.resolved_head_dim
-        n = self.vocab * d * (1 if self.tie_embeddings else 2)
-        attn = d * self.n_heads * hd * 2 + 2 * d * self.n_kv_heads * hd
+        """Analytical parameter count (embeddings + blocks), the reference's
+        formula for every family."""
+        d, L = self.d_model, self.n_layers
+        hd = self.resolved_head_dim
+        n = self.vocab * d  # embed
+        if not self.tie_embeddings:
+            n += self.vocab * d  # lm head
+        per_layer = 0
+        if self.family == "ssm":
+            s = self.ssm
+            d_in = s.expand * d
+            per_layer = (d * 2 * d_in        # in_proj (x, z)
+                         + d_in * s.d_conv   # depthwise conv
+                         + d_in * (s.d_state * 2 + 1)  # B,C,dt proj (approx)
+                         + d_in * s.d_state  # A
+                         + d_in * d)         # out_proj
+            n += L * (per_layer + d)  # + norm
+            return n
+        # attention params
+        q = d * self.n_heads * hd
+        kv = 2 * d * self.n_kv_heads * hd
+        o = self.n_heads * hd * d
+        if self.mla is not None:
+            m = self.mla
+            q = d * self.n_heads * (m.qk_nope_dim + m.qk_rope_dim)
+            kv = d * (m.kv_lora_rank + m.qk_rope_dim) \
+                + m.kv_lora_rank * self.n_heads * (m.qk_nope_dim + m.v_head_dim)
+            o = self.n_heads * m.v_head_dim * d
+        attn = q + kv + o
+        # mlp params
         gates = 2 if self.activation in ("swiglu", "geglu") else 1
-        mlp = (gates + 1) * d * self.d_ff
-        return n + self.n_layers * (attn + mlp + 2 * d)
+        if self.moe is not None:
+            e = self.moe
+            mlp = (e.n_experts + e.n_shared) * (gates + 1) * d * e.d_ff_expert \
+                + d * e.n_experts  # router
+        else:
+            mlp = (gates + 1) * d * self.d_ff
+        if self.family == "hybrid":
+            # zamba2: mamba blocks everywhere + ONE shared attention+mlp block
+            s = self.ssm
+            d_in = s.expand * d
+            mamba = (d * 2 * d_in + d_in * s.d_conv
+                     + d_in * (2 * s.d_state + 1) + s.n_heads
+                     + d_in * d)
+            n += L * (mamba + d)
+            n += attn + mlp + 2 * d  # shared block, counted once
+            return n
+        n += L * (attn + mlp + 2 * d)
+        if self.encoder is not None:
+            # encoder layers: self-attn + mlp ; decoder adds cross-attn
+            n += self.encoder.n_layers * (attn + mlp + 2 * d)
+            n += L * (attn + d)  # cross attention in decoder
+        return n
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only routed top-k + shared)."""
+        if self.moe is None:
+            return self.param_count()
+        e = self.moe
+        gates = 2 if self.activation in ("swiglu", "geglu") else 1
+        full_mlp = (e.n_experts + e.n_shared) * (gates + 1) * self.d_model * e.d_ff_expert
+        act_mlp = (e.top_k + e.n_shared) * (gates + 1) * self.d_model * e.d_ff_expert
+        return self.param_count() - self.n_layers * (full_mlp - act_mlp)

@@ -9,14 +9,16 @@ structure (deps, reduction affinity), a ``device_class`` placement tag
 the CPU, NN ops on the accelerators), fabric-tier fields the engine prices
 per hop, and a reporting phase.
 
-The port's copy of ``repro/sim/ir.py``'s core and two of its lowerings:
+The port's copy of ``repro/sim/ir.py``'s core and three of its lowerings:
 
   from_graph          the declarative ``repro_torch.core.graph.Graph`` ->
                       tile-level ops via the dataflow tiling optimizer,
+  from_decode         token-by-token decode of a ``ModelConfig`` -> a
+                      per-token macro-op chain,
   from_tasks          ``TileTask`` lists (``core/scheduler.py``).
 
-The reference's other lowerings (compiled HLO, decode, serving and
-training steps, fabric collectives) are not copied yet.
+The reference's other lowerings (compiled HLO, serving and training steps,
+fabric collectives) are not copied yet.
 """
 from __future__ import annotations
 
@@ -311,7 +313,78 @@ def from_graph(g, batch: int = 1, max_tile_elems: int = 16384,
 
 
 # ---------------------------------------------------------------------------
-# lowering 2: TileTask lists (scheduler)
+# lowering 2: autoregressive decode -> per-token macro-op chain
+
+
+def _decode_terms(cfg, bytes_per_param: float
+                  ) -> Tuple[float, float, int, float]:
+    """(active params, per-layer KV width, attention layer count, streamed
+    weight bytes) of a ``ModelConfig``: the accounting behind
+    ``from_decode``.
+
+    The KV width is ``n_kv_heads * head_dim`` elements per layer; a token
+    at cache position ``p`` costs ``4 * n_attn_layers * kv_dim * p`` flops
+    (QK^T + AV over K and V) and re-reads ``2 * n_attn_layers * kv_dim * p``
+    cached elements.  SSM families (and hybrids outside their shared
+    attention block) carry no growing KV term.
+    """
+    n_active = float(cfg.active_param_count())
+    kv_dim = 0.0
+    n_attn_layers = 0
+    if getattr(cfg, "n_kv_heads", 0) and getattr(cfg, "family", "") != "ssm":
+        kv_dim = float(cfg.n_kv_heads * cfg.resolved_head_dim)
+        n_attn_layers = (cfg.n_layers // cfg.hybrid_attn_every
+                         if cfg.family == "hybrid" else cfg.n_layers)
+    return n_active, kv_dim, n_attn_layers, n_active * bytes_per_param
+
+
+def from_decode(cfg, n_tokens: int, *, seq_len: int = 1024, batch: int = 1,
+                ops_per_token: int = 8, bytes_per_param: float = 2.0,
+                name: str = "") -> Program:
+    """Lower token-by-token decode of a ``ModelConfig`` to a chain Program.
+
+    Every generated token streams the full (active) weight set and re-reads
+    a KV cache that grows with position: the canonical memory-bound serial
+    workload (and, at several ops per token over hundreds of tokens, the
+    multi-thousand-op chain that stresses the executor).  Token ``t`` is
+    ``ops_per_token`` uniform macro-op slices chained back-to-back, phase
+    ``tok<t>``; a token costs 2·N_active flops a sequence plus the KV
+    re-read term.
+    """
+    n_tokens = max(int(n_tokens), 1)
+    ops_per_token = max(int(ops_per_token), 1)
+    n_active, kv_dim, n_attn_layers, weight_bytes = \
+        _decode_terms(cfg, bytes_per_param)
+    ops: List[CostedOp] = []
+    prev: Optional[str] = None
+    for t in range(n_tokens):
+        pos = seq_len + t
+        flops = 2.0 * n_active * batch \
+            + 4.0 * n_attn_layers * kv_dim * pos * batch
+        kv_bytes = 2.0 * n_attn_layers * kv_dim * pos * bytes_per_param \
+            * batch
+        bytes_in = weight_bytes + kv_bytes
+        bytes_out = kv_dim * n_attn_layers * bytes_per_param * batch
+        for k in range(ops_per_token):
+            nm = f"tok{t}/s{k}"
+            ops.append(CostedOp(
+                name=nm,
+                flops=flops / ops_per_token,
+                dot_flops=flops / ops_per_token,
+                bytes_in=bytes_in / ops_per_token,
+                bytes_out=bytes_out / ops_per_token,
+                deps=(prev,) if prev else (),
+                phase=f"tok{t}",
+                device_class="accel"))
+            prev = nm
+    return Program(ops, name=name or f"{getattr(cfg, 'name', 'model')}"
+                   f"/decode{n_tokens}", source="decode",
+                   meta={"n_tokens": n_tokens, "seq_len": seq_len,
+                         "batch": batch, "ops_per_token": ops_per_token})
+
+
+# ---------------------------------------------------------------------------
+# lowering 3: TileTask lists (scheduler)
 
 
 def from_tasks(tasks: Sequence, name: str = "tasks") -> Program:

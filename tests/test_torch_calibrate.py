@@ -23,6 +23,17 @@ from repro_torch.kernels import calibrate as tcal
 from repro_torch.sim import backends as tbackends
 from repro_torch.sim import hw as thw
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one thread here, so that the suite's timing tests on the
+    other workers keep their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 COSTS = {"matmul": "matmul_cost", "attention": "attention_cost",
          "mamba": "mamba_cost"}
 

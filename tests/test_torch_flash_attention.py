@@ -20,6 +20,17 @@ from repro.models.attention import chunked_attention
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import flash_attention as fa
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one thread here, so that the suite's timing tests on the
+    other workers keep their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 KERNEL_CASES = [  # B, H, Hkv, S, D, bq, bk, causal, window (test_kernels.py)
     (1, 2, 2, 128, 32, 64, 64, True, 0),
     (2, 4, 2, 128, 64, 64, 32, True, 0),      # GQA

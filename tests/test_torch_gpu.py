@@ -711,3 +711,32 @@ def test_cnn10_priced_from_the_card_table(cuda):
     for cfg in (sim.EngineConfig(), sim.EngineConfig(cost_backend=table)):
         res = sim.run(prog, cfg)
         assert np.isfinite(res.makespan) and res.makespan > 0
+
+
+@pytest.mark.gpu
+def test_costmodel_torch_backend_on_the_card(cuda):
+    """The cost model's torch backend on the card matches the numpy backend
+    at rtol 1e-9 (float64; only the row sum's order differs), and a model
+    given no device runs there."""
+    from repro_torch import sim
+    from repro_torch.configs import get_config
+    prog = sim.from_decode(get_config("gemma3_1b"), n_tokens=32,
+                           ops_per_token=8, seq_len=1024, batch=4)
+    rng = np.random.default_rng(0)
+    P = np.tile(sim.CostModel(prog, backend="numpy").params0, (256, 1))
+    for field in ("peak_flops", "hbm_bw"):
+        P[:, sim.PARAM_FIELDS.index(field)] *= rng.uniform(1 / 64, 4, 256)
+    for iface in ("hbm", "dma", "acp", "ideal"):
+        cfg = sim.EngineConfig(interface=iface, host_dispatch_s=1e-6)
+        on_card = sim.CostModel(prog, cfg, backend="torch")
+        assert on_card.device.type == "cuda"
+        np.testing.assert_allclose(
+            on_card.makespans(P),
+            sim.CostModel(prog, cfg, backend="numpy").makespans(P),
+            rtol=1e-9, atol=0)
+    auto = sim.CostModel(prog)
+    assert (auto.backend, auto.device.type) == ("torch", "cuda")
+    obj = auto.objective({"peak_flops": (1e12, 3e14),
+                          "hbm_bw": (5e10, 1.3e13)})
+    g = obj.grad(np.array([[0.3, 0.7], [0.5, 0.5]]))
+    assert obj.backend == "torch" and np.isfinite(g).all()

@@ -18,6 +18,17 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import mamba_scan as ms
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one thread here, so that the suite's timing tests on the
+    other workers keep their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-4),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 8e-2)}
 

@@ -33,6 +33,17 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import ssm as TS
 from repro_torch.models import transformer as TT
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one thread here, so that the suite's timing tests on the
+    other workers keep their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BF16_TOL = 2e-2
 F32_TOL = 2e-4
 MAMBA_F32 = ("A_log", "D", "dt_bias")
