@@ -75,7 +75,8 @@ printing a result:
    ``ssm`` caches and 2 decode steps fed the CPU's greedy tokens at
    ``BF16_TOL``, with exactly 2 scan launches;
 15. serve falcon_mamba_7b at full width and depth (64 Mamba1 layers, bf16
-   params from a seed made on the card; gemma3_1b's are freed first): 8
+   params from a seed made on the card; gemma3_1b's wait on the host for
+   phase 27): 8
    requests, batch 4, prompt 1024, 32 new tokens, through ``serve``, with
    exactly 64 x 2 = 128 scan launches and every logit finite;
 16. profile one falcon_mamba_7b prefill batch and 8 decode steps as in
@@ -139,16 +140,39 @@ printing a result:
    chain, else the bracket) and ``sweep.optimize`` for the cheapest design
    that keeps CNN10 at phase 12's measured ms, and that fits the frame in
    33 ms (verified on the exact engine; the torch backend on a chain).
-   Phases 22-26 launch no kernel: the counts are asserted unchanged.
+   Phases 22-26 launch no kernel: the counts are asserted unchanged;
+27. serving priced beside the card: gemma3_1b at full width through the
+   measured mode of ``repro_torch.launch.serve_batch`` (``run_measured``:
+   one batch of 4 prompts of 1024 tokens, 32 tokens, static batching, on
+   phase 4's params), with exactly 26 flash launches, all bf16 ``wgmma``;
+   then ``SERVE`` as a trace (8 requests at t = 0) priced by
+   ``repro_torch.sim.serving.simulate_serving`` for gemma3_1b,
+   falcon_mamba_7b and phi3_mini_3_8b on one H100 at its bf16 peak
+   (``apps.serving.default_config``), alone and with a host dispatch of
+   50 us a step: each priced prefill step, mean decode step, makespan,
+   tok/s and accelerator / transfer / host shares beside the measured
+   prefill ms a batch, decode ms a step, tok/s and busy shares of phases
+   4/6, 15/16 and 19/20, with price / measured; 64 steps each and
+   ``replay_serving`` equal to ``simulate_serving`` on every stats field;
+   gemma3_1b's prefill once more at the float32 default ``EngineConfig()``;
+28. the serving studies at H100 rates: ``serving_sweep`` over
+   ``benchmarks/bench_serving.py``'s grid (static, dynamic 10 ms,
+   continuous at max_batch 8 x 10, 50, 200 rps, 64 requests) for the three
+   served models, and ``simulate_fleet`` over ``bench_fleet.py``'s quick
+   replay (100,000 diurnal requests at 4000 rps, continuous batching of
+   64, 4 replicas, round robin) on gemma3_1b: simulated requests a second
+   of host CPU and the memo's hit rate.  The pricing of phase 27 and phase
+   28 launch no kernel: the counts are asserted unchanged.
 
 Kernel times are CUDA events around back-to-back calls queued behind a
 device-side wait (``torch.cuda._sleep``) that outlasts their enqueue, so
 that they are the card's time and not the wrapper's host time.  The line
 before the last is a JSON ``kernels`` summary (flash's launches by path:
-gemma3_1b serving, phi3_mini_3_8b serving, calibration, and its times at
-head dims 16, 32 and 96; the scan's entry: its launches by path,
-calibration and falcon_mamba_7b serving, and its times at the serving
-shape); the last line is ``{"ok": true, "device": {...}}``.
+gemma3_1b serving, phi3_mini_3_8b serving, calibration, serve_batch
+(gemma3_1b), and its times at head dims 16, 32 and 96; the scan's entry:
+its launches by path, calibration and falcon_mamba_7b serving, and its
+times at the serving shape); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -173,6 +197,7 @@ from repro_torch.apps.camera import (camera_program,  # noqa: E402
                                      camera_soc, frame_sweep,
                                      soc_frame_sweep)
 from repro_torch.apps.paper_graphs import build_paper_graph  # noqa: E402
+from repro_torch.apps.serving import default_config  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.paper_nets import PAPER_NETS  # noqa: E402
 from repro_torch.convert import to_device  # noqa: E402
@@ -183,13 +208,18 @@ from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.kernels import nvdla_matmul as mm  # noqa: E402
 from repro_torch.launch import camera  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.launch.serve_batch import run_measured  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.serve.policy import get_policy  # noqa: E402
 from repro_torch.serve.step import (greedy, make_decode_step,  # noqa: E402
                                     make_prefill_step)
 from repro_torch.core.tensor import TensorSpec  # noqa: E402
 from repro_torch.core.tiling import H100 as H100_TILING  # noqa: E402
 from repro_torch.core.tiling import choose_tiling  # noqa: E402
 from repro_torch.sim import hw  # noqa: E402
+from repro_torch.sim.serving import (Request, diurnal_trace,  # noqa: E402
+                                     replay_serving, serving_sweep,
+                                     simulate_fleet, simulate_serving)
 from repro_torch.sim.sweep import batched, lower_graph, optimize  # noqa: E402
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}   # tests/test_kernels.py
@@ -292,6 +322,19 @@ GRID_SIDE = 64
 H100_POINT = {"peak_flops": hw.PEAK_FLOPS, "hbm_bw": hw.HBM_BW}
 SPACE = {k: (v / 64, 4 * v) for k, v in H100_POINT.items()}
 GRAD_Z = np.array([[0.3, 0.7], [0.5, 0.5], [0.9, 0.1], [0.1, 0.9]])
+# phases 27-28: the served models, priced on one H100 at its bf16 peak
+# (``apps.serving.default_config``), alone and with
+# benchmarks/bench_serving.py:37-38's host dispatch of 50 us a step
+SERVED = ("gemma3_1b", "falcon_mamba_7b", "phi3_mini_3_8b")
+HOST_DISPATCH_S = 50e-6
+# phase 28: benchmarks/bench_serving.py:30-35's policy x rate grid and
+# benchmarks/bench_fleet.py's quick replay (100,000 diurnal requests)
+GRID_POLICIES = (("static", {}), ("dynamic", {"max_wait_s": 0.010}),
+                 ("continuous", {}))
+GRID_RATES = (10.0, 50.0, 200.0)
+GRID_REQUESTS = 64
+FLEET_QUICK = dict(n_requests=100_000, rate_rps=4000.0, output_len=(4, 16),
+                   max_batch=64, n_replicas=4)
 
 
 def log(*args):
@@ -458,8 +501,8 @@ def serve_full(arch="gemma3_1b"):
     seed made on the card; the flash counts are set to 0 just before and
     read just after: one launch a layer a prefill batch, all of the variant
     the rule names at its head dim.  Returns the config, the params, the
-    launches, the launches by variant and the decode ms of each token
-    step."""
+    launches, the launches by variant and ``_log_serving``'s measured
+    times."""
     cfg = get_config(arch)
     log(f"serve: {cfg.name} full width, {cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.n_heads} heads on {cfg.n_kv_heads} of head dim "
@@ -480,14 +523,15 @@ def serve_full(arch="gemma3_1b"):
     if launches != expect or by_variant[name] != expect:
         raise AssertionError(f"{by_variant} flash launches, expected "
                              f"{expect} of {name}")
-    decode_ms = _log_serving(stats)
-    return cfg, params, launches, by_variant, decode_ms
+    measured = _log_serving(stats)
+    return cfg, params, launches, by_variant, measured
 
 
 def _log_serving(stats):
     """Checks a ``serve`` call of ``SERVE`` (every request served, every
     logit finite) and logs its prefill ms a batch, decode ms a step, tok/s
-    and peak device memory; returns the decode ms of each token step."""
+    and peak device memory; returns the prefill ms of each batch, the
+    decode ms of each token step and the tok/s."""
     if not stats["finite"]:
         raise AssertionError("non-finite logits")
     if stats["requests"] != SERVE["requests"]:
@@ -502,7 +546,8 @@ def _log_serving(stats):
         f"({tokens} tokens in {stats['seconds']:.3f} s)")
     log(f"max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    return per_tok
+    return {"prefill_ms": [1e3 * s for s in stats["prefill_s"]],
+            "decode_ms": per_tok, "tok_s": tokens / stats["seconds"]}
 
 
 def cuda_ms(fn, iters, hold=True):
@@ -660,13 +705,15 @@ def profile_serving(cfg, params, smi, kernel=None):
     and the device's busy share: summed kernel time over the wall time of
     the profiled region (the profiler's own host cost lengthens the wall
     time, so the share is a lower bound).  With ``kernel``, also the share
-    of the device time taken by the kernels whose name holds it."""
+    of the device time taken by the kernels whose name holds it.  Returns
+    the busy share of each phase (None where not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     B, S, n = SERVE["batch"], SERVE["prompt_len"], 8
     tokens = torch.randint(0, cfg.vocab, (B, S), device="cuda",
                            generator=torch.Generator("cuda").manual_seed(3))
     prefill, decode = make_prefill_step(cfg, S + n), make_decode_step(cfg)
+    busy = {"prefill": None, "decode": None}
     for phase in ("prefill", "decode"):
         logits, cache = prefill(params, {"tokens": tokens})
         tok = greedy(logits)
@@ -691,6 +738,7 @@ def profile_serving(cfg, params, smi, kernel=None):
             log(f"profile {phase}: no device time in the trace (not measured)")
             continue
         what = "1 batch" if phase == "prefill" else f"{n} steps"
+        busy[phase] = busy_ms / wall_ms
         log(f"profile {phase} ({what}, B={B}): wall {wall_ms:.3f} ms, device "
             f"kernels {busy_ms:.3f} ms, busy {100 * busy_ms / wall_ms:.1f}%, "
             f"{sum(e.count for e in events)} device events; card {smi}")
@@ -703,6 +751,7 @@ def profile_serving(cfg, params, smi, kernel=None):
             log(f"  {e.self_device_time_total / 1e3:9.3f} ms "
                 f"{100 * e.self_device_time_total / 1e3 / busy_ms:5.1f}% "
                 f"x{e.count:<5d} {e.key[:90]}")
+    return busy
 
 
 def _rand(shape, gen, dtype=torch.float32):
@@ -1301,7 +1350,8 @@ def _numel(tree):
 def serve_falcon():
     """falcon_mamba_7b at full width and depth through ``serve``; the scan's
     count is set to 0 just before and read just after.  Returns the config,
-    the params and the scan's launches."""
+    the params, the scan's launches and ``_log_serving``'s measured
+    times."""
     cfg = get_config("falcon_mamba_7b")
     params = T.init_params(cfg, seed=0, device="cuda")
     log(f"serve: {cfg.name} full width, {cfg.n_layers} Mamba1 layers, "
@@ -1319,8 +1369,7 @@ def serve_falcon():
         f"{expect})")
     if launches != expect:
         raise AssertionError(f"{launches} scan launches, expected {expect}")
-    _log_serving(stats)
-    return cfg, params, launches
+    return cfg, params, launches, _log_serving(stats)
 
 
 def time_scan_serving(shape, smi):
@@ -1691,6 +1740,202 @@ def analytic_layer(decode_ms, frame_ms, smi):
             raise AssertionError(f"optimize {name}: {opt}")
 
 
+def serve_batch_full(host_params):
+    """Phase 27 (1): gemma3_1b at full width through the measured mode of
+    ``launch.serve_batch``: one batch of ``policy.max_batch`` = 4 prompts of
+    1024 tokens, 32 tokens each, on phase 4's params (brought back to the
+    card).  The flash counts are set to 0 just before and read just after:
+    one launch a layer, all bf16 ``wgmma``.  Returns the launches by
+    variant."""
+    cfg = get_config("gemma3_1b")
+    params = to_device(host_params, "cuda")
+    policy = get_policy("static", max_batch=SERVE["batch"])
+    log(f"serve_batch: {cfg.name} full width, {policy}, prompt "
+        f"{SERVE['prompt_len']}, {SERVE['max_new']} tokens, on the card")
+    torch.cuda.synchronize()
+    fa.reset_counts()
+    out = run_measured(cfg, policy, prompt_len=SERVE["prompt_len"],
+                       tokens=SERVE["max_new"], device="cuda", params=params,
+                       log=log)
+    launches = fa.flash_attention.launches
+    by_variant = dict(fa.flash_attention.launches_by_variant)
+    log(f"flash_attention launches in serve_batch: {launches}, by variant "
+        f"{by_variant} (expected {cfg.n_layers} layers x 1 batch, all "
+        f"wgmma)")
+    if launches != cfg.n_layers or by_variant["wgmma"] != cfg.n_layers:
+        raise AssertionError(f"serve_batch: {by_variant} flash launches")
+    if not out["finite"] or out["tokens"].shape != (SERVE["batch"],
+                                                    SERVE["max_new"]):
+        raise AssertionError(f"serve_batch: finite {out['finite']}, tokens "
+                             f"{out['tokens'].shape}")
+    tok_s = SERVE["batch"] * SERVE["max_new"] / (out["prefill_s"]
+                                                 + out["decode_s"])
+    log(f"  prefill {1e3 * out['prefill_s']:.3f} ms, decode "
+        f"{1e3 * out['decode_s'] / (SERVE['max_new'] - 1):.4f} ms a step, "
+        f"{tok_s:.1f} tok/s")
+    return by_variant
+
+
+def _serve_requests():
+    """``SERVE`` as a trace: every request at t = 0."""
+    return [Request(i, 0.0, SERVE["prompt_len"], SERVE["max_new"])
+            for i in range(SERVE["requests"])]
+
+
+def _step_prices(res):
+    """Mean priced prefill and decode step (ms) of a ``ServingResult``."""
+    pre = [s.duration_s for s in res.steps if s.n_prefill]
+    dec = [s.duration_s for s in res.steps if s.n_decode]
+    return 1e3 * sum(pre) / len(pre), 1e3 * sum(dec) / len(dec)
+
+
+def price_serving(measured, table, smi):
+    """Phase 27 (2): ``SERVE`` for each served model priced by
+    ``sim.serving.simulate_serving`` (8 requests at t = 0, prompt 1024, 32
+    tokens, static batching of 4) on one H100 at its bf16 peak, alone (a)
+    and with a host dispatch of 50 us a step (b); each priced prefill step,
+    mean decode step, makespan, tok/s and accelerator / transfer / host
+    shares beside ``measured`` (phases 4/6, 15/16, 19/20: the last batch's
+    prefill ms, decode ms a step, tok/s, busy shares) with price /
+    measured.
+    Asserts finite positive prices, 64 steps, busy == engine makespan and
+    ``replay_serving`` == ``simulate_serving`` on every stats field."""
+    bf16 = default_config()
+    configs = (("a", bf16), ("b", dataclasses.replace(
+        bf16, host_dispatch_s=HOST_DISPATCH_S)))
+    trace = _serve_requests()
+    policy = get_policy("static", max_batch=SERVE["batch"])
+    n_steps = SERVE["requests"] // SERVE["batch"] * SERVE["max_new"]
+    log(f"serving priced (engine output, not times): {SERVE} as a trace at "
+        f"t = 0, {policy}; (a) one H100 at its bf16 peak "
+        f"{bf16.peak_flops:.4g} flop/s, HBM {bf16.hbm_bw:.4g} B/s; (b) (a) "
+        f"plus {1e6 * HOST_DISPATCH_S:g} us host dispatch a step; beside "
+        f"this run's measured serving; card {smi}")
+    biggest = 0.0
+    for arch in SERVED:
+        cfg = get_config(arch)
+        m = measured[arch]
+        pre_ms = m["prefill_ms"][-1]
+        dec_ms = statistics.median(m["decode_ms"])
+        busy = {k: ("not measured" if v is None else f"{100 * v:.1f}%")
+                for k, v in m["busy"].items()}
+        log(f"  {arch} measured: prefill {pre_ms:.3f} ms a batch (the last; "
+            f"each batch {[round(x, 3) for x in m['prefill_ms']]}, the "
+            f"first with first-call costs), decode {dec_ms:.4f} ms a step "
+            f"(median; {min(m['decode_ms']):.4f}-{max(m['decode_ms']):.4f}),"
+            f" {m['tok_s']:.1f} tok/s; device busy prefill "
+            f"{busy['prefill']}, decode {busy['decode']}")
+        for label, config in configs:
+            t0 = time.perf_counter()
+            res = simulate_serving(cfg, trace, policy, config)
+            cpu_s = time.perf_counter() - t0
+            rep = replay_serving(cfg, trace, policy, config)
+            p_pre, p_dec = _step_prices(res)
+            f = res.engine.breakdown.fractions()
+            tok_s = res.throughput_tok_s
+            log(f"  {arch} ({label}): prefill step {p_pre:.6f} ms "
+                f"(/ measured {p_pre / pre_ms:.4f}), decode step "
+                f"{p_dec:.6f} ms (/ measured {p_dec / dec_ms:.4f}), makespan"
+                f" {1e3 * res.makespan_s:.6f} ms, {tok_s:.1f} tok/s "
+                f"(/ measured {tok_s / m['tok_s']:.4f}); accelerator "
+                f"{100 * f['accelerator']:.1f}%, transfer "
+                f"{100 * f['transfer']:.1f}%, host {100 * f['host']:.1f}%; "
+                f"{len(res.steps)} steps, {1e3 * cpu_s:.1f} ms CPU")
+            prices = (p_pre, p_dec, res.makespan_s, tok_s)
+            if not all(math.isfinite(x) and x > 0 for x in prices):
+                raise AssertionError(f"{arch} ({label}): prices {prices}")
+            if len(res.steps) != n_steps or res.busy_s != res.engine.makespan:
+                raise AssertionError(f"{arch} ({label}): {len(res.steps)} "
+                                     f"steps, busy {res.busy_s} engine "
+                                     f"{res.engine.makespan}")
+            if rep.stats() != res.stats():
+                raise AssertionError(f"{arch} ({label}): replay "
+                                     f"{rep.stats()} != {res.stats()}")
+            biggest = max(biggest, max(op.flops for op in res.program.ops))
+        log(f"  {arch}: replay_serving == simulate_serving on every stats "
+            f"field under (a) and (b)")
+    res = simulate_serving(get_config("gemma3_1b"), trace, policy,
+                           sim.EngineConfig())
+    p_pre, p_dec = _step_prices(res)
+    pre_ms = measured["gemma3_1b"]["prefill_ms"][-1]
+    log(f"  the float32 trap: gemma3_1b at the default EngineConfig() "
+        f"({hw.PEAK_FLOPS:.4g} flop/s, the CUDA cores' float32 rate) prices "
+        f"a prefill step at {p_pre:.6f} ms ({p_pre / pre_ms:.4f}x the "
+        f"measured {pre_ms:.3f} ms) and a decode step at {p_dec:.6f} ms; the "
+        f"served models run bf16")
+    top = max(flops for _, flops, _ in table.samples)
+    log(f"  not priced from the measured table: a serving step is one "
+        f"whole-model op of up to {biggest:.4g} flops, above the table's "
+        f"largest sample ({top:.4g} flops), where TableBackend._lookup "
+        f"clamps (np.interp) and the price would mean nothing")
+
+
+def serving_studies(smi):
+    """Phase 28: the serving studies at H100 rates, config (b) of phase 27.
+    ``serving_sweep`` over ``GRID_POLICIES`` x ``GRID_RATES`` (max_batch 8,
+    64 Poisson requests, seed 0) for each served model: throughput, TTFT
+    p50/p99 and TPOT p50 a cell; then ``simulate_fleet`` over
+    ``FLEET_QUICK``'s diurnal trace on gemma3_1b (continuous batching of
+    64, 4 replicas, round robin): requests simulated a second of host CPU
+    and the memo's hit rate."""
+    config = dataclasses.replace(default_config(),
+                                 host_dispatch_s=HOST_DISPATCH_S)
+    policies = [get_policy(kind, max_batch=8, **kw)
+                for kind, kw in GRID_POLICIES]
+    log(f"serving grid (engine output): {[str(p) for p in policies]} x "
+        f"{GRID_RATES} rps, {GRID_REQUESTS} Poisson requests, seed 0, one "
+        f"H100 at its bf16 peak plus {1e6 * HOST_DISPATCH_S:g} us a step; "
+        f"card {smi}")
+    n_cells = 0
+    for arch in SERVED:
+        t0 = time.perf_counter()
+        results = serving_sweep(get_config(arch), policies, GRID_RATES,
+                                n_requests=GRID_REQUESTS, config=config,
+                                seed=0)
+        cpu_s = time.perf_counter() - t0
+        by_cell = {}
+        for res in results:
+            st = res.stats()
+            rate = res.meta["rate_rps"]
+            by_cell[(res.policy.kind, rate)] = st
+            log(f"  {arch} {res.policy.kind}@{rate:g}rps: "
+                f"{st['throughput_tok_s']:.1f} tok/s, TTFT p50 "
+                f"{1e3 * st['ttft_p50']:.3f} ms p99 "
+                f"{1e3 * st['ttft_p99']:.3f} ms, TPOT p50 "
+                f"{1e3 * st['tpot_p50']:.4f} ms, occupancy "
+                f"{st['occupancy']:.3f}, {st['n_steps']} steps")
+            if not (st["throughput_tok_s"] > 0
+                    and all(math.isfinite(v) for v in st.values())):
+                raise AssertionError(f"{arch} grid cell {st}")
+            n_cells += 1
+        top = max(GRID_RATES)
+        gain = (by_cell[("continuous", top)]["throughput_tok_s"]
+                / by_cell[("static", top)]["throughput_tok_s"])
+        log(f"  {arch}: continuous over static at {top:g} rps "
+            f"{gain:.3f}x; grid {1e3 * cpu_s:.1f} ms CPU")
+    if n_cells != len(SERVED) * len(policies) * len(GRID_RATES):
+        raise AssertionError(f"{n_cells} grid cells")
+    q = FLEET_QUICK
+    trace = diurnal_trace(q["n_requests"], q["rate_rps"],
+                          output_len=q["output_len"], seed=0, arrays=True)
+    t0 = time.perf_counter()
+    f = simulate_fleet(get_config("gemma3_1b"), trace,
+                       get_policy("continuous", max_batch=q["max_batch"]),
+                       config, n_replicas=q["n_replicas"],
+                       router="round_robin")
+    wall = time.perf_counter() - t0
+    if not np.isfinite(f.finish_s).all():
+        raise AssertionError("fleet replay left requests unserved")
+    st = f.stats()
+    log(f"fleet replay: gemma3_1b, {q['n_requests']} diurnal requests at "
+        f"{q['rate_rps']:g} rps, continuous batching of {q['max_batch']}, "
+        f"{q['n_replicas']} replicas, round robin: {wall:.3f} s host CPU = "
+        f"{q['n_requests'] / wall:.0f} simulated requests/s; memo hit rate "
+        f"{f.meta['memo_hit_rate']:.4f}; {f.n_steps} steps, occupancy "
+        f"{f.occupancy:.4f}, SLO attainment {st['slo_attainment']:.4f}, "
+        f"simulated makespan {st['makespan_s']:.3f} s")
+
+
 def _counts():
     """Every kernel wrapper's launch count."""
     return (mm.matmul.launches, dict(mm.matmul.launches_by_variant),
@@ -1739,9 +1984,11 @@ def main():
         f"timestep) ({n} in a loop of {steps:g} steps)")
     max_err, f32_err = check_kernel()
     check_model_against_cpu()
-    cfg, params, launches, by_variant, decode_ms = serve_full()
+    cfg, params, launches, by_variant, measured = serve_full()
     rows = time_kernel(cfg, smi)
-    profile_serving(cfg, params, smi)
+    measured["busy"] = profile_serving(cfg, params, smi)
+    served = {"gemma3_1b": measured}
+    host_params = to_device(params, "cpu")    # phase 27 serves them again
     del params
     torch.cuda.empty_cache()
     new_err = check_new_kernels()
@@ -1765,8 +2012,10 @@ def main():
     state_err = check_scan_state(serve_shape)
     check_falcon_against_cpu()
     torch.cuda.empty_cache()
-    fcfg, fparams, scan_serve_launches = serve_falcon()
-    profile_serving(fcfg, fparams, smi, kernel="mamba_scan_kernel")
+    fcfg, fparams, scan_serve_launches, fmeasured = serve_falcon()
+    fmeasured["busy"] = profile_serving(fcfg, fparams, smi,
+                                        kernel="mamba_scan_kernel")
+    served[fcfg.name] = fmeasured
     del fparams
     torch.cuda.empty_cache()
     scan_rows = time_scan_serving(serve_shape, smi)
@@ -1775,8 +2024,11 @@ def main():
     log(f"mamba_scan launches by path: {scan_by_path}")
     check_model_against_cpu("phi3_mini_3_8b", PHI3_CUT, PHI3_PROMPTS)
     torch.cuda.empty_cache()
-    pcfg, pparams, _, phi3_by_variant, _ = serve_full("phi3_mini_3_8b")
-    profile_serving(pcfg, pparams, smi, kernel="flash_fwd_")
+    pcfg, pparams, _, phi3_by_variant, pmeasured = serve_full(
+        "phi3_mini_3_8b")
+    pmeasured["busy"] = profile_serving(pcfg, pparams, smi,
+                                        kernel="flash_fwd_")
+    served[pcfg.name] = pmeasured
     del pparams
     torch.cuda.empty_cache()
     small = time_flash_small(smi)
@@ -1793,13 +2045,26 @@ def main():
     # no kernel wrapper runs in them either
     pe_study(table, frame_ms, smi)
     soc_study(smi)
-    analytic_layer(decode_ms, frame_ms, smi)
+    analytic_layer(measured["decode_ms"], frame_ms, smi)
+    if _counts() != counts:
+        raise AssertionError(f"pricing changed the launch counts: {counts} "
+                             f"-> {_counts()}")
+    # phase 27: serve_batch's measured batch on the card, then SERVE priced
+    # beside the card; phase 28: the serving studies.  The pricing and the
+    # studies launch nothing
+    batch_by_variant = serve_batch_full(host_params)
+    del host_params
+    torch.cuda.empty_cache()
+    counts = _counts()
+    price_serving(served, table, smi)
+    serving_studies(smi)
     if _counts() != counts:
         raise AssertionError(f"pricing changed the launch counts: {counts} "
                              f"-> {_counts()}")
     flash_by_path = {"gemma3_1b serving": by_variant,
                      "phi3_mini_3_8b serving": phi3_by_variant,
-                     "calibration": cal_by_variant["flash_attention"]}
+                     "calibration": cal_by_variant["flash_attention"],
+                     "serve_batch (gemma3_1b)": batch_by_variant}
     log(f"flash_attention launches by path: {flash_by_path}")
     mm_by_path = {"calibration": cal_by_variant["matmul"],
                   **{f"graph batch {b}": n for b, n in graph_by_batch.items()},

@@ -1,2 +1,3 @@
 """The paper's applications on the port: the Table-III networks as graphs
-(``paper_graphs``) and the camera ISP of §V (``camera``)."""
+(``paper_graphs``), the camera ISP of §V (``camera``) and the simulated
+serving scenario (``serving``)."""

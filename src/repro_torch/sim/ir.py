@@ -9,16 +9,19 @@ structure (deps, reduction affinity), a ``device_class`` placement tag
 the CPU, NN ops on the accelerators), fabric-tier fields the engine prices
 per hop, and a reporting phase.
 
-The port's copy of ``repro/sim/ir.py``'s core and three of its lowerings:
+The port's copy of ``repro/sim/ir.py``'s core and four of its lowerings:
 
   from_graph          the declarative ``repro_torch.core.graph.Graph`` ->
                       tile-level ops via the dataflow tiling optimizer,
   from_decode         token-by-token decode of a ``ModelConfig`` -> a
                       per-token macro-op chain,
+  from_serving_step   one serving-scheduler iteration -> a <=2-op batched
+                      step (with ``serving_step_signature`` and
+                      ``positions_for_signature``, the memo's key),
   from_tasks          ``TileTask`` lists (``core/scheduler.py``).
 
-The reference's other lowerings (compiled HLO, serving and training steps,
-fabric collectives) are not copied yet.
+The reference's other lowerings (compiled HLO, training steps, fabric
+collectives) are not copied yet.
 """
 from __future__ import annotations
 
@@ -381,6 +384,111 @@ def from_decode(cfg, n_tokens: int, *, seq_len: int = 1024, batch: int = 1,
                    f"/decode{n_tokens}", source="decode",
                    meta={"n_tokens": n_tokens, "seq_len": seq_len,
                          "batch": batch, "ops_per_token": ops_per_token})
+
+
+# ---------------------------------------------------------------------------
+# lowering 2c: one serving-scheduler iteration -> batched step program
+
+
+def from_serving_step(cfg, *, prefill_lens: Sequence[int] = (),
+                      decode_positions: Sequence[int] = (),
+                      step: int = 0, bytes_per_param: float = 2.0,
+                      name: str = "") -> Program:
+    """Lower ONE serving-scheduler iteration to a <=2-op step Program.
+
+    A continuous-batching model step does two things in a single forward
+    pass: it prefills the requests admitted this iteration and decodes one
+    token for every request already live.  The lowering mirrors that:
+
+      ``step<k>/prefill``  batched prefill of ``prefill_lens`` prompts —
+                           ``sum(L_j)`` tokens of dense compute plus the
+                           causal attention term
+                           ``4 * n_attn * kv_dim * L_j*(L_j-1)/2`` per
+                           prompt, writing ``L_j`` KV entries each;
+      ``step<k>/decode``   one token per entry of ``decode_positions``
+                           (the per-request KV length) — per slot the same
+                           ``from_decode`` accounting: ``2*N_active`` dense
+                           flops plus ``4 * n_attn * kv_dim * p`` attention
+                           flops and a ``2 * n_attn * kv_dim * p`` element
+                           KV re-read.
+
+    The full streamed weight set (``N_active * bytes_per_param``) is
+    charged ONCE per step, on the step's first op — this is the weight
+    amortization that makes batched decode pay off: the memory-bound cost
+    of a step is nearly flat in batch size while its token yield scales
+    with it.  Padded slots (static batching) are modeled by passing their
+    positions in ``decode_positions`` even though they yield no token —
+    the cost of computing garbage is real.
+
+    ``repro_torch.sim.serving`` chains these step programs (each step's
+    first op depends on the previous step's last op) into one served-trace
+    Program; the result is a pure linear chain, so the engine's prefix-sum
+    fast path applies to whole-trace runs.
+    """
+    n_active, kv_dim, n_attn, weight_bytes = \
+        _decode_terms(cfg, bytes_per_param)
+    kv_entry = kv_dim * n_attn * bytes_per_param     # one token's KV write
+    ops: List[CostedOp] = []
+    prev: Optional[str] = None
+    if prefill_lens:
+        n_tok = float(sum(prefill_lens))
+        attn = sum(4.0 * n_attn * kv_dim * (L * (L - 1) // 2)
+                   for L in prefill_lens)
+        flops = 2.0 * n_active * n_tok + attn
+        prev = f"step{step}/prefill"
+        ops.append(CostedOp(
+            name=prev, flops=flops, dot_flops=flops,
+            bytes_in=weight_bytes,
+            bytes_out=kv_entry * n_tok,
+            phase=f"step{step}",
+            device_class="accel",
+            ))
+    if decode_positions:
+        batch = float(len(decode_positions))
+        pos_sum = float(sum(decode_positions))
+        flops = 2.0 * n_active * batch + 4.0 * n_attn * kv_dim * pos_sum
+        kv_read = 2.0 * n_attn * kv_dim * pos_sum * bytes_per_param
+        ops.append(CostedOp(
+            name=f"step{step}/decode", flops=flops, dot_flops=flops,
+            bytes_in=(0.0 if prev else weight_bytes) + kv_read,
+            bytes_out=kv_entry * batch,
+            deps=(prev,) if prev else (),
+            phase=f"step{step}",
+            device_class="accel",
+            ))
+    return Program(ops, name=name or f"{getattr(cfg, 'name', 'model')}"
+                   f"/step{step}", source="serving",
+                   meta={"step": step,
+                         "n_prefill": len(prefill_lens),
+                         "n_decode": len(decode_positions)})
+
+
+def serving_step_signature(prefill_lens: Sequence[int],
+                           decode_positions: Sequence[int]) -> Tuple:
+    """The cost-sufficient signature of one serving step.
+
+    ``from_serving_step`` reads ``decode_positions`` only through ``len()``
+    (the decode batch size) and ``sum()`` (the KV position total, an exact
+    integer sum), while the prefill ops' causal-attention term is a float
+    sum over the *individual* prompt lengths — so ``(tuple(prefill_lens),
+    len(decode_positions), sum(decode_positions))`` determines every cost
+    field of the step's ops bit-for-bit.  The step index only names ops;
+    it never changes a cost.  ``serving.StepCostTable`` memoizes step
+    pricing on this key, and this function is the single place that
+    encodes the coupling — extend it if ``from_serving_step`` ever reads
+    more structure out of ``decode_positions``.
+    """
+    return (tuple(prefill_lens), len(decode_positions),
+            int(sum(decode_positions)))
+
+
+def positions_for_signature(n_decode: int, pos_sum: int) -> Tuple[int, ...]:
+    """A canonical ``decode_positions`` tuple realizing a signature's
+    ``(n_decode, pos_sum)`` — any tuple with that length and sum lowers to
+    bit-identical decode-op costs (see ``serving_step_signature``)."""
+    if n_decode <= 0:
+        return ()
+    return (int(pos_sum) - (n_decode - 1),) + (1,) * (n_decode - 1)
 
 
 # ---------------------------------------------------------------------------

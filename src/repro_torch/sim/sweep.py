@@ -28,11 +28,13 @@ gradient descent (``torch.func`` gradients on the torch backend, batched
 central differences on numpy) and returns an exact-engine-verified design —
 "the cheapest config meeting a latency target" is one call.
 
+``fleet_sweep`` runs the serving fleet's router x replica-count grid
+(``repro_torch.sim.serving``) out of one shared step-cost memo.
+
 The port's copy of ``repro/sim/sweep.py``.  Not copied yet: ``lower_hlo``
-(it waits for an HLO lowering), ``training_sweep``, ``fleet_sweep``,
-``cluster_sweep``, ``placements_for``, ``as_training_records`` and
-``as_cluster_records`` (they wait for the serving, training and cluster
-simulators).
+(it waits for an HLO lowering), ``training_sweep``, ``cluster_sweep``,
+``placements_for``, ``as_training_records`` and ``as_cluster_records``
+(they wait for the training and cluster simulators).
 """
 from __future__ import annotations
 
@@ -48,9 +50,9 @@ from repro_torch.sim.engine import EngineConfig, EngineResult
 from repro_torch.sim.hw import PARAM_FIELDS, SoCTopology
 from repro_torch.sim.ir import Program
 
-__all__ = ["sweep", "batched", "optimize", "topology_sweep", "lower_graph",
-           "graph_digest", "clear_caches", "as_records", "BatchedSweep",
-           "OptimizeResult"]
+__all__ = ["sweep", "batched", "optimize", "topology_sweep", "fleet_sweep",
+           "lower_graph", "graph_digest", "clear_caches", "as_records",
+           "BatchedSweep", "OptimizeResult"]
 
 _CACHE_MAX = 64
 
@@ -522,6 +524,47 @@ def topology_sweep(program: Program, topologies: Sequence[SoCTopology],
     base = base_config if base_config is not None else EngineConfig()
     configs = [dataclasses.replace(base, topology=t) for t in topologies]
     return sweep(program, configs, **kw)
+
+
+def fleet_sweep(cfg, *, routers: Sequence[str] = ("round_robin",
+                                                  "least_outstanding",
+                                                  "session_affinity"),
+                replica_counts: Sequence[int] = (1, 2, 4),
+                policy=None, n_requests: int = 2000,
+                rate_rps: float = 200.0, trace_kind: str = "diurnal",
+                seed: int = 0, config: Optional[EngineConfig] = None,
+                bytes_per_param: float = 2.0, **trace_kw) -> List:
+    """Run the router x replica-count fleet grid: one
+    ``repro_torch.sim.serving.FleetResult`` per (router, n_replicas) cell,
+    in that nesting order.  Every cell replays the SAME seeded trace (one
+    generator call, shared across cells) through ONE shared
+    ``StepCostTable``, so the comparison isolates the routing/replica
+    choice and the whole grid prices steps out of a single memo."""
+    from repro_torch.serve.policy import get_policy
+    from repro_torch.sim.serving import (TRACE_GENERATORS, StepCostTable,
+                                         simulate_fleet)
+    base = config if config is not None else EngineConfig()
+    if policy is None:
+        policy = get_policy("continuous", max_batch=8)
+    trace = TRACE_GENERATORS[trace_kind](
+        n_requests, rate_rps, seed=seed, arrays=True, **trace_kw) \
+        if trace_kind == "diurnal" else \
+        TRACE_GENERATORS[trace_kind](n_requests, rate_rps, seed=seed,
+                                     **trace_kw)
+    table = StepCostTable(cfg, base, bytes_per_param=bytes_per_param)
+    out = []
+    for router in routers:
+        for n in replica_counts:
+            res = simulate_fleet(cfg, trace, policy, base,
+                                 n_replicas=n, router=router,
+                                 bytes_per_param=bytes_per_param,
+                                 table=table)
+            res.meta.update({"model": getattr(cfg, "name", "model"),
+                             "router": router, "n_replicas": n,
+                             "rate_rps": rate_rps,
+                             "trace_kind": trace_kind, "seed": seed})
+            out.append(res)
+    return out
 
 
 def as_records(results: Iterable[EngineResult]) -> List[Dict[str, float]]:

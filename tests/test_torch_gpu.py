@@ -24,7 +24,9 @@ from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import nvdla_matmul as mm
 from repro_torch.launch import camera
 from repro_torch.launch.serve import serve
+from repro_torch.launch.serve_batch import run_measured
 from repro_torch.models import transformer as T
+from repro_torch.serve.policy import StaticBatching
 
 TOL = {"float32": (torch.float32, 1e-4),        # tests/test_kernels.py
        "bfloat16": (torch.bfloat16, 3e-2)}
@@ -295,6 +297,33 @@ def test_serving_falcon_mamba_on_card(cuda):
     for got, expect in zip(out["card"], out["cpu"]):
         np.testing.assert_allclose(got, expect, rtol=2e-2,
                                    atol=2e-2 * np.abs(expect).max())
+
+
+@pytest.mark.gpu
+def test_serve_batch_measured_on_card(cuda):
+    """``serve_batch.run_measured`` at the SMOKE gemma3_1b on the card: the
+    batch's prefill runs the flash kernel once a layer, all ``wgmma`` at
+    head dim 16; every logit is finite and the prefill's last-position
+    logits agree with the CPU run from the same params to bf16 precision
+    (2e-2)."""
+    cfg = get_smoke_config("gemma3_1b")
+    assert cfg.resolved_head_dim == 16
+    params = T.init_params(cfg, seed=0, device="cpu")
+    gpu = to_device(params, cuda)
+    policy = StaticBatching(max_batch=4)
+    fa.reset_counts()
+    out = run_measured(cfg, policy, prompt_len=40, tokens=4, device=cuda,
+                       params=gpu, log=lambda *a: None)
+    assert fa.flash_attention.launches == cfg.n_layers
+    assert fa.flash_attention.launches_by_variant["wgmma"] == cfg.n_layers
+    assert fa.variant(16, torch.bfloat16) == "wgmma"
+    assert out["finite"] and out["tokens"].shape == (4, 4)
+    cpu = run_measured(cfg, policy, prompt_len=40, tokens=4, device="cpu",
+                       params=params, log=lambda *a: None)
+    got, expect = (o["logits"].float().cpu().numpy() for o in (out, cpu))
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, expect, rtol=2e-2,
+                               atol=2e-2 * np.abs(expect).max())
 
 
 @pytest.mark.gpu

@@ -337,7 +337,10 @@ def test_port_imports_no_jax_and_no_reference():
         " or m == 'repro' or m.startswith('repro.'))\n"
         "assert 'repro_torch.models.ssm' in mods, mods\n"
         "assert 'repro_torch.sim.engine' in mods, mods\n"
-        "assert len(mods) >= 48, mods\n"
+        "for m in ('sim.serving', 'serve.policy', 'apps.serving',"
+        " 'launch.serve_batch'):\n"
+        "    assert 'repro_torch.' + m in mods, mods\n"
+        "assert len(mods) >= 52, mods\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
