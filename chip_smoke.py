@@ -12,10 +12,13 @@ printing a result:
 3. hold the flash kernel against its plain PyTorch version on the card, at
    the ``tests/test_kernels.py`` shapes, the serving shapes, every other
    head dim (16, 32 and 96 in padded TMA boxes, phi3_mini_3_8b's prefill
-   among them), ragged lengths, lengths below one tile and window edges,
-   in float32 and bf16, in the variant its rule names
-   (``flash_attention.variant``) and beside it the one it replaced (bf16
-   ``mma.sync`` beside ``wgmma``, float32 ``fma`` beside ``tf32x3``); then
+   among them; 192, MLA's q/k width, with deepseek_v2_lite_16b's prefill
+   (4, 16, 16, 1024, 192) causal and v zero past column 128), ragged
+   lengths, lengths below one tile and window edges, in float32 and bf16,
+   in the variant its rule names (``flash_attention.variant``) and beside
+   it the one it replaced where that is built for the head dim (bf16
+   ``mma.sync`` beside ``wgmma``, float32 ``fma`` beside ``tf32x3``; not
+   at 192); then
    a 6-layer cut of
    gemma3_1b at full width served on the card against the same params on the
    CPU (plain path) on one small input;
@@ -96,8 +99,10 @@ printing a result:
    phase 6, with the flash kernel's share of the prefill's device time;
 21. time both types' variants at phi3_mini_3_8b's prefill shape at head
    dims 16, 32 and 96, and float32 at the ``"full"`` grid's attention
-   shapes of those head dims, beside the plain version, SDPA and the bound
-   (whose exponential term decides bf16 at D <= 32);
+   shapes of those head dims, both types at deepseek_v2_lite_16b's
+   prefill shape at head dim 192 (v zero past column 128) and bf16 at
+   granite_moe_1b_a400m's (4, 16, 8, 1024, 64), beside the plain version,
+   SDPA and the bound (whose exponential term decides bf16 at D <= 32);
 22. price each Table-III net at batch 1 and 64, not cut, with the port's
    simulator (``repro_torch.sim``): ``Graph.program`` at the default
    16,384-element tiles and at one tile a node, run on one H100
@@ -147,35 +152,67 @@ printing a result:
    phase 4's params), with exactly 26 flash launches, all bf16 ``wgmma``;
    then ``SERVE`` as a trace (8 requests at t = 0) priced by
    ``repro_torch.sim.serving.simulate_serving`` for gemma3_1b,
-   falcon_mamba_7b and phi3_mini_3_8b on one H100 at its bf16 peak
+   falcon_mamba_7b, phi3_mini_3_8b, granite_moe_1b_a400m and
+   deepseek_v2_lite_16b on one H100 at its bf16 peak
    (``apps.serving.default_config``), alone and with a host dispatch of
    50 us a step: each priced prefill step, mean decode step, makespan,
    tok/s and accelerator / transfer / host shares beside the measured
    prefill ms a batch, decode ms a step, tok/s and busy shares of phases
-   4/6, 15/16 and 19/20, with price / measured; 64 steps each and
+   4/6, 15/16, 19/20, 30 and 32, with price / measured; 64 steps each and
    ``replay_serving`` equal to ``simulate_serving`` on every stats field;
    gemma3_1b's prefill once more at the float32 default ``EngineConfig()``;
 28. the serving studies at H100 rates: ``serving_sweep`` over
    ``benchmarks/bench_serving.py``'s grid (static, dynamic 10 ms,
-   continuous at max_batch 8 x 10, 50, 200 rps, 64 requests) for the three
+   continuous at max_batch 8 x 10, 50, 200 rps, 64 requests) for the five
    served models, and ``simulate_fleet`` over ``bench_fleet.py``'s quick
    replay (100,000 diurnal requests at 4000 rps, continuous batching of
    64, 4 replicas, round robin) on gemma3_1b: simulated requests a second
    of host CPU and the memo's hit rate.  The pricing of phase 27 and phase
-   28 launch no kernel: the counts are asserted unchanged.
+   28 launch no kernel: the counts are asserted unchanged;
+29. run granite_moe_1b_a400m cut to 4 layers at full width (d_model 1024,
+   16 heads on 8 of head dim 64, 32 experts top-8) on the card against the
+   same params on the CPU (plain path): 2 prompts of 300 tokens, the
+   prefill logits, the KV cache and 2 decode steps fed the CPU's greedy
+   tokens at ``BF16_TOL``, with exactly 4 bf16 ``wgmma`` launches at D =
+   64.  Routing is discontinuous, so the check has two parts: each MoE
+   layer's router, fed the card's own input on the CPU, must choose the
+   card's experts (every index; a port fault shows here), and the CPU run
+   that takes the card's expert choices (as both take the CPU's greedy
+   tokens) is held to the card at ``BF16_TOL``.  The CPU's free run (its
+   own routing) is logged beside it with the share of expert choices the
+   two runs share, per layer, and the first flip's probability gap (a
+   flip that rounding upstream caused sits on a near-tie);
+30. serve granite_moe_1b_a400m at full width and depth (24 layers, bf16
+   params from a seed made on the card) under ``SERVE``, with exactly 24 x
+   2 = 48 ``wgmma`` launches at D = 64 and every logit finite; profile one
+   prefill batch and 8 decode steps as in phase 6: the busy share, flash's
+   share and the MoE stages' shares (routing, the experts' products, and
+   dispatch: the one-hot cumsum, the slot scatter, the gathers and the
+   combine);
+31. as phase 29 for deepseek_v2_lite_16b cut to 2 layers (d_model 2048, MLA
+   with 16 heads, its prefill attention on the flash kernel at D = 192;
+   64 experts top-6 + 2 shared): exactly 2 ``wgmma`` launches at D = 192,
+   the ``ckv`` and ``krope`` caches;
+32. as phase 30 for deepseek_v2_lite_16b at full width and depth (27 MoE
+   layers, 16.2 B bf16 params, about 32.4 GB): exactly 27 x 2 = 54
+   ``wgmma`` launches at D = 192.
+   Phases 29-32 run after phase 27's measured batch and before its
+   pricing, which prices their serving beside the others'.
 
 Kernel times are CUDA events around back-to-back calls queued behind a
 device-side wait (``torch.cuda._sleep``) that outlasts their enqueue, so
 that they are the card's time and not the wrapper's host time.  The line
 before the last is a JSON ``kernels`` summary (flash's launches by path:
 gemma3_1b serving, phi3_mini_3_8b serving, calibration, serve_batch
-(gemma3_1b), and its times at head dims 16, 32 and 96; the scan's entry:
+(gemma3_1b), granite_moe_1b_a400m serving, deepseek_v2_lite_16b serving,
+and its times at head dims 16, 32, 96 and 192; the scan's entry:
 its launches by path, calibration and falcon_mamba_7b serving, and its
 times at the serving shape); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -209,6 +246,7 @@ from repro_torch.kernels import nvdla_matmul as mm  # noqa: E402
 from repro_torch.launch import camera  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.serve_batch import run_measured  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve.policy import get_policy  # noqa: E402
 from repro_torch.serve.step import (greedy, make_decode_step,  # noqa: E402
@@ -250,7 +288,14 @@ KERNEL_CASES = [  # B, H, Hkv, S, D, causal, window
     (1, 2, 1, 300, 16, False, 0),           # no causal mask
     (1, 2, 2, 256, 96, False, 70),          # window without causal
     (2, 4, 1, 1000, 32, True, 100),         # window off the tile grid
+    (2, 4, 4, 1000, 192, True, 0),          # MLA's q/k width: ragged S,
+    (1, 4, 2, 77, 192, True, 30),           # GQA and a window,
+    (1, 2, 2, 300, 192, False, 0),          # no causal mask
 ]
+# deepseek_v2_lite_16b's MLA prefill attention in SERVE: B, H, Hkv, S, D,
+# causal, window, with v zero past column 128 (MLA pads v from 128 to 192)
+MLA_V = 128
+MLA_CASES = [(4, 16, 16, 1024, 192, True, 0)]
 SERVE = dict(requests=8, batch=4, prompt_len=1024, max_new=32)
 # the head dims off whole 128-byte TMA boxes, and phi3_mini_3_8b's prefill
 # attention in SERVE at each (causal): B, H, Hkv, S, D
@@ -258,6 +303,11 @@ SMALL_D = (16, 32, 96)
 PHI3_PREFILL = [(SERVE["batch"], get_config("phi3_mini_3_8b").n_heads,
                  get_config("phi3_mini_3_8b").n_kv_heads, SERVE["prompt_len"],
                  D) for D in SMALL_D]
+DEEPSEEK_PREFILL = MLA_CASES[0][:5]
+GRANITE_PREFILL = (SERVE["batch"], get_config("granite_moe_1b_a400m").n_heads,
+                   get_config("granite_moe_1b_a400m").n_kv_heads,
+                   SERVE["prompt_len"],
+                   get_config("granite_moe_1b_a400m").resolved_head_dim)
 # tests/test_kernels.py tolerances: matmul rtol tol, atol tol * sqrt(K);
 # scan rtol tol, atol 4 tol
 MM_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
@@ -303,6 +353,9 @@ FALCON_CUT = 2            # layers of the full-width card-against-CPU check
 FALCON_PROMPTS = (2, 300)  # prompts x tokens: 300 is off the 32-step chunk
 PHI3_CUT = 4               # layers of phi3_mini_3_8b's card-against-CPU check
 PHI3_PROMPTS = (2, 300)    # prompts x tokens: 300 is off the 64-row tile
+# phases 29-32: the moe family; layers of each card-against-CPU check
+MOE_CUTS = {"granite_moe_1b_a400m": 4, "deepseek_v2_lite_16b": 2}
+MOE_PROMPTS = (2, 300)
 # phase 24: benchmarks/bench_camera.py:27's PE grid, (workers, PE fraction)
 # on its base point (acp, 4 ports), then one H100 (EngineConfig())
 PE_GRID = ((8, 1.0), (4, 0.5), (2, 0.25))
@@ -325,7 +378,8 @@ GRAD_Z = np.array([[0.3, 0.7], [0.5, 0.5], [0.9, 0.1], [0.1, 0.9]])
 # phases 27-28: the served models, priced on one H100 at its bf16 peak
 # (``apps.serving.default_config``), alone and with
 # benchmarks/bench_serving.py:37-38's host dispatch of 50 us a step
-SERVED = ("gemma3_1b", "falcon_mamba_7b", "phi3_mini_3_8b")
+SERVED = ("gemma3_1b", "falcon_mamba_7b", "phi3_mini_3_8b",
+          "granite_moe_1b_a400m", "deepseek_v2_lite_16b")
 HOST_DISPATCH_S = 50e-6
 # phase 28: benchmarks/bench_serving.py:30-35's policy x rate grid and
 # benchmarks/bench_fleet.py's quick replay (100,000 diurnal requests)
@@ -341,10 +395,14 @@ def log(*args):
     print(*args, flush=True)
 
 
-def rand_qkv(B, H, Hkv, S, D, dtype, seed=0):
+def rand_qkv(B, H, Hkv, S, D, dtype, seed=0, v_width=None):
+    """Random q, k, v; with ``v_width``, v zero past that column (MLA)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    return [torch.randn(shape, generator=g, device="cuda").to(dtype)
-            for shape in ((B, H, S, D), (B, Hkv, S, D), (B, Hkv, S, D))]
+    q, k, v = [torch.randn(shape, generator=g, device="cuda").to(dtype)
+               for shape in ((B, H, S, D), (B, Hkv, S, D), (B, Hkv, S, D))]
+    if v_width is not None:
+        v[..., v_width:] = 0
+    return q, k, v
 
 
 def identify():
@@ -399,9 +457,13 @@ _BESIDE = {(fa, "wgmma"): ["mma_sync"], (fa, "tf32x3"): ["fma"],
 
 def _variants(kernel, dtype, *shape):
     """The variant that the shape rule of ``kernel`` (the module ``fa`` or
-    ``mm``) names, and those ``_BESIDE`` it."""
+    ``mm``) names, and those ``_BESIDE`` it that are built for the shape
+    (flash's older kernels are not built at head dim 192)."""
     name = kernel.variant(*shape, dtype)
-    return [name] + _BESIDE.get((kernel, name), [])
+    beside = _BESIDE.get((kernel, name), [])
+    if kernel is fa:
+        beside = [b for b in beside if shape[0] in fa.VARIANT_HEAD_DIMS[b]]
+    return [name] + beside
 
 
 def _ran(fn, name, call):
@@ -423,10 +485,11 @@ def check_kernel():
     shapes in bf16 of the variant serving runs, and the largest error of
     float32 ``tf32x3``."""
     worst, worst_f32 = 0.0, 0.0
-    for case in KERNEL_CASES:
+    cases = [(c, None) for c in KERNEL_CASES] + [(c, MLA_V) for c in MLA_CASES]
+    for case, v_width in cases:
         B, H, Hkv, S, D, causal, window = case
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = rand_qkv(B, H, Hkv, S, D, dtype)
+            q, k, v = rand_qkv(B, H, Hkv, S, D, dtype, v_width=v_width)
             expect = ref.flash_attention_ref(q, k, v, causal=causal,
                                              window=window)
             for name in _variants(fa, dtype, D):
@@ -434,8 +497,12 @@ def check_kernel():
                            lambda: fa.flash_attention(
                                q, k, v, causal=causal, window=window,
                                kernel=name))
-                err = _check(f"kernel {name} vs plain {case} {dtype}", out,
-                             expect, TOL[dtype], TOL[dtype])
+                err = _check(f"kernel {name} vs plain {case} {dtype}"
+                             + (f" v zero past {v_width}" if v_width else ""),
+                             out, expect, TOL[dtype], TOL[dtype])
+                if v_width and not bool((out[..., v_width:] == 0).all()):
+                    raise AssertionError(f"{name} {case}: output past "
+                                         f"column {v_width} not 0")
                 if D == 256 and name == fa.variant(D, dtype) == "wgmma":
                     worst = max(worst, err)
                 if name == "tf32x3":
@@ -443,7 +510,10 @@ def check_kernel():
     return worst, worst_f32
 
 
-def _bf16_close(name, out, expect):
+def _bf16_close(name, out, expect, strict=True):
+    """``out`` against ``expect`` at ``BF16_TOL`` (rtol, and atol as a
+    share of max |expect|); raises on a mismatch if ``strict``, else only
+    logs it.  Returns whether they agree."""
     out, expect = out.float().cpu(), expect.float().cpu()
     err = (out - expect).abs().max().item()
     scale = expect.abs().max().item()
@@ -451,8 +521,9 @@ def _bf16_close(name, out, expect):
                <= BF16_TOL * scale + BF16_TOL * expect.abs()).all())
     log(f"  {name}: max_abs_err {err:.3e} (max |ref| {scale:.3e}) "
         f"{'ok' if ok else 'MISMATCH'}")
-    if not ok:
+    if strict and not ok:
         raise AssertionError(f"{name}: card and CPU disagree ({err})")
+    return ok
 
 
 def check_model_against_cpu(arch="gemma3_1b", n_layers=6, prompts=(2, 600)):
@@ -496,6 +567,14 @@ def check_model_against_cpu(arch="gemma3_1b", n_layers=6, prompts=(2, 600)):
         _bf16_close(f"cache {key}", out["cuda"][3][key], out["cpu"][3][key])
 
 
+def _flash_head_dim(cfg):
+    """The head dim of ``cfg``'s prefill attention on the flash kernel:
+    MLA's q/k width (v is padded to it), else the model's head dim."""
+    m = cfg.mla
+    return (m.qk_nope_dim + m.qk_rope_dim if m is not None
+            else cfg.resolved_head_dim)
+
+
 def serve_full(arch="gemma3_1b"):
     """``arch`` at full width and depth through ``serve``, params from a
     seed made on the card; the flash counts are set to 0 just before and
@@ -504,10 +583,14 @@ def serve_full(arch="gemma3_1b"):
     launches, the launches by variant and ``_log_serving``'s measured
     times."""
     cfg = get_config(arch)
+    moe = "" if cfg.moe is None else (
+        f", MoE {cfg.moe.n_experts} experts top-{cfg.moe.top_k} + "
+        f"{cfg.moe.n_shared} shared ({cfg.active_param_count() / 1e9:.3f} B "
+        f"active)")
     log(f"serve: {cfg.name} full width, {cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.n_heads} heads on {cfg.n_kv_heads} of head dim "
-        f"{cfg.resolved_head_dim}, vocab {cfg.vocab}, "
-        f"{cfg.param_count() / 1e9:.3f} B params; {SERVE}")
+        f"{_flash_head_dim(cfg)} in flash, vocab {cfg.vocab}, "
+        f"{cfg.param_count() / 1e9:.3f} B params{moe}; {SERVE}")
     params = T.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -516,7 +599,7 @@ def serve_full(arch="gemma3_1b"):
     launches = fa.flash_attention.launches
     by_variant = dict(fa.flash_attention.launches_by_variant)
     expect = cfg.n_layers * stats["batches"]
-    name = fa.variant(cfg.resolved_head_dim, torch.bfloat16)
+    name = fa.variant(_flash_head_dim(cfg), torch.bfloat16)
     log(f"flash_attention launches in serving: {launches}, by variant "
         f"{by_variant} (expected {cfg.n_layers} layers x {stats['batches']} "
         f"prefill batches = {expect}, all {name})")
@@ -632,11 +715,12 @@ def _sdpa(q, k, v, window):
                                                   enable_gqa=True)
 
 
-def time_flash(B, H, Hkv, S, D, window, dtype, smi, seed=2):
+def time_flash(B, H, Hkv, S, D, window, dtype, smi, seed=2, v_width=None):
     """Each variant of ``_variants`` at one shape: {variant: row} with the
     kernel's device ms and host us a call, the plain version's and SDPA's
-    ms, and the bound."""
-    q, k, v = rand_qkv(B, H, Hkv, S, D, dtype, seed=seed)
+    ms, and the bound.  With ``v_width``, v is zero past that column, as
+    MLA gives it."""
+    q, k, v = rand_qkv(B, H, Hkv, S, D, dtype, seed=seed, v_width=v_width)
     lib = _sdpa(q, k, v, window)
     lib_err = (lib().float() - ref.flash_attention_ref(
         q, k, v, window=window).float()).abs().max().item()
@@ -655,7 +739,9 @@ def time_flash(B, H, Hkv, S, D, window, dtype, smi, seed=2):
                           bound_by="bytes" if b_by == "bytes"
                           else "operations", bound_term=b_by)
         log(f"flash_attention {name} B={B} H={H} Hkv={Hkv} S={S} D={D} "
-            f"{dtype} window={window}: kernel {ms:.4f} ms (host "
+            f"{dtype} window={window}"
+            + (f" v zero past {v_width}" if v_width else "")
+            + f": kernel {ms:.4f} ms (host "
             f"{rows[name]['host_us']:.1f} us a call), plain {plain:.4f} ms, "
             f"SDPA {lib_ms:.4f} ms (max_abs_err vs plain {lib_err:.2e}), "
             f"bound {b_ms:.4f} ms by {b_by} (ops "
@@ -678,15 +764,24 @@ def time_flash_small(smi):
     """The head dims 16, 32 and 96 (``SMALL_D``): both types at
     phi3_mini_3_8b's prefill shape at each, and float32 at the ``full``
     calibration grid's attention shapes of those head dims (what the
-    calibration loop runs there), causal, no window: {(shape, type):
-    {variant: row}}."""
+    calibration loop runs there); then head dim 192 at
+    deepseek_v2_lite_16b's prefill shape in both types, v zero past column
+    128 as MLA gives it, and granite_moe_1b_a400m's prefill (head dim 64,
+    GQA 16 / 8) in bf16, what it serves; causal, no window: {(shape,
+    type): {variant: row}}."""
     full = [s for s in calibrate.GRIDS["full"]["attention"]
             if s[-1] in SMALL_D]
     cases = [(shape, dtype) for shape in PHI3_PREFILL
              for dtype in (torch.bfloat16, torch.float32)] \
         + [(shape, torch.float32) for shape in full]
-    return {(shape, dtype): time_flash(*shape, 0, dtype, smi)
+    rows = {(shape, dtype): time_flash(*shape, 0, dtype, smi)
             for shape, dtype in cases}
+    for dtype in (torch.bfloat16, torch.float32):
+        rows[(DEEPSEEK_PREFILL, dtype)] = time_flash(
+            *DEEPSEEK_PREFILL, 0, dtype, smi, v_width=MLA_V)
+    rows[(GRANITE_PREFILL, torch.bfloat16)] = time_flash(
+        *GRANITE_PREFILL, 0, torch.bfloat16, smi)
+    return rows
 
 
 def time_flash_f32(smi):
@@ -700,12 +795,65 @@ def time_flash_f32(smi):
     return rows
 
 
+# the MoE layer's stages, each in a profiler range of its own while a MoE
+# model is profiled: range name -> function of repro_torch.models.moe
+MOE_RANGES = {"moe layer": "_moe_local", "moe routing": "_route",
+              "moe dispatch indices": "_dispatch_indices",
+              "moe experts": "_expert_ffn"}
+
+
+@contextlib.contextmanager
+def _moe_ranges():
+    """Wraps each function of ``MOE_RANGES`` in ``record_function`` for the
+    length of the block (``_moe_local`` reaches the others through the
+    module, so the wrapped ones run)."""
+    from torch.profiler import record_function
+    saved = {fn: getattr(moe_mod, fn) for fn in MOE_RANGES.values()}
+
+    def ranged(label, fn):
+        def call(*args, **kw):
+            with record_function(label):
+                return fn(*args, **kw)
+        return call
+
+    for label, fn in MOE_RANGES.items():
+        setattr(moe_mod, fn, ranged(label, saved[fn]))
+    try:
+        yield
+    finally:
+        for fn, f in saved.items():
+            setattr(moe_mod, fn, f)
+
+
+def _log_moe_shares(averages, busy_ms, phase):
+    """The device time under each ``MOE_RANGES`` range (kernels launched
+    inside it) and its share of the phase's device time; dispatch is the
+    MoE layer less routing and the experts' products: the one-hot cumsum,
+    the scatter of buffer slots, the gather into the buffers and the
+    weighted combine."""
+    from torch.autograd import DeviceType
+    ms_of = {label: sum(e.device_time_total for e in averages
+                        if e.key == label
+                        and e.device_type == DeviceType.CPU) / 1e3
+             for label in MOE_RANGES}
+    if not ms_of["moe layer"]:
+        log("  MoE ranges: no device time under them (not measured)")
+        return
+    ms_of["moe dispatch (cumsum, scatter, gather, combine)"] = (
+        ms_of["moe layer"] - ms_of["moe routing"] - ms_of["moe experts"])
+    for label, t in ms_of.items():
+        log(f"  {label}: {t:.3f} ms = {100 * t / busy_ms:.1f}% of the "
+            f"{phase}'s device time")
+
+
 def profile_serving(cfg, params, smi, kernel=None):
     """Device time by kernel over one prefill batch and over 8 decode steps,
     and the device's busy share: summed kernel time over the wall time of
     the profiled region (the profiler's own host cost lengthens the wall
     time, so the share is a lower bound).  With ``kernel``, also the share
-    of the device time taken by the kernels whose name holds it.  Returns
+    of the device time taken by the kernels whose name holds it; for a MoE
+    model, the share of each MoE stage (``_log_moe_shares``; the ranges add
+    host time to the wall time, so the busy share is lower still).  Returns
     the busy share of each phase (None where not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -718,8 +866,10 @@ def profile_serving(cfg, params, smi, kernel=None):
         logits, cache = prefill(params, {"tokens": tokens})
         tok = greedy(logits)
         torch.cuda.synchronize()
+        ranges = _moe_ranges() if cfg.moe is not None \
+            else contextlib.nullcontext()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA]) as prof, ranges:
             t0 = time.perf_counter()
             if phase == "prefill":
                 prefill(params, {"tokens": tokens})
@@ -728,11 +878,15 @@ def profile_serving(cfg, params, smi, kernel=None):
                     tok, cache, _ = decode(params, cache, tok, S + i)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
-        # device-side events only: a CPU op's device time repeats the
-        # time of the kernels it launched
-        events = [e for e in prof.key_averages()
+        # device-side kernels only: a CPU op's device time repeats the
+        # time of the kernels it launched, and a range's device-side
+        # annotation spans kernels counted already
+        averages = prof.key_averages()
+        events = [e for e in averages
                   if e.device_type == DeviceType.CUDA
-                  and e.self_device_time_total > 0]
+                  and e.self_device_time_total > 0
+                  and not getattr(e, "is_user_annotation", False)
+                  and e.key not in MOE_RANGES]
         busy_ms = sum(e.self_device_time_total for e in events) / 1e3
         if not events:
             log(f"profile {phase}: no device time in the trace (not measured)")
@@ -747,6 +901,8 @@ def profile_serving(cfg, params, smi, kernel=None):
                        if kernel in e.key) / 1e3
             log(f"  {kernel}: {k_ms:.3f} ms = {100 * k_ms / busy_ms:.1f}% of "
                 f"the {phase}'s device time")
+        if cfg.moe is not None:
+            _log_moe_shares(averages, busy_ms, phase)
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
             log(f"  {e.self_device_time_total / 1e3:9.3f} ms "
                 f"{100 * e.self_device_time_total / 1e3 / busy_ms:5.1f}% "
@@ -1337,6 +1493,178 @@ def check_falcon_against_cpu():
         _bf16_close(f"logits step {i}", out["cuda"][i], out["cpu"][i])
     for key in ("conv", "ssm"):
         _bf16_close(f"cache {key}", out["cuda"][3][key], out["cpu"][3][key])
+
+
+@contextlib.contextmanager
+def _captured_routes():
+    """Keeps, for each call of ``moe_mod._route`` in the block, its float32
+    input, the router's weights and the expert indices it chose."""
+    records, route = [], moe_mod._route
+
+    def capture(x32, router_w, n_experts, top_k):
+        w, idx, aux = route(x32, router_w, n_experts, top_k)
+        records.append((x32, router_w, idx))
+        return w, idx, aux
+
+    moe_mod._route = capture
+    try:
+        yield records
+    finally:
+        moe_mod._route = route
+
+
+def _agreement(pairs):
+    """(share of (token, slot) expert indices equal, share of tokens whose
+    expert sets are equal, assignments) over pairs of (T, k) index
+    tensors."""
+    same = same_sets = n = rows = 0
+    for a, b in pairs:
+        a, b = a.cpu(), b.cpu()
+        same += int((a == b).sum())
+        same_sets += int((a.sort(-1).values == b.sort(-1).values)
+                         .all(-1).sum())
+        n, rows = n + a.numel(), rows + a.shape[0]
+    return same / n, same_sets / rows, n
+
+
+@contextlib.contextmanager
+def _forced_routes(records):
+    """``moe_mod._route`` choosing, call after call, the experts of the
+    captured ``records`` (another run's); the probabilities, and so the
+    combine weights gathered at those experts and renormalised, are this
+    run's own.  Capacity slots follow from the experts alone."""
+    route, chosen = moe_mod._route, iter(records)
+
+    def forced(x32, router_w, n_experts, top_k):
+        _, _, aux = route(x32, router_w, n_experts, top_k)
+        idx = next(chosen)[2].to(x32.device)
+        w = torch.softmax(x32 @ router_w, dim=-1).gather(1, idx)
+        return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), idx, aux
+
+    moe_mod._route = forced
+    try:
+        yield
+    finally:
+        moe_mod._route = route
+
+
+def _run_cut(cfg, params, tokens, toks, dev):
+    """Prefill ``tokens`` and 2 decode steps of ``toks`` (filled from this
+    run's greedy tokens when empty): [3 logits, cache]."""
+    S = tokens.shape[1]
+    logits, cache = T.prefill_forward(cfg, params, {"tokens": tokens.to(dev)},
+                                      max_seq=S + 2)
+    steps = [logits]
+    for i in range(2):
+        if len(toks) == i:
+            toks.append(torch.argmax(logits[:, -1], -1, keepdim=True).cpu())
+        logits, cache = T.decode_forward(cfg, params, cache, toks[i].to(dev),
+                                         S + i)
+        steps.append(logits)
+    return steps + [cache]
+
+
+def _log_flips(cfg, cpu_routes, card_routes):
+    """Per layer of the prefill, the share of tokens whose expert sets agree
+    between the card's run and the CPU's (each fed its own input); for the
+    first layer with a flip, its first flipped (token, slot) and the CPU's
+    probability gap between its k-th and (k+1)-th expert there, beside that
+    gap's median over all tokens: a flip sits on a near-tie."""
+    e = cfg.moe
+    for layer, (c, g) in enumerate(zip(cpu_routes[:cfg.n_layers],
+                                       card_routes[:cfg.n_layers])):
+        x32, w_r, cidx = c
+        gidx = g[2].cpu()
+        same = (cidx.sort(-1).values == gidx.sort(-1).values).all(-1)
+        share = 100 * same.float().mean()
+        log(f"  routing, prefill layer {layer}: {share:.4f}% of "
+            f"{same.numel()} token expert sets agree, card run against CPU "
+            f"run")
+        if bool(same.all()):
+            continue
+        p = torch.softmax(x32 @ w_r, dim=-1).sort(-1, descending=True).values
+        gap = p[:, e.top_k - 1] - p[:, e.top_k]
+        t = int((~same).nonzero()[0])
+        slot = int((cidx[t] != gidx[t]).nonzero()[0])
+        log(f"  first flip: layer {layer}, token {t}, slot {slot} (CPU "
+            f"expert {int(cidx[t, slot])}, card {int(gidx[t, slot])}); the "
+            f"CPU's top-{e.top_k} edge gap there {float(gap[t]):.3e}, median "
+            f"over flipped tokens {float(gap[~same].median()):.3e}, over all "
+            f"tokens {float(gap.median()):.3e}")
+        break
+
+
+def check_moe_against_cpu(arch):
+    """``arch`` cut to ``MOE_CUTS[arch]`` layers at full width, params from
+    a seed made on the card and copied to the CPU: prefill logits, the
+    cache and 2 decode steps fed the CPU's greedy tokens, on the card (the
+    flash kernel once a layer, in the variant the rule names at the model's
+    flash head dim) against the CPU (plain path) at ``BF16_TOL``.
+
+    Routing is discontinuous: a bf16 rounding difference upstream of a
+    router moves an assignment across the top-k edge, and the moved
+    assignment shifts later tokens' capacity slots.  So the check is in
+    two parts.  (1) Each MoE layer's router, fed the card's own input on
+    the CPU, must choose the card's experts (every index equal: a port
+    fault shows here).  (2) The CPU runs again with the card's expert
+    choices (``_forced_routes``), as both runs take the CPU's greedy
+    tokens, and that run is held to the card at ``BF16_TOL``.  The CPU's
+    free run (its own routing) is compared too and logged, not asserted,
+    with the routing agreement per layer and the first flip's probability
+    gap."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=MOE_CUTS[arch])
+    gpu = T.init_params(cfg, seed=1, device="cuda")
+    cpu = to_device(gpu, "cpu")
+    tokens = torch.randint(0, cfg.vocab, MOE_PROMPTS,
+                           generator=torch.Generator().manual_seed(1))
+    D = _flash_head_dim(cfg)
+    name = fa.variant(D, torch.bfloat16)
+    e = cfg.moe
+    log(f"moe check: {cfg.name} cut to {cfg.n_layers} layers at d_model "
+        f"{cfg.d_model}, {e.n_experts} experts top-{e.top_k} + "
+        f"{e.n_shared} shared, flash head dim {D}, tokens "
+        f"{tuple(tokens.shape)}, card vs CPU")
+    toks = []
+    with _captured_routes() as cpu_routes:
+        free = _run_cut(cfg, cpu, tokens, toks, "cpu")
+    before = dict(fa.flash_attention.launches_by_variant)
+    with _captured_routes() as card_routes:
+        card = _run_cut(cfg, gpu, tokens, toks, "cuda")
+    torch.cuda.synchronize()
+    ran = {k: n - before[k] for k, n in
+           fa.flash_attention.launches_by_variant.items() if n != before[k]}
+    log(f"  flash launches on the card: {ran} (expected {cfg.n_layers} of "
+        f"{name} at D {D})")
+    if ran != {name: cfg.n_layers}:
+        raise AssertionError(f"moe check did not go through the kernel "
+                             f"once a layer: {ran}")
+    fed = _agreement(
+        (moe_mod._route(x32.cpu(), w_r.cpu(), e.n_experts, e.top_k)[1], idx)
+        for x32, w_r, idx in card_routes)
+    own = _agreement((c[2], g[2]) for c, g in zip(cpu_routes, card_routes))
+    log(f"  routing, each router fed the card's input on the CPU: "
+        f"{100 * fed[0]:.4f}% of {fed[2]} expert indices equal, "
+        f"{100 * fed[1]:.4f}% of token expert sets equal")
+    log(f"  routing, card run against CPU run (each fed its own input): "
+        f"{100 * own[0]:.4f}% of {own[2]} expert indices equal, "
+        f"{100 * own[1]:.4f}% of token expert sets equal")
+    _log_flips(cfg, cpu_routes, card_routes)
+    if fed[0] != 1.0:
+        raise AssertionError(f"{arch}: routers fed the card's input chose "
+                             f"other experts on the CPU ({fed})")
+    log("  card against the CPU's free run (its own routing; logged, not "
+        "asserted):")
+    for i in range(3):
+        _bf16_close(f"logits step {i}", card[i], free[i], strict=False)
+    for key in sorted(free[3]):
+        _bf16_close(f"cache {key}", card[3][key], free[3][key], strict=False)
+    with _forced_routes(card_routes):
+        forced = _run_cut(cfg, cpu, tokens, toks, "cpu")
+    log("  card against the CPU run with the card's expert choices:")
+    for i in range(3):
+        _bf16_close(f"logits step {i}", card[i], forced[i])
+    for key in sorted(forced[3]):
+        _bf16_close(f"cache {key}", card[3][key], forced[3][key])
 
 
 def _numel(tree):
@@ -2049,12 +2377,26 @@ def main():
     if _counts() != counts:
         raise AssertionError(f"pricing changed the launch counts: {counts} "
                              f"-> {_counts()}")
-    # phase 27: serve_batch's measured batch on the card, then SERVE priced
-    # beside the card; phase 28: the serving studies.  The pricing and the
-    # studies launch nothing
+    # phase 27 (1): serve_batch's measured batch on the card
     batch_by_variant = serve_batch_full(host_params)
     del host_params
     torch.cuda.empty_cache()
+    # phases 29-32: the moe family on the card, each model cut and held
+    # against the CPU, then served at full width and depth and profiled;
+    # they run before phase 27's pricing, which prices their serving too
+    moe_by_path = {}
+    for arch in MOE_CUTS:
+        check_moe_against_cpu(arch)
+        torch.cuda.empty_cache()
+        mcfg, mparams, _, m_by_variant, mmeasured = serve_full(arch)
+        mmeasured["busy"] = profile_serving(mcfg, mparams, smi,
+                                            kernel="flash_fwd_")
+        served[arch] = mmeasured
+        moe_by_path[f"{arch} serving"] = m_by_variant
+        del mparams
+        torch.cuda.empty_cache()
+    # phase 27 (2): SERVE priced beside the card; phase 28: the serving
+    # studies.  The pricing and the studies launch nothing
     counts = _counts()
     price_serving(served, table, smi)
     serving_studies(smi)
@@ -2064,7 +2406,8 @@ def main():
     flash_by_path = {"gemma3_1b serving": by_variant,
                      "phi3_mini_3_8b serving": phi3_by_variant,
                      "calibration": cal_by_variant["flash_attention"],
-                     "serve_batch (gemma3_1b)": batch_by_variant}
+                     "serve_batch (gemma3_1b)": batch_by_variant,
+                     **moe_by_path}
     log(f"flash_attention launches by path: {flash_by_path}")
     mm_by_path = {"calibration": cal_by_variant["matmul"],
                   **{f"graph batch {b}": n for b, n in graph_by_batch.items()},

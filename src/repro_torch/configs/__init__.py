@@ -1,9 +1,9 @@
 """Architecture config registry.
 
 ``get_config(arch_id)`` returns the FULL config; ``get_smoke_config`` returns
-a reduced same-family config for CPU tests.  The dense family and the ssm
-family (Mamba1) are ported so far; asking for any other architecture raises
-``NotImplementedError``.
+a reduced same-family config for CPU tests.  The dense family, the ssm
+family (Mamba1) and the moe family (with DeepSeek's MLA) are ported so far;
+asking for any other architecture raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -18,13 +18,13 @@ ARCH_IDS: List[str] = [
     "gemma_2b",
     "phi3_mini_3_8b",
     "falcon_mamba_7b",
+    "granite_moe_1b_a400m",
+    "deepseek_v2_lite_16b",
 ]
 
 # architectures of the reference registry whose family the port lacks
 UNPORTED = {
     "whisper_small": "encdec",
-    "granite_moe_1b_a400m": "moe",
-    "deepseek_v2_lite_16b": "moe",
     "internvl2_26b": "vlm",
     "zamba2_2_7b": "hybrid",
 }

@@ -435,7 +435,8 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 // runs at N = D.  At D 16 and 32 a block takes 25 KB and some 70
 // registers a thread (ptxas), so 6-7 blocks share an SM as the launch
 // bounds stand; there the exponentials, one a (q, k) pair, and not the
-// products set the least time (PERF.md).
+// products set the least time (PERF.md).  D 192 (MLA's q/k width, 128 +
+// 64) is three whole boxes: 73 KB a block, two blocks an SM.
 template <int D> struct TilesWg {
   static constexpr int BQ = 64;          // query rows: one warpgroup
   static constexpr int BK = 64;          // keys per KV tile
@@ -795,12 +796,13 @@ flash_tf32_split_kernel(const float* __restrict__ q,
 //   64      64   32 KB     16 KB   4 stages, 64 KB  32 KB     129 KB
 //   96      64   48 KB     24 KB   3 stages, 72 KB  32 KB     153 KB
 //   128     64   64 KB     32 KB   3 stages, 96 KB  32 KB     193 KB
+//   192     32   96 KB     24 KB   2 stages, 48 KB  16 KB     161 KB
 //   256     32   128 KB    32 KB   2 stages, 64 KB  16 KB     209 KB
 //
 // of the 227 KB a block may have: one block an SM from D = 64 on, two at
-// D 16 and 32.  At D = 256 the ring holds only K hi and K lo of one tile,
-// or V^T hi and lo; each item is refilled as soon as the products that
-// read it are done, so the next item's load runs under the current
+// D 16 and 32.  At D 192 and 256 the ring holds only K hi and K lo of one
+// tile, or V^T hi and lo; each item is refilled as soon as the products
+// that read it are done, so the next item's load runs under the current
 // products and the softmax.
 template <int D> struct TilesTf32 {
   static constexpr int BQ = 64;                  // query rows: one warpgroup
@@ -1156,7 +1158,9 @@ cudaError_t launch(Kernel kernel, int threads, size_t smem, const void* q,
 
 // Kernel variants, chosen by the caller (flash_attention.py::variant):
 // 0 float32 FMAs, 1 bf16 mma.sync, 2 bf16 wgmma with TMA, 3 float32 three
-// TF32 passes on wgmma; each at every head dim of flash_attention_fwd.
+// TF32 passes on wgmma.  The Hopper variants (2, 3) take every head dim of
+// flash_attention_fwd; the older kernels (0, 1), which they replaced, are
+// not built at D 192 and refuse it.
 enum Variant { kFma = 0, kMmaSync = 1, kWgmma = 2, kTf32x3 = 3 };
 
 template <int D>
@@ -1164,14 +1168,16 @@ cudaError_t launch_d(int dtype, int variant, const void* q, const void* k,
                      const void* v, void* o, float* ws, long long n_ws, int B,
                      int H, int Hkv, int S, int causal, int window,
                      cudaStream_t stream) {
-  if (dtype == 0 && variant == kFma)
-    return launch<float>(flash_fwd_f32_kernel<D>, NT,
-                         TilesF32<D>::smem_bytes, q, k, v, o, B, H, Hkv, S,
-                         D, causal, window, stream);
-  if (dtype == 1 && variant == kMmaSync)
-    return launch<__nv_bfloat16>(flash_fwd_bf16_kernel<D>, NTB,
-                                 TilesBf16<D>::smem_bytes, q, k, v, o, B, H,
-                                 Hkv, S, D, causal, window, stream);
+  if constexpr (D != 192) {
+    if (dtype == 0 && variant == kFma)
+      return launch<float>(flash_fwd_f32_kernel<D>, NT,
+                           TilesF32<D>::smem_bytes, q, k, v, o, B, H, Hkv, S,
+                           D, causal, window, stream);
+    if (dtype == 1 && variant == kMmaSync)
+      return launch<__nv_bfloat16>(flash_fwd_bf16_kernel<D>, NTB,
+                                   TilesBf16<D>::smem_bytes, q, k, v, o, B, H,
+                                   Hkv, S, D, causal, window, stream);
+  }
   if (dtype == 1 && variant == kWgmma)
     return launch_wgmma<D>(q, k, v, o, B, H, Hkv, S, causal, window, stream);
   if (dtype == 0 && variant == kTf32x3)
@@ -1196,7 +1202,7 @@ extern "C" long long flash_attention_workspace(int B, int H, int Hkv, int S,
 // q: (B, H, S, D), k and v: (B, Hkv, S, D), o: (B, H, S, D), all contiguous
 // and of one type: dtype 0 is float32 (variant 0 or 3), 1 is bfloat16
 // (variant 1 or 2), 16-byte aligned.  D is one of 16, 32, 64, 96, 128,
-// 256.  ws: n_ws float32 elements, at least flash_attention_workspace(B, H,
+// 192 (variants 2 and 3 only), 256.  ws: n_ws float32 elements, at least flash_attention_workspace(B, H,
 // Hkv, S, D) for variant 3 (a shorter workspace is refused), else unused.  Returns the cudaError_t
 // of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
@@ -1213,6 +1219,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     case 64: return (int)launch_d<64>(dtype, variant, q, k, v, o, w, n_ws, B, H, Hkv, S, causal, window, st);
     case 96: return (int)launch_d<96>(dtype, variant, q, k, v, o, w, n_ws, B, H, Hkv, S, causal, window, st);
     case 128: return (int)launch_d<128>(dtype, variant, q, k, v, o, w, n_ws, B, H, Hkv, S, causal, window, st);
+    case 192: return (int)launch_d<192>(dtype, variant, q, k, v, o, w, n_ws, B, H, Hkv, S, causal, window, st);
     case 256: return (int)launch_d<256>(dtype, variant, q, k, v, o, w, n_ws, B, H, Hkv, S, causal, window, st);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -14,10 +14,13 @@ parts into a workspace whose length the library's
 ``flash_attention_workspace`` gives, and a wgmma kernel fed by TMA sums
 hi·hi + hi·lo + lo·hi for both products.  Both take every head dim of
 ``HEAD_DIMS``; at 16, 32 and 96 a row is padded to whole 128-byte TMA
-boxes with zeros that no product reads.  The card's times put them ahead
-of the older kernels at every head dim (PERF.md), which run when named:
-``mma.sync`` (bf16, ``"mma_sync"``) and FMAs on the CUDA cores (float32,
-``"fma"``).  A failed launch raises; no variant stands in for another.
+boxes with zeros that no product reads, and 192 (MLA's q/k width) is
+three whole boxes.  The card's times put them ahead of the older kernels
+at every head dim (PERF.md), which run when named: ``mma.sync`` (bf16,
+``"mma_sync"``) and FMAs on the CUDA cores (float32, ``"fma"``), at the
+head dims they were built for (``VARIANT_HEAD_DIMS``: not 192).  A
+variant named off its head dims raises before the launch, and a failed
+launch raises; no variant stands in for another.
 
 ``flash_attention.launches`` counts the kernel's launches (a tf32x3 call's
 split pass and product count once) and
@@ -32,11 +35,15 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 96, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 128, 192, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # variant -> (code in csrc/flash_attention.cu, dtype it takes)
 VARIANTS = {"fma": (0, torch.float32), "mma_sync": (1, torch.bfloat16),
             "wgmma": (2, torch.bfloat16), "tf32x3": (3, torch.float32)}
+# the head dims each variant is built for: the older kernels predate 192
+_OLDER = tuple(D for D in HEAD_DIMS if D != 192)
+VARIANT_HEAD_DIMS = {"fma": _OLDER, "mma_sync": _OLDER,
+                     "wgmma": HEAD_DIMS, "tf32x3": HEAD_DIMS}
 
 
 def variant(D, dtype):
@@ -91,6 +98,9 @@ def flash_attention(q, k, v, *, causal=True, window=0, kernel=None):
     if name not in VARIANTS or VARIANTS[name][1] != q.dtype:
         raise ValueError(f"kernel variant {name!r} does not take "
                          f"{q.dtype}")
+    if D not in VARIANT_HEAD_DIMS[name]:
+        raise ValueError(f"kernel variant {name!r} is not built for head "
+                         f"dim {D}; it takes {VARIANT_HEAD_DIMS[name]}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     # contiguous, and 16-byte aligned for the bf16 kernel's vector loads

@@ -1,17 +1,23 @@
-"""Attention: GQA/MQA with causal and sliding-window masks.
+"""Attention: GQA/MQA with causal and sliding-window masks, and DeepSeek's
+multi-head latent attention (MLA).
 
 Prefill attention goes through ``repro_torch.kernels.ops.flash_attention``:
-the CUDA flash kernel on the card, its plain version on the CPU.  Decode
-attention (one query against the cache) is plain PyTorch, as the JAX package
+the CUDA flash kernel on the card, its plain version on the CPU.  MLA's
+prefill takes it too, at q/k head dim ``qk_nope + qk_rope`` with v
+zero-padded to that width and sliced back, as the JAX package hands its
+chunked attention the same shapes.  Decode attention (one query against the
+cache; MLA's in the compressed space) is plain PyTorch, as the JAX package
 computes it outside any Pallas kernel.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import (apply_rope, dense_init, norm_init,
+                                       rmsnorm)
 
 NEG_INF = -1e30
 
@@ -19,6 +25,19 @@ NEG_INF = -1e30
 def attn_init(gen, cfg: ModelConfig, *, dtype=torch.bfloat16):
     d, H, Hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {
+            "q": dense_init(gen, d, H * (m.qk_nope_dim + m.qk_rope_dim),
+                            dtype=dtype),
+            "kv_a": dense_init(gen, d, m.kv_lora_rank + m.qk_rope_dim,
+                               dtype=dtype),
+            "kv_norm": norm_init(m.kv_lora_rank, gen.device),
+            "kv_b": dense_init(gen, m.kv_lora_rank,
+                               H * (m.qk_nope_dim + m.v_head_dim),
+                               dtype=dtype),
+            "o": dense_init(gen, H * m.v_head_dim, d, dtype=dtype),
+        }
     return {
         "q": dense_init(gen, d, H * hd, dtype=dtype),
         "k": dense_init(gen, d, Hkv * hd, dtype=dtype),
@@ -89,3 +108,66 @@ def gqa_decode(p, x, cache_k, cache_v, cos, sin, *, cfg: ModelConfig, pos,
     out = decode_attention(q, cache_k, cache_v, pos=pos, window=window)
     out = out.transpose(1, 2).reshape(B, 1, H * hd)
     return out @ p["o"], cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek V2): a compressed KV cache
+
+
+def mla_forward(p, x, cos, sin, *, cfg: ModelConfig):
+    """Prefill MLA in the naive (expanded) form.  x: (B, S, d); cos/sin of
+    ``qk_rope_dim``.  RoPE turns q's rope part and the one key rope part
+    that all heads share; k is (k_nope, k_rope) per head and v is padded
+    with zeros from ``v_head_dim`` to the q/k width for the flash kernel,
+    whose output is sliced back.  Returns (out, (c_kv (B, S, lora), k_rope
+    (B, S, dr))) for the cache."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    dn, dr, dv, R = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim, m.kv_lora_rank
+    q = (x @ p["q"]).reshape(B, S, H, dn + dr).transpose(1, 2)
+    kv = x @ p["kv_a"]
+    c_kv = rmsnorm(kv[..., :R], p["kv_norm"])
+    q_rope = _rope_heads(q[..., dn:], cos, sin)
+    k_rope = _rope_heads(kv[:, None, :, R:], cos, sin)[:, 0]   # (B, S, dr)
+    kvb = (c_kv @ p["kv_b"]).reshape(B, S, H, dn + dv).transpose(1, 2)
+    k = torch.cat([kvb[..., :dn], k_rope[:, None].expand(B, H, S, dr)], -1)
+    qf = torch.cat([q[..., :dn], q_rope], -1)
+    v = F.pad(kvb[..., dn:], (0, dn + dr - dv))
+    out = ops.flash_attention(qf, k, v, causal=True)[..., :dv]
+    out = out.transpose(1, 2).reshape(B, S, H * dv)
+    return out @ p["o"], (c_kv, k_rope)
+
+
+def mla_decode(p, x, cache_ckv, cache_krope, cos, sin, *, cfg: ModelConfig,
+               pos):
+    """One-token MLA decode in the absorbed form: attention runs in the
+    compressed space, in float32.  x: (B, 1, d); cache_ckv: (B, S, lora);
+    cache_krope: (B, S, dr).  Writes this token's c_kv and k_rope into the
+    caches IN PLACE at ``pos`` and returns (out, cache_ckv, cache_krope)."""
+    m = cfg.mla
+    B = x.shape[0]
+    H = cfg.n_heads
+    dn, dr, dv, R = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim, m.kv_lora_rank
+    scale = (dn + dr) ** -0.5
+    q = (x @ p["q"]).reshape(B, 1, H, dn + dr).transpose(1, 2)
+    q_nope, q_rope = q[..., :dn], _rope_heads(q[..., dn:], cos, sin)
+    kv = x @ p["kv_a"]
+    c_new = rmsnorm(kv[..., :R], p["kv_norm"])             # (B, 1, R)
+    kr_new = _rope_heads(kv[:, None, :, R:], cos, sin)[:, 0]
+    cache_ckv[:, pos:pos + 1] = c_new.to(cache_ckv.dtype)
+    cache_krope[:, pos:pos + 1] = kr_new.to(cache_krope.dtype)
+    wkb = p["kv_b"].reshape(R, H, dn + dv).float()
+    w_k, w_v = wkb[..., :dn], wkb[..., dn:]
+    ckv = cache_ckv.float()
+    q_c = torch.einsum("bhd,rhd->bhr", q_nope[:, :, 0].float(), w_k)
+    s = (torch.einsum("bhr,bsr->bhs", q_c, ckv)
+         + torch.einsum("bhd,bsd->bhs", q_rope[:, :, 0].float(),
+                        cache_krope.float())) * scale
+    mask = torch.arange(cache_ckv.shape[1], device=x.device) <= pos
+    s = s.masked_fill(~mask, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    ctx_c = torch.einsum("bhs,bsr->bhr", w, ckv)
+    out = torch.einsum("bhr,rhv->bhv", ctx_c, w_v)
+    out = out.reshape(B, 1, H * dv).to(x.dtype)
+    return out @ p["o"], cache_ckv, cache_krope

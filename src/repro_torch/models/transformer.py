@@ -1,4 +1,4 @@
-"""Decoder-only models (dense and ssm families): init, prefill and decode.
+"""Decoder-only models (dense, moe and ssm families): init, prefill, decode.
 
 Entry points, as in the JAX package:
   init_params(cfg, seed, device)                  -> params
@@ -7,13 +7,16 @@ Entry points, as in the JAX package:
   decode_forward(cfg, params, cache, tokens, pos) -> (logits, cache)
 
 Params are a dict; ``params["layers"]`` is a list with one dict per block
-where the JAX package stacks the layers along a leading axis.  The cache
-keeps the reference's stacked layouts, and decode updates it in place: the
-dense family's (L, B, Hkv, max_seq, hd) ``k`` and ``v``; the ssm family's
-(Mamba1 blocks, no attention, no MLP) ``conv`` (L, B, d_inner, d_conv-1) bf16
-and ``ssm`` (L, B, d_inner, N) float32.  bf16 rounding follows the
-reference: embeddings and weights are bf16, norms and attention compute in
-fp32 and return bf16.
+where the JAX package stacks the layers along a leading axis.  A block of
+the moe family has ``moe`` (``repro_torch.models.moe``) where a dense block
+has ``mlp``.  The cache keeps the reference's stacked layouts, and decode
+updates it in place: the dense and moe families' (L, B, Hkv, max_seq, hd)
+``k`` and ``v``, or with MLA the compressed ``ckv`` (L, B, max_seq, lora)
+and ``krope`` (L, B, max_seq, qk_rope); the ssm family's (Mamba1 blocks,
+no attention, no MLP) ``conv`` (L, B, d_inner, d_conv-1) bf16 and ``ssm``
+(L, B, d_inner, N) float32.  bf16 rounding follows the reference:
+embeddings and weights are bf16, norms and attention compute in fp32 and
+return bf16.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 from repro_torch.core.config import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_norm, dense_init, embed_init,
                                        mlp_apply, mlp_init, norm_init,
@@ -33,10 +37,10 @@ from repro_torch.models.layers import (apply_norm, dense_init, embed_init,
 def _check_family(cfg: ModelConfig):
     if cfg.family == "ssm" and cfg.ssm is not None and cfg.ssm.version == 1:
         return
-    if cfg.family != "dense" or cfg.mla is not None:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family and the ssm family's Mamba1 "
-            f"are ported to repro_torch, not {cfg.family!r}"
+            f"{cfg.name}: only the dense and moe families and the ssm "
+            f"family's Mamba1 are ported to repro_torch, not {cfg.family!r}"
             + (f" version {cfg.ssm.version}" if cfg.ssm else ""))
 
 
@@ -48,10 +52,14 @@ def _block_init(gen, cfg: ModelConfig):
     if cfg.family == "ssm":
         return {"norm1": norm_init(cfg.d_model, gen.device),
                 "ssm": ssm_mod.mamba1_init(gen, cfg)}
-    return {"norm1": norm_init(cfg.d_model, gen.device),
-            "attn": attn.attn_init(gen, cfg),
-            "norm2": norm_init(cfg.d_model, gen.device),
-            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.activation)}
+    p = {"norm1": norm_init(cfg.d_model, gen.device),
+         "attn": attn.attn_init(gen, cfg),
+         "norm2": norm_init(cfg.d_model, gen.device)}
+    if cfg.family == "moe":
+        p["moe"] = moe_mod.moe_init(gen, cfg)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.activation)
+    return p
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict:
@@ -83,7 +91,8 @@ def _window_schedule(cfg: ModelConfig) -> List[int]:
 def _rope_for(cfg: ModelConfig, positions):
     if cfg.rope_theta <= 0:
         return None, None
-    return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    dim = cfg.mla.qk_rope_dim if cfg.mla is not None else cfg.resolved_head_dim
+    return rope_tables(positions, dim, cfg.rope_theta)
 
 
 def _embed_tokens(cfg: ModelConfig, p, tokens):
@@ -102,9 +111,19 @@ def _logits(cfg: ModelConfig, p, x):
     return x @ p["lm_head"]
 
 
+def _ffn(cfg: ModelConfig, pl, x):
+    """A block's MLP, or its MoE: returns (out, aux dict or None)."""
+    if "moe" in pl:
+        return moe_mod.moe_apply(pl["moe"], x, cfg)
+    return mlp_apply(pl["mlp"], x, cfg.activation), None
+
+
 def _backbone(cfg: ModelConfig, p, x, positions):
-    """Returns (x, [the state of each layer]): (k, v) in the dense family,
-    dict(conv, ssm) in the ssm family."""
+    """Returns (x, (load_balance, router_z) averaged over the layers, [the
+    state of each layer]): (k, v) in the dense and moe families, (c_kv,
+    k_rope) with MLA, dict(conv, ssm) in the ssm family.  The aux terms are
+    0 without MoE layers."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         states = []
         for pl in p["layers"]:
@@ -112,18 +131,24 @@ def _backbone(cfg: ModelConfig, p, x, positions):
                 pl["ssm"], apply_norm(cfg.norm, x, pl["norm1"]), cfg)
             x = x + h
             states.append(st)
-        return x, states
+        return x, (zero, zero), states
     cos, sin = _rope_for(cfg, positions)
-    kvs = []
+    kvs, lb, rz = [], zero, zero
     for pl, window in zip(p["layers"], _window_schedule(cfg)):
-        h, kv = attn.gqa_forward(pl["attn"],
-                                 apply_norm(cfg.norm, x, pl["norm1"]), cos,
-                                 sin, cfg=cfg, causal=True, window=window)
+        h_in = apply_norm(cfg.norm, x, pl["norm1"])
+        if cfg.mla is not None:
+            h, kv = attn.mla_forward(pl["attn"], h_in, cos, sin, cfg=cfg)
+        else:
+            h, kv = attn.gqa_forward(pl["attn"], h_in, cos, sin, cfg=cfg,
+                                     causal=True, window=window)
         x = x + h
-        x = x + mlp_apply(pl["mlp"], apply_norm(cfg.norm, x, pl["norm2"]),
-                          cfg.activation)
+        h, aux = _ffn(cfg, pl, apply_norm(cfg.norm, x, pl["norm2"]))
+        if aux is not None:
+            lb, rz = lb + aux["load_balance"], rz + aux["router_z"]
+        x = x + h
         kvs.append(kv)
-    return x, kvs
+    L = cfg.n_layers
+    return x, (lb / L, rz / L), kvs
 
 
 # ---------------------------------------------------------------------------
@@ -139,6 +164,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
                                     dtype=torch.bfloat16, device=device),
                 "ssm": torch.zeros(cfg.n_layers, batch, d_in, s.d_state,
                                    dtype=torch.float32, device=device)}
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"ckv": torch.zeros(cfg.n_layers, batch, max_seq,
+                                   m.kv_lora_rank, dtype=torch.bfloat16,
+                                   device=device),
+                "krope": torch.zeros(cfg.n_layers, batch, max_seq,
+                                     m.qk_rope_dim, dtype=torch.bfloat16,
+                                     device=device)}
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_seq,
              cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
@@ -155,12 +188,15 @@ def prefill_forward(cfg: ModelConfig, params, batch,
     B, S = tokens.shape
     max_seq = max(max_seq or S, S)
     x = _embed_tokens(cfg, params, tokens)
-    x, states = _backbone(cfg, params, x, torch.arange(S, device=x.device))
+    x, _, states = _backbone(cfg, params, x,
+                             torch.arange(S, device=x.device))
     cache = init_cache(cfg, B, max_seq, x.device)
     for li, st in enumerate(states):
         if cfg.family == "ssm":
             cache["conv"][li] = st["conv"]
             cache["ssm"][li] = st["ssm"]
+        elif cfg.mla is not None:
+            cache["ckv"][li, :, :S], cache["krope"][li, :, :S] = st
         else:
             cache["k"][li, :, :, :S], cache["v"][li, :, :, :S] = st
     return _logits(cfg, params, x[:, -1:]), cache
@@ -183,11 +219,15 @@ def decode_forward(cfg: ModelConfig, params, cache, tokens, pos: int):
     cos, sin = _rope_for(cfg, torch.full((1,), pos, device=x.device))
     for li, (pl, window) in enumerate(zip(params["layers"],
                                           _window_schedule(cfg))):
-        h, _, _ = attn.gqa_decode(
-            pl["attn"], apply_norm(cfg.norm, x, pl["norm1"]),
-            cache["k"][li], cache["v"][li], cos, sin, cfg=cfg, pos=pos,
-            window=window)
+        h_in = apply_norm(cfg.norm, x, pl["norm1"])
+        if cfg.mla is not None:
+            h, _, _ = attn.mla_decode(pl["attn"], h_in, cache["ckv"][li],
+                                      cache["krope"][li], cos, sin, cfg=cfg,
+                                      pos=pos)
+        else:
+            h, _, _ = attn.gqa_decode(pl["attn"], h_in, cache["k"][li],
+                                      cache["v"][li], cos, sin, cfg=cfg,
+                                      pos=pos, window=window)
         x = x + h
-        x = x + mlp_apply(pl["mlp"], apply_norm(cfg.norm, x, pl["norm2"]),
-                          cfg.activation)
+        x = x + _ffn(cfg, pl, apply_norm(cfg.norm, x, pl["norm2"]))[0]
     return _logits(cfg, params, x), cache

@@ -38,6 +38,7 @@ KERNEL_CASES = [  # B, H, Hkv, S, D, bq, bk, causal, window (test_kernels.py)
     (1, 2, 2, 128, 32, 64, 64, False, 0),     # non-causal (encoder)
     (2, 4, 2, 128, 16, 64, 64, True, 0),      # head dims in padded boxes:
     (1, 2, 1, 256, 96, 128, 64, True, 48),    # 16 (GQA), 96 (MQA, window)
+    (2, 4, 4, 128, 192, 64, 64, True, 0),     # MLA's q/k width, MHA
 ]
 ROOT = Path(__file__).resolve().parents[1]
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4),
@@ -124,10 +125,11 @@ def test_variant_rule_takes_hopper_kernel_at_serving_shapes(B, H, Hkv, S, D):
 @pytest.mark.parametrize("D,dtype,expect", [
     (64, torch.bfloat16, "wgmma"), (128, torch.bfloat16, "wgmma"),
     (16, torch.bfloat16, "wgmma"), (32, torch.bfloat16, "wgmma"),
-    (96, torch.bfloat16, "wgmma"),
+    (96, torch.bfloat16, "wgmma"), (192, torch.bfloat16, "wgmma"),
     (256, torch.float32, "tf32x3"), (64, torch.float32, "tf32x3"),
     (16, torch.float32, "tf32x3"), (128, torch.float32, "tf32x3"),
     (32, torch.float32, "tf32x3"), (96, torch.float32, "tf32x3"),
+    (192, torch.float32, "tf32x3"),
 ])
 def test_variant_rule_by_head_dim_and_type(D, dtype, expect):
     """The Hopper variants (bf16 wgmma, float32 three TF32 passes on wgmma)
@@ -143,6 +145,17 @@ def test_variant_rule_by_head_dim_and_type(D, dtype, expect):
 def test_variant_rule_raises_on_unknown_head_dim_or_type(D, dtype, exc):
     with pytest.raises(exc):
         fa.variant(D, dtype)
+
+
+def test_older_variants_are_not_built_at_mla_head_dim():
+    """The Hopper variants take every head dim; mma.sync and the FMA
+    kernel, which they replaced, are not built at 192 (the wrapper raises
+    before a launch there, ``tests/test_torch_gpu.py``)."""
+    for name in ("wgmma", "tf32x3"):
+        assert fa.VARIANT_HEAD_DIMS[name] == fa.HEAD_DIMS
+    for name in ("mma_sync", "fma"):
+        assert set(fa.HEAD_DIMS) - set(fa.VARIANT_HEAD_DIMS[name]) == {192}
+    assert set(fa.VARIANT_HEAD_DIMS) == set(fa.VARIANTS)
 
 
 def test_every_variant_is_counted():
@@ -183,6 +196,8 @@ def _tf32x3_workspace(B, H, Hkv, S, D):
     (1, 4, 1, 1000, 16, 2 * 1000 * 16 * 5 + 2 * 16 * 1000),   # the padded
     (2, 4, 2, 333, 32, 2 * 333 * 32 * 2 * 6 + 2 * 2 * 2 * 32 * 336),  # box
     (4, 32, 32, 1024, 96, 2 * 1024 * 96 * 4 * 64 + 2 * 4 * 32 * 96 * 1024),
+    (4, 16, 16, 1024, 192,   # deepseek_v2_lite_16b's MLA prefill
+     2 * 1024 * 192 * 4 * 32 + 2 * 4 * 16 * 192 * 1024),
 ])
 def test_tf32x3_workspace_holds_split_operands(B, H, Hkv, S, D, expect):
     """q hi/lo (B*H, S, D), k hi/lo (B*Hkv, S, D) and v transposed, hi/lo

@@ -52,6 +52,9 @@ def cuda():
     (1, 4, 2, 77, 96, True, 30),              # ragged S below one tile
     (1, 4, 1, 70, 16, False, 20),             # window without causal
     (2, 8, 2, 200, 128, True, 0),
+    (2, 4, 4, 1000, 192, True, 0),            # MLA's q/k width: ragged S,
+    (1, 4, 2, 77, 192, True, 30),             # GQA and a window,
+    (1, 2, 2, 300, 192, False, 0),            # no causal mask
 ])
 def test_cuda_kernel_matches_plain(cuda, B, H, Hkv, S, D, causal, window,
                                    dtype):
@@ -69,6 +72,28 @@ def test_cuda_kernel_matches_plain(cuda, B, H, Hkv, S, D, causal, window,
     np.testing.assert_allclose(out.float().cpu().numpy(),
                                expect.float().cpu().numpy(), rtol=tol,
                                atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(TOL))
+def test_cuda_kernel_matches_plain_at_mla_prefill_shape(cuda, dtype):
+    """deepseek_v2_lite_16b's prefill attention in SERVE: (4, 16, 16, 1024,
+    192) causal, v zero past column 128 (MLA pads v from 128 to the q/k
+    width): the Hopper variant the rule names, at the kernel tolerance, and
+    the padded columns of the output exactly 0."""
+    tdt, tol = TOL[dtype]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(4, 16, 1024, 192, generator=g, device=cuda)
+               .to(tdt) for _ in range(3))
+    v[..., 128:] = 0
+    out, ran = _launched(fa.flash_attention,
+                         lambda: ops.flash_attention(q, k, v, causal=True))
+    assert ran == {fa.variant(192, tdt): 1}
+    expect = ref.flash_attention_ref(q, k, v, causal=True)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               expect.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+    assert bool((out[..., 128:] == 0).all())
 
 
 @pytest.mark.gpu
@@ -562,6 +587,8 @@ def test_serving_launches_by_variant(cuda, head_dim, variant):
     (1, 2, 1, 300, 256, False, 0),            # no causal mask
     (1, 2, 1, 256, 64, False, 70),            # window without causal
     (2, 4, 2, 333, 128, True, 0),             # GQA, S off 4 (padded V^T)
+    (2, 4, 2, 333, 192, True, 0),             # MLA's q/k width
+    (1, 4, 1, 1000, 192, True, 100),          # window off the tile grid
 ])
 def test_cuda_flash_tf32x3_matches_plain(cuda, B, H, Hkv, S, D, causal,
                                          window):
@@ -608,7 +635,8 @@ def test_cuda_flash_fp32_variants_match_plain(cuda, B, H, Hkv, S, D, causal,
     (1, 4, 1, 1000, 256, 2 * 1000 * 256 * 5 + 2 * 256 * 1000),
     (2, 4, 2, 333, 128, 2 * 333 * 128 * 2 * 6 + 2 * 2 * 2 * 128 * 336),
     (1, 4, 1, 1000, 16, 2 * 1000 * 16 * 5 + 2 * 16 * 1000),
-    (2, 4, 2, 333, 96, 2 * 333 * 96 * 2 * 6 + 2 * 2 * 2 * 96 * 336)])
+    (2, 4, 2, 333, 96, 2 * 333 * 96 * 2 * 6 + 2 * 2 * 2 * 96 * 336),
+    (1, 4, 4, 77, 192, 2 * 77 * 192 * 8 + 2 * 4 * 192 * 80)])
 def test_cuda_flash_tf32x3_refuses_a_short_workspace(cuda, B, H, Hkv, S, D,
                                                      expect):
     """The kernel sizes its workspace as q, k hi/lo and v transposed hi/lo
@@ -642,11 +670,16 @@ def test_cuda_flash_tf32x3_refuses_a_short_workspace(cuda, B, H, Hkv, S, D,
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel,dtype,D", [
     ("tf32x3", torch.bfloat16, 64), ("mma_sync", torch.float32, 96),
-    ("fma", torch.bfloat16, 16), ("wgmma", torch.float32, 64)])
+    ("fma", torch.bfloat16, 16), ("wgmma", torch.float32, 64),
+    ("mma_sync", torch.bfloat16, 192), ("fma", torch.float32, 192)])
 def test_cuda_flash_refuses_variant_off_its_rule(cuda, kernel, dtype, D):
+    """A variant named off its type, or at a head dim it is not built for
+    (the older kernels at MLA's 192), raises before any launch."""
     q = torch.zeros(1, 2, 64, D, device=cuda, dtype=dtype)
+    before = dict(fa.flash_attention.launches_by_variant)
     with pytest.raises(ValueError, match="variant"):
         fa.flash_attention(q, q, q, kernel=kernel)
+    assert fa.flash_attention.launches_by_variant == before
 
 
 # the graph path: conv (im2col) and FC products of the Table-III nets
@@ -769,3 +802,80 @@ def test_costmodel_torch_backend_on_the_card(cuda):
                           "hbm_bw": (5e10, 1.3e13)})
     g = obj.grad(np.array([[0.3, 0.7], [0.5, 0.5]]))
     assert obj.backend == "torch" and np.isfinite(g).all()
+
+
+# the moe family's smoke configs, served on the card; deepseek's with
+# qk_nope 24, so that its MLA q/k width (24 + 8 = 32) is a head dim of the
+# kernel (the smoke config's 16 + 8 = 24 is not)
+MOE_SMOKE = {
+    "granite_moe_1b_a400m": get_smoke_config("granite_moe_1b_a400m"),
+    "deepseek_v2_lite_16b": dataclasses.replace(
+        get_smoke_config("deepseek_v2_lite_16b"),
+        mla=dataclasses.replace(get_smoke_config("deepseek_v2_lite_16b").mla,
+                                qk_nope_dim=24)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", list(MOE_SMOKE))
+def test_serving_moe_on_card_matches_cpu(cuda, arch):
+    """A smoke MoE model served on the card: every prefill launches the
+    flash kernel once a layer, in the variant the rule names at its head
+    dim.  Then one prefill and 2 decode steps fed the CPU's greedy tokens,
+    on the card and on the CPU (plain path) from the same params: logits
+    and every cache at bf16 precision (2e-2, as in
+    tests/test_torch_serve.py)."""
+    cfg = MOE_SMOKE[arch]
+    params = T.init_params(cfg, seed=0, device="cpu")
+    gpu = to_device(params, cuda)
+    D = (cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim if cfg.mla
+         else cfg.resolved_head_dim)
+    fa.reset_counts()
+    stats = serve(cfg, requests=6, batch=4, prompt_len=20, max_new=3,
+                  device=cuda, params=gpu, log=lambda *a: None)
+    assert stats["finite"] and stats["requests"] == 6
+    assert fa.flash_attention.launches_by_variant == {
+        **dict.fromkeys(fa.VARIANTS, 0),
+        fa.variant(D, torch.bfloat16): cfg.n_layers * 2}
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (4, 20)))
+    out, toks = {}, []
+    for key, dev, p in (("cpu", "cpu", params), ("card", cuda, gpu)):
+        logits, cache = T.prefill_forward(cfg, p, {"tokens": tokens.to(dev)},
+                                          max_seq=22)
+        steps = [logits]
+        for i in range(2):   # both sides take the CPU's greedy tokens
+            if key == "cpu":
+                toks.append(torch.argmax(logits[:, -1], -1, keepdim=True))
+            logits, cache = T.decode_forward(cfg, p, cache, toks[i].to(dev),
+                                             20 + i)
+            steps.append(logits)
+        out[key] = [t.float().cpu().numpy()
+                    for t in steps + [cache[k] for k in sorted(cache)]]
+    for got, expect in zip(out["card"], out["cpu"]):
+        np.testing.assert_allclose(got, expect, rtol=2e-2,
+                                   atol=2e-2 * np.abs(expect).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", list(MOE_SMOKE))
+def test_moe_layer_on_card_matches_cpu(cuda, arch):
+    """One MoE layer on one bf16 input, card against CPU: the router's
+    float32 product runs in full float32 on the card (TF32 off), so the
+    expert indices are equal and the output agrees at bf16 precision."""
+    from repro_torch.models import moe as M
+    cfg = MOE_SMOKE[arch]
+    p = M.moe_init(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn(4, 40, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1)).bfloat16()
+    e = cfg.moe
+    _, idx_cpu, _ = M._route(x.reshape(-1, cfg.d_model).float(),
+                             p["router"], e.n_experts, e.top_k)
+    _, idx_gpu, _ = M._route(x.reshape(-1, cfg.d_model).float().to(cuda),
+                             p["router"].to(cuda), e.n_experts, e.top_k)
+    assert torch.equal(idx_gpu.cpu(), idx_cpu)
+    expect, _ = M.moe_apply(p, x, cfg)
+    got, _ = M.moe_apply(to_device(p, cuda), x.to(cuda), cfg)
+    expect = expect.float().numpy()
+    np.testing.assert_allclose(got.float().cpu().numpy(), expect, rtol=2e-2,
+                               atol=2e-2 * np.abs(expect).max())

@@ -77,9 +77,11 @@ def _jax_params(cfg):
 
 # smoke configs of each package: an arch, or "arch@head_dim" for its smoke
 # config with that head dim (phi3_mini_3_8b's full head dim, 96, is off
-# whole TMA boxes; its smoke config's is 16)
+# whole TMA boxes; its smoke config's is 16); the moe family's two, the
+# second with MLA
 SMOKE_CASES = ["gemma3_1b", "tinyllama_1_1b", "falcon_mamba_7b",
-               "phi3_mini_3_8b", "phi3_mini_3_8b@96"]
+               "phi3_mini_3_8b", "phi3_mini_3_8b@96", "granite_moe_1b_a400m",
+               "deepseek_v2_lite_16b"]
 
 
 def _smoke_configs(case):

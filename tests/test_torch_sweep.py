@@ -157,13 +157,22 @@ def test_param_counts_match_the_reference():
             t, j = tget_(arch), jget_(arch)
             assert t.param_count() == j.param_count(), arch
             assert t.active_param_count() == j.active_param_count(), arch
-            assert t.active_param_count() == t.param_count(), arch
+            if t.moe is None:
+                assert t.active_param_count() == t.param_count(), arch
+            else:
+                assert t.active_param_count() < t.param_count(), arch
     assert tget("falcon_mamba_7b").param_count() == 7_003_176_960
+    assert (tget("granite_moe_1b_a400m").param_count(),
+            tget("granite_moe_1b_a400m").active_param_count()) == \
+        (1_334_627_328, 428_657_664)
+    assert (tget("deepseek_v2_lite_16b").param_count(),
+            tget("deepseek_v2_lite_16b").active_param_count()) == \
+        (16_210_309_120, 2_663_231_488)
 
 
 def test_active_param_count_moe_branch():
-    """Every ported config is dense or ssm; the MoE branch on a config
-    built with the same fields in both packages."""
+    """The MoE branch on a config built with the same fields in both
+    packages, with a shared expert (granite_moe_1b_a400m has none)."""
     from repro.core.config import ModelConfig as JMC, MoEConfig as JMoE
     from repro_torch.core.config import ModelConfig as TMC, MoEConfig as TMoE
     fields = dict(name="moe", family="moe", n_layers=4, d_model=256,
