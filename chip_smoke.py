@@ -13,12 +13,14 @@ printing a result:
    the ``tests/test_kernels.py`` shapes, the serving shapes, every other
    head dim (16, 32 and 96 in padded TMA boxes, phi3_mini_3_8b's prefill
    among them; 192, MLA's q/k width, with deepseek_v2_lite_16b's prefill
-   (4, 16, 16, 1024, 192) causal and v zero past column 128), ragged
-   lengths, lengths below one tile and window edges, in float32 and bf16,
-   in the variant its rule names (``flash_attention.variant``) and beside
-   it the one it replaced where that is built for the head dim (bf16
-   ``mma.sync`` beside ``wgmma``, float32 ``fma`` beside ``tf32x3``; not
-   at 192); then
+   (4, 16, 16, 1024, 192) causal and v zero past column 128; 80,
+   zamba2_2_7b's shared attention, with its prefill (4, 32, 32, 1024, 80)
+   causal and columns 64-79, past the first TMA box, held on their own),
+   ragged lengths, lengths below one tile and window edges, in float32 and
+   bf16, in the variant its rule names (``flash_attention.variant``) and
+   beside it the one it replaced where that is built for the head dim
+   (bf16 ``mma.sync`` beside ``wgmma``, float32 ``fma`` beside ``tf32x3``;
+   not at 80 or 192); then
    a 6-layer cut of
    gemma3_1b at full width served on the card against the same params on the
    CPU (plain path) on one small input;
@@ -152,18 +154,18 @@ printing a result:
    phase 4's params), with exactly 26 flash launches, all bf16 ``wgmma``;
    then ``SERVE`` as a trace (8 requests at t = 0) priced by
    ``repro_torch.sim.serving.simulate_serving`` for gemma3_1b,
-   falcon_mamba_7b, phi3_mini_3_8b, granite_moe_1b_a400m and
-   deepseek_v2_lite_16b on one H100 at its bf16 peak
+   falcon_mamba_7b, phi3_mini_3_8b, granite_moe_1b_a400m,
+   deepseek_v2_lite_16b and zamba2_2_7b on one H100 at its bf16 peak
    (``apps.serving.default_config``), alone and with a host dispatch of
    50 us a step: each priced prefill step, mean decode step, makespan,
    tok/s and accelerator / transfer / host shares beside the measured
    prefill ms a batch, decode ms a step, tok/s and busy shares of phases
-   4/6, 15/16, 19/20, 30 and 32, with price / measured; 64 steps each and
+   4/6, 15/16, 19/20, 30, 32 and 34, with price / measured; 64 steps each and
    ``replay_serving`` equal to ``simulate_serving`` on every stats field;
    gemma3_1b's prefill once more at the float32 default ``EngineConfig()``;
 28. the serving studies at H100 rates: ``serving_sweep`` over
    ``benchmarks/bench_serving.py``'s grid (static, dynamic 10 ms,
-   continuous at max_batch 8 x 10, 50, 200 rps, 64 requests) for the five
+   continuous at max_batch 8 x 10, 50, 200 rps, 64 requests) for the six
    served models, and ``simulate_fleet`` over ``bench_fleet.py``'s quick
    replay (100,000 diurnal requests at 4000 rps, continuous batching of
    64, 4 replicas, round robin) on gemma3_1b: simulated requests a second
@@ -196,7 +198,31 @@ printing a result:
 32. as phase 30 for deepseek_v2_lite_16b at full width and depth (27 MoE
    layers, 16.2 B bf16 params, about 32.4 GB): exactly 27 x 2 = 54
    ``wgmma`` launches at D = 192.
-   Phases 29-32 run after phase 27's measured batch and before its
+33. run zamba2_2_7b (the hybrid family: Mamba2 blocks, d_model 2560, 80
+   SSM heads of head dim 64, state 64, chunk 256, and one shared attention
+   + MLP block, 32 heads of head dim 80, after every 6) cut to 12 layers
+   (2 superblocks) at full width on the card against the same params on
+   the CPU (plain path): 2 prompts of 512 tokens (2 chunks; the reference
+   asserts S % chunk == 0), the prefill logits and 2 decode steps fed the
+   CPU's greedy tokens at ``BF16_TOL``, with exactly 2 bf16 ``wgmma``
+   launches at D = 80; the ``k``, ``v``, ``conv`` and ``ssm`` caches of
+   that run logged layer by layer (each device's own hidden states: bf16
+   rounding grows with depth, to some 2% of the largest value at layer
+   11); then every block fed the card's hidden state on both devices, its
+   output and cache entries at ``BF16_TOL``, 2 more launches;
+34. serve zamba2_2_7b at full width and depth (54 Mamba2 blocks, the shared
+   block 9 times, bf16 params from a seed made on the card) under
+   ``SERVE``, with exactly 9 x 2 = 18 ``wgmma`` launches at D = 80 and
+   every logit finite; profile one prefill batch and 8 decode steps as in
+   phase 6: the busy share, flash's share, and the shares of the Mamba2
+   mixer and of its chunked SSD (``record_function`` ranges that
+   ``chip_smoke._ranges`` wraps around ``models/ssm.py``'s functions only
+   while profiling);
+35. time flash at zamba2_2_7b's prefill shape (4, 32, 32, 1024, 80) causal
+   in bf16 ``wgmma`` and float32 ``tf32x3``, beside the plain version,
+   SDPA (bf16 and fp32, yardsticks only), the bound and the wrapper's host
+   us a call.
+   Phases 29-35 run after phase 27's measured batch and before its
    pricing, which prices their serving beside the others'.
 
 Kernel times are CUDA events around back-to-back calls queued behind a
@@ -205,7 +231,8 @@ that they are the card's time and not the wrapper's host time.  The line
 before the last is a JSON ``kernels`` summary (flash's launches by path:
 gemma3_1b serving, phi3_mini_3_8b serving, calibration, serve_batch
 (gemma3_1b), granite_moe_1b_a400m serving, deepseek_v2_lite_16b serving,
-and its times at head dims 16, 32, 96 and 192; the scan's entry:
+zamba2_2_7b serving, and its times at head dims 16, 32, 80, 96 and 192;
+the scan's entry:
 its launches by path, calibration and falcon_mamba_7b serving, and its
 times at the serving shape); the last line is ``{"ok": true, "device":
 {...}}``.
@@ -246,7 +273,9 @@ from repro_torch.kernels import nvdla_matmul as mm  # noqa: E402
 from repro_torch.launch import camera  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.serve_batch import run_measured  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve.policy import get_policy  # noqa: E402
 from repro_torch.serve.step import (greedy, make_decode_step,  # noqa: E402
@@ -291,6 +320,12 @@ KERNEL_CASES = [  # B, H, Hkv, S, D, causal, window
     (2, 4, 4, 1000, 192, True, 0),          # MLA's q/k width: ragged S,
     (1, 4, 2, 77, 192, True, 30),           # GQA and a window,
     (1, 2, 2, 300, 192, False, 0),          # no causal mask
+    (4, 32, 32, 1024, 80, True, 0),         # zamba2_2_7b prefill; D 80:
+    (2, 4, 4, 1000, 80, True, 0),           # ragged S,
+    (1, 4, 2, 77, 80, True, 0),             # ragged S below two tiles, GQA,
+    (2, 4, 1, 1000, 80, True, 100),         # a window off the tile grid,
+    (2, 4, 2, 1000, 80, True, 0),           # GQA 4 on 2,
+    (1, 2, 2, 300, 80, False, 0),           # no causal mask
 ]
 # deepseek_v2_lite_16b's MLA prefill attention in SERVE: B, H, Hkv, S, D,
 # causal, window, with v zero past column 128 (MLA pads v from 128 to 192)
@@ -308,6 +343,14 @@ GRANITE_PREFILL = (SERVE["batch"], get_config("granite_moe_1b_a400m").n_heads,
                    get_config("granite_moe_1b_a400m").n_kv_heads,
                    SERVE["prompt_len"],
                    get_config("granite_moe_1b_a400m").resolved_head_dim)
+# phases 33-35: zamba2_2_7b, its shared attention at head dim 80 (columns
+# 64-79 lie past the first TMA box); the cut's layers (2 superblocks) and
+# prompts (2 chunks of 256: the reference asserts S % chunk == 0)
+ZAMBA_PREFILL = (SERVE["batch"], get_config("zamba2_2_7b").n_heads,
+                 get_config("zamba2_2_7b").n_kv_heads, SERVE["prompt_len"],
+                 get_config("zamba2_2_7b").resolved_head_dim)
+ZAMBA_CUT = 12
+ZAMBA_PROMPTS = (2, 512)
 # tests/test_kernels.py tolerances: matmul rtol tol, atol tol * sqrt(K);
 # scan rtol tol, atol 4 tol
 MM_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
@@ -379,7 +422,7 @@ GRAD_Z = np.array([[0.3, 0.7], [0.5, 0.5], [0.9, 0.1], [0.1, 0.9]])
 # (``apps.serving.default_config``), alone and with
 # benchmarks/bench_serving.py:37-38's host dispatch of 50 us a step
 SERVED = ("gemma3_1b", "falcon_mamba_7b", "phi3_mini_3_8b",
-          "granite_moe_1b_a400m", "deepseek_v2_lite_16b")
+          "granite_moe_1b_a400m", "deepseek_v2_lite_16b", "zamba2_2_7b")
 HOST_DISPATCH_S = 50e-6
 # phase 28: benchmarks/bench_serving.py:30-35's policy x rate grid and
 # benchmarks/bench_fleet.py's quick replay (100,000 diurnal requests)
@@ -503,6 +546,10 @@ def check_kernel():
                 if v_width and not bool((out[..., v_width:] == 0).all()):
                     raise AssertionError(f"{name} {case}: output past "
                                          f"column {v_width} not 0")
+                if D == 80:   # the columns past the first TMA box
+                    _check(f"kernel {name} vs plain {case} {dtype} columns "
+                           f"64-79", out[..., 64:], expect[..., 64:],
+                           TOL[dtype], TOL[dtype])
                 if D == 256 and name == fa.variant(D, dtype) == "wgmma":
                     worst = max(worst, err)
                 if name == "tf32x3":
@@ -526,12 +573,30 @@ def _bf16_close(name, out, expect, strict=True):
     return ok
 
 
+def _attn_layers(cfg):
+    """The layers whose prefill attention runs the flash kernel: every
+    layer, or in the hybrid family one shared block a superblock."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid_attn_every
+    return cfg.n_layers
+
+
 def check_model_against_cpu(arch="gemma3_1b", n_layers=6, prompts=(2, 600)):
     """``arch`` cut to ``n_layers`` at full width, ``prompts`` (count,
-    tokens): prefill logits and cache plus 2 teacher-forced decode steps on
-    the card (through the kernel, once a layer, in the variant the rule
-    names) against the CPU (plain path).  gemma3_1b: 6 layers (5 local, 1
-    global), prompt 600 (> window 512)."""
+    tokens): prefill logits and every cache plus 2 teacher-forced decode
+    steps on the card (through the kernel, once an attention layer, in the
+    variant the rule names) against the CPU (plain path).  gemma3_1b: 6
+    layers (5 local, 1 global), prompt 600 (> window 512).
+
+    The hybrid family (zamba2_2_7b: 12 layers, prompt 512) is checked in
+    two parts, as the moe family is (``check_moe_against_cpu``).  Its
+    caches after 12 layers of each device's own hidden states differ by
+    bf16 rounding that grows with depth, from 0.4% of the largest value at
+    layer 0 to some 2% at layer 11 on the card with the kernel and with
+    the plain attention alike, past ``BF16_TOL`` at a few of millions of
+    elements; so the logits are asserted, the caches logged layer by
+    layer, and ``check_hybrid_blocks`` asserts every block's output and
+    cache entries fed the card's own input at ``BF16_TOL``."""
     cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
     cpu = T.init_params(cfg, seed=1, device="cpu")
     gpu = to_device(cpu, "cuda")
@@ -557,14 +622,74 @@ def check_model_against_cpu(arch="gemma3_1b", n_layers=6, prompts=(2, 600)):
             steps.append(logits)
         out[dev] = steps + [cache]
     ran = fa.flash_attention.launches_by_variant[name] - before
-    log(f"  flash launches on the card: {ran} of {name} (expected "
-        f"{cfg.n_layers})")
-    if ran != cfg.n_layers:
+    log(f"  flash launches on the card: {ran} of {name} at D "
+        f"{cfg.resolved_head_dim} (expected {_attn_layers(cfg)})")
+    if ran != _attn_layers(cfg):
         raise AssertionError("model check did not go through the kernel")
     for i in range(3):
         _bf16_close(f"logits step {i}", out["cuda"][i], out["cpu"][i])
-    for key in ("k", "v"):
-        _bf16_close(f"cache {key}", out["cuda"][3][key], out["cpu"][3][key])
+    hybrid = cfg.family == "hybrid"
+    if hybrid:
+        log("  caches, each device on its own hidden states (logged, not "
+            "asserted; by layer: max_abs_err / max |ref|):")
+    for key in sorted(out["cpu"][3]):
+        card, cpu_c = out["cuda"][3][key].cpu().float(), \
+            out["cpu"][3][key].float()
+        _bf16_close(f"cache {key}", card, cpu_c, strict=not hybrid)
+        if hybrid:
+            log(f"    {key}: " + ", ".join(
+                f"{(a - b).abs().max().item() / b.abs().max().item():.4f}"
+                for a, b in zip(card, cpu_c)))
+    if hybrid:
+        check_hybrid_blocks(cfg, cpu, gpu, tokens)
+
+
+def check_hybrid_blocks(cfg, cpu, gpu, tokens):
+    """The hybrid family's prefill block by block: each Mamba2 block and
+    each superblock's shared attention + MLP block run on the card on the
+    card's hidden state, and on the CPU (plain path) on the same hidden
+    state, copied: the block's output and its cache entries (``conv`` and
+    ``ssm``; ``k`` and ``v``) at ``BF16_TOL``.  A fault of the port or of
+    the kernel shows here, where only one block's rounding separates the
+    two; the flash kernel runs once a superblock."""
+    S = tokens.shape[1]
+    x = T._embed_tokens(cfg, gpu, tokens.cuda())
+    rope = T._rope_for(cfg, torch.arange(S))
+    k = cfg.hybrid_attn_every
+    name = fa.variant(cfg.resolved_head_dim, torch.bfloat16)
+    before = fa.flash_attention.launches_by_variant[name]
+    log(f"  blocks fed the card's hidden state, card vs CPU ({cfg.n_layers} "
+        f"Mamba2 blocks, {_attn_layers(cfg)} shared blocks):")
+
+    def run(dev, block):
+        p = cpu if dev == "cpu" else gpu
+        cos, sin = (t.to(dev) for t in rope)
+        h = x.to(dev)
+        if block == "shared":
+            return T._shared_block(
+                cfg, p["shared_attn"], h,
+                lambda pa, hh: attn_mod.gqa_forward(pa, hh, cos, sin, cfg=cfg,
+                                                    causal=True))
+        states = []
+        return T._mamba_blocks(cfg, [p["layers"][block]], h, states), \
+            states[0]
+
+    for sb in range(_attn_layers(cfg)):
+        for block in list(range(sb * k, (sb + 1) * k)) + ["shared"]:
+            out = {dev: run(dev, block) for dev in ("cpu", "cuda")}
+            label = f"block {block}" if block != "shared" \
+                else f"shared block {sb}"
+            _bf16_close(f"{label} out", out["cuda"][0], out["cpu"][0])
+            st = {dev: (o[1] if block != "shared" else dict(zip("kv", o[1])))
+                  for dev, o in out.items()}
+            for key in sorted(st["cpu"]):
+                _bf16_close(f"{label} {key}", st["cuda"][key], st["cpu"][key])
+            x = out["cuda"][0]
+    ran = fa.flash_attention.launches_by_variant[name] - before
+    log(f"  flash launches on the card, blocks: {ran} of {name} (expected "
+        f"{_attn_layers(cfg)})")
+    if ran != _attn_layers(cfg):
+        raise AssertionError("block check did not go through the kernel")
 
 
 def _flash_head_dim(cfg):
@@ -578,8 +703,9 @@ def _flash_head_dim(cfg):
 def serve_full(arch="gemma3_1b"):
     """``arch`` at full width and depth through ``serve``, params from a
     seed made on the card; the flash counts are set to 0 just before and
-    read just after: one launch a layer a prefill batch, all of the variant
-    the rule names at its head dim.  Returns the config, the params, the
+    read just after: one launch an attention layer (``_attn_layers``) a
+    prefill batch, all of the variant the rule names at its head dim.
+    Returns the config, the params, the
     launches, the launches by variant and ``_log_serving``'s measured
     times."""
     cfg = get_config(arch)
@@ -587,9 +713,14 @@ def serve_full(arch="gemma3_1b"):
         f", MoE {cfg.moe.n_experts} experts top-{cfg.moe.top_k} + "
         f"{cfg.moe.n_shared} shared ({cfg.active_param_count() / 1e9:.3f} B "
         f"active)")
-    log(f"serve: {cfg.name} full width, {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads} heads on {cfg.n_kv_heads} of head dim "
-        f"{_flash_head_dim(cfg)} in flash, vocab {cfg.vocab}, "
+    hybrid = "" if cfg.family != "hybrid" else (
+        f" (Mamba2: {cfg.ssm.n_heads} SSM heads of head dim "
+        f"{cfg.ssm.head_dim}, state {cfg.ssm.d_state}, chunk "
+        f"{cfg.ssm.chunk}; one shared attention + MLP block after every "
+        f"{cfg.hybrid_attn_every})")
+    log(f"serve: {cfg.name} full width, {cfg.n_layers} layers{hybrid}, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads on {cfg.n_kv_heads} of "
+        f"head dim {_flash_head_dim(cfg)} in flash, vocab {cfg.vocab}, "
         f"{cfg.param_count() / 1e9:.3f} B params{moe}; {SERVE}")
     params = T.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -598,11 +729,11 @@ def serve_full(arch="gemma3_1b"):
     stats = serve(cfg, device="cuda", seed=0, params=params, log=log, **SERVE)
     launches = fa.flash_attention.launches
     by_variant = dict(fa.flash_attention.launches_by_variant)
-    expect = cfg.n_layers * stats["batches"]
+    expect = _attn_layers(cfg) * stats["batches"]
     name = fa.variant(_flash_head_dim(cfg), torch.bfloat16)
     log(f"flash_attention launches in serving: {launches}, by variant "
-        f"{by_variant} (expected {cfg.n_layers} layers x {stats['batches']} "
-        f"prefill batches = {expect}, all {name})")
+        f"{by_variant} (expected {_attn_layers(cfg)} attention layers x "
+        f"{stats['batches']} prefill batches = {expect}, all {name})")
     if launches != expect or by_variant[name] != expect:
         raise AssertionError(f"{by_variant} flash launches, expected "
                              f"{expect} of {name}")
@@ -784,6 +915,14 @@ def time_flash_small(smi):
     return rows
 
 
+def time_flash_zamba(smi):
+    """Phase 35: zamba2_2_7b's prefill shape (head dim 80, causal, no
+    window) in bf16 and float32, each in the variant its rule names (the
+    older ones are not built at 80): {(shape, type): {variant: row}}."""
+    return {(ZAMBA_PREFILL, dtype): time_flash(*ZAMBA_PREFILL, 0, dtype, smi)
+            for dtype in (torch.bfloat16, torch.float32)}
+
+
 def time_flash_f32(smi):
     """The float32 kernel at the calibration's ``"model"`` attention shapes
     (causal, no window: what the calibration loop runs), ``tf32x3`` (the
@@ -795,20 +934,27 @@ def time_flash_f32(smi):
     return rows
 
 
-# the MoE layer's stages, each in a profiler range of its own while a MoE
-# model is profiled: range name -> function of repro_torch.models.moe
+# the stages profiled in ranges of their own, while a model whose blocks
+# hold them is profiled: range name -> function of the module.  The MoE
+# layer's (repro_torch.models.moe), and the Mamba2 mixer's with its chunked
+# SSD (repro_torch.models.ssm)
 MOE_RANGES = {"moe layer": "_moe_local", "moe routing": "_route",
               "moe dispatch indices": "_dispatch_indices",
               "moe experts": "_expert_ffn"}
+SSM_RANGES = {"mamba2 mixer": "mamba2_forward", "mamba2 ssd": "_ssd_chunks",
+              "mamba2 decode": "mamba2_decode"}
+RANGES = {**MOE_RANGES, **SSM_RANGES}
 
 
 @contextlib.contextmanager
-def _moe_ranges():
-    """Wraps each function of ``MOE_RANGES`` in ``record_function`` for the
-    length of the block (``_moe_local`` reaches the others through the
-    module, so the wrapped ones run)."""
+def _ranges(module, ranges):
+    """Wraps each function of ``ranges`` (of ``module``) in
+    ``record_function`` for the length of the block (callers reach them
+    through the module: ``_moe_local`` the MoE stages, the model the
+    Mamba2 functions and ``mamba2_forward`` the SSD, so the wrapped ones
+    run)."""
     from torch.profiler import record_function
-    saved = {fn: getattr(moe_mod, fn) for fn in MOE_RANGES.values()}
+    saved = {fn: getattr(module, fn) for fn in ranges.values()}
 
     def ranged(label, fn):
         def call(*args, **kw):
@@ -816,34 +962,63 @@ def _moe_ranges():
                 return fn(*args, **kw)
         return call
 
-    for label, fn in MOE_RANGES.items():
-        setattr(moe_mod, fn, ranged(label, saved[fn]))
+    for label, fn in ranges.items():
+        setattr(module, fn, ranged(label, saved[fn]))
     try:
         yield
     finally:
         for fn, f in saved.items():
-            setattr(moe_mod, fn, f)
+            setattr(module, fn, f)
+
+
+def _profiled_ranges(cfg):
+    """The ranges of ``cfg``'s stages, or none."""
+    if cfg.moe is not None:
+        return _ranges(moe_mod, MOE_RANGES)
+    if cfg.ssm is not None and cfg.ssm.version == 2:
+        return _ranges(ssm_mod, SSM_RANGES)
+    return contextlib.nullcontext()
+
+
+def _range_ms(averages, ranges):
+    """The device time (ms) under each range of ``ranges``: the kernels
+    launched inside it."""
+    from torch.autograd import DeviceType
+    return {label: sum(e.device_time_total for e in averages
+                       if e.key == label
+                       and e.device_type == DeviceType.CPU) / 1e3
+            for label in ranges}
+
+
+def _log_shares(ms_of, busy_ms, phase):
+    for label, t in ms_of.items():
+        log(f"  {label}: {t:.3f} ms = {100 * t / busy_ms:.1f}% of the "
+            f"{phase}'s device time")
 
 
 def _log_moe_shares(averages, busy_ms, phase):
-    """The device time under each ``MOE_RANGES`` range (kernels launched
-    inside it) and its share of the phase's device time; dispatch is the
-    MoE layer less routing and the experts' products: the one-hot cumsum,
-    the scatter of buffer slots, the gather into the buffers and the
-    weighted combine."""
-    from torch.autograd import DeviceType
-    ms_of = {label: sum(e.device_time_total for e in averages
-                        if e.key == label
-                        and e.device_type == DeviceType.CPU) / 1e3
-             for label in MOE_RANGES}
+    """The device time under each ``MOE_RANGES`` range and its share of
+    the phase's device time; dispatch is the MoE layer less routing and the
+    experts' products: the one-hot cumsum, the scatter of buffer slots, the
+    gather into the buffers and the weighted combine."""
+    ms_of = _range_ms(averages, MOE_RANGES)
     if not ms_of["moe layer"]:
         log("  MoE ranges: no device time under them (not measured)")
         return
     ms_of["moe dispatch (cumsum, scatter, gather, combine)"] = (
         ms_of["moe layer"] - ms_of["moe routing"] - ms_of["moe experts"])
-    for label, t in ms_of.items():
-        log(f"  {label}: {t:.3f} ms = {100 * t / busy_ms:.1f}% of the "
-            f"{phase}'s device time")
+    _log_shares(ms_of, busy_ms, phase)
+
+
+def _log_ssm_shares(averages, busy_ms, phase):
+    """The device time under each ``SSM_RANGES`` range that ran in the
+    phase (the mixer and its SSD in prefill, the mixer's step in decode)
+    and its share of the phase's device time."""
+    ms_of = {k: t for k, t in _range_ms(averages, SSM_RANGES).items() if t}
+    if not ms_of:
+        log("  Mamba2 ranges: no device time under them (not measured)")
+        return
+    _log_shares(ms_of, busy_ms, phase)
 
 
 def profile_serving(cfg, params, smi, kernel=None):
@@ -854,7 +1029,9 @@ def profile_serving(cfg, params, smi, kernel=None):
     of the device time taken by the kernels whose name holds it; for a MoE
     model, the share of each MoE stage (``_log_moe_shares``; the ranges add
     host time to the wall time, so the busy share is lower still).  Returns
-    the busy share of each phase (None where not measured)."""
+    the busy share of each phase (None where not measured).  For a model
+    of Mamba2 blocks, the shares of the Mamba2 mixer and its SSD
+    (``_log_ssm_shares``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     B, S, n = SERVE["batch"], SERVE["prompt_len"], 8
@@ -866,8 +1043,7 @@ def profile_serving(cfg, params, smi, kernel=None):
         logits, cache = prefill(params, {"tokens": tokens})
         tok = greedy(logits)
         torch.cuda.synchronize()
-        ranges = _moe_ranges() if cfg.moe is not None \
-            else contextlib.nullcontext()
+        ranges = _profiled_ranges(cfg)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof, ranges:
             t0 = time.perf_counter()
@@ -886,7 +1062,7 @@ def profile_serving(cfg, params, smi, kernel=None):
                   if e.device_type == DeviceType.CUDA
                   and e.self_device_time_total > 0
                   and not getattr(e, "is_user_annotation", False)
-                  and e.key not in MOE_RANGES]
+                  and e.key not in RANGES]
         busy_ms = sum(e.self_device_time_total for e in events) / 1e3
         if not events:
             log(f"profile {phase}: no device time in the trace (not measured)")
@@ -903,6 +1079,8 @@ def profile_serving(cfg, params, smi, kernel=None):
                 f"the {phase}'s device time")
         if cfg.moe is not None:
             _log_moe_shares(averages, busy_ms, phase)
+        elif cfg.ssm is not None and cfg.ssm.version == 2:
+            _log_ssm_shares(averages, busy_ms, phase)
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
             log(f"  {e.self_device_time_total / 1e3:9.3f} ms "
                 f"{100 * e.self_device_time_total / 1e3 / busy_ms:5.1f}% "
@@ -2395,6 +2573,18 @@ def main():
         moe_by_path[f"{arch} serving"] = m_by_variant
         del mparams
         torch.cuda.empty_cache()
+    # phases 33-35: the hybrid family on the card, zamba2_2_7b cut and held
+    # against the CPU, served at full width and depth and profiled; then
+    # flash at its prefill shape, head dim 80
+    check_model_against_cpu("zamba2_2_7b", ZAMBA_CUT, ZAMBA_PROMPTS)
+    torch.cuda.empty_cache()
+    zcfg, zparams, _, zamba_by_variant, zmeasured = serve_full("zamba2_2_7b")
+    zmeasured["busy"] = profile_serving(zcfg, zparams, smi,
+                                        kernel="flash_fwd_")
+    served[zcfg.name] = zmeasured
+    del zparams
+    torch.cuda.empty_cache()
+    small.update(time_flash_zamba(smi))
     # phase 27 (2): SERVE priced beside the card; phase 28: the serving
     # studies.  The pricing and the studies launch nothing
     counts = _counts()
@@ -2407,7 +2597,8 @@ def main():
                      "phi3_mini_3_8b serving": phi3_by_variant,
                      "calibration": cal_by_variant["flash_attention"],
                      "serve_batch (gemma3_1b)": batch_by_variant,
-                     **moe_by_path}
+                     **moe_by_path,
+                     "zamba2_2_7b serving": zamba_by_variant}
     log(f"flash_attention launches by path: {flash_by_path}")
     mm_by_path = {"calibration": cal_by_variant["matmul"],
                   **{f"graph batch {b}": n for b, n in graph_by_batch.items()},

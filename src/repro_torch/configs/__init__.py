@@ -2,8 +2,10 @@
 
 ``get_config(arch_id)`` returns the FULL config; ``get_smoke_config`` returns
 a reduced same-family config for CPU tests.  The dense family, the ssm
-family (Mamba1) and the moe family (with DeepSeek's MLA) are ported so far;
-asking for any other architecture raises ``NotImplementedError``.
+family (Mamba1, and Mamba2 at ``ssm.version`` 2), the moe family (with
+DeepSeek's MLA) and the hybrid family (Mamba2 blocks with one shared
+attention block, zamba2) are ported so far; asking for any other
+architecture raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -20,13 +22,13 @@ ARCH_IDS: List[str] = [
     "falcon_mamba_7b",
     "granite_moe_1b_a400m",
     "deepseek_v2_lite_16b",
+    "zamba2_2_7b",
 ]
 
 # architectures of the reference registry whose family the port lacks
 UNPORTED = {
     "whisper_small": "encdec",
     "internvl2_26b": "vlm",
-    "zamba2_2_7b": "hybrid",
 }
 
 # accept dashed ids on the CLI

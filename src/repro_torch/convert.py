@@ -4,8 +4,9 @@ The input is the reference's params as a nested dict of numpy arrays, its
 layers stacked along a leading axis, with bf16 leaves given as float32
 (numpy has no bf16 type that torch takes).  The leaves that are float32 in
 the reference stay float32 (``FLOAT32_KEYS``: the norm scales, MLA's
-``kv_norm`` among them; Mamba1's ``A_log``, ``D`` and ``dt_bias``, where
-A_log = log(1..N) is not exact in bf16; and the MoE ``router``, whose
+``kv_norm`` and Mamba2's gate ``norm`` among them; Mamba1's and Mamba2's
+``A_log``, ``D`` and ``dt_bias``, where A_log = log(1..N) is not exact in
+bf16; and the MoE ``router``, whose
 float32 logits pick each token's experts: rounded to bf16 they would move
 assignments across the top-k edge); every other leaf is cast back to bf16,
 which undoes that widening exactly.
@@ -19,7 +20,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-FLOAT32_KEYS = frozenset({"norm1", "norm2", "final_norm", "kv_norm",
+FLOAT32_KEYS = frozenset({"norm1", "norm2", "final_norm", "kv_norm", "norm",
                           "A_log", "D", "dt_bias", "router"})
 
 

@@ -22,8 +22,9 @@
 // tensor-core type gives: its Hopper variant (tf32x3) does each product as
 // three TF32 passes on wgmma (CUTLASS's 3xTF32), bound by 3 x the work at
 // the TF32 rate; the older variant does float32 FMAs on the CUDA cores.
-// Every variant takes every head dim (16, 32, 64, 96, 128, 256); which one
-// runs is the caller's choice, by head dim and type
+// The Hopper variants take every head dim (16, 32, 64, 80, 96, 128, 192,
+// 256), the older ones all but 80 and 192; which one runs is the caller's
+// choice, by head dim and type
 // (flash_attention.py::variant, set by the card's times).  Against device
 // memory, the other bound, all keep the score tile, the softmax statistics
 // and the output accumulator on chip for the whole KV sweep, as the TPU
@@ -428,7 +429,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 //
 // Rows of Q, K and V arrive in whole 128-byte boxes of 64 columns, NB = DP
 // / 64 of them, DP being D rounded up to 64 (64 at D 16 and 32, 128 at D
-// 96): the tensor maps end at D, so TMA writes zeros past it, and the
+// 80 and 96): the tensor maps end at D, so TMA writes zeros past it, and the
 // barriers expect the boxes' full bytes, zeros included (counted from D, a
 // padded box would leave the barrier short and its wait would trap).  No
 // product reads the padding: Q K^T reduces over D / 16 k-steps and P V
@@ -436,7 +437,11 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 // registers a thread (ptxas), so 6-7 blocks share an SM as the launch
 // bounds stand; there the exponentials, one a (q, k) pair, and not the
 // products set the least time (PERF.md).  D 192 (MLA's q/k width, 128 +
-// 64) is three whole boxes: 73 KB a block, two blocks an SM.
+// 64) is three whole boxes: 73 KB a block, two blocks an SM.  D 80
+// (zamba2's shared attention) is two boxes, the second holding columns
+// 64-79 and 48 columns of zeros: Q K^T reduces over 5 k-steps (4 in box 0,
+// the first 16 columns of box 1) and P V runs at N = 80, reading V's box 0
+// and the first 16 columns of box 1; 49 KB a block.
 template <int D> struct TilesWg {
   static constexpr int BQ = 64;          // query rows: one warpgroup
   static constexpr int BK = 64;          // keys per KV tile
@@ -705,8 +710,9 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
 // over keys, so V reaches shared memory with keys contiguous.  The first
 // vt_tiles blocks each turn one 64 x 64 tile of V through shared memory
 // (read along D, written along keys), ceil(D / 64) tiles across D with
-// columns past D masked on the read and the write (D 16, 32 and 96 are not
-// whole tiles); the others split q and k elementwise, 16 bytes a load.
+// columns past D masked on the read and the write (D 16, 32, 80 and 96 are
+// not whole tiles: at 80 the second tile holds columns 64-79); the others
+// split q and k elementwise, 16 bytes a load.
 // Keys past S in a row of V^T are never read (the tensor map ends at S)
 // and are not written.
 constexpr int SPLIT_T = 64;
@@ -780,7 +786,7 @@ flash_tf32_split_kernel(const float* __restrict__ q,
 
 // One block of 64 query rows (one warpgroup).  Q and K rows arrive in
 // whole 128-byte boxes of 32 columns, NB = DP / 32 of them, DP being D
-// rounded up to 32 (32 at D 16): TMA writes zeros past D, and the
+// rounded up to 32 (32 at D 16, 96 at D 80): TMA writes zeros past D, and the
 // barriers expect the boxes' full bytes.  V^T is D rows of keys, whole at
 // every D.  No product reads the padding: Q K^T reduces over D / 8
 // k-steps and P V runs at N = D.  Its shared memory:
@@ -794,7 +800,7 @@ flash_tf32_split_kernel(const float* __restrict__ q,
 //   D       BK   Q hi+lo   item    ring             P hi+lo   total
 //   16, 32  64   16 KB     8 KB    4 stages, 32 KB  32 KB     81 KB
 //   64      64   32 KB     16 KB   4 stages, 64 KB  32 KB     129 KB
-//   96      64   48 KB     24 KB   3 stages, 72 KB  32 KB     153 KB
+//   80, 96  64   48 KB     24 KB   3 stages, 72 KB  32 KB     153 KB
 //   128     64   64 KB     32 KB   3 stages, 96 KB  32 KB     193 KB
 //   192     32   96 KB     24 KB   2 stages, 48 KB  16 KB     161 KB
 //   256     32   128 KB    32 KB   2 stages, 64 KB  16 KB     209 KB
@@ -1067,7 +1073,8 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap map_q,
 }
 
 // float32 elements of the tf32x3 workspace: q and k hi/lo, v transposed
-// hi/lo with rows of vt_stride(S)
+// hi/lo with rows of vt_stride(S).  Rows hold D columns, not DP: the tensor
+// maps end at D and TMA fills a box past it with zeros (D 16, 80, 96)
 long long tf32x3_workspace(int B, int H, int Hkv, int S, int D) {
   return 2LL * S * D * ((long long)B * H + (long long)B * Hkv) +
          2LL * B * Hkv * D * vt_stride(S);
@@ -1160,7 +1167,7 @@ cudaError_t launch(Kernel kernel, int threads, size_t smem, const void* q,
 // 0 float32 FMAs, 1 bf16 mma.sync, 2 bf16 wgmma with TMA, 3 float32 three
 // TF32 passes on wgmma.  The Hopper variants (2, 3) take every head dim of
 // flash_attention_fwd; the older kernels (0, 1), which they replaced, are
-// not built at D 192 and refuse it.
+// not built at D 80 and 192 and refuse them.
 enum Variant { kFma = 0, kMmaSync = 1, kWgmma = 2, kTf32x3 = 3 };
 
 template <int D>
@@ -1168,7 +1175,7 @@ cudaError_t launch_d(int dtype, int variant, const void* q, const void* k,
                      const void* v, void* o, float* ws, long long n_ws, int B,
                      int H, int Hkv, int S, int causal, int window,
                      cudaStream_t stream) {
-  if constexpr (D != 192) {
+  if constexpr (D != 80 && D != 192) {
     if (dtype == 0 && variant == kFma)
       return launch<float>(flash_fwd_f32_kernel<D>, NT,
                            TilesF32<D>::smem_bytes, q, k, v, o, B, H, Hkv, S,
@@ -1201,10 +1208,11 @@ extern "C" long long flash_attention_workspace(int B, int H, int Hkv, int S,
 
 // q: (B, H, S, D), k and v: (B, Hkv, S, D), o: (B, H, S, D), all contiguous
 // and of one type: dtype 0 is float32 (variant 0 or 3), 1 is bfloat16
-// (variant 1 or 2), 16-byte aligned.  D is one of 16, 32, 64, 96, 128,
-// 192 (variants 2 and 3 only), 256.  ws: n_ws float32 elements, at least flash_attention_workspace(B, H,
-// Hkv, S, D) for variant 3 (a shorter workspace is refused), else unused.  Returns the cudaError_t
-// of the launch (0 on success).
+// (variant 1 or 2), 16-byte aligned.  D is one of 16, 32, 64, 80, 96,
+// 128, 192, 256 (80 and 192: variants 2 and 3 only).  ws: n_ws float32
+// elements, at least flash_attention_workspace(B, H, Hkv, S, D) for
+// variant 3 (a shorter workspace is refused), else unused.  Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, void* ws, long long n_ws, int B,
                                    int H, int Hkv, int S, int D, int causal,
@@ -1217,6 +1225,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     case 16: return (int)launch_d<16>(dtype, variant, q, k, v, o, w, n_ws, B, H, Hkv, S, causal, window, st);
     case 32: return (int)launch_d<32>(dtype, variant, q, k, v, o, w, n_ws, B, H, Hkv, S, causal, window, st);
     case 64: return (int)launch_d<64>(dtype, variant, q, k, v, o, w, n_ws, B, H, Hkv, S, causal, window, st);
+    case 80: return (int)launch_d<80>(dtype, variant, q, k, v, o, w, n_ws, B, H, Hkv, S, causal, window, st);
     case 96: return (int)launch_d<96>(dtype, variant, q, k, v, o, w, n_ws, B, H, Hkv, S, causal, window, st);
     case 128: return (int)launch_d<128>(dtype, variant, q, k, v, o, w, n_ws, B, H, Hkv, S, causal, window, st);
     case 192: return (int)launch_d<192>(dtype, variant, q, k, v, o, w, n_ws, B, H, Hkv, S, causal, window, st);

@@ -13,12 +13,14 @@ rule by type.  bf16 takes ``"wgmma"`` (wgmma fed by TMA) and float32 takes
 parts into a workspace whose length the library's
 ``flash_attention_workspace`` gives, and a wgmma kernel fed by TMA sums
 hi·hi + hi·lo + lo·hi for both products.  Both take every head dim of
-``HEAD_DIMS``; at 16, 32 and 96 a row is padded to whole 128-byte TMA
-boxes with zeros that no product reads, and 192 (MLA's q/k width) is
-three whole boxes.  The card's times put them ahead of the older kernels
-at every head dim (PERF.md), which run when named: ``mma.sync`` (bf16,
-``"mma_sync"``) and FMAs on the CUDA cores (float32, ``"fma"``), at the
-head dims they were built for (``VARIANT_HEAD_DIMS``: not 192).  A
+``HEAD_DIMS``; at 16, 32, 80 and 96 a row is padded to whole 128-byte TMA
+boxes with zeros that no product reads (80, zamba2's shared attention:
+two bf16 boxes of 64 columns, three fp32 boxes of 32), and 192 (MLA's q/k
+width) is three whole boxes.  The card's times put them ahead of the
+older kernels at every head dim (PERF.md), which run when named:
+``mma.sync`` (bf16, ``"mma_sync"``) and FMAs on the CUDA cores (float32,
+``"fma"``), at the head dims they were built for (``VARIANT_HEAD_DIMS``:
+not 80 or 192).  A
 variant named off its head dims raises before the launch, and a failed
 launch raises; no variant stands in for another.
 
@@ -35,13 +37,14 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 96, 128, 192, 256)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128, 192, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # variant -> (code in csrc/flash_attention.cu, dtype it takes)
 VARIANTS = {"fma": (0, torch.float32), "mma_sync": (1, torch.bfloat16),
             "wgmma": (2, torch.bfloat16), "tf32x3": (3, torch.float32)}
-# the head dims each variant is built for: the older kernels predate 192
-_OLDER = tuple(D for D in HEAD_DIMS if D != 192)
+# the head dims each variant is built for: the older kernels predate 80
+# and 192
+_OLDER = tuple(D for D in HEAD_DIMS if D not in (80, 192))
 VARIANT_HEAD_DIMS = {"fma": _OLDER, "mma_sync": _OLDER,
                      "wgmma": HEAD_DIMS, "tf32x3": HEAD_DIMS}
 

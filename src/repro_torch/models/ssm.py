@@ -1,8 +1,9 @@
-"""State-space models: Mamba1, the mixer of the ssm family (falcon_mamba_7b).
+"""State-space models: Mamba1, the mixer of the ssm family (falcon_mamba_7b),
+and Mamba2 (SSD), the mixer of the hybrid family (zamba2_2_7b) and of the
+ssm family at ``ssm.version`` 2.
 
-The port of the reference's ``models/ssm.py``, Mamba1 only (Mamba2's SSD
-comes with the hybrid family).  Three forms of the sequence mix, as in the
-reference:
+The port of the reference's ``models/ssm.py``.  Three forms of Mamba1's
+sequence mix, as in the reference:
 
   - ``scan``     : the selective scan of ``kernels.ops.mamba_scan``: the CUDA
                    kernel on the card, its plain loop on the CPU.  It takes x,
@@ -17,6 +18,15 @@ for parity with the reference; the serving path runs ``scan``.  Types follow
 the reference: projections and the causal conv in bf16, dt, B and C in
 float32, x widened to float32 for the scan, the final state float32 and the
 conv tail bf16.
+
+Mamba2 runs the chunked SSD in plain torch, as the reference runs it in
+plain ``jnp`` (no Pallas kernel): a loop over chunks of c = min(chunk, S)
+steps carries the (B, H, P, N) float32 state; inside a chunk the decay
+matrix is built with its upper triangle at exp(-inf) = 0, so that an
+overflowing exp above the diagonal never meets the mask as inf * 0, and
+the intra-chunk product is one batched matmul over (b, h), so that no
+(B, c, c, H, P) tensor is made: the largest intermediate is (B, c, c, H)
+float32 (84 MB at zamba2_2_7b's width, batch 4, chunk 256).
 """
 from __future__ import annotations
 
@@ -27,7 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, norm_init, rmsnorm
 
 
 # ---------------------------------------------------------------------------
@@ -56,6 +66,32 @@ def mamba1_init(gen, cfg: ModelConfig, dtype=torch.bfloat16):
         "dt_bias": torch.full((d_in,), -4.6, dtype=torch.float32, device=dev),
         "A_log": torch.log(A),
         "D": torch.ones(d_in, dtype=torch.float32, device=dev),
+        "out_proj": dense_init(gen, d_in, d),
+    }
+
+
+def mamba2_init(gen, cfg: ModelConfig, dtype=torch.bfloat16):
+    """One Mamba2 mixer's params from ``gen``, with the reference's
+    distributions and types: ``in_proj`` (d, 2 d_in + 2N + H) gives z, the
+    conv's input (x, B, C) and dt; the conv runs over d_in + 2N channels;
+    ``A_log``, ``dt_bias`` and ``D`` (one a head) and the gate norm's
+    scale are float32."""
+    s = cfg.ssm
+    d = cfg.d_model
+    d_in = s.expand * d
+    H, N = s.n_heads, s.d_state
+    assert H * s.head_dim == d_in, (H, s.head_dim, d_in)
+    conv_dim = d_in + 2 * N   # conv over (x, B, C)
+    dev = gen.device
+    return {
+        "in_proj": dense_init(gen, d, 2 * d_in + 2 * N + H),
+        "conv_w": torch.randn(conv_dim, s.d_conv, generator=gen, device=dev,
+                              dtype=torch.float32).to(dtype) * 0.2,
+        "conv_b": torch.zeros(conv_dim, dtype=dtype, device=dev),
+        "A_log": torch.zeros(H, dtype=torch.float32, device=dev),
+        "dt_bias": torch.full((H,), -4.6, dtype=torch.float32, device=dev),
+        "D": torch.ones(H, dtype=torch.float32, device=dev),
+        "norm": norm_init(d_in, dev),
         "out_proj": dense_init(gen, d_in, d),
     }
 
@@ -203,3 +239,108 @@ def mamba1_decode(p, x_t, state, cfg: ModelConfig):
     y = torch.einsum("bdn,bn->bd", h, Cm) + p["D"][None] * xf
     y = (y * F.silu(z.float())).to(x_t.dtype)
     return (y @ p["out_proj"])[:, None], {"conv": conv_state, "ssm": h}
+
+
+# ---------------------------------------------------------------------------
+# mamba2 (SSD, chunked)
+
+
+def _silu(x):
+    """silu as the reference's logistic expands it: x / (1 + exp(-x)) as
+    x * (1 / (1 + exp(-x))), each op rounded to x's type.  In bf16 it
+    equals the reference bit for bit, where ``F.silu``, which rounds once,
+    differs from it in about 4 elements of 10."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def _ssd_chunks(loga, x, Bm, Cm, dt, h, c):
+    """The SSD over chunks of c steps, all float32.  loga, dt: (B, S, H);
+    x: (B, S, H, P); Bm, Cm: (B, S, N); h: the starting state (B, H, P, N).
+    Returns y (B, S, H, P) without the D x term, and the final state."""
+    S = x.shape[1]
+    tri = torch.ones(c, c, dtype=torch.bool, device=x.device).tril()
+    ys = []
+    for t0 in range(0, S, c):
+        la, xi, bi, ci, dti = (t[:, t0:t0 + c] for t in (loga, x, Bm, Cm, dt))
+        cs = torch.cumsum(la, dim=1)                            # (B, c, H)
+        # intra-chunk: decay L[i, j] = exp(cs_i - cs_j) for i >= j, else 0;
+        # above the diagonal cs_i - cs_j >= 0 may overflow, so it is set to
+        # -inf before the exp rather than masked after it (inf * 0 = NaN)
+        diff = cs[:, :, None, :] - cs[:, None, :, :]            # (B, c, c, H)
+        L = torch.exp(diff.masked_fill(~tri[None, :, :, None], -math.inf))
+        cb = torch.einsum("bin,bjn->bij", ci, bi)               # (B, c, c)
+        # sum_j cb_ij L_ijh dt_jh x_jhp as one (b, h)-batched matmul
+        w = (cb[..., None] * L * dti[:, None]).permute(0, 3, 1, 2)
+        y_intra = (w @ xi.transpose(1, 2)).transpose(1, 2)      # (B, c, H, P)
+        # inter-chunk: the carried state's contribution, n contracted first
+        y_inter = torch.einsum("bin,bhpn->bihp", ci, h) \
+            * torch.exp(cs)[..., None]
+        # state update
+        decay_to_end = torch.exp(cs[:, -1:, :] - cs)            # (B, c, H)
+        dx = dti[..., None] * xi * decay_to_end[..., None]      # (B, c, H, P)
+        h = h * torch.exp(cs[:, -1])[:, :, None, None] \
+            + torch.einsum("bchp,bcn->bhpn", dx, bi)
+        ys.append(y_intra + y_inter)
+    return torch.cat(ys, 1), h
+
+
+def mamba2_forward(p, x_seq, cfg: ModelConfig, state=None):
+    """x_seq: (B, S, d_model) -> (out, final state dict(ssm (B, H, P, N)
+    float32, conv (B, d_in + 2N, k-1) bf16: the last k-1 pre-conv inputs)).
+
+    The chunk is c = min(ssm.chunk, S), and S must be a multiple of it, as
+    the reference asserts.  state (a carried state): as in the reference,
+    only its ``ssm`` part is read."""
+    s = cfg.ssm
+    B, S, _ = x_seq.shape
+    d_in = s.expand * cfg.d_model
+    H, P, N = s.n_heads, s.head_dim, s.d_state
+    c = min(s.chunk, S)
+    assert S % c == 0, (S, c)
+
+    zxbcdt = x_seq @ p["in_proj"]
+    z = zxbcdt[..., :d_in]
+    xbc = zxbcdt[..., d_in:d_in + d_in + 2 * N]
+    # a copy, since a view would hold the whole zxbcdt for as long as the
+    # state
+    conv_tail = xbc[:, -(s.d_conv - 1):].transpose(1, 2).contiguous()
+    dt = F.softplus(zxbcdt[..., -H:].float() + p["dt_bias"])     # (B, S, H)
+    xbc = _silu(causal_conv1d(xbc, p["conv_w"], p["conv_b"]))
+    xf = xbc[..., :d_in].reshape(B, S, H, P).float()
+    Bm = xbc[..., d_in:d_in + N].float()                          # (B, S, N)
+    Cm = xbc[..., d_in + N:].float()                              # (B, S, N)
+    A = -torch.exp(p["A_log"])                                    # (H,)
+    h0 = torch.zeros(B, H, P, N, dtype=torch.float32, device=x_seq.device) \
+        if state is None else state["ssm"]
+    y, hT = _ssd_chunks(dt * A, xf, Bm, Cm, dt, h0, c)
+    y = (y + p["D"][None, None, :, None] * xf).reshape(B, S, d_in)
+    y = rmsnorm(y.to(x_seq.dtype), p["norm"])
+    y = y.float() * F.silu(z.float())
+    return y.to(x_seq.dtype) @ p["out_proj"], \
+        {"ssm": hT, "conv": conv_tail.to(torch.bfloat16)}
+
+
+def mamba2_decode(p, x_t, state, cfg: ModelConfig):
+    """One-token decode.  x_t: (B, 1, d).  state: dict(conv (B, d_in + 2N,
+    k-1), ssm (B, H, P, N))."""
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    H, P, N = s.n_heads, s.head_dim, s.d_state
+    zxbcdt = x_t[:, 0] @ p["in_proj"]
+    z = zxbcdt[..., :d_in]
+    xbc = zxbcdt[..., d_in:d_in + d_in + 2 * N]
+    dt = F.softplus(zxbcdt[..., -H:].float() + p["dt_bias"])      # (B, H)
+    xc, conv_state = conv1d_step(xbc, state["conv"], p["conv_w"], p["conv_b"])
+    xc = _silu(xc)
+    x = xc[..., :d_in].reshape(-1, H, P).float()
+    Bm = xc[..., d_in:d_in + N].float()
+    Cm = xc[..., d_in + N:].float()
+    A = -torch.exp(p["A_log"])
+    a = torch.exp(dt * A[None])                                   # (B, H)
+    h = state["ssm"] * a[..., None, None] \
+        + (dt[..., None] * x)[..., None] * Bm[:, None, None, :]
+    y = torch.einsum("bhpn,bn->bhp", h, Cm) + p["D"][None, :, None] * x
+    y = rmsnorm(y.reshape(-1, d_in).to(x_t.dtype), p["norm"])
+    y = y.float() * F.silu(z.float())
+    return (y.to(x_t.dtype) @ p["out_proj"])[:, None], \
+        {"conv": conv_state, "ssm": h}

@@ -1,4 +1,5 @@
-"""Decoder-only models (dense, moe and ssm families): init, prefill, decode.
+"""Decoder-only models (dense, moe, ssm and hybrid families): init,
+prefill, decode.
 
 Entry points, as in the JAX package:
   init_params(cfg, seed, device)                  -> params
@@ -9,14 +10,22 @@ Entry points, as in the JAX package:
 Params are a dict; ``params["layers"]`` is a list with one dict per block
 where the JAX package stacks the layers along a leading axis.  A block of
 the moe family has ``moe`` (``repro_torch.models.moe``) where a dense block
-has ``mlp``.  The cache keeps the reference's stacked layouts, and decode
-updates it in place: the dense and moe families' (L, B, Hkv, max_seq, hd)
-``k`` and ``v``, or with MLA the compressed ``ckv`` (L, B, max_seq, lora)
-and ``krope`` (L, B, max_seq, qk_rope); the ssm family's (Mamba1 blocks,
-no attention, no MLP) ``conv`` (L, B, d_inner, d_conv-1) bf16 and ``ssm``
-(L, B, d_inner, N) float32.  bf16 rounding follows the reference:
-embeddings and weights are bf16, norms and attention compute in fp32 and
-return bf16.
+has ``mlp``; a block of the ssm family is one Mamba mixer (Mamba1, or
+Mamba2 at ``ssm.version`` 2; no attention, no MLP).  The hybrid family
+(zamba2) runs superblocks of ``hybrid_attn_every`` Mamba2 blocks, each
+followed by the one shared attention + MLP block ``params["shared_attn"]``
+(one set of params, applied n_layers / hybrid_attn_every times, with the
+rope tables of the whole prompt).  The cache keeps the reference's stacked
+layouts, and decode updates it in place: the dense and moe families'
+(L, B, Hkv, max_seq, hd) ``k`` and ``v``, or with MLA the compressed
+``ckv`` (L, B, max_seq, lora) and ``krope`` (L, B, max_seq, qk_rope); the
+ssm family's ``conv`` (L, B, d_inner, d_conv-1) bf16 and ``ssm`` (L, B,
+d_inner, N) float32 with Mamba1, or with Mamba2 ``conv`` (L, B, d_inner +
+2N, d_conv-1) and ``ssm`` (L, B, H, P, N); the hybrid family's Mamba2
+``conv`` and ``ssm`` and the shared block's ``k`` and ``v`` (L / k, B,
+Hkv, max_seq, hd), one a superblock.  bf16 rounding follows the
+reference: embeddings and weights are bf16, norms and attention compute in
+fp32 and return bf16.
 """
 from __future__ import annotations
 
@@ -35,23 +44,40 @@ from repro_torch.models.layers import (apply_norm, dense_init, embed_init,
 
 
 def _check_family(cfg: ModelConfig):
-    if cfg.family == "ssm" and cfg.ssm is not None and cfg.ssm.version == 1:
+    version = cfg.ssm.version if cfg.ssm is not None else None
+    if cfg.family in ("dense", "moe") \
+            or (cfg.family == "ssm" and version in (1, 2)):
         return
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense and moe families and the ssm "
-            f"family's Mamba1 are ported to repro_torch, not {cfg.family!r}"
-            + (f" version {cfg.ssm.version}" if cfg.ssm else ""))
+    if cfg.family == "hybrid" and version == 2:
+        k = cfg.hybrid_attn_every
+        if k <= 0 or cfg.n_layers % k:
+            raise ValueError(f"{cfg.name}: hybrid_attn_every {k} must divide "
+                             f"n_layers {cfg.n_layers}")
+        return
+    raise NotImplementedError(
+        f"{cfg.name}: only the dense, moe, ssm and hybrid (Mamba2) families "
+        f"are ported to repro_torch, not {cfg.family!r}"
+        + (f" version {version}" if cfg.ssm else ""))
+
+
+def _mamba(cfg: ModelConfig):
+    """(init, forward, decode) of the Mamba version of ``cfg``'s blocks."""
+    if cfg.ssm.version == 1:
+        return ssm_mod.mamba1_init, ssm_mod.mamba1_forward, \
+            ssm_mod.mamba1_decode
+    return ssm_mod.mamba2_init, ssm_mod.mamba2_forward, ssm_mod.mamba2_decode
 
 
 # ---------------------------------------------------------------------------
 # init
 
 
-def _block_init(gen, cfg: ModelConfig):
-    if cfg.family == "ssm":
+def _block_init(gen, cfg: ModelConfig, shared=False):
+    """One block of ``cfg``'s stack; with ``shared``, the hybrid family's
+    shared attention + MLP block."""
+    if cfg.family in ("ssm", "hybrid") and not shared:
         return {"norm1": norm_init(cfg.d_model, gen.device),
-                "ssm": ssm_mod.mamba1_init(gen, cfg)}
+                "ssm": _mamba(cfg)[0](gen, cfg)}
     p = {"norm1": norm_init(cfg.d_model, gen.device),
          "attn": attn.attn_init(gen, cfg),
          "norm2": norm_init(cfg.d_model, gen.device)}
@@ -72,6 +98,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict:
          "final_norm": norm_init(cfg.d_model, device)}
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab)
+    if cfg.family == "hybrid":
+        p["shared_attn"] = _block_init(gen, cfg, shared=True)
     return p
 
 
@@ -118,21 +146,52 @@ def _ffn(cfg: ModelConfig, pl, x):
     return mlp_apply(pl["mlp"], x, cfg.activation), None
 
 
+def _mamba_blocks(cfg: ModelConfig, layers, x, states):
+    """Runs the Mamba blocks ``layers`` over the sequence x, appending each
+    block's final state dict(conv, ssm) to ``states``; returns x."""
+    forward = _mamba(cfg)[1]
+    for pl in layers:
+        h, st = forward(pl["ssm"], apply_norm(cfg.norm, x, pl["norm1"]), cfg)
+        x = x + h
+        states.append(st)
+    return x
+
+
+def _shared_block(cfg: ModelConfig, shared, x, attend):
+    """The hybrid family's shared block: attention (``attend(p, h)`` ->
+    (out, state)), then the MLP; returns (x, the attention's state)."""
+    h, st = attend(shared["attn"], apply_norm(cfg.norm, x, shared["norm1"]))
+    x = x + h
+    x = x + mlp_apply(shared["mlp"], apply_norm(cfg.norm, x, shared["norm2"]),
+                      cfg.activation)
+    return x, st
+
+
 def _backbone(cfg: ModelConfig, p, x, positions):
     """Returns (x, (load_balance, router_z) averaged over the layers, [the
     state of each layer]): (k, v) in the dense and moe families, (c_kv,
-    k_rope) with MLA, dict(conv, ssm) in the ssm family.  The aux terms are
-    0 without MoE layers."""
+    k_rope) with MLA, dict(conv, ssm) in the ssm family; in the hybrid
+    family the pair ([dict(conv, ssm) of each Mamba2 block], [(k, v) of
+    each superblock's shared attention]).  The aux terms are 0 without MoE
+    layers."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         states = []
-        for pl in p["layers"]:
-            h, st = ssm_mod.mamba1_forward(
-                pl["ssm"], apply_norm(cfg.norm, x, pl["norm1"]), cfg)
-            x = x + h
-            states.append(st)
+        x = _mamba_blocks(cfg, p["layers"], x, states)
         return x, (zero, zero), states
     cos, sin = _rope_for(cfg, positions)
+    if cfg.family == "hybrid":
+        k = cfg.hybrid_attn_every
+        states, kvs = [], []
+
+        def attend(pa, h):
+            return attn.gqa_forward(pa, h, cos, sin, cfg=cfg, causal=True)
+        for sb in range(cfg.n_layers // k):
+            x = _mamba_blocks(cfg, p["layers"][sb * k:(sb + 1) * k], x,
+                              states)
+            x, kv = _shared_block(cfg, p["shared_attn"], x, attend)
+            kvs.append(kv)
+        return x, (zero, zero), (states, kvs)
     kvs, lb, rz = [], zero, zero
     for pl, window in zip(p["layers"], _window_schedule(cfg)):
         h_in = apply_norm(cfg.norm, x, pl["norm1"])
@@ -155,15 +214,30 @@ def _backbone(cfg: ModelConfig, p, x, positions):
 # serving: cache init / prefill / decode
 
 
+def _kv_cache(n_layers, cfg: ModelConfig, batch, max_seq, device):
+    shape = (n_layers, batch, cfg.n_kv_heads, max_seq, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
     device = resolve_device(device)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         s = cfg.ssm
         d_in = s.expand * cfg.d_model
-        return {"conv": torch.zeros(cfg.n_layers, batch, d_in, s.d_conv - 1,
-                                    dtype=torch.bfloat16, device=device),
-                "ssm": torch.zeros(cfg.n_layers, batch, d_in, s.d_state,
-                                   dtype=torch.float32, device=device)}
+        L = cfg.n_layers
+        if s.version == 1:
+            conv, state = (L, batch, d_in, s.d_conv - 1), \
+                (L, batch, d_in, s.d_state)
+        else:
+            conv, state = (L, batch, d_in + 2 * s.d_state, s.d_conv - 1), \
+                (L, batch, s.n_heads, s.head_dim, s.d_state)
+        c = {"conv": torch.zeros(conv, dtype=torch.bfloat16, device=device),
+             "ssm": torch.zeros(state, dtype=torch.float32, device=device)}
+        if cfg.family == "hybrid":
+            c.update(_kv_cache(L // cfg.hybrid_attn_every, cfg, batch,
+                               max_seq, device))
+        return c
     if cfg.mla is not None:
         m = cfg.mla
         return {"ckv": torch.zeros(cfg.n_layers, batch, max_seq,
@@ -172,10 +246,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
                 "krope": torch.zeros(cfg.n_layers, batch, max_seq,
                                      m.qk_rope_dim, dtype=torch.bfloat16,
                                      device=device)}
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_seq,
-             cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+    return _kv_cache(cfg.n_layers, cfg, batch, max_seq, device)
 
 
 def prefill_forward(cfg: ModelConfig, params, batch,
@@ -191,8 +262,14 @@ def prefill_forward(cfg: ModelConfig, params, batch,
     x, _, states = _backbone(cfg, params, x,
                              torch.arange(S, device=x.device))
     cache = init_cache(cfg, B, max_seq, x.device)
+    if cfg.family == "hybrid":
+        # Mamba2 block i of superblock sb is layer sb * k + i, the order of
+        # the reference's (nsb, k, ...) -> (L, ...) reshape
+        states, kvs = states
+        for sb, (k, v) in enumerate(kvs):
+            cache["k"][sb, :, :, :S], cache["v"][sb, :, :, :S] = k, v
     for li, st in enumerate(states):
-        if cfg.family == "ssm":
+        if cfg.family in ("ssm", "hybrid"):
             cache["conv"][li] = st["conv"]
             cache["ssm"][li] = st["ssm"]
         elif cfg.mla is not None:
@@ -202,21 +279,41 @@ def prefill_forward(cfg: ModelConfig, params, batch,
     return _logits(cfg, params, x[:, -1:]), cache
 
 
+def _mamba_steps(cfg: ModelConfig, params, cache, x, layers):
+    """One decode step through the Mamba blocks ``layers`` (indices), their
+    ``conv`` and ``ssm`` caches updated in place; returns x."""
+    decode = _mamba(cfg)[2]
+    for li in layers:
+        pl = params["layers"][li]
+        h, new = decode(pl["ssm"], apply_norm(cfg.norm, x, pl["norm1"]),
+                        {"conv": cache["conv"][li], "ssm": cache["ssm"][li]},
+                        cfg)
+        x = x + h
+        cache["conv"][li] = new["conv"]
+        cache["ssm"][li] = new["ssm"]
+    return x
+
+
 def decode_forward(cfg: ModelConfig, params, cache, tokens, pos: int):
     """One decode step.  tokens: (B, 1); pos: the position of this token.
     Returns (logits (B, 1, V), cache), the cache updated in place."""
     _check_family(cfg)
     x = _embed_tokens(cfg, params, tokens)
     if cfg.family == "ssm":
-        for li, pl in enumerate(params["layers"]):
-            h, new = ssm_mod.mamba1_decode(
-                pl["ssm"], apply_norm(cfg.norm, x, pl["norm1"]),
-                {"conv": cache["conv"][li], "ssm": cache["ssm"][li]}, cfg)
-            x = x + h
-            cache["conv"][li] = new["conv"]
-            cache["ssm"][li] = new["ssm"]
+        x = _mamba_steps(cfg, params, cache, x, range(cfg.n_layers))
         return _logits(cfg, params, x), cache
     cos, sin = _rope_for(cfg, torch.full((1,), pos, device=x.device))
+    if cfg.family == "hybrid":
+        k = cfg.hybrid_attn_every
+        for sb in range(cfg.n_layers // k):
+            x = _mamba_steps(cfg, params, cache, x,
+                             range(sb * k, (sb + 1) * k))
+            x, _ = _shared_block(
+                cfg, params["shared_attn"], x,
+                lambda pa, h, sb=sb: attn.gqa_decode(
+                    pa, h, cache["k"][sb], cache["v"][sb], cos, sin,
+                    cfg=cfg, pos=pos)[:2])
+        return _logits(cfg, params, x), cache
     for li, (pl, window) in enumerate(zip(params["layers"],
                                           _window_schedule(cfg))):
         h_in = apply_norm(cfg.norm, x, pl["norm1"])

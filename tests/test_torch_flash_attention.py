@@ -39,6 +39,9 @@ KERNEL_CASES = [  # B, H, Hkv, S, D, bq, bk, causal, window (test_kernels.py)
     (2, 4, 2, 128, 16, 64, 64, True, 0),      # head dims in padded boxes:
     (1, 2, 1, 256, 96, 128, 64, True, 48),    # 16 (GQA), 96 (MQA, window)
     (2, 4, 4, 128, 192, 64, 64, True, 0),     # MLA's q/k width, MHA
+    (1, 4, 4, 128, 80, 64, 64, True, 0),      # zamba2's shared attention,
+    (2, 4, 2, 256, 80, 128, 64, True, 48),    # GQA and a window,
+    (1, 2, 2, 128, 80, 64, 64, False, 0),     # no causal mask
 ]
 ROOT = Path(__file__).resolve().parents[1]
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4),
@@ -130,10 +133,11 @@ def test_variant_rule_takes_hopper_kernel_at_serving_shapes(B, H, Hkv, S, D):
     (16, torch.float32, "tf32x3"), (128, torch.float32, "tf32x3"),
     (32, torch.float32, "tf32x3"), (96, torch.float32, "tf32x3"),
     (192, torch.float32, "tf32x3"),
+    (80, torch.bfloat16, "wgmma"), (80, torch.float32, "tf32x3"),
 ])
 def test_variant_rule_by_head_dim_and_type(D, dtype, expect):
     """The Hopper variants (bf16 wgmma, float32 three TF32 passes on wgmma)
-    take every head dim, those off whole TMA boxes (16, 32, 96) in padded
+    take every head dim, those off whole TMA boxes (16, 32, 80, 96) in padded
     boxes: the card's times put them ahead of mma.sync and the FMA kernel
     at each (PERF.md), which run only when named."""
     assert fa.variant(D, dtype) == expect
@@ -149,12 +153,14 @@ def test_variant_rule_raises_on_unknown_head_dim_or_type(D, dtype, exc):
 
 def test_older_variants_are_not_built_at_mla_head_dim():
     """The Hopper variants take every head dim; mma.sync and the FMA
-    kernel, which they replaced, are not built at 192 (the wrapper raises
-    before a launch there, ``tests/test_torch_gpu.py``)."""
+    kernel, which they replaced, are not built at 192 (MLA's q/k width)
+    nor at 80 (zamba2's head dim): the wrapper raises before a launch
+    there, ``tests/test_torch_gpu.py``."""
     for name in ("wgmma", "tf32x3"):
         assert fa.VARIANT_HEAD_DIMS[name] == fa.HEAD_DIMS
     for name in ("mma_sync", "fma"):
-        assert set(fa.HEAD_DIMS) - set(fa.VARIANT_HEAD_DIMS[name]) == {192}
+        assert set(fa.HEAD_DIMS) - set(fa.VARIANT_HEAD_DIMS[name]) \
+            == {80, 192}
     assert set(fa.VARIANT_HEAD_DIMS) == set(fa.VARIANTS)
 
 
@@ -198,6 +204,9 @@ def _tf32x3_workspace(B, H, Hkv, S, D):
     (4, 32, 32, 1024, 96, 2 * 1024 * 96 * 4 * 64 + 2 * 4 * 32 * 96 * 1024),
     (4, 16, 16, 1024, 192,   # deepseek_v2_lite_16b's MLA prefill
      2 * 1024 * 192 * 4 * 32 + 2 * 4 * 16 * 192 * 1024),
+    (4, 32, 32, 1024, 80,    # zamba2_2_7b's shared attention: rows of D,
+     2 * 1024 * 80 * 4 * 64 + 2 * 4 * 32 * 80 * 1024),   # not DP = 96
+    (2, 4, 2, 333, 80, 2 * 333 * 80 * 2 * 6 + 2 * 2 * 2 * 80 * 336),
 ])
 def test_tf32x3_workspace_holds_split_operands(B, H, Hkv, S, D, expect):
     """q hi/lo (B*H, S, D), k hi/lo (B*Hkv, S, D) and v transposed, hi/lo
@@ -297,6 +306,7 @@ THREE = ("lo.hi", "hi.lo", "hi.hi")
     (1, 2, 2, 256, 16, True, 0, 64),         # the padded-box head dims
     (1, 4, 2, 200, 32, True, 50, 64),
     (1, 2, 1, 300, 96, False, 0, 64),
+    (1, 4, 2, 200, 80, True, 70, 64),
 ])
 def test_three_tf32_passes_meet_the_fp32_tolerance(B, H, Hkv, S, D, causal,
                                                    window, bk):
@@ -316,7 +326,7 @@ def test_three_tf32_passes_meet_the_fp32_tolerance(B, H, Hkv, S, D, causal,
                                        atol=1e-4)
 
 
-@pytest.mark.parametrize("D", [16, 32, 96])
+@pytest.mark.parametrize("D", [16, 32, 80, 96])
 @pytest.mark.parametrize("design", ["bf16", "tf32x3"])
 def test_padded_boxes_leave_the_output_unchanged(design, D):
     """The Hopper kernels' design at head dims off whole 128-byte TMA boxes:

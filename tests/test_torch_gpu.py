@@ -636,7 +636,8 @@ def test_cuda_flash_fp32_variants_match_plain(cuda, B, H, Hkv, S, D, causal,
     (2, 4, 2, 333, 128, 2 * 333 * 128 * 2 * 6 + 2 * 2 * 2 * 128 * 336),
     (1, 4, 1, 1000, 16, 2 * 1000 * 16 * 5 + 2 * 16 * 1000),
     (2, 4, 2, 333, 96, 2 * 333 * 96 * 2 * 6 + 2 * 2 * 2 * 96 * 336),
-    (1, 4, 4, 77, 192, 2 * 77 * 192 * 8 + 2 * 4 * 192 * 80)])
+    (1, 4, 4, 77, 192, 2 * 77 * 192 * 8 + 2 * 4 * 192 * 80),
+    (2, 4, 2, 333, 80, 2 * 333 * 80 * 2 * 6 + 2 * 2 * 2 * 80 * 336)])
 def test_cuda_flash_tf32x3_refuses_a_short_workspace(cuda, B, H, Hkv, S, D,
                                                      expect):
     """The kernel sizes its workspace as q, k hi/lo and v transposed hi/lo
@@ -671,10 +672,12 @@ def test_cuda_flash_tf32x3_refuses_a_short_workspace(cuda, B, H, Hkv, S, D,
 @pytest.mark.parametrize("kernel,dtype,D", [
     ("tf32x3", torch.bfloat16, 64), ("mma_sync", torch.float32, 96),
     ("fma", torch.bfloat16, 16), ("wgmma", torch.float32, 64),
-    ("mma_sync", torch.bfloat16, 192), ("fma", torch.float32, 192)])
+    ("mma_sync", torch.bfloat16, 192), ("fma", torch.float32, 192),
+    ("mma_sync", torch.bfloat16, 80), ("fma", torch.float32, 80)])
 def test_cuda_flash_refuses_variant_off_its_rule(cuda, kernel, dtype, D):
     """A variant named off its type, or at a head dim it is not built for
-    (the older kernels at MLA's 192), raises before any launch."""
+    (the older kernels at MLA's 192 and zamba2's 80), raises before any
+    launch."""
     q = torch.zeros(1, 2, 64, D, device=cuda, dtype=dtype)
     before = dict(fa.flash_attention.launches_by_variant)
     with pytest.raises(ValueError, match="variant"):
@@ -879,3 +882,86 @@ def test_moe_layer_on_card_matches_cpu(cuda, arch):
     expect = expect.float().numpy()
     np.testing.assert_allclose(got.float().cpu().numpy(), expect, rtol=2e-2,
                                atol=2e-2 * np.abs(expect).max())
+
+
+# zamba2_2_7b's shared attention at head dim 80 (bf16: two TMA boxes of 64
+# columns, the second holding columns 64-79; float32: three of 32):
+# B, H, Hkv, S, D, causal, window
+D80_CASES = [
+    (4, 32, 32, 1024, 80, True, 0),           # zamba2_2_7b prefill
+    (2, 4, 4, 1000, 80, True, 0),             # ragged S
+    (1, 4, 2, 77, 80, True, 0),               # ragged S below two tiles
+    (2, 4, 1, 1000, 80, True, 100),           # window off the tile grid
+    (2, 4, 2, 1000, 80, True, 0),             # GQA 4 on 2
+    (1, 2, 2, 300, 80, False, 0),             # no causal mask
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window", D80_CASES)
+def test_cuda_flash_head_dim_80_matches_plain(cuda, B, H, Hkv, S, D, causal,
+                                              window, dtype):
+    """The variant the rule names at D 80 (bf16 ``wgmma``, float32
+    ``tf32x3``) against the plain version at the kernel tolerance
+    (tests/test_kernels.py), on the whole output and on columns 64-79, the
+    ones past the first TMA box, on their own."""
+    tdt, tol = TOL[dtype]
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               .to(cuda, tdt)
+               for shape in ((B, H, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+    out, ran = _launched(fa.flash_attention, lambda: ops.flash_attention(
+        q, k, v, causal=causal, window=window))
+    assert ran == {fa.variant(80, tdt): 1}
+    assert out.dtype == tdt and out.shape == q.shape
+    expect = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    for cols in (slice(None), slice(64, 80)):
+        np.testing.assert_allclose(out[..., cols].float().cpu().numpy(),
+                                   expect[..., cols].float().cpu().numpy(),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim", [0, 80])
+def test_serving_zamba2_on_card_matches_cpu(cuda, head_dim):
+    """The SMOKE zamba2_2_7b (its own head dim, 16, and 80) served on the
+    card: each prefill launches the flash kernel once a superblock
+    (n_layers // hybrid_attn_every), in the variant the rule names, and
+    never the scan.  Then one prefill of two chunks and 2 decode steps fed
+    the CPU's greedy tokens, on the card and on the CPU (plain path) from
+    the same params: logits and every cache at bf16 precision (2e-2, as in
+    tests/test_torch_serve.py)."""
+    cfg = dataclasses.replace(get_smoke_config("zamba2_2_7b"),
+                              head_dim=head_dim)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    gpu = to_device(params, cuda)
+    fa.reset_counts()
+    scans = ms.mamba_scan.launches
+    stats = serve(cfg, requests=6, batch=4, prompt_len=32, max_new=3,
+                  device=cuda, params=gpu, log=lambda *a: None)
+    assert stats["finite"] and stats["requests"] == 6
+    assert fa.flash_attention.launches_by_variant == {
+        **dict.fromkeys(fa.VARIANTS, 0),
+        fa.variant(cfg.resolved_head_dim, torch.bfloat16):
+            cfg.n_layers // cfg.hybrid_attn_every * 2}
+    assert ms.mamba_scan.launches == scans
+    S = 2 * cfg.ssm.chunk
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (4, S)))
+    out, toks = {}, []
+    for key, dev, p in (("cpu", "cpu", params), ("card", cuda, gpu)):
+        logits, cache = T.prefill_forward(cfg, p, {"tokens": tokens.to(dev)},
+                                          max_seq=S + 2)
+        steps = [logits]
+        for i in range(2):   # both sides take the CPU's greedy tokens
+            if key == "cpu":
+                toks.append(torch.argmax(logits[:, -1], -1, keepdim=True))
+            logits, cache = T.decode_forward(cfg, p, cache, toks[i].to(dev),
+                                             S + i)
+            steps.append(logits)
+        out[key] = [t.float().cpu().numpy()
+                    for t in steps + [cache[k] for k in sorted(cache)]]
+    for got, expect in zip(out["card"], out["cpu"]):
+        np.testing.assert_allclose(got, expect, rtol=2e-2,
+                                   atol=2e-2 * np.abs(expect).max())

@@ -76,12 +76,12 @@ def _jax_params(cfg):
 
 
 # smoke configs of each package: an arch, or "arch@head_dim" for its smoke
-# config with that head dim (phi3_mini_3_8b's full head dim, 96, is off
-# whole TMA boxes; its smoke config's is 16); the moe family's two, the
-# second with MLA
+# config with that head dim (phi3_mini_3_8b's full head dim, 96, and
+# zamba2_2_7b's, 80, are off whole TMA boxes; their smoke configs' is 16);
+# the moe family's two, the second with MLA; the hybrid family's zamba2
 SMOKE_CASES = ["gemma3_1b", "tinyllama_1_1b", "falcon_mamba_7b",
                "phi3_mini_3_8b", "phi3_mini_3_8b@96", "granite_moe_1b_a400m",
-               "deepseek_v2_lite_16b"]
+               "deepseek_v2_lite_16b", "zamba2_2_7b", "zamba2_2_7b@80"]
 
 
 def _smoke_configs(case):
@@ -107,8 +107,8 @@ def test_configs_match_reference(arch):
 def test_unported_family_raises():
     with pytest.raises(NotImplementedError, match="encdec"):
         tconfigs.get_config("whisper_small")
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        tconfigs.get_smoke_config("zamba2-2-7b")
+    with pytest.raises(NotImplementedError, match="vlm"):
+        tconfigs.get_smoke_config("internvl2-26b")
     with pytest.raises(KeyError):
         tconfigs.get_config("nope")
 
@@ -269,11 +269,13 @@ def test_gqa_decode_matches_jax(arch, window):
 @pytest.mark.parametrize("arch", SMOKE_CASES)
 def test_prefill_and_teacher_forced_decode_match_jax(arch):
     """Prefill logits and the filled cache (KV, or falcon_mamba_7b's conv
-    tail and SSM state), then 4 decode steps fed the JAX package's greedy
-    tokens (free-running tokens could part at a bf16 argmax tie).  The
-    prompt (20) is longer than gemma3's smoke window (8), so the local
-    layers' window mask is exercised.  phi3_mini_3_8b also runs at its
-    full head dim, 96."""
+    tail and SSM state, or zamba2's Mamba2 conv tails and states beside its
+    shared attention's KV), then 4 decode steps fed the JAX package's
+    greedy tokens (free-running tokens could part at a bf16 argmax tie).
+    The prompt (20) is longer than gemma3's smoke window (8), so the local
+    layers' window mask is exercised, and shorter than zamba2's smoke
+    chunk (32), so its SSD runs one chunk of 20.  phi3_mini_3_8b also runs
+    at its full head dim, 96, and zamba2_2_7b at its, 80."""
     jcfg, tcfg = _smoke_configs(arch)
     jparams, np_params = _jax_params(jcfg)
     tparams = convert.params_from_jax(np_params)

@@ -174,9 +174,16 @@ def test_unknown_impl_and_mamba2_raise():
         TS.mamba1_forward(tp, x, tcfg, impl="nope")
     with pytest.raises(ValueError, match="unroll3"):
         TS.mamba1_forward(tp, x, tcfg, impl="unroll3")
-    v2 = dataclasses.replace(tcfg, ssm=dataclasses.replace(tcfg.ssm,
-                                                           version=2))
-    with pytest.raises(NotImplementedError, match="version 2"):
+    # Mamba2 is ported (tests/test_torch_hybrid.py); a version-2 config
+    # whose heads do not tile d_inner (0 heads of 64 for 128) fails as the
+    # reference's mamba2_init asserts
+    jcfg, tcfg = _cfgs()
+    jv2, v2 = (dataclasses.replace(c, ssm=dataclasses.replace(c.ssm,
+                                                              version=2))
+               for c in (jcfg, tcfg))
+    with pytest.raises(AssertionError):
+        JT.init_params(jv2, jax.random.PRNGKey(0))
+    with pytest.raises(AssertionError):
         TT.init_params(v2, device="cpu")
 
 
