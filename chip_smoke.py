@@ -15,7 +15,10 @@ printing a result:
    among them; 192, MLA's q/k width, with deepseek_v2_lite_16b's prefill
    (4, 16, 16, 1024, 192) causal and v zero past column 128; 80,
    zamba2_2_7b's shared attention, with its prefill (4, 32, 32, 1024, 80)
-   causal and columns 64-79, past the first TMA box, held on their own),
+   causal and columns 64-79, past the first TMA box, held on their own;
+   whisper_small's encoder (2, 12, 12, 1500, 64) without the causal mask,
+   ragged at the last q and k tile; internvl2_26b's prefill at D 128, GQA
+   48 on 8, (1, 48, 8, 1280, 128) causal),
    ragged lengths, lengths below one tile and window edges, in float32 and
    bf16, in the variant its rule names (``flash_attention.variant``) and
    beside it the one it replaced where that is built for the head dim
@@ -163,9 +166,11 @@ printing a result:
    4/6, 15/16, 19/20, 30, 32 and 34, with price / measured; 64 steps each and
    ``replay_serving`` equal to ``simulate_serving`` on every stats field;
    gemma3_1b's prefill once more at the float32 default ``EngineConfig()``;
+   since phases 36-40, whisper_small (at its prompt of 224) and
+   internvl2_26b too, eight served models;
 28. the serving studies at H100 rates: ``serving_sweep`` over
    ``benchmarks/bench_serving.py``'s grid (static, dynamic 10 ms,
-   continuous at max_batch 8 x 10, 50, 200 rps, 64 requests) for the six
+   continuous at max_batch 8 x 10, 50, 200 rps, 64 requests) for the eight
    served models, and ``simulate_fleet`` over ``bench_fleet.py``'s quick
    replay (100,000 diurnal requests at 4000 rps, continuous batching of
    64, 4 replicas, round robin) on gemma3_1b: simulated requests a second
@@ -222,7 +227,47 @@ printing a result:
    in bf16 ``wgmma`` and float32 ``tf32x3``, beside the plain version,
    SDPA (bf16 and fp32, yardsticks only), the bound and the wrapper's host
    us a call.
-   Phases 29-35 run after phase 27's measured batch and before its
+36. run whisper_small (the encdec family: a 12-layer encoder over 1500
+   precomputed frame embeddings plus a sinusoid table, non-causal; a
+   12-layer decoder with learned positions, causal self-attention and
+   cross-attention to the encoder; d_model 768, 12 heads of head dim 64)
+   cut to 2 encoder + 2 decoder layers at full width on the card against
+   the same params on the CPU (plain path): 2 prompts of 224 tokens with
+   2 x 1500 random frames, the prefill logits, the ``k``, ``v``, ``xk``
+   and ``xv`` caches and 2 decode steps fed the CPU's greedy tokens at
+   ``BF16_TOL``, with exactly 4 bf16 ``wgmma`` launches at D = 64, 2 of
+   them non-causal (the encoder's) and 2 causal; cross-attention is plain
+   torch on both devices (``models/attention.py``'s docstring says why);
+37. serve whisper_small at full width and depth (12 + 12 layers, bf16
+   params from a seed made on the card) under ``SERVE`` with a prompt of
+   224 tokens (half its decoder's 448-token context, so that 224 + 32 new
+   tokens fit; whisper's prompt-conditioning limit), the frames as the
+   reference's launcher makes them: exactly 24 x 2 = 48 ``wgmma``
+   launches at D = 64, 24 of them non-causal; profile one prefill batch
+   and 8 decode steps as in phase 6: the busy share, flash's share, and
+   the shares of the encoder, the plain cross-attention in prefill and
+   in decode (``record_function`` ranges, only while profiling);
+38. run internvl2_26b (the vlm family: the InternLM2-20B decoder, d_model
+   6144, 48 heads on 8 of head dim 128, over 256 precomputed patch
+   embeddings ahead of the tokens) cut to 2 layers at full width on the
+   card against the same params on the CPU (plain path): 2 prompts of 256
+   random patches + 128 tokens, the prefill logits, the KV cache and 2
+   decode steps at the positions after the patches at ``BF16_TOL``, with
+   exactly 2 ``wgmma`` launches at D = 128;
+39. free every earlier model, then serve internvl2_26b at full width and
+   depth (48 layers, 19.86 B bf16 params made on the card, about 39.7 GB)
+   under ``SERVE`` (prompts of 1024 tokens after 256 patches): exactly 48
+   x 2 = 96 ``wgmma`` launches at D = 128, the peak memory; profile one
+   prefill batch and 8 decode steps: the busy share, flash's share, and a
+   decode step's device time beside the least time its weights' bytes
+   take at the HBM rate;
+40. time flash at whisper_small's encoder shape (4, 12, 12, 1500, 64)
+   without the causal mask and at internvl2_26b's prefill shape (4, 48,
+   8, 1280, 128) causal, in both types (bf16 ``wgmma`` beside
+   ``mma.sync``, float32 ``tf32x3`` beside ``fma``), beside the plain
+   version, SDPA (``is_causal=False`` at the encoder's shape), the bound
+   and the wrapper's host us a call.
+   Phases 29-40 run after phase 27's measured batch and before its
    pricing, which prices their serving beside the others'.
 
 Kernel times are CUDA events around back-to-back calls queued behind a
@@ -231,7 +276,8 @@ that they are the card's time and not the wrapper's host time.  The line
 before the last is a JSON ``kernels`` summary (flash's launches by path:
 gemma3_1b serving, phi3_mini_3_8b serving, calibration, serve_batch
 (gemma3_1b), granite_moe_1b_a400m serving, deepseek_v2_lite_16b serving,
-zamba2_2_7b serving, and its times at head dims 16, 32, 80, 96 and 192;
+zamba2_2_7b serving, whisper_small serving, internvl2_26b serving, and its
+times at head dims 16, 32, 64 (non-causal), 80, 96, 128 and 192;
 the scan's entry:
 its launches by path, calibration and falcon_mamba_7b serving, and its
 times at the serving shape); the last line is ``{"ok": true, "device":
@@ -266,7 +312,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.paper_nets import PAPER_NETS  # noqa: E402
 from repro_torch.convert import to_device  # noqa: E402
 from repro_torch.core import graph_ops  # noqa: E402
-from repro_torch.kernels import _build, calibrate, ref  # noqa: E402
+from repro_torch.kernels import _build, calibrate, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.kernels import nvdla_matmul as mm  # noqa: E402
@@ -279,7 +325,8 @@ from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve.policy import get_policy  # noqa: E402
 from repro_torch.serve.step import (greedy, make_decode_step,  # noqa: E402
-                                    make_prefill_step)
+                                    make_prefill_step, prefill_inputs,
+                                    prompt_positions)
 from repro_torch.core.tensor import TensorSpec  # noqa: E402
 from repro_torch.core.tiling import H100 as H100_TILING  # noqa: E402
 from repro_torch.core.tiling import choose_tiling  # noqa: E402
@@ -326,6 +373,8 @@ KERNEL_CASES = [  # B, H, Hkv, S, D, causal, window
     (2, 4, 1, 1000, 80, True, 100),         # a window off the tile grid,
     (2, 4, 2, 1000, 80, True, 0),           # GQA 4 on 2,
     (1, 2, 2, 300, 80, False, 0),           # no causal mask
+    (2, 12, 12, 1500, 64, False, 0),        # whisper_small encoder: no
+    (1, 48, 8, 1280, 128, True, 0),         # mask; internvl2_26b prefill
 ]
 # deepseek_v2_lite_16b's MLA prefill attention in SERVE: B, H, Hkv, S, D,
 # causal, window, with v zero past column 128 (MLA pads v from 128 to 192)
@@ -351,6 +400,24 @@ ZAMBA_PREFILL = (SERVE["batch"], get_config("zamba2_2_7b").n_heads,
                  get_config("zamba2_2_7b").resolved_head_dim)
 ZAMBA_CUT = 12
 ZAMBA_PROMPTS = (2, 512)
+# phases 36-40: whisper_small serves SERVE's requests at a prompt of 224
+# tokens, half its decoder's 448-token context (arXiv:2212.04356), so that
+# 224 + 32 new tokens fit; its encoder's prefill attention is non-causal
+# over 1500 frames.  internvl2_26b serves SERVE, 256 patches ahead of each
+# prompt.  The card-against-CPU cuts: layers (whisper: encoder and decoder
+# each) and prompts (count, tokens)
+SERVE_OF = {"whisper_small": dict(SERVE, prompt_len=224)}
+WHISPER_ENCODER = (SERVE["batch"], get_config("whisper_small").n_heads,
+                   get_config("whisper_small").n_kv_heads,
+                   get_config("whisper_small").encoder.n_ctx,
+                   get_config("whisper_small").resolved_head_dim)
+INTERNVL_PREFILL = (SERVE["batch"], get_config("internvl2_26b").n_heads,
+                    get_config("internvl2_26b").n_kv_heads,
+                    prompt_positions(get_config("internvl2_26b"),
+                                     SERVE["prompt_len"]),
+                    get_config("internvl2_26b").resolved_head_dim)
+ENCDEC_VLM_CUTS = {"whisper_small": (2, (2, 224)),
+                   "internvl2_26b": (2, (2, 128))}
 # tests/test_kernels.py tolerances: matmul rtol tol, atol tol * sqrt(K);
 # scan rtol tol, atol 4 tol
 MM_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
@@ -422,7 +489,8 @@ GRAD_Z = np.array([[0.3, 0.7], [0.5, 0.5], [0.9, 0.1], [0.1, 0.9]])
 # (``apps.serving.default_config``), alone and with
 # benchmarks/bench_serving.py:37-38's host dispatch of 50 us a step
 SERVED = ("gemma3_1b", "falcon_mamba_7b", "phi3_mini_3_8b",
-          "granite_moe_1b_a400m", "deepseek_v2_lite_16b", "zamba2_2_7b")
+          "granite_moe_1b_a400m", "deepseek_v2_lite_16b", "zamba2_2_7b",
+          "whisper_small", "internvl2_26b")
 HOST_DISPATCH_S = 50e-6
 # phase 28: benchmarks/bench_serving.py:30-35's policy x rate grid and
 # benchmarks/bench_fleet.py's quick replay (100,000 diurnal requests)
@@ -573,12 +641,68 @@ def _bf16_close(name, out, expect, strict=True):
     return ok
 
 
-def _attn_layers(cfg):
-    """The layers whose prefill attention runs the flash kernel: every
-    layer, or in the hybrid family one shared block a superblock."""
+def _flash_masks_of(cfg):
+    """The flash kernel's launches in one prefill of ``cfg``, by mask: one
+    a causal self-attention layer (the hybrid family: one shared block a
+    superblock), and the encdec family's encoder layers without the causal
+    mask."""
     if cfg.family == "hybrid":
-        return cfg.n_layers // cfg.hybrid_attn_every
-    return cfg.n_layers
+        return {"causal": cfg.n_layers // cfg.hybrid_attn_every,
+                "non-causal": 0}
+    enc = cfg.encoder.n_layers if cfg.family == "encdec" else 0
+    return {"causal": cfg.n_layers, "non-causal": enc}
+
+
+def _attn_layers(cfg):
+    """The layers whose prefill attention runs the flash kernel."""
+    return sum(_flash_masks_of(cfg).values())
+
+
+@contextlib.contextmanager
+def _flash_masks():
+    """Counts, by mask, the calls in the block of ``ops.flash_attention``
+    on CUDA tensors that returned, each of which launched the kernel once
+    (the wrapper's own ``launches`` counts them all): {"causal": n,
+    "non-causal": n}."""
+    counts = {"causal": 0, "non-causal": 0}
+    flash = ops.flash_attention
+
+    def counted(q, k, v, *, causal=True, window=0):
+        out = flash(q, k, v, causal=causal, window=window)
+        if q.is_cuda:
+            counts["causal" if causal else "non-causal"] += 1
+        return out
+    ops.flash_attention = counted
+    try:
+        yield counts
+    finally:
+        ops.flash_attention = flash
+
+
+def _serve_of(arch):
+    """The serving traffic of ``arch``: ``SERVE``, whisper's at its
+    prompt of 224 (``SERVE_OF``)."""
+    return SERVE_OF.get(arch, SERVE)
+
+
+def _stub_inputs(cfg, B, seed):
+    """Random float32 embeddings from ``seed`` for the stub frontends
+    beside a prompt, on the CPU: whisper's ``frames``, InternVL2's
+    ``patches``; none for the other families."""
+    gen = torch.Generator().manual_seed(seed)
+    n = {"encdec": ("frames", cfg.encoder.n_ctx if cfg.encoder else 0),
+         "vlm": ("patches", cfg.n_patches)}.get(cfg.family)
+    if n is None:
+        return {}
+    return {n[0]: torch.randn(B, n[1], cfg.d_model, generator=gen)}
+
+
+def _cut(arch, n_layers):
+    """``arch``'s full config cut to ``n_layers`` (the encdec family's
+    encoder too)."""
+    cfg = get_config(arch)
+    enc = cfg.encoder and dataclasses.replace(cfg.encoder, n_layers=n_layers)
+    return dataclasses.replace(cfg, n_layers=n_layers, encoder=enc)
 
 
 def check_model_against_cpu(arch="gemma3_1b", n_layers=6, prompts=(2, 600)):
@@ -596,35 +720,51 @@ def check_model_against_cpu(arch="gemma3_1b", n_layers=6, prompts=(2, 600)):
     the plain attention alike, past ``BF16_TOL`` at a few of millions of
     elements; so the logits are asserted, the caches logged layer by
     layer, and ``check_hybrid_blocks`` asserts every block's output and
-    cache entries fed the card's own input at ``BF16_TOL``."""
-    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    cache entries fed the card's own input at ``BF16_TOL``.
+
+    The encdec family (whisper_small: 2 encoder + 2 decoder layers,
+    prompt 224) takes random frames and the vlm family (internvl2_26b: 2
+    layers, prompt 128) random patches ahead of the prompt, its decode
+    steps at the positions after them; the flash launches are counted by
+    mask too (``_flash_masks``: whisper's encoder non-causal)."""
+    cfg = _cut(arch, n_layers)
     cpu = T.init_params(cfg, seed=1, device="cpu")
     gpu = to_device(cpu, "cuda")
     B, S = prompts
     tokens = torch.randint(0, cfg.vocab, (B, S),
                            generator=torch.Generator().manual_seed(1))
-    log(f"model check: {cfg.name} cut to {cfg.n_layers} layers at d_model "
-        f"{cfg.d_model}, head dim {cfg.resolved_head_dim}, tokens "
-        f"{tuple(tokens.shape)}, card vs CPU")
+    stub = _stub_inputs(cfg, B, 2)
+    start = prompt_positions(cfg, S)
+    log(f"model check: {cfg.name} cut to {cfg.n_layers} layers"
+        + (f" (+ {cfg.encoder.n_layers} encoder layers)" if cfg.encoder
+           else "")
+        + f" at d_model {cfg.d_model}, head dim {cfg.resolved_head_dim}, "
+        f"tokens {tuple(tokens.shape)}"
+        + "".join(f", random {k} {tuple(t.shape)}" for k, t in stub.items())
+        + ", card vs CPU")
     name = fa.variant(cfg.resolved_head_dim, torch.bfloat16)
     before = fa.flash_attention.launches_by_variant[name]
     out, toks = {}, []
-    for dev, params in (("cpu", cpu), ("cuda", gpu)):
-        logits, cache = T.prefill_forward(cfg, params,
-                                          {"tokens": tokens.to(dev)},
-                                          max_seq=S + 2)
-        steps = [logits]
-        for i in range(2):   # both sides take the CPU's greedy tokens
-            if dev == "cpu":
-                toks.append(torch.argmax(logits[:, -1], -1, keepdim=True))
-            logits, cache = T.decode_forward(cfg, params, cache,
-                                             toks[i].to(dev), S + i)
-            steps.append(logits)
-        out[dev] = steps + [cache]
+    with _flash_masks() as masks:
+        for dev, params in (("cpu", cpu), ("cuda", gpu)):
+            batch = {"tokens": tokens.to(dev),
+                     **{k: t.to(dev) for k, t in stub.items()}}
+            logits, cache = T.prefill_forward(cfg, params, batch,
+                                              max_seq=start + 2)
+            steps = [logits]
+            for i in range(2):   # both sides take the CPU's greedy tokens
+                if dev == "cpu":
+                    toks.append(torch.argmax(logits[:, -1], -1,
+                                             keepdim=True))
+                logits, cache = T.decode_forward(cfg, params, cache,
+                                                 toks[i].to(dev), start + i)
+                steps.append(logits)
+            out[dev] = steps + [cache]
     ran = fa.flash_attention.launches_by_variant[name] - before
     log(f"  flash launches on the card: {ran} of {name} at D "
-        f"{cfg.resolved_head_dim} (expected {_attn_layers(cfg)})")
-    if ran != _attn_layers(cfg):
+        f"{cfg.resolved_head_dim}, by mask {masks} (expected "
+        f"{_flash_masks_of(cfg)})")
+    if ran != _attn_layers(cfg) or masks != _flash_masks_of(cfg):
         raise AssertionError("model check did not go through the kernel")
     for i in range(3):
         _bf16_close(f"logits step {i}", out["cuda"][i], out["cpu"][i])
@@ -718,43 +858,58 @@ def serve_full(arch="gemma3_1b"):
         f"{cfg.ssm.head_dim}, state {cfg.ssm.d_state}, chunk "
         f"{cfg.ssm.chunk}; one shared attention + MLP block after every "
         f"{cfg.hybrid_attn_every})")
+    if cfg.family == "encdec":
+        hybrid = (f" (+ {cfg.encoder.n_layers} encoder layers, non-causal "
+                  f"over {cfg.encoder.n_ctx} frames; cross-attention in "
+                  f"plain torch)")
+    if cfg.family == "vlm":
+        hybrid = f" ({cfg.n_patches} patches ahead of each prompt)"
+    kw = _serve_of(arch)
+    log(f"card memory allocated before: "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
     log(f"serve: {cfg.name} full width, {cfg.n_layers} layers{hybrid}, "
         f"d_model {cfg.d_model}, {cfg.n_heads} heads on {cfg.n_kv_heads} of "
         f"head dim {_flash_head_dim(cfg)} in flash, vocab {cfg.vocab}, "
-        f"{cfg.param_count() / 1e9:.3f} B params{moe}; {SERVE}")
+        f"{cfg.param_count() / 1e9:.3f} B params{moe}; {kw}")
     params = T.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_counts()
-    stats = serve(cfg, device="cuda", seed=0, params=params, log=log, **SERVE)
+    with _flash_masks() as masks:
+        stats = serve(cfg, device="cuda", seed=0, params=params, log=log,
+                      **kw)
     launches = fa.flash_attention.launches
     by_variant = dict(fa.flash_attention.launches_by_variant)
     expect = _attn_layers(cfg) * stats["batches"]
+    expect_masks = {k: n * stats["batches"]
+                    for k, n in _flash_masks_of(cfg).items()}
     name = fa.variant(_flash_head_dim(cfg), torch.bfloat16)
     log(f"flash_attention launches in serving: {launches}, by variant "
-        f"{by_variant} (expected {_attn_layers(cfg)} attention layers x "
-        f"{stats['batches']} prefill batches = {expect}, all {name})")
-    if launches != expect or by_variant[name] != expect:
-        raise AssertionError(f"{by_variant} flash launches, expected "
-                             f"{expect} of {name}")
-    measured = _log_serving(stats)
+        f"{by_variant}, by mask {masks} (expected {_attn_layers(cfg)} "
+        f"attention layers x {stats['batches']} prefill batches = {expect}, "
+        f"all {name}; by mask {expect_masks})")
+    if launches != expect or by_variant[name] != expect \
+            or masks != expect_masks:
+        raise AssertionError(f"{by_variant} flash launches by mask {masks}, "
+                             f"expected {expect} of {name}")
+    measured = _log_serving(stats, kw)
     return cfg, params, launches, by_variant, measured
 
 
-def _log_serving(stats):
-    """Checks a ``serve`` call of ``SERVE`` (every request served, every
+def _log_serving(stats, kw=SERVE):
+    """Checks a ``serve`` call of ``kw`` (every request served, every
     logit finite) and logs its prefill ms a batch, decode ms a step, tok/s
     and peak device memory; returns the prefill ms of each batch, the
     decode ms of each token step and the tok/s."""
     if not stats["finite"]:
         raise AssertionError("non-finite logits")
-    if stats["requests"] != SERVE["requests"]:
+    if stats["requests"] != kw["requests"]:
         raise AssertionError(f"served {stats['requests']} requests")
     per_tok = [1e3 * s / stats["decode_steps"] for s in stats["decode_s"]]
-    tokens = stats["requests"] * SERVE["max_new"]
+    tokens = stats["requests"] * kw["max_new"]
     log(f"prefill ms per batch: "
         f"{[round(1e3 * s, 3) for s in stats['prefill_s']]}")
-    log(f"decode ms per token step (batch {SERVE['batch']}): "
+    log(f"decode ms per token step (batch {kw['batch']}): "
         f"{[round(t, 3) for t in per_tok]}")
     log(f"aggregate {tokens / stats['seconds']:.1f} tok/s "
         f"({tokens} tokens in {stats['seconds']:.3f} s)")
@@ -808,7 +963,15 @@ def host_us(fn, calls=100):
     return 1e6 * t / calls
 
 
-def bound(B, H, Hkv, S, D, window, dtype, variant):
+def _live_pairs(S, causal, window):
+    """The (q, k) pairs of one head that the masks leave live: causal
+    ``qpos >= kpos``, and ``qpos - kpos < window`` for ``window > 0``."""
+    if causal:
+        return sum(min(i + 1, window) if window else i + 1 for i in range(S))
+    return sum(S - max(0, i - window + 1) if window else S for i in range(S))
+
+
+def bound(B, H, Hkv, S, D, window, dtype, variant, causal=True):
     """Least time (ms) for the work these inputs need, the largest of three
     terms: live (q, k) pairs times 4 D operations at the variant's peak
     (bf16 on the tensor cores; float32 ``tf32x3`` as 3 passes of TF32 on
@@ -818,8 +981,7 @@ def bound(B, H, Hkv, S, D, window, dtype, variant):
     v read once and o written once at the HBM rate.  Returns (ms, the term
     that sets it, {term: seconds}, operations, bytes)."""
     itemsize = torch.finfo(dtype).bits // 8
-    live = B * H * sum(min(i + 1, window) if window else i + 1
-                       for i in range(S))   # causal
+    live = B * H * _live_pairs(S, causal, window)
     flops = 4 * D * live
     if variant == "tf32x3":
         flops, peak = 3 * flops, hw.PEAK_FLOPS_TF32
@@ -833,44 +995,49 @@ def bound(B, H, Hkv, S, D, window, dtype, variant):
     return 1e3 * terms[by], by, terms, flops, nbytes
 
 
-def _sdpa(q, k, v, window):
-    """The library yardstick: ``is_causal`` where there is no window, else
-    the window as an explicit mask."""
+def _sdpa(q, k, v, window, causal=True):
+    """The library yardstick: ``is_causal`` (or none) where there is no
+    window, else the masks as an explicit one."""
     if not window:
         return lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)
+            q, k, v, is_causal=causal, enable_gqa=True)
     pos = torch.arange(q.shape[2], device="cuda")
-    mask = (pos[:, None] >= pos[None, :]) \
-        & ((pos[:, None] - pos[None, :]) < window)
+    mask = (pos[:, None] - pos[None, :]) < window
+    if causal:
+        mask &= pos[:, None] >= pos[None, :]
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                   enable_gqa=True)
 
 
-def time_flash(B, H, Hkv, S, D, window, dtype, smi, seed=2, v_width=None):
+def time_flash(B, H, Hkv, S, D, window, dtype, smi, seed=2, v_width=None,
+               causal=True):
     """Each variant of ``_variants`` at one shape: {variant: row} with the
     kernel's device ms and host us a call, the plain version's and SDPA's
     ms, and the bound.  With ``v_width``, v is zero past that column, as
     MLA gives it."""
     q, k, v = rand_qkv(B, H, Hkv, S, D, dtype, seed=seed, v_width=v_width)
-    lib = _sdpa(q, k, v, window)
+    lib = _sdpa(q, k, v, window, causal)
     lib_err = (lib().float() - ref.flash_attention_ref(
-        q, k, v, window=window).float()).abs().max().item()
-    plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, window=window),
+        q, k, v, causal=causal, window=window).float()).abs().max().item()
+    plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal,
+                                                    window=window),
                     10, hold=False)
     lib_ms = cuda_ms(lib, 20)
     rows = {}
     for name in _variants(fa, dtype, D):
         def call():
-            return fa.flash_attention(q, k, v, window=window, kernel=name)
+            return fa.flash_attention(q, k, v, causal=causal, window=window,
+                                      kernel=name)
         ms = cuda_ms(call, 20)
         b_ms, b_by, terms, flops, nbytes = bound(B, H, Hkv, S, D, window,
-                                                 dtype, name)
+                                                 dtype, name, causal)
         rows[name] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms,
                           bound_ms=b_ms, host_us=host_us(call),
                           bound_by="bytes" if b_by == "bytes"
-                          else "operations", bound_term=b_by)
+                          else "operations", bound_term=b_by, causal=causal)
         log(f"flash_attention {name} B={B} H={H} Hkv={Hkv} S={S} D={D} "
             f"{dtype} window={window}"
+            + ("" if causal else " non-causal")
             + (f" v zero past {v_width}" if v_width else "")
             + f": kernel {ms:.4f} ms (host "
             f"{rows[name]['host_us']:.1f} us a call), plain {plain:.4f} ms, "
@@ -923,6 +1090,20 @@ def time_flash_zamba(smi):
             for dtype in (torch.bfloat16, torch.float32)}
 
 
+def time_flash_encdec_vlm(smi):
+    """Phase 40: whisper_small's encoder shape (4, 12, 12, 1500, 64)
+    without the causal mask and internvl2_26b's prefill shape (4, 48, 8,
+    1280, 128) causal, no window, in bf16 and float32: {(shape, type):
+    {variant: row}}."""
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        rows[(WHISPER_ENCODER, dtype)] = time_flash(
+            *WHISPER_ENCODER, 0, dtype, smi, causal=False)
+        rows[(INTERNVL_PREFILL, dtype)] = time_flash(*INTERNVL_PREFILL, 0,
+                                                     dtype, smi)
+    return rows
+
+
 def time_flash_f32(smi):
     """The float32 kernel at the calibration's ``"model"`` attention shapes
     (causal, no window: what the calibration loop runs), ``tf32x3`` (the
@@ -943,27 +1124,40 @@ MOE_RANGES = {"moe layer": "_moe_local", "moe routing": "_route",
               "moe experts": "_expert_ffn"}
 SSM_RANGES = {"mamba2 mixer": "mamba2_forward", "mamba2 ssd": "_ssd_chunks",
               "mamba2 decode": "mamba2_decode"}
-RANGES = {**MOE_RANGES, **SSM_RANGES}
+# the encdec family's: its encoder (repro_torch.models.transformer), and
+# its cross-attention in plain torch (repro_torch.models.attention):
+# ``chunked_attention`` in prefill (nothing else calls it), and the calls
+# of ``gqa_decode`` that take the encoder's keys in decode
+ENCODER_RANGES = {"encoder": "_encoder_forward"}
+XATTN_RANGES = {"cross-attention": "chunked_attention",
+                "cross-attention decode": (
+                    "gqa_decode", lambda kw: kw.get("xa_kv") is not None)}
+RANGES = {**MOE_RANGES, **SSM_RANGES, **ENCODER_RANGES, **XATTN_RANGES}
 
 
 @contextlib.contextmanager
 def _ranges(module, ranges):
-    """Wraps each function of ``ranges`` (of ``module``) in
+    """Wraps each function of ``ranges`` (of ``module``; a name, or a name
+    and a test of the call's keywords that picks the calls to wrap) in
     ``record_function`` for the length of the block (callers reach them
     through the module: ``_moe_local`` the MoE stages, the model the
     Mamba2 functions and ``mamba2_forward`` the SSD, so the wrapped ones
     run)."""
     from torch.profiler import record_function
-    saved = {fn: getattr(module, fn) for fn in ranges.values()}
+    spec = {label: (v, None) if isinstance(v, str) else v
+            for label, v in ranges.items()}
+    saved = {fn: getattr(module, fn) for fn, _ in spec.values()}
 
-    def ranged(label, fn):
+    def ranged(label, fn, when):
         def call(*args, **kw):
+            if when is not None and not when(kw):
+                return fn(*args, **kw)
             with record_function(label):
                 return fn(*args, **kw)
         return call
 
-    for label, fn in ranges.items():
-        setattr(module, fn, ranged(label, saved[fn]))
+    for label, (fn, when) in spec.items():
+        setattr(module, fn, ranged(label, saved[fn], when))
     try:
         yield
     finally:
@@ -977,6 +1171,11 @@ def _profiled_ranges(cfg):
         return _ranges(moe_mod, MOE_RANGES)
     if cfg.ssm is not None and cfg.ssm.version == 2:
         return _ranges(ssm_mod, SSM_RANGES)
+    if cfg.family == "encdec":
+        stack = contextlib.ExitStack()
+        stack.enter_context(_ranges(T, ENCODER_RANGES))
+        stack.enter_context(_ranges(attn_mod, XATTN_RANGES))
+        return stack
     return contextlib.nullcontext()
 
 
@@ -1010,13 +1209,14 @@ def _log_moe_shares(averages, busy_ms, phase):
     _log_shares(ms_of, busy_ms, phase)
 
 
-def _log_ssm_shares(averages, busy_ms, phase):
-    """The device time under each ``SSM_RANGES`` range that ran in the
-    phase (the mixer and its SSD in prefill, the mixer's step in decode)
-    and its share of the phase's device time."""
-    ms_of = {k: t for k, t in _range_ms(averages, SSM_RANGES).items() if t}
+def _log_range_shares(averages, busy_ms, phase, ranges, what):
+    """The device time under each range of ``ranges`` that ran in the
+    phase (Mamba2's mixer and its SSD in prefill, the mixer's step in
+    decode; whisper's encoder and cross-attention in prefill, its
+    cross-attention in decode) and its share of the phase's device time."""
+    ms_of = {k: t for k, t in _range_ms(averages, ranges).items() if t}
     if not ms_of:
-        log("  Mamba2 ranges: no device time under them (not measured)")
+        log(f"  {what} ranges: no device time under them (not measured)")
         return
     _log_shares(ms_of, busy_ms, phase)
 
@@ -1028,19 +1228,26 @@ def profile_serving(cfg, params, smi, kernel=None):
     time, so the share is a lower bound).  With ``kernel``, also the share
     of the device time taken by the kernels whose name holds it; for a MoE
     model, the share of each MoE stage (``_log_moe_shares``; the ranges add
-    host time to the wall time, so the busy share is lower still).  Returns
-    the busy share of each phase (None where not measured).  For a model
-    of Mamba2 blocks, the shares of the Mamba2 mixer and its SSD
-    (``_log_ssm_shares``)."""
+    host time to the wall time, so the busy share is lower still).  For a
+    model of Mamba2 blocks, the shares of the Mamba2 mixer and its SSD;
+    for whisper, of its encoder and its cross-attention
+    (``_log_range_shares``).  The prompts are ``_serve_of(cfg.name)``'s,
+    with the stub frontends' inputs of the launcher.  Returns the busy
+    share of each phase and its device ms (a prefill batch; a decode
+    step), None where not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    B, S, n = SERVE["batch"], SERVE["prompt_len"], 8
+    kw = _serve_of(cfg.name)
+    B, S, n = kw["batch"], kw["prompt_len"], 8
     tokens = torch.randint(0, cfg.vocab, (B, S), device="cuda",
                            generator=torch.Generator("cuda").manual_seed(3))
-    prefill, decode = make_prefill_step(cfg, S + n), make_decode_step(cfg)
+    batch, start = prefill_inputs(cfg, tokens), prompt_positions(cfg, S)
+    prefill = make_prefill_step(cfg, start + n)
+    decode = make_decode_step(cfg)
     busy = {"prefill": None, "decode": None}
+    device_ms = dict(busy)
     for phase in ("prefill", "decode"):
-        logits, cache = prefill(params, {"tokens": tokens})
+        logits, cache = prefill(params, batch)
         tok = greedy(logits)
         torch.cuda.synchronize()
         ranges = _profiled_ranges(cfg)
@@ -1048,10 +1255,10 @@ def profile_serving(cfg, params, smi, kernel=None):
                                  ProfilerActivity.CUDA]) as prof, ranges:
             t0 = time.perf_counter()
             if phase == "prefill":
-                prefill(params, {"tokens": tokens})
+                prefill(params, batch)
             else:
                 for i in range(n):
-                    tok, cache, _ = decode(params, cache, tok, S + i)
+                    tok, cache, _ = decode(params, cache, tok, start + i)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
         # device-side kernels only: a CPU op's device time repeats the
@@ -1069,6 +1276,7 @@ def profile_serving(cfg, params, smi, kernel=None):
             continue
         what = "1 batch" if phase == "prefill" else f"{n} steps"
         busy[phase] = busy_ms / wall_ms
+        device_ms[phase] = busy_ms if phase == "prefill" else busy_ms / n
         log(f"profile {phase} ({what}, B={B}): wall {wall_ms:.3f} ms, device "
             f"kernels {busy_ms:.3f} ms, busy {100 * busy_ms / wall_ms:.1f}%, "
             f"{sum(e.count for e in events)} device events; card {smi}")
@@ -1080,12 +1288,15 @@ def profile_serving(cfg, params, smi, kernel=None):
         if cfg.moe is not None:
             _log_moe_shares(averages, busy_ms, phase)
         elif cfg.ssm is not None and cfg.ssm.version == 2:
-            _log_ssm_shares(averages, busy_ms, phase)
+            _log_range_shares(averages, busy_ms, phase, SSM_RANGES, "Mamba2")
+        elif cfg.family == "encdec":
+            _log_range_shares(averages, busy_ms, phase,
+                              {**ENCODER_RANGES, **XATTN_RANGES}, "encdec")
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
             log(f"  {e.self_device_time_total / 1e3:9.3f} ms "
                 f"{100 * e.self_device_time_total / 1e3 / busy_ms:5.1f}% "
                 f"x{e.count:<5d} {e.key[:90]}")
-    return busy
+    return busy, device_ms
 
 
 def _rand(shape, gen, dtype=torch.float32):
@@ -1845,6 +2056,31 @@ def check_moe_against_cpu(arch):
         _bf16_close(f"cache {key}", card[3][key], forced[3][key])
 
 
+def _nbytes(tree):
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def weight_bound(cfg, params, decode_ms, smi):
+    """Phase 39: a decode step's device time (profiled, ms) beside the
+    least time the card takes to read every weight once at the HBM rate,
+    which each step does."""
+    nbytes = _nbytes(params)
+    floor_ms = 1e3 * nbytes / hw.HBM_BW
+    if decode_ms is None:
+        log(f"{cfg.name} decode: device time not measured; its "
+            f"{nbytes / 1e9:.3f} GB of weights take {floor_ms:.3f} ms a step")
+        return
+    log(f"{cfg.name} decode: {decode_ms:.3f} ms of device time a step "
+        f"(profiled, mean of 8) beside {floor_ms:.3f} ms, its "
+        f"{nbytes / 1e9:.3f} GB of weights read once at "
+        f"{hw.HBM_BW / 1e12:.2f} TB/s: {100 * floor_ms / decode_ms:.1f}% "
+        f"of that bound; card {smi}")
+
+
 def _numel(tree):
     if isinstance(tree, dict):
         return sum(_numel(v) for v in tree.values())
@@ -2282,10 +2518,12 @@ def serve_batch_full(host_params):
     return by_variant
 
 
-def _serve_requests():
-    """``SERVE`` as a trace: every request at t = 0."""
-    return [Request(i, 0.0, SERVE["prompt_len"], SERVE["max_new"])
-            for i in range(SERVE["requests"])]
+def _serve_requests(arch):
+    """``arch``'s serving traffic (``_serve_of``) as a trace: every request
+    at t = 0."""
+    kw = _serve_of(arch)
+    return [Request(i, 0.0, kw["prompt_len"], kw["max_new"])
+            for i in range(kw["requests"])]
 
 
 def _step_prices(res):
@@ -2309,17 +2547,20 @@ def price_serving(measured, table, smi):
     bf16 = default_config()
     configs = (("a", bf16), ("b", dataclasses.replace(
         bf16, host_dispatch_s=HOST_DISPATCH_S)))
-    trace = _serve_requests()
     policy = get_policy("static", max_batch=SERVE["batch"])
     n_steps = SERVE["requests"] // SERVE["batch"] * SERVE["max_new"]
     log(f"serving priced (engine output, not times): {SERVE} as a trace at "
         f"t = 0, {policy}; (a) one H100 at its bf16 peak "
         f"{bf16.peak_flops:.4g} flop/s, HBM {bf16.hbm_bw:.4g} B/s; (b) (a) "
         f"plus {1e6 * HOST_DISPATCH_S:g} us host dispatch a step; beside "
-        f"this run's measured serving; card {smi}")
+        f"this run's measured serving (whisper_small at its prompt of "
+        f"{_serve_of('whisper_small')['prompt_len']}; the simulator prices "
+        f"neither whisper's encoder nor internvl2_26b's 256 patches, which "
+        f"the card runs); card {smi}")
     biggest = 0.0
     for arch in SERVED:
         cfg = get_config(arch)
+        trace = _serve_requests(arch)
         m = measured[arch]
         pre_ms = m["prefill_ms"][-1]
         dec_ms = statistics.median(m["decode_ms"])
@@ -2360,7 +2601,8 @@ def price_serving(measured, table, smi):
             biggest = max(biggest, max(op.flops for op in res.program.ops))
         log(f"  {arch}: replay_serving == simulate_serving on every stats "
             f"field under (a) and (b)")
-    res = simulate_serving(get_config("gemma3_1b"), trace, policy,
+    res = simulate_serving(get_config("gemma3_1b"),
+                           _serve_requests("gemma3_1b"), policy,
                            sim.EngineConfig())
     p_pre, p_dec = _step_prices(res)
     pre_ms = measured["gemma3_1b"]["prefill_ms"][-1]
@@ -2467,7 +2709,8 @@ def _head_dim_rows(small):
     out = {}
     for (shape, dtype), rows in small.items():
         first = next(iter(rows.values()))
-        out[f"{str(dtype)[6:]} {'x'.join(map(str, shape))}"] = {
+        mask = "" if first["causal"] else " non-causal"
+        out[f"{str(dtype)[6:]} {'x'.join(map(str, shape))}{mask}"] = {
             "ms_by_variant": {name: r["ms"] for name, r in rows.items()},
             **{k: first[k] for k in ("plain_ms", "library_ms", "bound_ms",
                                      "bound_term")}}
@@ -2492,7 +2735,7 @@ def main():
     check_model_against_cpu()
     cfg, params, launches, by_variant, measured = serve_full()
     rows = time_kernel(cfg, smi)
-    measured["busy"] = profile_serving(cfg, params, smi)
+    measured["busy"], _ = profile_serving(cfg, params, smi)
     served = {"gemma3_1b": measured}
     host_params = to_device(params, "cpu")    # phase 27 serves them again
     del params
@@ -2519,7 +2762,7 @@ def main():
     check_falcon_against_cpu()
     torch.cuda.empty_cache()
     fcfg, fparams, scan_serve_launches, fmeasured = serve_falcon()
-    fmeasured["busy"] = profile_serving(fcfg, fparams, smi,
+    fmeasured["busy"], _ = profile_serving(fcfg, fparams, smi,
                                         kernel="mamba_scan_kernel")
     served[fcfg.name] = fmeasured
     del fparams
@@ -2532,7 +2775,7 @@ def main():
     torch.cuda.empty_cache()
     pcfg, pparams, _, phi3_by_variant, pmeasured = serve_full(
         "phi3_mini_3_8b")
-    pmeasured["busy"] = profile_serving(pcfg, pparams, smi,
+    pmeasured["busy"], _ = profile_serving(pcfg, pparams, smi,
                                         kernel="flash_fwd_")
     served[pcfg.name] = pmeasured
     del pparams
@@ -2567,7 +2810,7 @@ def main():
         check_moe_against_cpu(arch)
         torch.cuda.empty_cache()
         mcfg, mparams, _, m_by_variant, mmeasured = serve_full(arch)
-        mmeasured["busy"] = profile_serving(mcfg, mparams, smi,
+        mmeasured["busy"], _ = profile_serving(mcfg, mparams, smi,
                                             kernel="flash_fwd_")
         served[arch] = mmeasured
         moe_by_path[f"{arch} serving"] = m_by_variant
@@ -2579,12 +2822,31 @@ def main():
     check_model_against_cpu("zamba2_2_7b", ZAMBA_CUT, ZAMBA_PROMPTS)
     torch.cuda.empty_cache()
     zcfg, zparams, _, zamba_by_variant, zmeasured = serve_full("zamba2_2_7b")
-    zmeasured["busy"] = profile_serving(zcfg, zparams, smi,
+    zmeasured["busy"], _ = profile_serving(zcfg, zparams, smi,
                                         kernel="flash_fwd_")
     served[zcfg.name] = zmeasured
     del zparams
     torch.cuda.empty_cache()
     small.update(time_flash_zamba(smi))
+    # phases 36-40: the encdec and vlm families on the card, each cut and
+    # held against the CPU, then served at full width and depth (each
+    # model freed before the next) and profiled; then flash at their
+    # prefill shapes
+    encdec_vlm_by_path = {}
+    for arch, (n_layers, prompts) in ENCDEC_VLM_CUTS.items():
+        check_model_against_cpu(arch, n_layers, prompts)
+        torch.cuda.empty_cache()
+        ecfg, eparams, _, e_by_variant, emeasured = serve_full(arch)
+        emeasured["busy"], emeasured["device_ms"] = profile_serving(
+            ecfg, eparams, smi, kernel="flash_fwd_")
+        if ecfg.family == "vlm":
+            weight_bound(ecfg, eparams, emeasured["device_ms"]["decode"],
+                         smi)
+        served[arch] = emeasured
+        encdec_vlm_by_path[f"{arch} serving"] = e_by_variant
+        del eparams
+        torch.cuda.empty_cache()
+    small.update(time_flash_encdec_vlm(smi))
     # phase 27 (2): SERVE priced beside the card; phase 28: the serving
     # studies.  The pricing and the studies launch nothing
     counts = _counts()
@@ -2598,7 +2860,8 @@ def main():
                      "calibration": cal_by_variant["flash_attention"],
                      "serve_batch (gemma3_1b)": batch_by_variant,
                      **moe_by_path,
-                     "zamba2_2_7b serving": zamba_by_variant}
+                     "zamba2_2_7b serving": zamba_by_variant,
+                     **encdec_vlm_by_path}
     log(f"flash_attention launches by path: {flash_by_path}")
     mm_by_path = {"calibration": cal_by_variant["matmul"],
                   **{f"graph batch {b}": n for b, n in graph_by_batch.items()},

@@ -3,8 +3,9 @@
 The input is the reference's params as a nested dict of numpy arrays, its
 layers stacked along a leading axis, with bf16 leaves given as float32
 (numpy has no bf16 type that torch takes).  The leaves that are float32 in
-the reference stay float32 (``FLOAT32_KEYS``: the norm scales, MLA's
-``kv_norm`` and Mamba2's gate ``norm`` among them; Mamba1's and Mamba2's
+the reference stay float32 (``FLOAT32_KEYS``: the norm scales, whisper's
+cross-attention norm ``norm_x``, MLA's ``kv_norm`` and Mamba2's gate
+``norm`` among them; Mamba1's and Mamba2's
 ``A_log``, ``D`` and ``dt_bias``, where A_log = log(1..N) is not exact in
 bf16; and the MoE ``router``, whose
 float32 logits pick each token's experts: rounded to bf16 they would move
@@ -20,8 +21,9 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-FLOAT32_KEYS = frozenset({"norm1", "norm2", "final_norm", "kv_norm", "norm",
-                          "A_log", "D", "dt_bias", "router"})
+FLOAT32_KEYS = frozenset({"norm1", "norm2", "norm_x", "final_norm",
+                          "kv_norm", "norm", "A_log", "D", "dt_bias",
+                          "router"})
 
 
 def _leaf(name, a, device):
@@ -40,15 +42,26 @@ def tree_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
     return _tree(tree, lambda k, a: _leaf(k, a, device))
 
 
+def _unstack(layers, device):
+    """A stack of blocks (each leaf with a leading layer axis) as a list of
+    per-block dicts."""
+    return [tree_from_jax(_tree(layers, lambda k, a, i=i: a[i]), device)
+            for i in range(len(layers["norm1"]))]
+
+
 def params_from_jax(params: Dict[str, Any], device="cpu") -> Dict[str, Any]:
-    """The port's params (``layers`` as a list of per-block dicts) from the
+    """The port's params (``layers``, and the encdec family's
+    ``encoder["layers"]``, as lists of per-block dicts) from the
     reference's nested dict of numpy arrays."""
-    out = tree_from_jax({k: v for k, v in params.items() if k != "layers"},
+    stacks = ("layers", "encoder")
+    out = tree_from_jax({k: v for k, v in params.items() if k not in stacks},
                         device)
-    n_layers = len(params["layers"]["norm1"])
-    out["layers"] = [tree_from_jax(_tree(params["layers"],
-                                         lambda k, a, i=i: a[i]), device)
-                     for i in range(n_layers)]
+    out["layers"] = _unstack(params["layers"], device)
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = {"layers": _unstack(enc["layers"], device),
+                          **tree_from_jax({k: v for k, v in enc.items()
+                                           if k != "layers"}, device)}
     return out
 
 

@@ -25,6 +25,9 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0):
     Hkv = k.shape[1]
     if H % Hkv:
         raise ValueError(f"H={H} is not a multiple of Hkv={Hkv}")
+    if k.shape[2] != S:
+        raise ValueError(f"k's length {k.shape[2]} differs from q's {S}: "
+                         f"flash attention takes one sequence length")
     qg = q.float().reshape(B, Hkv, H // Hkv, S, D)
     s = torch.einsum("bkgqd,bkcd->bkgqc", qg, k.float()) * (D ** -0.5)
     pos = torch.arange(S, device=q.device)

@@ -1,6 +1,9 @@
 """Serving launcher: a request queue feeds fixed-size batches; each batch is
 prefilled, then decoded greedily token by token against its cache (the KV
 cache of the dense family, the conv tail and SSM state of the ssm family).
+Whisper's prompts come with its audio stub's frame embeddings and
+InternVL2's with its vision stub's patch embeddings, as the reference's
+launcher makes them (``serve.step.prefill_inputs``).
 
 ``serve(cfg, ...)`` runs the loop for any ported config and returns its
 counts and timings; the CLI runs an arch's smoke config, or with ``--full``
@@ -10,6 +13,8 @@ its full config (random params from a seed, made on the device):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon_mamba_7b \
       --full --prompt-len 1024 --max-new 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper_small \
+      --full --prompt-len 224 --max-new 32
 """
 from __future__ import annotations
 
@@ -23,7 +28,9 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.config import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import transformer as T
-from repro_torch.serve.step import greedy, make_decode_step, make_prefill_step
+from repro_torch.serve.step import (greedy, make_decode_step,
+                                    make_prefill_step, prefill_inputs,
+                                    prompt_positions)
 
 
 def _sync(device):
@@ -45,7 +52,8 @@ def serve(cfg: ModelConfig, *, requests=8, batch=4, prompt_len=16,
         params = T.init_params(cfg, seed=seed, device=device)
     rng = np.random.default_rng(seed)
     queue = [rng.integers(0, cfg.vocab, (prompt_len,)) for _ in range(requests)]
-    max_seq = prompt_len + max_new
+    start = prompt_positions(cfg, prompt_len)
+    max_seq = start + max_new
     prefill = make_prefill_step(cfg, max_seq)
     decode = make_decode_step(cfg)
     finite = torch.ones((), dtype=torch.bool, device=device)
@@ -58,14 +66,14 @@ def serve(cfg: ModelConfig, *, requests=8, batch=4, prompt_len=16,
         tokens = torch.as_tensor(np.stack(prompts), device=device)
         _sync(device)
         t1 = time.perf_counter()
-        logits, cache = prefill(params, {"tokens": tokens})
+        logits, cache = prefill(params, prefill_inputs(cfg, tokens))
         finite &= torch.isfinite(logits).all()
         tok = greedy(logits)
         _sync(device)
         t2 = time.perf_counter()
         outs = [tok]
         for i in range(max_new - 1):
-            tok, cache, logits = decode(params, cache, tok, prompt_len + i)
+            tok, cache, logits = decode(params, cache, tok, start + i)
             finite &= torch.isfinite(logits).all()
             outs.append(tok)
         _sync(device)

@@ -30,7 +30,9 @@ from repro_torch.launch.serve import _sync
 from repro_torch.models import transformer as T
 from repro_torch.serve import get_policy
 from repro_torch.serve.policy import BatchingPolicy
-from repro_torch.serve.step import greedy, make_decode_step, make_prefill_step
+from repro_torch.serve.step import (greedy, make_decode_step,
+                                    make_prefill_step, prefill_inputs,
+                                    prompt_positions)
 
 
 def run_measured(cfg: ModelConfig, policy: BatchingPolicy, *,
@@ -52,12 +54,13 @@ def run_measured(cfg: ModelConfig, policy: BatchingPolicy, *,
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab,
                                            (batch_n, prompt_len)),
                               device=device)
-    prefill = make_prefill_step(cfg, prompt_len + cfg.n_patches + tokens)
+    start = prompt_positions(cfg, prompt_len)
+    prefill = make_prefill_step(cfg, start + tokens)
     decode = make_decode_step(cfg)
 
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": prompts})
+    logits, cache = prefill(params, prefill_inputs(cfg, prompts))
     finite = torch.isfinite(logits).all()
     last = logits[:, -1]
     tok = greedy(logits)
@@ -68,7 +71,7 @@ def run_measured(cfg: ModelConfig, policy: BatchingPolicy, *,
     out = [tok]
     t0 = time.perf_counter()
     for i in range(tokens - 1):
-        tok, cache, logits = decode(params, cache, tok, prompt_len + i)
+        tok, cache, logits = decode(params, cache, tok, start + i)
         finite &= torch.isfinite(logits).all()
         out.append(tok)
     _sync(device)

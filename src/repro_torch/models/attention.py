@@ -1,13 +1,25 @@
-"""Attention: GQA/MQA with causal and sliding-window masks, and DeepSeek's
-multi-head latent attention (MLA).
+"""Attention: GQA/MQA with causal and sliding-window masks, cross-attention
+(whisper's decoder) and DeepSeek's multi-head latent attention (MLA).
 
-Prefill attention goes through ``repro_torch.kernels.ops.flash_attention``:
-the CUDA flash kernel on the card, its plain version on the CPU.  MLA's
+Prefill self-attention goes through
+``repro_torch.kernels.ops.flash_attention``: the CUDA flash kernel on the
+card, its plain version on the CPU.  That holds for every self-attention
+of every family: causal decoders, whisper's non-causal encoder,
+InternVL2's prompt of image patches and tokens.  MLA's
 prefill takes it too, at q/k head dim ``qk_nope + qk_rope`` with v
 zero-padded to that width and sliced back, as the JAX package hands its
-chunked attention the same shapes.  Decode attention (one query against the
-cache; MLA's in the compressed space) is plain PyTorch, as the JAX package
-computes it outside any Pallas kernel.
+chunked attention the same shapes.
+
+Cross-attention (queries from the decoder, keys and values from the
+encoder's output, so that q and kv have different lengths) runs in plain
+PyTorch on both devices, in ``chunked_attention``.  The Pallas kernel the
+flash kernel ports takes one sequence length for q and kv, and the JAX
+package computes cross-attention in its jnp ``chunked_attention``, outside
+any Pallas kernel; the CUDA wrapper refuses a k whose length differs from
+q's, so a cross-attention sent to it raises.  Decode attention (one query
+against the cache, or against the encoder's keys; MLA's in the compressed
+space) is plain PyTorch too, as the JAX package computes it outside any
+Pallas kernel.
 """
 from __future__ import annotations
 
@@ -51,6 +63,58 @@ def _rope_heads(x, cos, sin):
     return apply_rope(x, cos[None, None], sin[None, None])
 
 
+def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
+                      kv_valid=None, chunk=512):
+    """q: (B, H, Sq, D); k, v: (B, Hkv, Skv, D) with ``H % Hkv == 0``.
+    Returns (B, H, Sq, D) in q's dtype.
+
+    The JAX package's online-softmax attention over KV chunks, in float32:
+    KV is zero-padded to a multiple of ``chunk`` (at most Skv) and the
+    padded keys masked (``kv_valid``, default Skv), query i sits at
+    position ``q_offset + i``, and ``window > 0`` masks keys ``window`` or
+    more behind the query (``window < 0`` masks keys more than the padded
+    Skv + Sq behind, as the reference does).  Query heads are grouped onto
+    the native ``Hkv`` KV heads."""
+    B, H, Sq, D = q.shape
+    _, Hkv, Skv, _ = k.shape
+    scale = D ** -0.5
+    chunk = min(chunk, Skv)
+    if Skv % chunk:   # pad KV to a chunk multiple; padded keys are masked
+        pad = chunk - Skv % chunk
+        k, v = F.pad(k, (0, 0, 0, pad)), F.pad(v, (0, 0, 0, pad))
+        if kv_valid is None:
+            kv_valid = Skv
+        Skv += pad
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    qf = q.float().reshape(B, Hkv, H // Hkv, Sq, D)
+    m = torch.full((B, Hkv, H // Hkv, Sq), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for i in range(Skv // chunk):
+        k_i = k[:, :, i * chunk:(i + 1) * chunk].float()
+        v_i = v[:, :, i * chunk:(i + 1) * chunk].float()
+        k_pos = i * chunk + torch.arange(chunk, device=q.device)
+        s = torch.einsum("bkgqd,bkcd->bkgqc", qf, k_i) * scale
+        mask = torch.ones(Sq, chunk, dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= q_pos[:, None] >= k_pos[None, :]
+        if window:
+            w_eff = window if window > 0 else Sq + Skv + 1
+            mask &= (q_pos[:, None] - k_pos[None, :]) < w_eff
+        if kv_valid is not None:
+            mask &= (k_pos < kv_valid)[None, :]
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] \
+            + torch.einsum("bkgqc,bkcd->bkgqd", p, v_i)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, H, Sq, D).to(q.dtype)
+
+
 def decode_attention(q, k_cache, v_cache, *, pos, window=0):
     """Single-token decode.  q: (B, H, 1, D); caches: (B, Hkv, S, D).
 
@@ -71,33 +135,52 @@ def decode_attention(q, k_cache, v_cache, *, pos, window=0):
     return out.reshape(B, H, 1, D).to(q.dtype)
 
 
-def gqa_forward(p, x, cos, sin, *, cfg: ModelConfig, causal=True, window=0):
+def gqa_forward(p, x, cos, sin, *, cfg: ModelConfig, causal=True, window=0,
+                xa=None):
     """Full-sequence (prefill) attention.  Returns (out, (k, v)) with k, v
-    of shape (B, Hkv, S, hd) after RoPE."""
+    of shape (B, Hkv, Skv, hd) after RoPE.
+
+    Self-attention (``xa`` None) runs on the flash kernel.  With ``xa``,
+    the encoder's output (B, Skv, d), it is cross-attention: k and v come
+    from ``xa``, with no RoPE and no causal mask, through
+    ``chunked_attention`` (see the module docstring)."""
     B, S, _ = x.shape
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
+    kv_src = x if xa is None else xa
+    Skv = kv_src.shape[1]
     q = (x @ p["q"]).reshape(B, S, H, hd).transpose(1, 2)
-    k = (x @ p["k"]).reshape(B, S, Hkv, hd).transpose(1, 2)
-    v = (x @ p["v"]).reshape(B, S, Hkv, hd).transpose(1, 2)
-    if cos is not None:
-        q = _rope_heads(q, cos, sin)
-        k = _rope_heads(k, cos, sin)
-    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    k = (kv_src @ p["k"]).reshape(B, Skv, Hkv, hd).transpose(1, 2)
+    v = (kv_src @ p["v"]).reshape(B, Skv, Hkv, hd).transpose(1, 2)
+    if xa is not None:
+        out = chunked_attention(q, k, v, causal=False, window=window)
+    else:
+        if cos is not None:
+            q = _rope_heads(q, cos, sin)
+            k = _rope_heads(k, cos, sin)
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
     out = out.transpose(1, 2).reshape(B, S, H * hd)
     return out @ p["o"], (k, v)
 
 
 def gqa_decode(p, x, cache_k, cache_v, cos, sin, *, cfg: ModelConfig, pos,
-               window=0):
+               window=0, xa_kv=None):
     """One-token decode.  x: (B, 1, d); cache_[kv]: (B, Hkv, S, hd).
 
     Writes this token's k and v into the caches IN PLACE at ``pos`` (the JAX
-    package returns updated copies) and returns (out, cache_k, cache_v)."""
+    package returns updated copies) and returns (out, cache_k, cache_v).
+    With ``xa_kv``, the encoder's precomputed (k, v) (B, Hkv, Skv, hd), it
+    is cross-attention: the query attends to every encoder position and the
+    caches are returned untouched."""
     B = x.shape[0]
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
     q = (x @ p["q"]).reshape(B, 1, H, hd).transpose(1, 2)
+    if xa_kv is not None:
+        k, v = xa_kv
+        out = decode_attention(q, k, v, pos=k.shape[2] - 1)
+        return out.transpose(1, 2).reshape(B, 1, H * hd) @ p["o"], \
+            cache_k, cache_v
     k_new = (x @ p["k"]).reshape(B, 1, Hkv, hd).transpose(1, 2)
     v_new = (x @ p["v"]).reshape(B, 1, Hkv, hd).transpose(1, 2)
     if cos is not None:

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -63,6 +64,17 @@ def apply_rope(x, cos, sin):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoid_positions(n_ctx, d_model, device="cpu"):
+    """Whisper's encoder position table (n_ctx, d_model) in float32: sines
+    then cosines, computed in numpy float64 and rounded once, as the
+    reference computes it."""
+    pos = np.arange(n_ctx)[:, None]
+    dim = np.arange(0, d_model, 2)[None, :] / d_model
+    ang = pos / (10_000.0 ** dim)
+    table = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(table.astype(np.float32)).to(device)
 
 
 # ---------------------------------------------------------------------------

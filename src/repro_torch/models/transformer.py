@@ -1,10 +1,12 @@
-"""Decoder-only models (dense, moe, ssm and hybrid families): init,
-prefill, decode.
+"""The model zoo's transformers (dense, moe, ssm, hybrid, encdec and vlm
+families): init, prefill, decode.
 
 Entry points, as in the JAX package:
   init_params(cfg, seed, device)                  -> params
   init_cache(cfg, batch, max_seq, device)         -> cache
   prefill_forward(cfg, params, batch, max_seq)    -> (last-token logits, cache)
+  (``batch``: ``tokens``, and whisper's ``frames`` or InternVL2's
+  ``patches``, the stub frontends' precomputed embeddings)
   decode_forward(cfg, params, cache, tokens, pos) -> (logits, cache)
 
 Params are a dict; ``params["layers"]`` is a list with one dict per block
@@ -15,7 +17,14 @@ Mamba2 at ``ssm.version`` 2; no attention, no MLP).  The hybrid family
 (zamba2) runs superblocks of ``hybrid_attn_every`` Mamba2 blocks, each
 followed by the one shared attention + MLP block ``params["shared_attn"]``
 (one set of params, applied n_layers / hybrid_attn_every times, with the
-rope tables of the whole prompt).  The cache keeps the reference's stacked
+rope tables of the whole prompt).  The encdec family (whisper) adds
+``params["encoder"]`` (``layers``: dense blocks run without a causal mask,
+over frame embeddings plus a sinusoid table; ``final_norm``), a learned
+position table ``params["pos"]`` added to the decoder's token embeddings,
+and a cross-attention (``norm_x``, ``xattn``) in each decoder block after
+its self-attention.  The vlm family (InternVL2) is the dense decoder over
+the bf16 patch embeddings followed by the tokens: the patches take cache
+positions [0, n_patches).  The cache keeps the reference's stacked
 layouts, and decode updates it in place: the dense and moe families'
 (L, B, Hkv, max_seq, hd) ``k`` and ``v``, or with MLA the compressed
 ``ckv`` (L, B, max_seq, lora) and ``krope`` (L, B, max_seq, qk_rope); the
@@ -23,7 +32,9 @@ ssm family's ``conv`` (L, B, d_inner, d_conv-1) bf16 and ``ssm`` (L, B,
 d_inner, N) float32 with Mamba1, or with Mamba2 ``conv`` (L, B, d_inner +
 2N, d_conv-1) and ``ssm`` (L, B, H, P, N); the hybrid family's Mamba2
 ``conv`` and ``ssm`` and the shared block's ``k`` and ``v`` (L / k, B,
-Hkv, max_seq, hd), one a superblock.  bf16 rounding follows the
+Hkv, max_seq, hd), one a superblock; the encdec family's ``k`` and ``v``
+and the encoder's keys and values for cross-attention ``xk`` and ``xv``
+(L, B, Hkv, n_ctx, hd).  bf16 rounding follows the
 reference: embeddings and weights are bf16, norms and attention compute in
 fp32 and return bf16.
 """
@@ -40,12 +51,12 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_norm, dense_init, embed_init,
                                        mlp_apply, mlp_init, norm_init,
-                                       rope_tables)
+                                       rope_tables, sinusoid_positions)
 
 
 def _check_family(cfg: ModelConfig):
     version = cfg.ssm.version if cfg.ssm is not None else None
-    if cfg.family in ("dense", "moe") \
+    if cfg.family in ("dense", "moe", "encdec", "vlm") \
             or (cfg.family == "ssm" and version in (1, 2)):
         return
     if cfg.family == "hybrid" and version == 2:
@@ -55,8 +66,8 @@ def _check_family(cfg: ModelConfig):
                              f"n_layers {cfg.n_layers}")
         return
     raise NotImplementedError(
-        f"{cfg.name}: only the dense, moe, ssm and hybrid (Mamba2) families "
-        f"are ported to repro_torch, not {cfg.family!r}"
+        f"{cfg.name}: the dense, moe, ssm, hybrid (Mamba2), encdec and vlm "
+        f"families are ported to repro_torch, not {cfg.family!r}"
         + (f" version {version}" if cfg.ssm else ""))
 
 
@@ -73,14 +84,18 @@ def _mamba(cfg: ModelConfig):
 
 
 def _block_init(gen, cfg: ModelConfig, shared=False):
-    """One block of ``cfg``'s stack; with ``shared``, the hybrid family's
-    shared attention + MLP block."""
+    """One block of ``cfg``'s stack; with ``shared``, an attention + MLP
+    block outside it (the hybrid family's shared block, the encdec
+    family's encoder blocks)."""
     if cfg.family in ("ssm", "hybrid") and not shared:
         return {"norm1": norm_init(cfg.d_model, gen.device),
                 "ssm": _mamba(cfg)[0](gen, cfg)}
     p = {"norm1": norm_init(cfg.d_model, gen.device),
          "attn": attn.attn_init(gen, cfg),
          "norm2": norm_init(cfg.d_model, gen.device)}
+    if cfg.family == "encdec" and not shared:
+        p["norm_x"] = norm_init(cfg.d_model, gen.device)
+        p["xattn"] = attn.attn_init(gen, cfg)
     if cfg.family == "moe":
         p["moe"] = moe_mod.moe_init(gen, cfg)
     else:
@@ -98,6 +113,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict:
          "final_norm": norm_init(cfg.d_model, device)}
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab)
+    if cfg.family == "encdec":
+        p["encoder"] = {"layers": [_block_init(gen, cfg, shared=True)
+                                   for _ in range(cfg.encoder.n_layers)],
+                        "final_norm": norm_init(cfg.d_model, device)}
+        p["pos"] = (torch.randn(min(cfg.max_seq, 32_768), cfg.d_model,
+                                generator=gen, device=device) * 0.01
+                    ).to(torch.bfloat16)
     if cfg.family == "hybrid":
         p["shared_attn"] = _block_init(gen, cfg, shared=True)
     return p
@@ -123,8 +145,15 @@ def _rope_for(cfg: ModelConfig, positions):
     return rope_tables(positions, dim, cfg.rope_theta)
 
 
-def _embed_tokens(cfg: ModelConfig, p, tokens):
+def _embed_tokens(cfg: ModelConfig, p, tokens, offset=0):
+    """Token embeddings (B, S, d) in bf16; the encdec family adds the
+    learned positions from ``offset`` on (the start clamped into the table,
+    as the reference's ``dynamic_slice`` clamps it)."""
     x = p["embed"][tokens]
+    if cfg.family == "encdec":
+        S = tokens.shape[1]
+        start = min(max(offset, 0), p["pos"].shape[0] - S)
+        x = x + p["pos"][start:start + S]
     if cfg.name.startswith("gemma"):
         # gemma embeds are scaled; the reference multiplies in bf16 by the
         # scale rounded to bf16
@@ -137,6 +166,37 @@ def _logits(cfg: ModelConfig, p, x):
     if cfg.tie_embeddings:
         return x @ p["embed"].T
     return x @ p["lm_head"]
+
+
+def _encoder_forward(cfg: ModelConfig, p, frames):
+    """Whisper's encoder over ``frames`` (B, n_ctx, d), the audio stub's
+    precomputed embeddings: the sinusoid table added in float32, then bf16
+    blocks of non-causal self-attention (the flash kernel) and MLP, then
+    the encoder's final norm."""
+    x = (frames.float() + sinusoid_positions(frames.shape[1], cfg.d_model,
+                                             frames.device)[None])
+    x = x.to(torch.bfloat16)
+    for pl in p["encoder"]["layers"]:
+        h, _ = attn.gqa_forward(pl["attn"],
+                                apply_norm(cfg.norm, x, pl["norm1"]),
+                                None, None, cfg=cfg, causal=False)
+        x = x + h
+        x = x + mlp_apply(pl["mlp"], apply_norm(cfg.norm, x, pl["norm2"]),
+                          cfg.activation)
+    return apply_norm(cfg.norm, x, p["encoder"]["final_norm"])
+
+
+def _prepare_inputs(cfg: ModelConfig, p, batch):
+    """(x, xa): the decoder's input embeddings (the vlm family's bf16 patch
+    embeddings ahead of its tokens) and the encdec family's encoder output
+    (else None)."""
+    x = _embed_tokens(cfg, p, batch["tokens"])
+    xa = None
+    if cfg.family == "encdec":
+        xa = _encoder_forward(cfg, p, batch["frames"])
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+    return x, xa
 
 
 def _ffn(cfg: ModelConfig, pl, x):
@@ -167,9 +227,11 @@ def _shared_block(cfg: ModelConfig, shared, x, attend):
     return x, st
 
 
-def _backbone(cfg: ModelConfig, p, x, positions):
+def _backbone(cfg: ModelConfig, p, x, positions, xa=None):
     """Returns (x, (load_balance, router_z) averaged over the layers, [the
-    state of each layer]): (k, v) in the dense and moe families, (c_kv,
+    state of each layer]): (k, v) in the dense, moe and vlm families, with
+    ``xa`` (the encdec family's encoder output) (k, v, xk, xv), the
+    cross-attention's keys and values after them; (c_kv,
     k_rope) with MLA, dict(conv, ssm) in the ssm family; in the hybrid
     family the pair ([dict(conv, ssm) of each Mamba2 block], [(k, v) of
     each superblock's shared attention]).  The aux terms are 0 without MoE
@@ -201,6 +263,13 @@ def _backbone(cfg: ModelConfig, p, x, positions):
             h, kv = attn.gqa_forward(pl["attn"], h_in, cos, sin, cfg=cfg,
                                      causal=True, window=window)
         x = x + h
+        if xa is not None:
+            h, xkv = attn.gqa_forward(pl["xattn"],
+                                      apply_norm(cfg.norm, x, pl["norm_x"]),
+                                      None, None, cfg=cfg, causal=False,
+                                      xa=xa)
+            x = x + h
+            kv = kv + xkv
         h, aux = _ffn(cfg, pl, apply_norm(cfg.norm, x, pl["norm2"]))
         if aux is not None:
             lb, rz = lb + aux["load_balance"], rz + aux["router_z"]
@@ -246,21 +315,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
                 "krope": torch.zeros(cfg.n_layers, batch, max_seq,
                                      m.qk_rope_dim, dtype=torch.bfloat16,
                                      device=device)}
-    return _kv_cache(cfg.n_layers, cfg, batch, max_seq, device)
+    c = _kv_cache(cfg.n_layers, cfg, batch, max_seq, device)
+    if cfg.family == "encdec":
+        xkv = _kv_cache(cfg.n_layers, cfg, batch, cfg.encoder.n_ctx, device)
+        c.update(xk=xkv["k"], xv=xkv["v"])
+    return c
 
 
 def prefill_forward(cfg: ModelConfig, params, batch,
                     max_seq: Optional[int] = None):
     """Runs the full prompt, returns (last-token logits (B, 1, V), filled
     cache).  ``batch["tokens"]``: (B, S) integer tensor on the params'
-    device."""
+    device; the encdec family also takes ``batch["frames"]`` (B, n_ctx, d)
+    and the vlm family ``batch["patches"]`` (B, n_patches, d), whose
+    positions come first, so that the prompt is n_patches + S long."""
     _check_family(cfg)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
+    x, xa = _prepare_inputs(cfg, params, batch)
+    B, S = x.shape[:2]
     max_seq = max(max_seq or S, S)
-    x = _embed_tokens(cfg, params, tokens)
     x, _, states = _backbone(cfg, params, x,
-                             torch.arange(S, device=x.device))
+                             torch.arange(S, device=x.device), xa=xa)
     cache = init_cache(cfg, B, max_seq, x.device)
     if cfg.family == "hybrid":
         # Mamba2 block i of superblock sb is layer sb * k + i, the order of
@@ -275,7 +349,9 @@ def prefill_forward(cfg: ModelConfig, params, batch,
         elif cfg.mla is not None:
             cache["ckv"][li, :, :S], cache["krope"][li, :, :S] = st
         else:
-            cache["k"][li, :, :, :S], cache["v"][li, :, :, :S] = st
+            cache["k"][li, :, :, :S], cache["v"][li, :, :, :S] = st[:2]
+            if cfg.family == "encdec":
+                cache["xk"][li], cache["xv"][li] = st[2:]
     return _logits(cfg, params, x[:, -1:]), cache
 
 
@@ -298,7 +374,7 @@ def decode_forward(cfg: ModelConfig, params, cache, tokens, pos: int):
     """One decode step.  tokens: (B, 1); pos: the position of this token.
     Returns (logits (B, 1, V), cache), the cache updated in place."""
     _check_family(cfg)
-    x = _embed_tokens(cfg, params, tokens)
+    x = _embed_tokens(cfg, params, tokens, pos)
     if cfg.family == "ssm":
         x = _mamba_steps(cfg, params, cache, x, range(cfg.n_layers))
         return _logits(cfg, params, x), cache
@@ -326,5 +402,11 @@ def decode_forward(cfg: ModelConfig, params, cache, tokens, pos: int):
                                       cache["v"][li], cos, sin, cfg=cfg,
                                       pos=pos, window=window)
         x = x + h
+        if cfg.family == "encdec":
+            h, _, _ = attn.gqa_decode(
+                pl["xattn"], apply_norm(cfg.norm, x, pl["norm_x"]), None,
+                None, None, None, cfg=cfg, pos=pos,
+                xa_kv=(cache["xk"][li], cache["xv"][li]))
+            x = x + h
         x = x + _ffn(cfg, pl, apply_norm(cfg.norm, x, pl["norm2"]))[0]
     return _logits(cfg, params, x), cache

@@ -965,3 +965,107 @@ def test_serving_zamba2_on_card_matches_cpu(cuda, head_dim):
     for got, expect in zip(out["card"], out["cpu"]):
         np.testing.assert_allclose(got, expect, rtol=2e-2,
                                    atol=2e-2 * np.abs(expect).max())
+
+
+# the encdec and vlm families' prefill attention: whisper_small's encoder
+# (non-causal over 1500 frames, ragged at both the q and the k tile) and
+# internvl2_26b's prefill at head dim 128, GQA 48 on 8 (1024 tokens after
+# 256 patches): B, H, Hkv, S, D, causal, window
+ENCDEC_VLM_CASES = [
+    (2, 12, 12, 1500, 64, False, 0),          # whisper_small encoder
+    (1, 48, 8, 1280, 128, True, 0),           # internvl2_26b prefill
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window", ENCDEC_VLM_CASES)
+def test_cuda_flash_encdec_vlm_shapes_match_plain(cuda, B, H, Hkv, S, D,
+                                                  causal, window, dtype):
+    """The variant the rule names (bf16 ``wgmma``, float32 ``tf32x3``) at
+    the encdec and vlm families' prefill shapes, against the plain version
+    at the kernel tolerance (tests/test_kernels.py)."""
+    tdt, tol = TOL[dtype]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(tdt)
+               for shape in ((B, H, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+    out, ran = _launched(fa.flash_attention, lambda: ops.flash_attention(
+        q, k, v, causal=causal, window=window))
+    assert ran == {fa.variant(D, tdt): 1}
+    expect = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               expect.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_refuses_kv_length_off_q(cuda):
+    """Cross-attention's shapes (kv longer than q) are refused before any
+    launch: the kernel takes one sequence length, as the Pallas kernel."""
+    q = torch.zeros(1, 2, 64, 64, device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros(1, 2, 100, 64, device=cuda, dtype=torch.bfloat16)
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="must be"):
+        fa.flash_attention(q, k, k, causal=False)
+    assert fa.flash_attention.launches == before
+
+
+# the encdec and vlm families' smoke configs, served on the card;
+# internvl2_26b's at head dim 16, a head dim of the kernel (its smoke
+# config's, 64 / 8 = 8, is not)
+ENCDEC_VLM_SMOKE = {
+    "whisper_small": get_smoke_config("whisper_small"),
+    "internvl2_26b": dataclasses.replace(get_smoke_config("internvl2_26b"),
+                                         head_dim=16),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", list(ENCDEC_VLM_SMOKE))
+def test_serving_encdec_vlm_on_card_matches_cpu(cuda, arch):
+    """A smoke whisper or InternVL2 served on the card: each prefill
+    launches the flash kernel once a self-attention layer (whisper: its
+    encoder's and its decoder's; cross-attention is plain torch), in the
+    variant the rule names.  Then one prefill with random frames or
+    patches and 2 decode steps fed the CPU's greedy tokens (InternVL2's
+    after its patches), on the card and on the CPU (plain path) from the
+    same params: logits and every cache at bf16 precision (2e-2, as in
+    tests/test_torch_serve.py)."""
+    cfg = ENCDEC_VLM_SMOKE[arch]
+    params = T.init_params(cfg, seed=0, device="cpu")
+    gpu = to_device(params, cuda)
+    per_batch = cfg.n_layers + (cfg.encoder.n_layers if cfg.encoder else 0)
+    fa.reset_counts()
+    stats = serve(cfg, requests=6, batch=4, prompt_len=20, max_new=3,
+                  device=cuda, params=gpu, log=lambda *a: None)
+    assert stats["finite"] and stats["requests"] == 6
+    assert fa.flash_attention.launches_by_variant == {
+        **dict.fromkeys(fa.VARIANTS, 0),
+        fa.variant(cfg.resolved_head_dim, torch.bfloat16): per_batch * 2}
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 20)))
+    stub = {}
+    if cfg.family == "encdec":
+        stub["frames"] = torch.from_numpy(rng.standard_normal(
+            (4, cfg.encoder.n_ctx, cfg.d_model)).astype(np.float32))
+    else:
+        stub["patches"] = torch.from_numpy(rng.standard_normal(
+            (4, cfg.n_patches, cfg.d_model)).astype(np.float32))
+    S = 20 + (cfg.n_patches if cfg.family == "vlm" else 0)
+    out, toks = {}, []
+    for key, dev, p in (("cpu", "cpu", params), ("card", cuda, gpu)):
+        batch = {"tokens": tokens.to(dev),
+                 **{k: t.to(dev) for k, t in stub.items()}}
+        logits, cache = T.prefill_forward(cfg, p, batch, max_seq=S + 2)
+        steps = [logits]
+        for i in range(2):   # both sides take the CPU's greedy tokens
+            if key == "cpu":
+                toks.append(torch.argmax(logits[:, -1], -1, keepdim=True))
+            logits, cache = T.decode_forward(cfg, p, cache, toks[i].to(dev),
+                                             S + i)
+            steps.append(logits)
+        out[key] = [t.float().cpu().numpy()
+                    for t in steps + [cache[k] for k in sorted(cache)]]
+    for got, expect in zip(out["card"], out["cpu"]):
+        np.testing.assert_allclose(got, expect, rtol=2e-2,
+                                   atol=2e-2 * np.abs(expect).max())

@@ -78,10 +78,25 @@ def _jax_params(cfg):
 # smoke configs of each package: an arch, or "arch@head_dim" for its smoke
 # config with that head dim (phi3_mini_3_8b's full head dim, 96, and
 # zamba2_2_7b's, 80, are off whole TMA boxes; their smoke configs' is 16);
-# the moe family's two, the second with MLA; the hybrid family's zamba2
+# the moe family's two, the second with MLA; the hybrid family's zamba2;
+# the encdec family's whisper and the vlm family's InternVL2
 SMOKE_CASES = ["gemma3_1b", "tinyllama_1_1b", "falcon_mamba_7b",
                "phi3_mini_3_8b", "phi3_mini_3_8b@96", "granite_moe_1b_a400m",
-               "deepseek_v2_lite_16b", "zamba2_2_7b", "zamba2_2_7b@80"]
+               "deepseek_v2_lite_16b", "zamba2_2_7b", "zamba2_2_7b@80",
+               "whisper_small", "internvl2_26b"]
+
+
+def _stub_inputs(cfg, B, seed):
+    """The stub frontends' embeddings a prefill of ``cfg`` takes beside its
+    tokens, random float32 from ``seed``, as (JAX, torch) batch dicts
+    without the tokens: whisper's frames, InternVL2's patches."""
+    n = {"encdec": ("frames", cfg.encoder.n_ctx if cfg.encoder else 0),
+         "vlm": ("patches", cfg.n_patches)}.get(cfg.family)
+    if n is None:
+        return {}, {}
+    a = np.random.default_rng(seed).standard_normal(
+        (B, n[1], cfg.d_model)).astype(np.float32)
+    return {n[0]: jnp.asarray(a)}, {n[0]: torch.from_numpy(a)}
 
 
 def _smoke_configs(case):
@@ -105,10 +120,16 @@ def test_configs_match_reference(arch):
 
 
 def test_unported_family_raises():
-    with pytest.raises(NotImplementedError, match="encdec"):
-        tconfigs.get_config("whisper_small")
-    with pytest.raises(NotImplementedError, match="vlm"):
-        tconfigs.get_smoke_config("internvl2-26b")
+    """No family is left unported: the port's registry holds the
+    reference's architectures, each FULL and SMOKE config equal to the
+    reference's field by field (dashed ids too), and an unknown arch
+    raises ``KeyError``."""
+    assert set(tconfigs.ARCH_IDS) == set(jconfigs.ARCH_IDS)
+    for arch in jconfigs.ARCH_IDS:
+        for get in ("get_config", "get_smoke_config"):
+            for name in (arch, arch.replace("_", "-")):
+                assert dataclasses.asdict(getattr(tconfigs, get)(name)) == \
+                    dataclasses.asdict(getattr(jconfigs, get)(arch)), name
     with pytest.raises(KeyError):
         tconfigs.get_config("nope")
 
@@ -275,17 +296,22 @@ def test_prefill_and_teacher_forced_decode_match_jax(arch):
     The prompt (20) is longer than gemma3's smoke window (8), so the local
     layers' window mask is exercised, and shorter than zamba2's smoke
     chunk (32), so its SSD runs one chunk of 20.  phi3_mini_3_8b also runs
-    at its full head dim, 96, and zamba2_2_7b at its, 80."""
+    at its full head dim, 96, and zamba2_2_7b at its, 80.  whisper's
+    prompt comes with random frame embeddings (its ``xk``/``xv`` caches
+    hold the encoder's keys), InternVL2's with random patch embeddings
+    ahead of it, so that its decode steps sit after the patches."""
     jcfg, tcfg = _smoke_configs(arch)
     jparams, np_params = _jax_params(jcfg)
     tparams = convert.params_from_jax(np_params)
-    B, S, n_dec = 2, 20, 4
-    tokens = np.random.default_rng(4).integers(0, jcfg.vocab, (B, S))
+    B, n_dec = 2, 4
+    S = 20 + (jcfg.n_patches if jcfg.family == "vlm" else 0)
+    tokens = np.random.default_rng(4).integers(0, jcfg.vocab, (B, 20))
+    jstub, tstub = _stub_inputs(jcfg, B, 5)
     jlog, jcache = JT.prefill_forward(
-        jcfg, jparams, {"tokens": jnp.asarray(tokens, jnp.int32)},
+        jcfg, jparams, {"tokens": jnp.asarray(tokens, jnp.int32), **jstub},
         max_seq=S + n_dec)
     tlog, tcache = TT.prefill_forward(
-        tcfg, tparams, {"tokens": torch.from_numpy(tokens)},
+        tcfg, tparams, {"tokens": torch.from_numpy(tokens), **tstub},
         max_seq=S + n_dec)
     assert tlog.shape == (B, 1, tcfg.vocab)
     _assert_bf16_close(tlog, jlog)
