@@ -268,7 +268,44 @@ printing a result:
    version, SDPA (``is_causal=False`` at the encoder's shape), the bound
    and the wrapper's host us a call.
    Phases 29-40 run after phase 27's measured batch and before its
-   pricing, which prices their serving beside the others'.
+   pricing, which prices their serving beside the others';
+41. training's autograd functions: ``ops.flash_attention`` on CUDA
+   tensors that require grad (the kernel forward, one launch; the backward
+   the plain version's gradient, recomputed a 512-row query chunk at a
+   time) at tinyllama_1_1b's attention (2, 32, 4, 1024, 64) causal and
+   gemma3_1b's local layer (2, 4, 1, 1024, 256) with window 512, in both
+   types, and at the shape phase 43 gives the kernel (4, 32, 4, 4096, 64)
+   causal in bf16; ``ops.mamba_scan`` at (2, 256, 128, 16) with h0 in and
+   h_S out: outputs at the kernels' tolerances, every gradient against
+   autograd's through the plain version (relative L2: float32 1e-4, bf16
+   3e-2; the plain side one batch element at a time), forward + backward
+   timed beside the plain autograd; the raw wrappers refuse an input that
+   requires grad, with no launch.  Then the kernel alone at phase 43's
+   shape beside its bound, the plain version and SDPA;
+42. one train step on the card against the CPU from the same params, for
+   every arch's SMOKE config (at a head dim of the kernel:
+   ``_card_smoke``) at 2 x 32 tokens and tinyllama_1_1b cut to 4 layers at
+   full width at 2 x 512 tokens: two kernel launches an attention (or
+   scan) layer (forward and recompute), loss and grad norm at
+   ``BF16_TOL``, every gradient leaf at 3e-2 (hybrid ``HYBRID_GRAD_TOL``,
+   on 8 params seeds, and in float32 on 3 seeds at 1e-4), every updated
+   param within AdamW's step; a MoE model's CPU step takes the card's
+   expert choices.  Then the cut trained 2 steps with a checkpoint and
+   resumed (``launch.train.train(resume=True)``) for a third, against 3
+   steps at once: the third loss at ``BF16_TOL``;
+43. tinyllama_1_1b at full width and depth (22 layers, 1.1 B params, bf16
+   params from a seed made on the card) through ``launch.train.train`` at
+   train_4k's seq 4096 with a global batch of 8 (train_4k's 256 cut for
+   one card and the time limit) in 2 microbatches of 4, 4 steps: exactly
+   2 x 22 x 2 = 88 ``wgmma`` launches a step at D 64; ms a step (steps
+   2-4), tok/s, peak memory; one more step profiled: the busy share and
+   the shares of the flash forward, the plain attention backward, the
+   clip and AdamW;
+44. gemma3_1b at full width with ``PerfFlags(windowed_attention=True)``
+   beside the baseline: one ``SERVE`` batch's prefill and 8 decode steps
+   fed the baseline's tokens (first tokens equal, logits at ``BF16_TOL``
+   at every step), then ``SERVE`` and a profiled prefill and 8 decode
+   steps each way: decode ms a step, tok/s and decode device ms a step.
 
 Kernel times are CUDA events around back-to-back calls queued behind a
 device-side wait (``torch.cuda._sleep``) that outlasts their enqueue, so
@@ -276,8 +313,10 @@ that they are the card's time and not the wrapper's host time.  The line
 before the last is a JSON ``kernels`` summary (flash's launches by path:
 gemma3_1b serving, phi3_mini_3_8b serving, calibration, serve_batch
 (gemma3_1b), granite_moe_1b_a400m serving, deepseek_v2_lite_16b serving,
-zamba2_2_7b serving, whisper_small serving, internvl2_26b serving, and its
-times at head dims 16, 32, 64 (non-causal), 80, 96, 128 and 192;
+zamba2_2_7b serving, whisper_small serving, internvl2_26b serving,
+tinyllama_1_1b training, gemma3_1b serving with the windowed flag, and its
+times at head dims 16, 32, 64 (non-causal; and tinyllama_1_1b's training
+shape), 80, 96, 128 and 192;
 the scan's entry:
 its launches by path, calibration and falcon_mamba_7b serving, and its
 times at the serving shape); the last line is ``{"ok": true, "device":
@@ -290,6 +329,7 @@ import dataclasses
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -311,7 +351,7 @@ from repro_torch.apps.serving import default_config  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.paper_nets import PAPER_NETS  # noqa: E402
 from repro_torch.convert import to_device  # noqa: E402
-from repro_torch.core import graph_ops  # noqa: E402
+from repro_torch.core import graph_ops, tree  # noqa: E402
 from repro_torch.kernels import _build, calibrate, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
@@ -319,6 +359,13 @@ from repro_torch.kernels import nvdla_matmul as mm  # noqa: E402
 from repro_torch.launch import camera  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.serve_batch import run_measured  # noqa: E402
+from repro_torch.launch import train as train_launch  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_smoke_config  # noqa: E402
+from repro_torch.data import synthetic_batch  # noqa: E402
+from repro_torch.dist import context as dist_ctx  # noqa: E402
+from repro_torch.optim import adamw_init  # noqa: E402
+from repro_torch.train import TrainConfig, make_train_step  # noqa: E402
+from repro_torch.train import step as step_mod  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
@@ -418,6 +465,51 @@ INTERNVL_PREFILL = (SERVE["batch"], get_config("internvl2_26b").n_heads,
                     get_config("internvl2_26b").resolved_head_dim)
 ENCDEC_VLM_CUTS = {"whisper_small": (2, (2, 224)),
                    "internvl2_26b": (2, (2, 128))}
+# phases 41-44: training.  The autograd functions' shapes (B, H, Hkv, S,
+# D, causal, window) and types: tinyllama_1_1b's attention at its head dim
+# 64, GQA 32 on 4, and gemma3_1b's local layer (D 256, MQA, window 512), in
+# both types; then the shape phase 43's training gives the kernel (a
+# microbatch of 4 at seq 4096), in bf16 as it trains; the scan with h0 in
+# and h_S out, b, S, d, N
+TRAIN_FLASH_SHAPE = (4, 32, 4, 4096, 64)
+TRAIN_FLASH_CASES = [((2, 32, 4, 1024, 64, True, 0),
+                      (torch.float32, torch.bfloat16)),
+                     ((2, 4, 1, 1024, 256, True, 512),
+                      (torch.float32, torch.bfloat16)),
+                     ((*TRAIN_FLASH_SHAPE, True, 0), (torch.bfloat16,))]
+TRAIN_SCAN_CASE = (2, 256, 128, 16)
+# the relative L2 error of a gradient leaf, card against CPU, and of the
+# Functions' gradients against the plain ones in bf16: the CPU tests' bf16
+# bound (tests/_torch_grads.py); float32 gradients at the kernel's 1e-4
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# the hybrid family's card-against-CPU gradients in bf16.  Its largest
+# leaf is an ``A_log`` or ``dt_bias`` (a sum over every position of terms
+# of both signs, so bf16 rounding survives where the terms cancel): over
+# params seeds 1-8 of zamba2's SMOKE it read 2.479e-02 to 5.373e-02
+# (H100 80GB HBM3, 700.00 W), every other family's leaves under 3e-2.  The
+# same step in float32 holds the Functions, card against CPU, at
+# ``GRAD_TOL[torch.float32]`` (5.192e-06 at most over seeds 1-3), where a
+# fault of theirs would still show; the bf16 bound sits between that
+# spread and the O(1) error of a missing or wrong gradient
+HYBRID_GRAD_TOL = 1e-1
+HYBRID_SEEDS = range(2, 9)       # params seeds beside 1, in bf16
+HYBRID_F32_SEEDS = (1, 2, 3)     # and in float32
+TRAIN_LR = 1e-3          # one step's lr (warmup 1): AdamW moves about lr
+# tinyllama_1_1b cut to 4 layers at full width, 2 x 512 tokens, card
+# against CPU; then resumed from a checkpoint
+TRAIN_CUT, TRAIN_CUT_BATCH = 4, (2, 512)
+# tinyllama_1_1b at full width and depth on train_4k's seq 4096 and a
+# global batch of 8 (train_4k's is 256: cut for one card and the time
+# limit) in 2 microbatches of 4, 4 steps
+TRAIN_FULL = dict(batch=8, seq=4096, microbatches=2, steps=4)
+# phase 44: gemma3_1b's decode steps compared with windowed_attention on
+# and off (teacher-forced, the off run's greedy tokens)
+WINDOWED_STEPS = 8
+# the stages of a training step profiled in ranges of their own: the plain
+# attention backward (repro_torch.kernels.ref) and the optimizer
+# (repro_torch.train.step's names)
+BWD_RANGES = {"attention backward (plain)": "flash_attention_bwd_ref"}
+OPT_RANGES = {"clip": "clip_by_global_norm", "optimizer": "adamw_update"}
 # tests/test_kernels.py tolerances: matmul rtol tol, atol tol * sqrt(K);
 # scan rtol tol, atol 4 tol
 MM_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
@@ -2683,6 +2775,465 @@ def serving_studies(smi):
         f"{f.occupancy:.4f}, SLO attainment {st['slo_attainment']:.4f}, "
         f"simulated makespan {st['makespan_s']:.3f} s")
 
+# ---------------------------------------------------------------------------
+# phases 41-44: training on the card
+
+
+def _grads(fn, inputs, douts):
+    """(outputs, gradients of ``inputs``) of ``fn`` against ``douts``, on
+    fresh leaves that require grad."""
+    ts = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*ts)
+    outs = out if isinstance(out, tuple) else (out,)
+    return [o.detach() for o in outs], list(torch.autograd.grad(
+        outs, ts, douts[:len(outs)]))
+
+
+def _plain_flash_grads(q, k, v, dout, causal, window):
+    """``ref.flash_attention_ref``'s output and its (dq, dk, dv) by
+    autograd against ``dout``, one batch element at a time: at a microbatch
+    of 4 x 32 heads x 4096^2 the dense float32 scores of a whole batch and
+    what autograd keeps of them would take some 35 GB."""
+    outs, grads = [], []
+    for b in range(q.shape[0]):
+        (o,), g = _grads(lambda *t: ref.flash_attention_ref(
+            *t, causal=causal, window=window),
+            (q[b:b + 1], k[b:b + 1], v[b:b + 1]), (dout[b:b + 1],))
+        outs.append(o)
+        grads.append(g)
+    return torch.cat(outs), [torch.cat(g) for g in zip(*grads)]
+
+
+def _rel_l2(got, expect):
+    got, expect = got.float(), expect.float().to(got.device)
+    return ((got - expect).norm() / expect.norm().clamp(min=1e-30)).item()
+
+
+def _grad_close(name, got, expect, tol):
+    err = _rel_l2(got, expect)
+    ok = err <= tol and bool(torch.isfinite(got.float()).all())
+    log(f"  {name}: relative L2 error {err:.3e} (tol {tol}) "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"{name}: {err}")
+    return err
+
+
+def check_grad_functions(smi):
+    """Phase 41: ``ops.flash_attention`` and ``ops.mamba_scan`` on CUDA
+    tensors that require grad: one kernel launch each for the forward, the
+    output against the plain version at the kernel's tolerance, and each
+    gradient against autograd's through the plain version (relative L2:
+    float32 1e-4, bf16 3e-2).  Times one forward + backward through the
+    Function beside the plain version's autograd.  The plain side runs one
+    batch element at a time (``_plain_flash_grads``), so that its dense
+    scores fit at the training shape.  Then the raw wrappers refuse an
+    input that requires grad, with no launch.  Returns the largest gradient
+    error."""
+    worst = 0.0
+    for case, dtypes in TRAIN_FLASH_CASES:
+        B, H, Hkv, S, D, causal, window = case
+        for dtype in dtypes:
+            q, k, v = rand_qkv(B, H, Hkv, S, D, dtype, seed=4)
+            dout = rand_qkv(B, H, H, S, D, dtype, seed=5)[0]
+            log(f"flash autograd function {case} {dtype}:")
+
+            def fn(*t):
+                return ops.flash_attention(*t, causal=causal, window=window)
+            before = fa.flash_attention.launches
+            (out,), grads = _grads(fn, (q, k, v), (dout,))
+            torch.cuda.synchronize()
+            if fa.flash_attention.launches != before + 1:
+                raise AssertionError("the Function did not launch the "
+                                     "kernel once")
+            eout, expect = _plain_flash_grads(q, k, v, dout, causal, window)
+            _check("  forward", out, eout, TOL[dtype], TOL[dtype])
+            for name, g, e in zip(("dq", "dk", "dv"), grads, expect):
+                if g.dtype != dtype or g.shape != e.shape:
+                    raise AssertionError(f"{name}: {g.dtype} {g.shape}")
+                worst = max(worst, _grad_close(name, g, e, GRAD_TOL[dtype]))
+            ms_fn = cuda_ms(lambda: _grads(fn, (q, k, v), (dout,)), 3,
+                            hold=False)
+            ms_plain = cuda_ms(lambda: _plain_flash_grads(
+                q, k, v, dout, causal, window), 3, hold=False)
+            log(f"  forward + backward: Function (kernel forward, plain "
+                f"chunked backward) {ms_fn:.3f} ms, plain (dense autograd, "
+                f"one batch element at a time) {ms_plain:.3f} ms; card {smi}")
+            del q, k, v, dout, out, grads, eout, expect
+            torch.cuda.empty_cache()
+    b, S, d, N = TRAIN_SCAN_CASE
+    x, dt, Bm, Cm, A, D = _scan_inputs(b, S, d, N, torch.float32, seed=6)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    h0 = _rand((b, d, N), gen)
+    douts = (_rand((b, S, d), gen), _rand((b, d, N), gen))
+    log(f"scan autograd function (b, S, d, N) = {TRAIN_SCAN_CASE} float32, "
+        f"h0 in, h_S out:")
+    before = ms.mamba_scan.launches
+    outs, grads = _grads(lambda *t: ops.mamba_scan(
+        *t[:6], h0=t[6], return_state=True), (x, dt, Bm, Cm, A, D, h0), douts)
+    torch.cuda.synchronize()
+    if ms.mamba_scan.launches != before + 1:
+        raise AssertionError("the scan Function did not launch once")
+    eouts, expect = _grads(lambda *t: ref.mamba_scan_ref(
+        *t[:6], h0=t[6], return_state=True), (x, dt, Bm, Cm, A, D, h0), douts)
+    for name, o, e in zip(("y", "h_S"), outs, eouts):
+        _check(f"  {name}", o, e, SCAN_TOL[torch.float32],
+               4 * SCAN_TOL[torch.float32])
+    for name, g, e in zip(("dx", "ddt", "dB", "dC", "dA", "dD", "dh0"),
+                          grads, expect):
+        worst = max(worst, _grad_close(name, g, e, GRAD_TOL[torch.float32]))
+    counts = _counts()
+    q, k, v = rand_qkv(*TRAIN_FLASH_CASES[0][0][:5], torch.bfloat16, seed=4)
+    qg = q.requires_grad_()
+    for call in (lambda: fa.flash_attention(qg, k, v),
+                 lambda: ms.mamba_scan(x.requires_grad_(), dt, Bm, Cm, A, D)):
+        try:
+            call()
+        except RuntimeError as e:
+            log(f"raw wrapper under grad raised: {e}")
+        else:
+            raise AssertionError("a raw wrapper ran under grad")
+    if _counts() != counts:
+        raise AssertionError("a refused call launched")
+    return worst
+
+
+# the smoke configs at a head dim of the flash kernel: tinyllama's and
+# internvl2's is 8, deepseek's MLA q/k width 16 + 8 = 24
+def _card_smoke(arch):
+    cfg = get_smoke_config(arch)
+    D = cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim if cfg.mla \
+        else cfg.resolved_head_dim
+    if cfg.family == "ssm" or D in fa.HEAD_DIMS:
+        return cfg
+    if cfg.mla:
+        return dataclasses.replace(cfg, mla=dataclasses.replace(
+            cfg.mla, qk_nope_dim=24))
+    return dataclasses.replace(cfg, head_dim=16)
+
+
+@contextlib.contextmanager
+def _captured_grads():
+    """Copies of the gradients a train step hands its clip (they are
+    clipped in place), in the params' leaf order."""
+    got = []
+    clip = step_mod.clip_by_global_norm
+
+    def capture(grads, max_norm):
+        got[:] = [g.detach().clone() for g in grads]
+        return clip(grads, max_norm)
+    step_mod.clip_by_global_norm = capture
+    try:
+        yield got
+    finally:
+        step_mod.clip_by_global_norm = clip
+
+
+def _kernel_launches():
+    return fa.flash_attention.launches + ms.mamba_scan.launches
+
+
+@contextlib.contextmanager
+def _float32_embedding():
+    """``T._embed_tokens`` without its final bf16 cast, so that float32
+    params train in float32 throughout (as ``tests/_torch_grads.py`` runs
+    them)."""
+    embed = T._embed_tokens
+
+    def embed_f32(cfg, p, tokens, offset=0):
+        x = p["embed"][tokens]
+        if cfg.family == "encdec":
+            x = x + p["pos"][offset:offset + tokens.shape[1]]
+        if cfg.name.startswith("gemma"):
+            x = x * cfg.d_model ** 0.5
+        return x
+    T._embed_tokens = embed_f32
+    try:
+        yield
+    finally:
+        T._embed_tokens = embed
+
+
+def _train_step_card_vs_cpu(cfg, batch, label, seed=1,
+                            dtype=torch.bfloat16):
+    """One train step (lr ``TRAIN_LR``) of ``cfg`` on the card and on the
+    CPU from the same params (``seed``, on the CPU; with ``dtype`` float32
+    cast to float32 and trained in float32, ``_float32_embedding``) and the
+    numpy ``batch``:
+    the kernel launches on the card (forward and recompute: twice an
+    attention or scan layer), the loss and grad norm at ``BF16_TOL``, every
+    gradient leaf (relative L2) at ``GRAD_TOL[dtype]`` (the hybrid
+    family's in bf16 at ``HYBRID_GRAD_TOL``), every updated param within
+    2.5 lr
+    plus one bf16 step of its largest value (AdamW moves an element by
+    about lr, either sign where its gradient is near 0).  A MoE model's
+    CPU step takes the card's expert choices (a rounding flip of one
+    token's experts moves its embedding row's gradient: granite's embed
+    parted by 5.9% relative L2 on its own routing).  Returns the largest
+    gradient error."""
+    cpu = T.init_params(cfg, seed=seed, device="cpu")
+    f32 = dtype == torch.float32
+    if f32:
+        cpu = tree.map_tree(lambda t: t.float(), cpu)
+    gpu = to_device(cpu, "cuda")
+    step = make_train_step(cfg, TrainConfig(lr=TRAIN_LR, warmup=1))
+    out, routes = {}, []
+    for dev, params in (("cuda", gpu), ("cpu", cpu)):
+        embedding = _float32_embedding() if f32 \
+            else contextlib.nullcontext()
+        before = _kernel_launches()
+        # routing is discontinuous (``check_moe_against_cpu``): the CPU
+        # takes the card's experts, call for call (forward, then the
+        # recomputes in the backward's order)
+        routing = contextlib.nullcontext() if cfg.moe is None else (
+            _captured_routes() if dev == "cuda" else _forced_routes(routes))
+        with _captured_grads() as grads, routing as recs, embedding:
+            _, _, metrics = step(params, adamw_init(params),
+                                 {k: torch.from_numpy(v).to(dev)
+                                  for k, v in batch.items()}, 1)
+        if dev == "cuda" and cfg.moe is not None:
+            routes = recs
+        out[dev] = (metrics, grads, _kernel_launches() - before)
+    expect = 2 * (cfg.n_layers if cfg.family == "ssm" else _attn_layers(cfg))
+    log(f"train step {label}: {out['cuda'][2]} kernel launches on the card "
+        f"(expected {expect}: forward and recompute), loss card "
+        f"{float(out['cuda'][0]['loss']):.5f} CPU "
+        f"{float(out['cpu'][0]['loss']):.5f}, grad_norm card "
+        f"{float(out['cuda'][0]['grad_norm']):.5f} CPU "
+        f"{float(out['cpu'][0]['grad_norm']):.5f}")
+    if out["cuda"][2] != expect or out["cpu"][2]:
+        raise AssertionError(f"{label}: launches {out['cuda'][2]}, "
+                             f"{out['cpu'][2]} on the CPU")
+    for key in ("loss", "nll", "zloss", "moe_loss", "grad_norm"):
+        a, b = float(out["cuda"][0][key]), float(out["cpu"][0][key])
+        if not (math.isfinite(a) and abs(a - b) <= BF16_TOL * abs(b) + 1e-6):
+            raise AssertionError(f"{label} {key}: card {a} CPU {b}")
+    worst, name = 0.0, None
+    tol = HYBRID_GRAD_TOL if cfg.family == "hybrid" and not f32 \
+        else GRAD_TOL[dtype]
+    for (key, _), g, e in zip(tree.flatten(cpu).items(), out["cuda"][1],
+                              out["cpu"][1]):
+        err = _rel_l2(g, e)
+        if not err <= tol:
+            raise AssertionError(f"{label} gradient {key}: relative L2 "
+                                 f"{err}")
+        if err >= worst:
+            worst, name = err, key
+    bound = 0.0
+    for (key, a), b in zip(tree.flatten(gpu).items(), tree.leaves(cpu)):
+        a, b = a.detach().float().cpu(), b.detach().float()
+        step_tol = 2.5 * TRAIN_LR + 2 ** -8 * b.abs().max().item()
+        err = (a - b).abs().max().item()
+        bound = max(bound, err / step_tol)
+        if err > step_tol:
+            raise AssertionError(f"{label} param {key}: {err} > {step_tol}")
+    log(f"  {len(out['cpu'][1])} gradient leaves within {tol} (largest "
+        f"{worst:.3e}, {name}); updated "
+        f"params within {100 * bound:.1f}% of their bound")
+    return worst
+
+
+def check_training_against_cpu():
+    """Phase 42: one train step card against CPU for every arch's SMOKE
+    config (``_card_smoke``'s head dims) at 2 x 32 tokens, and for
+    tinyllama_1_1b cut to ``TRAIN_CUT`` layers at full width, 2 x 512
+    tokens.  Then the cut trained 2 steps on the card with a checkpoint,
+    resumed for a third (``launch.train.train(resume=True)``, what
+    ``--resume`` runs), against 3 steps at once: the third step's loss at
+    ``BF16_TOL``.  Returns the largest gradient error and the checkpoint's
+    (save, restore) seconds."""
+    worst = 0.0
+    for arch in ARCH_IDS:
+        cfg = _card_smoke(arch)
+        batch = synthetic_batch(cfg, 2, 32, np.random.default_rng(3))
+        worst = max(worst, _train_step_card_vs_cpu(cfg, batch,
+                                                   f"{arch} SMOKE"))
+        if cfg.family != "hybrid":
+            continue
+        # the hybrid family's bf16 bound over more seeds, and in float32,
+        # where a fault of the Functions would still part card from CPU
+        for seed in HYBRID_SEEDS:
+            worst = max(worst, _train_step_card_vs_cpu(
+                cfg, batch, f"{arch} SMOKE, params seed {seed}", seed=seed))
+        for seed in HYBRID_F32_SEEDS:
+            _train_step_card_vs_cpu(cfg, batch, f"{arch} SMOKE float32, "
+                                    f"params seed {seed}", seed=seed,
+                                    dtype=torch.float32)
+    cfg = _cut("tinyllama_1_1b", TRAIN_CUT)
+    B, S = TRAIN_CUT_BATCH
+    worst = max(worst, _train_step_card_vs_cpu(
+        cfg, synthetic_batch(cfg, B, S, np.random.default_rng(3)),
+        f"tinyllama_1_1b cut to {TRAIN_CUT} layers, {B} x {S}"))
+    ckpt = _build.BUILD_DIR.parent / "train_ckpt"   # git-ignored
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kw = dict(batch=B, seq=S, device="cuda", seed=2, log=log)
+    whole = train_launch.train(cfg, steps=3, **kw)
+    t0 = time.perf_counter()
+    train_launch.train(cfg, steps=2, ckpt_dir=str(ckpt), ckpt_every=100,
+                       **kw)
+    t1 = time.perf_counter()
+    resumed = train_launch.train(cfg, steps=3, ckpt_dir=str(ckpt),
+                                 resume=True, **kw)
+    t2 = time.perf_counter()
+    size = sum(p.stat().st_size for p in ckpt.rglob("*") if p.is_file())
+    shutil.rmtree(ckpt, ignore_errors=True)
+    a, b = resumed["losses"], whole["losses"]
+    log(f"resume: {size / 2**30:.3f} GiB checkpoint; 2 steps + save "
+        f"{t1 - t0:.2f} s, restore + 1 step {t2 - t1:.2f} s; step 2 loss "
+        f"resumed {a} vs uninterrupted {b[2]:.6f} (losses {b})")
+    if resumed["start"] != 2 or len(a) != 1 \
+            or not abs(a[0] - b[2]) <= BF16_TOL * abs(b[2]):
+        raise AssertionError(f"resumed {a} vs {b}")
+    return worst
+
+
+def train_full(smi):
+    """Phase 43: tinyllama_1_1b at full width and depth through
+    ``launch.train.train`` at ``TRAIN_FULL``; the flash counts set to 0
+    just before and read just after: 2 x 22 x 2 = 88 launches a step, all
+    bf16 ``wgmma`` at D 64.  Logs ms a step (steps 2-4), tok/s, peak GiB;
+    then one more step profiled: the busy share and the shares of the
+    flash forward, the plain attention backward, the clip and the
+    optimizer.  Returns (launches by variant, ms a step, tok/s, peak GiB,
+    the profiled step's device ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config("tinyllama_1_1b")
+    kw = TRAIN_FULL
+    tokens = kw["batch"] * kw["seq"]
+    log(f"train: {cfg.name} full width and depth ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads on {cfg.n_kv_heads} of "
+        f"head dim {cfg.resolved_head_dim}, vocab {cfg.vocab}, "
+        f"{cfg.param_count() / 1e9:.3f} B params), seq {kw['seq']}, global "
+        f"batch {kw['batch']} in {kw['microbatches']} microbatches, "
+        f"{kw['steps']} steps; card memory allocated before "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counts()
+    out = train_launch.train(cfg, device="cuda", seed=0, log=log, **kw)
+    launches = fa.flash_attention.launches
+    by_variant = dict(fa.flash_attention.launches_by_variant)
+    per_step = 2 * cfg.n_layers * kw["microbatches"]
+    log(f"flash_attention launches in training: {launches} ({by_variant}); "
+        f"expected {per_step} a step (forward and recompute of "
+        f"{cfg.n_layers} layers x {kw['microbatches']} microbatches) x "
+        f"{kw['steps']} steps")
+    if launches != per_step * kw["steps"] or by_variant["wgmma"] != launches:
+        raise AssertionError(f"training launches {by_variant}")
+    losses = out["losses"]
+    if not all(math.isfinite(x) and 0 < x < 30 for x in losses):
+        raise AssertionError(f"losses {losses}")
+    step_ms = 1e3 * statistics.mean(out["step_s"][1:])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"losses {[round(x, 4) for x in losses]}; ms a step "
+        f"{[round(1e3 * s, 1) for s in out['step_s']]} (steps 2-4 mean "
+        f"{step_ms:.1f} ms), {tokens / step_ms * 1e3:.0f} tok/s, peak "
+        f"{peak:.3f} GiB; card {smi}")
+    params, opt = out["params"], out["opt"]
+    step = make_train_step(cfg, TrainConfig(total_steps=kw["steps"] + 1,
+                                            n_microbatches=kw["microbatches"]))
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in synthetic_batch(
+        cfg, kw["batch"], kw["seq"], np.random.default_rng(9)).items()}
+    torch.cuda.synchronize()
+    stack = contextlib.ExitStack()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, stack:
+        stack.enter_context(_ranges(ref, BWD_RANGES))
+        stack.enter_context(_ranges(step_mod, OPT_RANGES))
+        t0 = time.perf_counter()
+        step(params, opt, batch, kw["steps"])
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    averages = prof.key_averages()
+    labels = {**BWD_RANGES, **OPT_RANGES}
+    events = [e for e in averages if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0
+              and not getattr(e, "is_user_annotation", False)
+              and e.key not in labels]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if not events:
+        log("profile train step: no device time in the trace (not measured)")
+        return by_variant, step_ms, tokens / step_ms * 1e3, peak, None
+    # the profiler's own host work lengthens the profiled step's wall, so
+    # the device time is also given over the unprofiled steps' mean
+    log(f"profile train step: wall {wall_ms:.3f} ms, device kernels "
+        f"{busy_ms:.3f} ms, busy {100 * busy_ms / wall_ms:.1f}% of the "
+        f"profiled wall, {100 * busy_ms / step_ms:.1f}% of the unprofiled "
+        f"steps' mean {step_ms:.1f} ms, {sum(e.count for e in events)} "
+        f"device events; card {smi}")
+    flash_ms = sum(e.self_device_time_total for e in events
+                   if "flash_fwd_" in e.key) / 1e3
+    _log_shares({"flash forward (kernel)": flash_ms,
+                 **_range_ms(averages, labels)}, busy_ms, "train step")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{100 * e.self_device_time_total / 1e3 / busy_ms:5.1f}% "
+            f"x{e.count:<6d} {e.key[:90]}")
+    return by_variant, step_ms, tokens / step_ms * 1e3, peak, busy_ms
+
+
+def serve_windowed(smi):
+    """Phase 44: gemma3_1b at full width served with
+    ``PerfFlags(windowed_attention=True)`` beside the baseline.  One batch
+    of ``SERVE``'s prompts, prefill and ``WINDOWED_STEPS`` decode steps fed
+    the baseline's greedy tokens: the first tokens equal and the logits at
+    ``BF16_TOL`` at every step (the prefill is the same flash kernel with
+    its window mask either way; decode reads the window's slice of a local
+    layer's cache).  Then ``SERVE`` and a profiled prefill batch and 8
+    decode steps (``profile_serving``) each way: decode ms a step, tok/s,
+    decode device ms a step.  Returns the windowed run's flash launches by
+    variant."""
+    cfg = get_config("gemma3_1b")
+    params = T.init_params(cfg, seed=0, device="cuda")
+    B, S = SERVE["batch"], SERVE["prompt_len"]
+    tokens = torch.randint(0, cfg.vocab, (B, S), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(4))
+    prefill = make_prefill_step(cfg, S + WINDOWED_STEPS)
+    decode = make_decode_step(cfg)
+    runs, toks = {}, []
+    for on in (False, True):
+        dist_ctx.set_perf_flags(dist_ctx.PerfFlags(windowed_attention=on))
+        logits, cache = prefill(params, {"tokens": tokens})
+        steps = [logits]
+        for i in range(WINDOWED_STEPS):
+            if not on:
+                toks.append(greedy(logits))
+            _, cache, logits = decode(params, cache, toks[i], S + i)
+            steps.append(logits)
+        runs[on] = steps
+    dist_ctx.set_perf_flags(dist_ctx.PerfFlags())
+    if not torch.equal(greedy(runs[True][0]), toks[0]):
+        raise AssertionError("windowed prefill's first tokens differ")
+    log(f"windowed_attention on against off, gemma3_1b, {B} x {S} + "
+        f"{WINDOWED_STEPS} decode steps: first tokens equal")
+    for i, (a, b) in enumerate(zip(runs[True], runs[False])):
+        _bf16_close(f"logits step {i}", a, b)
+    measured = {}
+    for on in (False, True):
+        dist_ctx.set_perf_flags(dist_ctx.PerfFlags(windowed_attention=on))
+        try:
+            log(f"serve gemma3_1b, windowed_attention={on}:")
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_counts()
+            stats = serve(cfg, device="cuda", seed=0, params=params,
+                          log=log, **SERVE)
+            by_variant = dict(fa.flash_attention.launches_by_variant)
+            if fa.flash_attention.launches != cfg.n_layers * stats["batches"]:
+                raise AssertionError(f"windowed={on}: {by_variant}")
+            m = _log_serving(stats)
+            m["busy"], m["device_ms"] = profile_serving(cfg, params, smi)
+            measured[on] = m
+        finally:
+            dist_ctx.set_perf_flags(dist_ctx.PerfFlags())
+    for on, m in measured.items():
+        log(f"windowed_attention={on}: decode ms a step "
+            f"{statistics.mean(m['decode_ms']):.3f} (host clock), decode "
+            f"device ms a step {m['device_ms']['decode']}, prefill device ms "
+            f"{m['device_ms']['prefill']}, {m['tok_s']:.1f} tok/s; card {smi}")
+    del params
+    torch.cuda.empty_cache()
+    return by_variant
+
 
 def _counts():
     """Every kernel wrapper's launch count."""
@@ -2855,13 +3406,31 @@ def main():
     if _counts() != counts:
         raise AssertionError(f"pricing changed the launch counts: {counts} "
                              f"-> {_counts()}")
+    # phases 41-44: training on the card, and gemma3_1b's windowed decode
+    grad_err = check_grad_functions(smi)
+    # the kernel at the shape training gives it, beside its bound
+    small[(TRAIN_FLASH_SHAPE, torch.bfloat16)] = time_flash(
+        *TRAIN_FLASH_SHAPE, 0, torch.bfloat16, smi)
+    train_err = check_training_against_cpu()
+    torch.cuda.empty_cache()
+    train_by_variant, train_ms, train_tok_s, train_gib, train_device = \
+        train_full(smi)
+    torch.cuda.empty_cache()
+    windowed_by_variant = serve_windowed(smi)
+    log(f"training: grad errors {grad_err:.3e} (Functions), {train_err:.3e} "
+        f"(card vs CPU); tinyllama_1_1b {train_ms:.1f} ms a step, "
+        f"{train_tok_s:.0f} tok/s, {train_gib:.3f} GiB, device ms a step "
+        f"{train_device}")
     flash_by_path = {"gemma3_1b serving": by_variant,
                      "phi3_mini_3_8b serving": phi3_by_variant,
                      "calibration": cal_by_variant["flash_attention"],
                      "serve_batch (gemma3_1b)": batch_by_variant,
                      **moe_by_path,
                      "zamba2_2_7b serving": zamba_by_variant,
-                     **encdec_vlm_by_path}
+                     **encdec_vlm_by_path,
+                     "tinyllama_1_1b training (4 steps)": train_by_variant,
+                     "gemma3_1b serving, windowed_attention":
+                         windowed_by_variant}
     log(f"flash_attention launches by path: {flash_by_path}")
     mm_by_path = {"calibration": cal_by_variant["matmul"],
                   **{f"graph batch {b}": n for b, n in graph_by_batch.items()},

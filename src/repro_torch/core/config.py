@@ -3,12 +3,14 @@
 Every architecture is described by a frozen ``ModelConfig`` with the same
 fields, defaults and meaning as the JAX package's, so a config file reads the
 same in both packages.  The registry in ``repro_torch.configs`` maps
-``--arch <id>`` strings to full and reduced (smoke) configs.
+``--arch <id>`` strings to full and reduced (smoke) configs.  ``SHAPES``
+are the reference's workload shapes (sequence length, global batch, kind),
+which the training launcher takes by name.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -84,6 +86,13 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
 
+    @property
+    def has_subquadratic_attention(self) -> bool:
+        """True if long-context decode (long_500k) is runnable."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.local_global_ratio > 0 or self.window > 0
+
     def param_count(self) -> int:
         """Analytical parameter count (embeddings + blocks), the reference's
         formula for every family."""
@@ -148,3 +157,33 @@ class ModelConfig:
         full_mlp = (e.n_experts + e.n_shared) * (gates + 1) * self.d_model * e.d_ff_expert
         act_mlp = (e.top_k + e.n_shared) * (gates + 1) * self.d_model * e.d_ff_expert
         return self.param_count() - self.n_layers * (full_mlp - act_mlp)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # train | prefill | decode
+    # decode shapes: seq_len is the KV-cache length; one new token is produced
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", seq_len=4_096, global_batch=256, kind="train"),
+    ShapeConfig("prefill_32k", seq_len=32_768, global_batch=32, kind="prefill"),
+    ShapeConfig("decode_32k", seq_len=32_768, global_batch=128, kind="decode"),
+    ShapeConfig("long_500k", seq_len=524_288, global_batch=1, kind="decode"),
+)
+
+SHAPE_BY_NAME = {s.name: s for s in SHAPES}
+
+
+def cell_is_runnable(model: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether a (arch x shape) cell runs, and why not if it doesn't."""
+    if shape.name == "long_500k" and not model.has_subquadratic_attention:
+        return False, "pure full-attention arch: long_500k skipped per assignment"
+    return True, ""

@@ -25,6 +25,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+def refuse_grad(name, *tensors):
+    """Raises if autograd is recording and a tensor of ``tensors`` requires
+    grad: a kernel fills its output through a raw pointer, which autograd
+    does not see, so its output would have no gradient.  Differentiable
+    calls go through ``repro_torch.kernels.ops``."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} kernel: an input requires grad, and the kernel's output "
+            f"would carry none; call repro_torch.kernels.ops.{name}, whose "
+            f"autograd function has the backward")
+
 _lock = threading.Lock()
 
 

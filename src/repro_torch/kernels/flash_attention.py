@@ -24,6 +24,10 @@ not 80 or 192).  A
 variant named off its head dims raises before the launch, and a failed
 launch raises; no variant stands in for another.
 
+The wrapper raises when autograd is recording and an input requires grad
+(``_build.refuse_grad``): ``repro_torch.kernels.ops.flash_attention`` is
+the differentiable entry point.
+
 ``flash_attention.launches`` counts the kernel's launches (a tf32x3 call's
 split pass and product count once) and
 ``flash_attention.launches_by_variant`` splits them by variant.
@@ -79,6 +83,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, kernel=None):
     variant other than ``variant(D, dtype)`` (to time one against another);
     it must take the inputs' type.
     Returns (B, H, S, D)."""
+    _build.refuse_grad("flash_attention", q, k, v)
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention kernel takes q, k, v on one CUDA "
                          f"device, got {q.device}, {k.device}, {v.device}")

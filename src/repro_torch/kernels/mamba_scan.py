@@ -10,6 +10,10 @@ stream and raises if the launch fails.  It takes CUDA tensors only;
 the plain version is ``repro_torch.kernels.ref.mamba_scan_ref`` and
 ``repro_torch.kernels.ops`` picks between the two by device.
 
+The wrapper raises when autograd is recording and an input requires grad
+(``_build.refuse_grad``): ``repro_torch.kernels.ops.mamba_scan`` is the
+differentiable entry point.
+
 ``mamba_scan.launches`` counts the kernel's launches.
 """
 from __future__ import annotations
@@ -52,6 +56,7 @@ def mamba_scan(x, dt, B, C, A, D, h0=None, return_state=False):
     Returns y: (b, S, d) in x's dtype, and with ``return_state`` the pair
     (y, h_S), h_S the final state (b, d, N) float32."""
     ts = (x, dt, B, C, A, D)
+    _build.refuse_grad("mamba_scan", *ts, h0)
     if not (x.is_cuda and all(t.device == x.device for t in ts)):
         raise ValueError("mamba_scan kernel takes x, dt, B, C, A, D on one "
                          f"CUDA device, got {[str(t.device) for t in ts]}")

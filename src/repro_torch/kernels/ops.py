@@ -1,10 +1,20 @@
 """Public entry points of the port's kernels, dispatched by device.
 
-A CPU tensor takes the plain PyTorch version (``repro_torch.kernels.ref``).
-A CUDA tensor launches the hand-written kernel, or raises if its build or its
-launch fails: there is no fallback from the card to the plain version.
+A CPU tensor takes the plain PyTorch version (``repro_torch.kernels.ref``),
+which autograd differentiates as it runs.  A CUDA tensor launches the
+hand-written kernel, or raises if its build or its launch fails: there is
+no fallback from the card to the plain version.
+
+The kernels compute forward passes only, as the Pallas kernels they port
+do.  On the card ``flash_attention`` and ``mamba_scan`` are autograd
+functions: the forward launches the kernel, and the backward is the
+gradient of the plain version, recomputed from the saved inputs
+(``ref.flash_attention_bwd_ref``, ``ref.mamba_scan_bwd_ref``).  So an
+output that needs a gradient gets the plain version's.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import mamba_scan as _mamba
@@ -25,12 +35,54 @@ def matmul(a, b):
     return _dispatch("matmul", ref.matmul_ref, _matmul.matmul, a.device, a, b)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The flash kernel forward; the plain version's gradient backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _flash.flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        return (*ref.flash_attention_bwd_ref(q, k, v, dout, causal=ctx.causal,
+                                             window=ctx.window), None, None)
+
+
+class _MambaScan(torch.autograd.Function):
+    """The scan kernel forward; the plain version's gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, dt, B, C, A, D, h0, return_state):
+        ctx.save_for_backward(x, dt, B, C, A, D, h0)
+        ctx.return_state = return_state
+        return _mamba.mamba_scan(x, dt, B, C, A, D, h0=h0,
+                                 return_state=return_state)
+
+    @staticmethod
+    def backward(ctx, dy, dh=None):
+        x, dt, B, C, A, D, h0 = ctx.saved_tensors
+        return (*ref.mamba_scan_bwd_ref(x, dt, B, C, A, D, h0, dy,
+                                        dh if ctx.return_state else None),
+                None)
+
+
+def _flash_apply(q, k, v, *, causal, window):
+    return _FlashAttention.apply(q, k, v, causal, window)
+
+
+def _scan_apply(x, dt, B, C, A, D, *, h0, return_state):
+    return _MambaScan.apply(x, dt, B, C, A, D, h0, return_state)
+
+
 def flash_attention(q, k, v, *, causal=True, window=0):
     """q: (B, H, S, D); k, v: (B, Hkv, S, D).  KV stays at its native
     ``Hkv`` heads on both paths."""
     return _dispatch("flash_attention", ref.flash_attention_ref,
-                     _flash.flash_attention, q.device, q, k, v,
-                     causal=causal, window=window)
+                     _flash_apply, q.device, q, k, v, causal=causal,
+                     window=window)
 
 
 def mamba_scan(x, dt, B, C, A, D, h0=None, return_state=False):
@@ -38,6 +90,6 @@ def mamba_scan(x, dt, B, C, A, D, h0=None, return_state=False):
     h0: the starting state (b, d, N) float32, zeros if None.  Returns y:
     (b, S, d) in x's dtype, and with ``return_state`` the pair (y, h_S),
     h_S the final state (b, d, N) float32."""
-    return _dispatch("mamba_scan", ref.mamba_scan_ref, _mamba.mamba_scan,
+    return _dispatch("mamba_scan", ref.mamba_scan_ref, _scan_apply,
                      x.device, x, dt, B, C, A, D, h0=h0,
                      return_state=return_state)

@@ -3,6 +3,12 @@
 They compute what the CUDA kernels compute, in float32 on any device.  The
 CPU path of ``repro_torch.kernels.ops`` runs them, and the tests and
 ``chip_smoke.py`` hold each kernel against them on the card.
+
+The kernels compute forward passes only, as the Pallas kernels they port
+do.  ``flash_attention_bwd_ref`` and ``mamba_scan_bwd_ref`` are the
+backward passes that ``ops``' autograd functions run on the card: each
+recomputes the plain forward from the saved inputs and differentiates it,
+as the JAX package trains through its jnp attention and scan.
 """
 from __future__ import annotations
 
@@ -11,6 +17,9 @@ import torch
 from repro_torch.kernels.mamba_scan import check_state
 
 NEG_INF = -1e30
+# the query rows a backward recomputes at once: its memory is one chunk's
+# scores against the keys the chunk can see
+BWD_Q_CHUNK = 512
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0):
@@ -40,6 +49,40 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqc,bkcd->bkgqd", p, v.float())
     return out.reshape(B, H, S, D).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, dout, *, causal=True, window=0):
+    """The gradient of ``flash_attention_ref`` at (q, k, v) against the
+    output gradient ``dout`` (B, H, S, D): returns (dq, dk, dv) in q's, k's
+    and v's dtypes, dk and dv at the native ``Hkv`` heads.
+
+    The forward is recomputed ``BWD_Q_CHUNK`` query rows at a time, each
+    chunk by ``models.attention.chunked_attention`` at its ``q_offset``
+    against the keys it can see (up to the chunk's last row when causal,
+    from its first row's window on), in float32, and differentiated; dk and
+    dv sum over the chunks."""
+    # imported here: models.attention imports this module through ops
+    from repro_torch.models.attention import chunked_attention
+    S = q.shape[2]
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    with torch.enable_grad():
+        for i0 in range(0, S, BWD_Q_CHUNK):
+            i1 = min(i0 + BWD_Q_CHUNK, S)
+            lo = max(0, i0 - window + 1) if window > 0 else 0
+            hi = i1 if causal else S
+            qi, ki, vi = (t.detach().float().requires_grad_()
+                          for t in (q[:, :, i0:i1], k[:, :, lo:hi],
+                                    v[:, :, lo:hi]))
+            out = chunked_attention(qi, ki, vi, causal=causal,
+                                    window=window, q_offset=i0 - lo)
+            gq, gk, gv = torch.autograd.grad(
+                out, (qi, ki, vi), dout[:, :, i0:i1].float())
+            dq[:, :, i0:i1] = gq
+            dk[:, :, lo:hi] += gk
+            dv[:, :, lo:hi] += gv
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def matmul_ref(a, b):
@@ -75,3 +118,24 @@ def mamba_scan_ref(x, dt, B, C, A, D, h0=None, return_state=False):
         ys.append((h * Cf[:, t, None, :]).sum(-1))
     y = (torch.stack(ys, 1) + D.float() * xf).to(x.dtype)
     return (y, h) if return_state else y
+
+
+def mamba_scan_bwd_ref(x, dt, B, C, A, D, h0, dy, dh=None):
+    """The gradient of ``mamba_scan_ref(x, dt, B, C, A, D, h0,
+    return_state=True)`` against the output gradients ``dy`` (of y) and
+    ``dh`` (of h_S; None when h_S was not asked for): returns (dx, ddt, dB,
+    dC, dA, dD, dh0), each in its input's dtype, dh0 None when h0 is None.
+    The scan is recomputed from the inputs and differentiated."""
+    ins = [t.detach().requires_grad_() for t in (x, dt, B, C, A, D)]
+    if h0 is not None:
+        ins.append(h0.detach().requires_grad_())
+    with torch.enable_grad():
+        y, h = mamba_scan_ref(*ins[:6], h0=ins[6] if h0 is not None else None,
+                              return_state=True)
+        outs, grads = [y], [dy]
+        if dh is not None:
+            outs.append(h)
+            grads.append(dh)
+        got = torch.autograd.grad(outs, ins, grads, allow_unused=True)
+    got = [torch.zeros_like(t) if g is None else g for g, t in zip(got, ins)]
+    return (*got[:6], got[6] if h0 is not None else None)

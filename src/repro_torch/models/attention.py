@@ -20,13 +20,24 @@ q's, so a cross-attention sent to it raises.  Decode attention (one query
 against the cache, or against the encoder's keys; MLA's in the compressed
 space) is plain PyTorch too, as the JAX package computes it outside any
 Pallas kernel.
+
+Under ``PerfFlags.windowed_attention`` a local layer takes a static window
+(``static_window``).  In prefill and training the card runs the flash
+kernel with its window mask, which skips every KV tile before the window,
+so its work is O(S window) as the reference's ``windowed_attention``; the
+CPU runs ``windowed_attention``, the reference's plain path.  In decode the
+query reads only the window-sized slice of the cache.
+``PerfFlags.attn_remat_chunk`` checkpoints ``chunked_attention``'s body per
+KV chunk, so that its backward recomputes each chunk's scores.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.config import ModelConfig
+from repro_torch.dist import context as dist_ctx
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (apply_rope, dense_init, norm_init,
                                        rmsnorm)
@@ -87,14 +98,10 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
         Skv += pad
     q_pos = q_offset + torch.arange(Sq, device=q.device)
     qf = q.float().reshape(B, Hkv, H // Hkv, Sq, D)
-    m = torch.full((B, Hkv, H // Hkv, Sq), NEG_INF, device=q.device)
-    l = torch.zeros_like(m)
-    acc = torch.zeros_like(qf)
-    for i in range(Skv // chunk):
-        k_i = k[:, :, i * chunk:(i + 1) * chunk].float()
-        v_i = v[:, :, i * chunk:(i + 1) * chunk].float()
+
+    def body(m, l, acc, k_i, v_i, i):
         k_pos = i * chunk + torch.arange(chunk, device=q.device)
-        s = torch.einsum("bkgqd,bkcd->bkgqc", qf, k_i) * scale
+        s = torch.einsum("bkgqd,bkcd->bkgqc", qf, k_i.float()) * scale
         mask = torch.ones(Sq, chunk, dtype=torch.bool, device=q.device)
         if causal:
             mask &= q_pos[:, None] >= k_pos[None, :]
@@ -109,23 +116,76 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
         acc = acc * corr[..., None] \
-            + torch.einsum("bkgqc,bkcd->bkgqd", p, v_i)
-        m = m_new
+            + torch.einsum("bkgqc,bkcd->bkgqd", p, v_i.float())
+        return m_new, l, acc
+
+    step = body
+    if dist_ctx.perf_flags().attn_remat_chunk and torch.is_grad_enabled():
+        # flash-style backward: recompute each chunk's (Sq, chunk) scores
+        # rather than keep them for every chunk
+        def step(*args):
+            return checkpoint(body, *args, use_reentrant=False)
+    m = torch.full((B, Hkv, H // Hkv, Sq), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for i in range(Skv // chunk):
+        m, l, acc = step(m, l, acc, k[:, :, i * chunk:(i + 1) * chunk],
+                         v[:, :, i * chunk:(i + 1) * chunk], i)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(B, H, Sq, D).to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, *, pos, window=0):
+def windowed_attention(q, k, v, *, window: int, chunk: int = 512,
+                       q_offset=0):
+    """Causal sliding-window attention with a static window, the
+    reference's O(S window) path for local layers: each query chunk attends
+    only to its own and the previous KV chunk, so it needs ``window <=
+    chunk``.  q: (B, H, Sq, D); k, v: (B, Hkv, Skv, D) with Sq == Skv and
+    ``Sq % min(chunk, Sq) == 0``.  Returns (B, H, Sq, D) in q's dtype,
+    computed in float32 with the query heads grouped onto the native Hkv
+    heads."""
+    B, H, Sq, D = q.shape
+    Hkv = k.shape[1]
+    assert window <= chunk, (window, chunk)
+    chunk = min(chunk, Sq)
+    assert Sq % chunk == 0
+    scale = D ** -0.5
+    # one chunk of zeros on the left, so that every query chunk sees two
+    kp = F.pad(k, (0, 0, chunk, 0)).float()
+    vp = F.pad(v, (0, 0, chunk, 0)).float()
+    qg = q.float().reshape(B, Hkv, H // Hkv, Sq, D)
+    outs = []
+    for j in range(Sq // chunk):
+        k_j = kp[:, :, j * chunk:(j + 2) * chunk]
+        v_j = vp[:, :, j * chunk:(j + 2) * chunk]
+        q_pos = q_offset + j * chunk + torch.arange(chunk, device=q.device)
+        k_pos = q_offset + (j - 1) * chunk \
+            + torch.arange(2 * chunk, device=q.device)
+        s = torch.einsum("bkgqd,bkcd->bkgqc",
+                         qg[:, :, :, j * chunk:(j + 1) * chunk], k_j) * scale
+        mask = (q_pos[:, None] >= k_pos[None, :]) \
+            & ((q_pos[:, None] - k_pos[None, :]) < window) \
+            & (k_pos >= 0)[None, :]
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bkgqc,bkcd->bkgqd", p, v_j).to(q.dtype))
+    return torch.cat(outs, 3).reshape(B, H, Sq, D)
+
+
+def decode_attention(q, k_cache, v_cache, *, pos, window=0, k_pos=None):
     """Single-token decode.  q: (B, H, 1, D); caches: (B, Hkv, S, D).
 
-    Keys at index > ``pos`` are masked, and for ``window > 0`` so are keys
-    ``window`` or more behind ``pos``.  Query heads are grouped onto the
-    native ``Hkv`` KV heads."""
+    Keys at a position > ``pos`` are masked, and for ``window > 0`` so are
+    keys ``window`` or more behind ``pos``.  ``k_pos``: the positions of
+    the cache's rows when it is a slice (the static-window path); default
+    ``arange(S)``.  Query heads are grouped onto the native ``Hkv`` KV
+    heads."""
     B, H, _, D = q.shape
     _, Hkv, S, _ = k_cache.shape
     qg = q[:, :, 0].float().reshape(B, Hkv, H // Hkv, D)
     s = torch.einsum("bkgd,bksd->bkgs", qg, k_cache.float()) * (D ** -0.5)
-    k_pos = torch.arange(S, device=q.device)
+    if k_pos is None:
+        k_pos = torch.arange(S, device=q.device)
     mask = k_pos <= pos
     if window > 0:
         mask &= (pos - k_pos) < window
@@ -136,13 +196,15 @@ def decode_attention(q, k_cache, v_cache, *, pos, window=0):
 
 
 def gqa_forward(p, x, cos, sin, *, cfg: ModelConfig, causal=True, window=0,
-                xa=None):
-    """Full-sequence (prefill) attention.  Returns (out, (k, v)) with k, v
-    of shape (B, Hkv, Skv, hd) after RoPE.
+                xa=None, static_window=None):
+    """Full-sequence (prefill and training) attention.  Returns (out, (k,
+    v)) with k, v of shape (B, Hkv, Skv, hd) after RoPE.
 
-    Self-attention (``xa`` None) runs on the flash kernel.  With ``xa``,
-    the encoder's output (B, Skv, d), it is cross-attention: k and v come
-    from ``xa``, with no RoPE and no causal mask, through
+    Self-attention (``xa`` None) runs on the flash kernel.  With
+    ``static_window``, causal self-attention over that window: the flash
+    kernel's window mask on the card, ``windowed_attention`` on the CPU.
+    With ``xa``, the encoder's output (B, Skv, d), it is cross-attention: k
+    and v come from ``xa``, with no RoPE and no causal mask, through
     ``chunked_attention`` (see the module docstring)."""
     B, S, _ = x.shape
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
@@ -158,18 +220,24 @@ def gqa_forward(p, x, cos, sin, *, cfg: ModelConfig, causal=True, window=0,
         if cos is not None:
             q = _rope_heads(q, cos, sin)
             k = _rope_heads(k, cos, sin)
-        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        if static_window and q.device.type == "cpu":
+            out = windowed_attention(q, k, v, window=static_window)
+        else:
+            out = ops.flash_attention(q, k, v,
+                                      causal=causal or bool(static_window),
+                                      window=static_window or window)
     out = out.transpose(1, 2).reshape(B, S, H * hd)
     return out @ p["o"], (k, v)
 
 
 def gqa_decode(p, x, cache_k, cache_v, cos, sin, *, cfg: ModelConfig, pos,
-               window=0, xa_kv=None):
+               window=0, xa_kv=None, static_window=None):
     """One-token decode.  x: (B, 1, d); cache_[kv]: (B, Hkv, S, hd).
 
     Writes this token's k and v into the caches IN PLACE at ``pos`` (the JAX
     package returns updated copies) and returns (out, cache_k, cache_v).
-    With ``xa_kv``, the encoder's precomputed (k, v) (B, Hkv, Skv, hd), it
+    With ``static_window`` the query reads only the window-sized slice of
+    the cache that ends at ``pos`` (clamped into the cache).  With ``xa_kv``, the encoder's precomputed (k, v) (B, Hkv, Skv, hd), it
     is cross-attention: the query attends to every encoder position and the
     caches are returned untouched."""
     B = x.shape[0]
@@ -188,7 +256,15 @@ def gqa_decode(p, x, cache_k, cache_v, cos, sin, *, cfg: ModelConfig, pos,
         k_new = _rope_heads(k_new, cos, sin)
     cache_k[:, :, pos:pos + 1] = k_new.to(cache_k.dtype)
     cache_v[:, :, pos:pos + 1] = v_new.to(cache_v.dtype)
-    out = decode_attention(q, cache_k, cache_v, pos=pos, window=window)
+    if static_window:
+        S = cache_k.shape[2]
+        w = min(static_window, S)
+        start = min(max(pos - w + 1, 0), S - w)
+        out = decode_attention(
+            q, cache_k[:, :, start:start + w], cache_v[:, :, start:start + w],
+            pos=pos, k_pos=start + torch.arange(w, device=x.device))
+    else:
+        out = decode_attention(q, cache_k, cache_v, pos=pos, window=window)
     out = out.transpose(1, 2).reshape(B, 1, H * hd)
     return out @ p["o"], cache_k, cache_v
 

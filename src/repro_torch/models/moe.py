@@ -11,9 +11,9 @@ reference computes them outside any Pallas kernel.
 
 ``moe_apply(p, x, cfg, dispatch)`` takes the reference's two dispatches:
 ``"gather"`` (index gather and scatter, its default) and ``"einsum"``
-(one-hot dispatch and combine tensors, its baseline, which the reference
-picks with ``perf_flags().moe_dispatch``).  The reference's expert-parallel
-path across devices is not ported.
+(one-hot dispatch and combine tensors, its baseline); with no
+``dispatch`` it reads ``PerfFlags.moe_dispatch``, as the reference does.
+The reference's expert-parallel path across devices is not ported.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.config import ModelConfig
+from repro_torch.dist import context as dist_ctx
 from repro_torch.models.layers import dense_init, mlp_apply, mlp_init
 
 
@@ -147,11 +148,13 @@ def _moe_einsum(p, xf, cfg: ModelConfig):
     return out.to(xf.dtype), aux
 
 
-def moe_apply(p, x, cfg: ModelConfig, dispatch: str = "gather"):
+def moe_apply(p, x, cfg: ModelConfig, dispatch=None):
     """x: (B, S, d) -> (out (B, S, d), aux dict of the load-balance and
-    router-z terms).  ``dispatch``: ``"gather"`` or ``"einsum"``; both
-    compute the same function (capacity drops included)."""
+    router-z terms).  ``dispatch``: ``"gather"`` or ``"einsum"``, both the
+    same function (capacity drops included); None reads
+    ``PerfFlags.moe_dispatch``."""
     B, S, d = x.shape
+    dispatch = dispatch or dist_ctx.perf_flags().moe_dispatch
     if dispatch == "gather":
         out, aux = _moe_local(p, x.reshape(B * S, d), cfg)
     elif dispatch == "einsum":

@@ -3,6 +3,8 @@ families): init, prefill, decode.
 
 Entry points, as in the JAX package:
   init_params(cfg, seed, device)                  -> params
+  train_forward(cfg, params, batch)               -> (logits, aux)
+  loss_fn(cfg, params, batch)                     -> (loss, metrics)
   init_cache(cfg, batch, max_seq, device)         -> cache
   prefill_forward(cfg, params, batch, max_seq)    -> (last-token logits, cache)
   (``batch``: ``tokens``, and whisper's ``frames`` or InternVL2's
@@ -37,15 +39,27 @@ and the encoder's keys and values for cross-attention ``xk`` and ``xv``
 (L, B, Hkv, n_ctx, hd).  bf16 rounding follows the
 reference: embeddings and weights are bf16, norms and attention compute in
 fp32 and return bf16.
+
+When autograd records a forward (training), each block runs under
+activation checkpointing (``torch.utils.checkpoint``, non-reentrant), where
+the reference wraps its scan bodies in ``jax.checkpoint``: the backward
+recomputes a block from its input.  ``PerfFlags`` (``repro_torch.dist``)
+select the reference's ablations: ``windowed_attention`` gives a
+local:global arch's local layers a static window in prefill, training and
+decode; ``ssm_impl`` picks Mamba1's scan; ``moe_dispatch`` the MoE's
+dispatch; ``attn_remat_chunk`` acts in ``attention.chunked_attention``.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import tree
 from repro_torch.core.config import ModelConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.dist import context as dist_ctx
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -129,6 +143,21 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict:
 # helpers
 
 
+def _recorded(p, x) -> bool:
+    """Whether autograd records a forward of params ``p`` on input ``x``:
+    then its blocks run under activation checkpointing."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in tree.leaves(p)))
+
+
+def _run(remat, fn, *args):
+    """``fn(*args)``, checkpointed when ``remat``: its activations are
+    recomputed in the backward rather than kept."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _window_schedule(cfg: ModelConfig) -> List[int]:
     """Per-layer window sizes; 0 = full attention."""
     if cfg.local_global_ratio > 0:
@@ -176,13 +205,17 @@ def _encoder_forward(cfg: ModelConfig, p, frames):
     x = (frames.float() + sinusoid_positions(frames.shape[1], cfg.d_model,
                                              frames.device)[None])
     x = x.to(torch.bfloat16)
-    for pl in p["encoder"]["layers"]:
+
+    def block(x, pl):
         h, _ = attn.gqa_forward(pl["attn"],
                                 apply_norm(cfg.norm, x, pl["norm1"]),
                                 None, None, cfg=cfg, causal=False)
         x = x + h
-        x = x + mlp_apply(pl["mlp"], apply_norm(cfg.norm, x, pl["norm2"]),
-                          cfg.activation)
+        return x + mlp_apply(pl["mlp"], apply_norm(cfg.norm, x, pl["norm2"]),
+                             cfg.activation)
+    remat = _recorded(p["encoder"], x)
+    for pl in p["encoder"]["layers"]:
+        x = _run(remat, block, x, pl)
     return apply_norm(cfg.norm, x, p["encoder"]["final_norm"])
 
 
@@ -206,13 +239,20 @@ def _ffn(cfg: ModelConfig, pl, x):
     return mlp_apply(pl["mlp"], x, cfg.activation), None
 
 
-def _mamba_blocks(cfg: ModelConfig, layers, x, states):
-    """Runs the Mamba blocks ``layers`` over the sequence x, appending each
-    block's final state dict(conv, ssm) to ``states``; returns x."""
+def _mamba_blocks(cfg: ModelConfig, layers, x, states, remat=False):
+    """Runs the Mamba blocks ``layers`` over the sequence x (checkpointed
+    with ``remat``), appending each block's final state dict(conv, ssm) to
+    ``states``; returns x.  Mamba1 takes ``PerfFlags.ssm_impl``."""
     forward = _mamba(cfg)[1]
+    kw = {"impl": dist_ctx.perf_flags().ssm_impl} \
+        if cfg.ssm.version == 1 else {}
+
+    def block(x, pl):
+        h, st = forward(pl["ssm"], apply_norm(cfg.norm, x, pl["norm1"]), cfg,
+                        **kw)
+        return x + h, st
     for pl in layers:
-        h, st = forward(pl["ssm"], apply_norm(cfg.norm, x, pl["norm1"]), cfg)
-        x = x + h
+        x, st = _run(remat, block, x, pl)
         states.append(st)
     return x
 
@@ -237,9 +277,10 @@ def _backbone(cfg: ModelConfig, p, x, positions, xa=None):
     each superblock's shared attention]).  The aux terms are 0 without MoE
     layers."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = _recorded(p, x)
     if cfg.family == "ssm":
         states = []
-        x = _mamba_blocks(cfg, p["layers"], x, states)
+        x = _mamba_blocks(cfg, p["layers"], x, states, remat)
         return x, (zero, zero), states
     cos, sin = _rope_for(cfg, positions)
     if cfg.family == "hybrid":
@@ -250,18 +291,24 @@ def _backbone(cfg: ModelConfig, p, x, positions, xa=None):
             return attn.gqa_forward(pa, h, cos, sin, cfg=cfg, causal=True)
         for sb in range(cfg.n_layers // k):
             x = _mamba_blocks(cfg, p["layers"][sb * k:(sb + 1) * k], x,
-                              states)
-            x, kv = _shared_block(cfg, p["shared_attn"], x, attend)
+                              states, remat)
+            x, kv = _run(remat, _shared_block, cfg, p["shared_attn"], x,
+                         attend)
             kvs.append(kv)
         return x, (zero, zero), (states, kvs)
-    kvs, lb, rz = [], zero, zero
-    for pl, window in zip(p["layers"], _window_schedule(cfg)):
+    # the reference's static-window path: a local layer's window is static
+    static = (dist_ctx.perf_flags().windowed_attention
+              and cfg.local_global_ratio > 0 and cfg.mla is None
+              and xa is None and cfg.window > 0)
+
+    def block(x, pl, window):
         h_in = apply_norm(cfg.norm, x, pl["norm1"])
         if cfg.mla is not None:
             h, kv = attn.mla_forward(pl["attn"], h_in, cos, sin, cfg=cfg)
         else:
             h, kv = attn.gqa_forward(pl["attn"], h_in, cos, sin, cfg=cfg,
-                                     causal=True, window=window)
+                                     causal=True, window=window,
+                                     static_window=window if static else None)
         x = x + h
         if xa is not None:
             h, xkv = attn.gqa_forward(pl["xattn"],
@@ -271,12 +318,55 @@ def _backbone(cfg: ModelConfig, p, x, positions, xa=None):
             x = x + h
             kv = kv + xkv
         h, aux = _ffn(cfg, pl, apply_norm(cfg.norm, x, pl["norm2"]))
+        return x + h, kv, aux
+
+    kvs, lb, rz = [], zero, zero
+    for pl, window in zip(p["layers"], _window_schedule(cfg)):
+        x, kv, aux = _run(remat, block, x, pl, window)
         if aux is not None:
             lb, rz = lb + aux["load_balance"], rz + aux["router_z"]
-        x = x + h
         kvs.append(kv)
     L = cfg.n_layers
     return x, (lb / L, rz / L), kvs
+
+
+# ---------------------------------------------------------------------------
+# training
+
+
+def train_forward(cfg: ModelConfig, params, batch):
+    """Logits (B, S, V) at every token position (the vlm family's patches
+    dropped) and the aux dict (load_balance, router_z: the MoE layers'
+    terms averaged over the layers, 0 elsewhere).  ``batch`` as in
+    ``prefill_forward``."""
+    _check_family(cfg)
+    x, xa = _prepare_inputs(cfg, params, batch)
+    x, (lb, rz), _ = _backbone(cfg, params, x,
+                               torch.arange(x.shape[1], device=x.device),
+                               xa=xa)
+    if cfg.family == "vlm":
+        x = x[:, cfg.n_patches:]
+    return _logits(cfg, params, x), {"load_balance": lb, "router_z": rz}
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """(loss, metrics): the next-token NLL of ``batch["labels"]`` (B, S),
+    plus the z-loss 1e-4 mean(logsumexp^2) and, with MoE, the aux terms at
+    their coefficients, all in float32, as the reference's."""
+    logits, aux = train_forward(cfg, params, batch)
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    label_logit = logits.gather(
+        -1, batch["labels"].long()[..., None])[..., 0]
+    nll = (logz - label_logit).mean()
+    zloss = 1e-4 * (logz ** 2).mean()
+    moe_loss = torch.zeros((), dtype=torch.float32, device=logits.device)
+    if cfg.moe is not None:
+        moe_loss = (cfg.moe.aux_loss_coef * aux["load_balance"]
+                    + cfg.moe.router_z_coef * aux["router_z"])
+    loss = nll + zloss + moe_loss
+    return loss, {"loss": loss, "nll": nll, "zloss": zloss,
+                  "moe_loss": moe_loss}
 
 
 # ---------------------------------------------------------------------------
@@ -390,6 +480,11 @@ def decode_forward(cfg: ModelConfig, params, cache, tokens, pos: int):
                     pa, h, cache["k"][sb], cache["v"][sb], cos, sin,
                     cfg=cfg, pos=pos)[:2])
         return _logits(cfg, params, x), cache
+    # the reference's static-window decode: a local layer reads only the
+    # window's slice of its cache
+    static = (dist_ctx.perf_flags().windowed_attention and cfg.mla is None
+              and cfg.family != "encdec" and cfg.local_global_ratio > 0
+              and cfg.window > 0)
     for li, (pl, window) in enumerate(zip(params["layers"],
                                           _window_schedule(cfg))):
         h_in = apply_norm(cfg.norm, x, pl["norm1"])
@@ -398,9 +493,10 @@ def decode_forward(cfg: ModelConfig, params, cache, tokens, pos: int):
                                       cache["krope"][li], cos, sin, cfg=cfg,
                                       pos=pos)
         else:
-            h, _, _ = attn.gqa_decode(pl["attn"], h_in, cache["k"][li],
-                                      cache["v"][li], cos, sin, cfg=cfg,
-                                      pos=pos, window=window)
+            h, _, _ = attn.gqa_decode(
+                pl["attn"], h_in, cache["k"][li], cache["v"][li], cos, sin,
+                cfg=cfg, pos=pos, window=window,
+                static_window=window if static else None)
         x = x + h
         if cfg.family == "encdec":
             h, _, _ = attn.gqa_decode(

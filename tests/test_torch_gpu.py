@@ -17,7 +17,7 @@ from repro_torch.apps.paper_graphs import build_paper_graph
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.paper_nets import PAPER_NETS
 from repro_torch.convert import to_device
-from repro_torch.core import graph_ops
+from repro_torch.core import graph_ops, tree
 from repro_torch.kernels import calibrate, ops, ref
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mamba_scan as ms
@@ -26,7 +26,9 @@ from repro_torch.launch import camera
 from repro_torch.launch.serve import serve
 from repro_torch.launch.serve_batch import run_measured
 from repro_torch.models import transformer as T
+from repro_torch.optim import adamw_init
 from repro_torch.serve.policy import StaticBatching
+from repro_torch.train import TrainConfig, make_train_step
 
 TOL = {"float32": (torch.float32, 1e-4),        # tests/test_kernels.py
        "bfloat16": (torch.bfloat16, 3e-2)}
@@ -1069,3 +1071,153 @@ def test_serving_encdec_vlm_on_card_matches_cpu(cuda, arch):
     for got, expect in zip(out["card"], out["cpu"]):
         np.testing.assert_allclose(got, expect, rtol=2e-2,
                                    atol=2e-2 * np.abs(expect).max())
+
+
+# ---------------------------------------------------------------------------
+# training: the kernels' autograd functions and a train step
+
+
+GRAD_CASES = [
+    (1, 4, 2, 128, 64, True, 0),              # GQA, tinyllama's head dim
+    (1, 2, 1, 256, 32, True, 48),             # MQA + window
+    (1, 2, 2, 128, 32, False, 0),             # non-causal
+    (2, 4, 1, 700, 256, True, 512),           # gemma3_1b local, 2 bwd chunks
+    (1, 4, 4, 300, 80, True, 0),              # zamba2's head dim
+]
+
+
+def _grads(fn, inputs, douts):
+    ts = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*ts)
+    outs = out if isinstance(out, tuple) else (out,)
+    return [o.detach() for o in outs], list(
+        torch.autograd.grad(outs, ts, douts[:len(outs)]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window", GRAD_CASES)
+def test_cuda_flash_function_gradients_match_plain(cuda, B, H, Hkv, S, D,
+                                                   causal, window, dtype):
+    """ops.flash_attention on tensors that require grad: the kernel runs
+    the forward (one launch) and q, k, v get the plain version's gradients
+    (the backward recomputes the plain chunks: float32 at 1e-4, bf16 at
+    3e-2 of the largest gradient)."""
+    tdt, tol = TOL[dtype]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    qkv = [torch.randn(B, h, S, D, generator=g, device=cuda).to(tdt)
+           for h in (H, Hkv, Hkv)]
+    dout = torch.randn(B, H, S, D, generator=g, device=cuda).to(tdt)
+    before = fa.flash_attention.launches
+    (out,), grads = _grads(lambda *t: ops.flash_attention(
+        *t, causal=causal, window=window), qkv, (dout,))
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    (eout,), expect = _grads(lambda *t: ref.flash_attention_ref(
+        *t, causal=causal, window=window), qkv, (dout,))
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               eout.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+    for got, e in zip(grads, expect):
+        assert got.dtype == tdt
+        e = e.float().cpu().numpy()
+        np.testing.assert_allclose(got.float().cpu().numpy(), e, rtol=tol,
+                                   atol=tol * np.abs(e).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("return_state", [False, True])
+def test_cuda_scan_function_gradients_match_plain(cuda, with_h0,
+                                                  return_state):
+    """ops.mamba_scan on tensors that require grad: one kernel launch,
+    and the gradients of x, dt, B, C, A, D (and h0) against dy (and dh_S)
+    equal the plain version's at the float32 scan tolerance."""
+    x, dt, B, C, A, D, h0 = _scan_args(cuda, 2, 96, 64, 16, seed=3)
+    inputs = [x, dt, B, C, A, D] + ([h0] if with_h0 else [])
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    douts = (torch.randn(x.shape, generator=gen, device=cuda),
+             torch.randn(2, 64, 16, generator=gen, device=cuda))
+
+    def call(fn):
+        return lambda *t: fn(*t[:6], h0=t[6] if with_h0 else None,
+                             return_state=return_state)
+    before = ms.mamba_scan.launches
+    outs, grads = _grads(call(ops.mamba_scan), inputs, douts)
+    torch.cuda.synchronize()
+    assert ms.mamba_scan.launches == before + 1
+    eouts, expect = _grads(call(ref.mamba_scan_ref), inputs, douts)
+    for got, e in zip(outs + grads, eouts + expect):
+        np.testing.assert_allclose(got.cpu().numpy(), e.cpu().numpy(),
+                                   rtol=2e-4, atol=8e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_raw_wrappers_raise_under_grad(cuda):
+    """The raw wrappers refuse an input that requires grad while autograd
+    records, with no launch; under no_grad they run."""
+    q = torch.randn(1, 2, 64, 32, device=cuda, requires_grad=True)
+    x, dt, B, C, A, D, _ = _scan_args(cuda, 1, 16, 32, 16)
+    before = (fa.flash_attention.launches, ms.mamba_scan.launches)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fa.flash_attention(q, q.detach(), q.detach())
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ms.mamba_scan(x.requires_grad_(), dt, B, C, A, D)
+    assert (fa.flash_attention.launches, ms.mamba_scan.launches) == before
+    with torch.no_grad():
+        fa.flash_attention(q, q, q)
+        ms.mamba_scan(x, dt, B, C, A, D)
+    assert (fa.flash_attention.launches, ms.mamba_scan.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["tinyllama_1_1b", "gemma3_1b",
+                                  "falcon_mamba_7b"])
+def test_train_step_on_card_matches_cpu(cuda, arch, monkeypatch):
+    """One train step of the SMOKE config (tinyllama's at head dim 16, a
+    head dim of the kernel) in 2 microbatches on the card and on the CPU
+    from the same params and batch: the kernel runs each attention (or
+    scan) layer's forward and its recompute, twice a microbatch; loss and
+    grad norm within 2e-2; every gradient leaf within 3e-2 relative L2 (the
+    CPU tests' bf16 bound), so none is lost on the card; every updated
+    param within 2.5 lr plus one bf16 step of its largest value (AdamW
+    moves an element by about lr = 1e-3, and a gradient element near 0 can
+    take either sign)."""
+    from repro_torch.train import step as step_mod
+    cfg = get_smoke_config(arch)
+    if arch == "tinyllama_1_1b":
+        cfg = dataclasses.replace(cfg, head_dim=16)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    gpu = to_device(params, cuda)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 33)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    captured = []
+    clip = step_mod.clip_by_global_norm
+
+    def capture(grads, max_norm):
+        # copies: the clip scales the grads in place
+        captured.append([g.detach().float().cpu().clone() for g in grads])
+        return clip(grads, max_norm)
+    monkeypatch.setattr(step_mod, "clip_by_global_norm", capture)
+    step = make_train_step(cfg, TrainConfig(lr=1e-3, warmup=1,
+                                            n_microbatches=2))
+    count = (lambda: ms.mamba_scan.launches) if cfg.family == "ssm" \
+        else (lambda: fa.flash_attention.launches)
+    before = count()
+    _, _, m_gpu = step(gpu, adamw_init(gpu),
+                       {k: v.to(cuda) for k, v in batch.items()}, 1)
+    torch.cuda.synchronize()
+    assert count() - before == 2 * 2 * cfg.n_layers
+    _, _, m_cpu = step(params, adamw_init(params), batch, 1)
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(m_gpu[key]), float(m_cpu[key]),
+                                   rtol=2e-2)
+    for g, e in zip(*captured):
+        assert float((g - e).norm() / e.norm().clamp(min=1e-30)) <= 3e-2
+    for a, b in zip(tree.leaves(gpu), tree.leaves(params)):
+        b = b.detach().float().numpy()
+        np.testing.assert_allclose(a.detach().float().cpu().numpy(), b,
+                                   rtol=0,
+                                   atol=2.5e-3 + 2 ** -8 * np.abs(b).max())

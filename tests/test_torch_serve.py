@@ -368,9 +368,12 @@ def test_port_imports_no_jax_and_no_reference():
         "assert 'repro_torch.models.ssm' in mods, mods\n"
         "assert 'repro_torch.sim.engine' in mods, mods\n"
         "for m in ('sim.serving', 'serve.policy', 'apps.serving',"
-        " 'launch.serve_batch'):\n"
+        " 'launch.serve_batch', 'dist', 'dist.context', 'optim',"
+        " 'optim.optimizers', 'train', 'train.step', 'data',"
+        " 'data.pipeline', 'ckpt', 'ckpt.checkpoint', 'launch.train',"
+        " 'core.tree'):\n"
         "    assert 'repro_torch.' + m in mods, mods\n"
-        "assert len(mods) >= 52, mods\n"
+        "assert len(mods) >= 70, mods\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
