@@ -305,7 +305,28 @@ printing a result:
    beside the baseline: one ``SERVE`` batch's prefill and 8 decode steps
    fed the baseline's tokens (first tokens equal, logits at ``BF16_TOL``
    at every step), then ``SERVE`` and a profiled prefill and 8 decode
-   steps each way: decode ms a step, tok/s and decode device ms a step.
+   steps each way: decode ms a step, tok/s and decode device ms a step;
+45. phase 43's step priced by ``sim.training.simulate_training``
+   (tinyllama_1_1b, 1 stage, 2 microbatches of 4 x 4096) on one H100 at
+   its bf16 peak, alone and with 50 us host dispatch an op: ms a step,
+   tok/s and the forward / backward / update shares of the priced busy
+   time, each beside phase 43's ms a step, its profiled device ms and the
+   shares of the flash forward, the plain attention backward, clip and
+   AdamW, with price / measured; once at the float32 default
+   ``EngineConfig()``; a 1-stage 1-microbatch price asserted equal to the
+   flat ``from_training_step`` chain through ``engine.run``; then
+   ``launch.train.dry_run`` at train_4k's own 256 x 4096 in 64
+   microbatches;
+46. the training study (``benchmarks/bench_training.py``'s grid: gemma_2b
+   and tinyllama_1_1b, GPipe and 1F1B, 1/2/4/8 stages, 2/8 microbatches,
+   on its 2-port link with 10 us dispatch) and the cluster study
+   (``benchmarks/bench_cluster.py``'s: gemma_2b and deepseek_v2_lite_16b
+   on 8/64/512 GPUs, every power-of-two dp x pp x tp, ring / tree /
+   hierarchical) at H100 rates and the bf16 peak, the cluster on
+   ``Fabric.cluster``'s 4 x 8 layout and on a DGX H100's (8 GPUs on one
+   NVSwitch, InfiniBand between nodes): the best placement at each size,
+   the cheapest under 1 s a step, the host seconds.  Phases 45-46 launch
+   no kernel: the counts are asserted unchanged across them.
 
 Kernel times are CUDA events around back-to-back calls queued behind a
 device-side wait (``torch.cuda._sleep``) that outlasts their enqueue, so
@@ -382,6 +403,10 @@ from repro_torch.sim.serving import (Request, diurnal_trace,  # noqa: E402
                                      replay_serving, serving_sweep,
                                      simulate_fleet, simulate_serving)
 from repro_torch.sim.sweep import batched, lower_graph, optimize  # noqa: E402
+from repro_torch.sim.sweep import (as_cluster_records,  # noqa: E402
+                                   as_training_records, cluster_sweep,
+                                   training_sweep)
+from repro_torch.sim.training import simulate_training  # noqa: E402
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}   # tests/test_kernels.py
 BF16_TOL = 2e-2              # tests/test_torch_serve.py
@@ -592,6 +617,28 @@ GRID_RATES = (10.0, 50.0, 200.0)
 GRID_REQUESTS = 64
 FLEET_QUICK = dict(n_requests=100_000, rate_rps=4000.0, output_len=(4, 16),
                    max_batch=64, n_replicas=4)
+# phase 45: launch.train.dry_run at train_4k's own shape: its global batch
+# of 256 at seq 4096, in 64 microbatches of 4 (phase 43's microbatch)
+DRY_RUN = dict(arch="tinyllama_1_1b", shape_name="train_4k",
+               n_microbatches=64, schedule="1f1b")
+# phase 46: benchmarks/bench_training.py:44-62's grid on its config (hbm,
+# 2 shared ports, 10 us dispatch), at the bf16 peak
+TRAIN_STUDY_MODELS = ("gemma_2b", "tinyllama_1_1b")
+TRAIN_STUDY = dict(schedules=("gpipe", "1f1b"), n_stages_grid=(1, 2, 4, 8),
+                   n_microbatches_grid=(2, 8), seq_len=512, global_batch=8)
+TRAIN_STUDY_CONFIG = dict(interface="hbm", hbm_ports=2,
+                          host_dispatch_s=10e-6)
+# benchmarks/bench_cluster.py's grid and its 1 s a step target, on the
+# reference's layout (Fabric.cluster's 4 x 8: 32 GPUs share NVLink) and on
+# a DGX H100's (8 GPUs on one NVSwitch, NDR InfiniBand between nodes)
+CLUSTER_STUDY_MODELS = ("gemma_2b", "deepseek_v2_lite_16b")
+CLUSTER_STUDY = dict(n_accel_grid=(8, 64, 512),
+                     algos=("ring", "tree", "hierarchical"), seq_len=512,
+                     global_batch=32)
+CLUSTER_LAYOUTS = (("Fabric.cluster defaults, 4 x 8", {}),
+                   ("DGX H100, 8 x 1", dict(accels_per_chip=8,
+                                            chips_per_node=1)))
+STEP_TARGET_S = 1.0
 
 
 def log(*args):
@@ -3095,7 +3142,7 @@ def train_full(smi):
     then one more step profiled: the busy share and the shares of the
     flash forward, the plain attention backward, the clip and the
     optimizer.  Returns (launches by variant, ms a step, tok/s, peak GiB,
-    the profiled step's device ms)."""
+    the profiled step's device ms, its stages' device ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     cfg = get_config("tinyllama_1_1b")
@@ -3153,7 +3200,7 @@ def train_full(smi):
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     if not events:
         log("profile train step: no device time in the trace (not measured)")
-        return by_variant, step_ms, tokens / step_ms * 1e3, peak, None
+        return by_variant, step_ms, tokens / step_ms * 1e3, peak, None, None
     # the profiler's own host work lengthens the profiled step's wall, so
     # the device time is also given over the unprofiled steps' mean
     log(f"profile train step: wall {wall_ms:.3f} ms, device kernels "
@@ -3163,13 +3210,15 @@ def train_full(smi):
         f"device events; card {smi}")
     flash_ms = sum(e.self_device_time_total for e in events
                    if "flash_fwd_" in e.key) / 1e3
-    _log_shares({"flash forward (kernel)": flash_ms,
-                 **_range_ms(averages, labels)}, busy_ms, "train step")
+    stage_ms = {"flash forward (kernel)": flash_ms,
+                **_range_ms(averages, labels)}
+    _log_shares(stage_ms, busy_ms, "train step")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms "
             f"{100 * e.self_device_time_total / 1e3 / busy_ms:5.1f}% "
             f"x{e.count:<6d} {e.key[:90]}")
-    return by_variant, step_ms, tokens / step_ms * 1e3, peak, busy_ms
+    return (by_variant, step_ms, tokens / step_ms * 1e3, peak, busy_ms,
+            stage_ms)
 
 
 def serve_windowed(smi):
@@ -3233,6 +3282,234 @@ def serve_windowed(smi):
     del params
     torch.cuda.empty_cache()
     return by_variant
+
+
+# ---------------------------------------------------------------------------
+# phases 45-46: the training and cluster simulators (no kernel launches)
+
+
+def _op_busy(res):
+    """A priced step's busy seconds by op: the forwards (``F/``), the
+    backwards (``B/``), the update (``U/``, its state transfer included),
+    the rest (boundary transfers, collectives) and the host's dispatch."""
+    kinds = {"F": "fwd", "B": "bwd", "U": "update"}
+    out = {"fwd": 0.0, "bwd": 0.0, "update": 0.0, "other": 0.0, "host": 0.0}
+    for e in res.engine.timeline.events:
+        if e.kind == "idle":
+            continue
+        key = "host" if e.kind == "host" else kinds.get(e.name[0], "other")
+        out[key] += e.duration
+    return out
+
+
+def _train_price_line(res, measured):
+    """One priced step beside phase 43's measure: ms and tok/s with price /
+    measured, and the ops' shares of the accelerator's busy time."""
+    busy = _op_busy(res)
+    acc = sum(v for k, v in busy.items() if k != "host")
+    ms_ = 1e3 * res.step_time_s
+    shares = ", ".join(f"{k} {100 * busy[k] / acc:.2f}%"
+                       for k in ("fwd", "bwd", "update", "other"))
+    line = (f"step {ms_:.6f} ms, {res.tokens_per_s:.1f} tok/s; {shares} of "
+            f"the accelerator's {1e3 * acc:.6f} ms, host "
+            f"{1e3 * busy['host']:.3f} ms")
+    if measured is not None:
+        dev = measured["device_ms"]
+        line += (f"; price / measured: {ms_ / measured['step_ms']:.4f} of the"
+                 f" step, " + (f"{ms_ / dev:.4f} of its device ms" if dev
+                               else "device ms not measured"))
+    return line
+
+
+def price_training(measured, smi):
+    """Phase 45: phase 43's step, tinyllama_1_1b at ``TRAIN_FULL``'s shape
+    on one card (1 stage, 2 microbatches of 4 x 4096), priced by
+    ``sim.training.simulate_training`` on one H100 at its bf16 peak (a)
+    and with ``HOST_DISPATCH_S`` a dispatch (b), beside ``measured`` (phase
+    43's ms a step, tok/s, profiled device ms and its stages' device ms):
+    each price's ms, tok/s and fwd / bwd / update shares with price /
+    measured; the float32 default ``EngineConfig()`` once; then
+    ``launch.train.dry_run`` at train_4k's own global batch (``DRY_RUN``).
+    Asserts finite positive prices and that a 1-stage 1-microbatch price
+    equals the flat ``from_training_step`` chain through ``engine.run``
+    bit for bit."""
+    cfg = get_config("tinyllama_1_1b")
+    kw = TRAIN_FULL
+    bf16 = default_config()
+    configs = (("a", bf16), ("b", dataclasses.replace(
+        bf16, host_dispatch_s=HOST_DISPATCH_S)))
+    log(f"training priced (engine output, not times): {cfg.name} at seq "
+        f"{kw['seq']}, global batch {kw['batch']} in {kw['microbatches']} "
+        f"microbatches, 1 stage; (a) one H100 at its bf16 peak "
+        f"{bf16.peak_flops:.4g} flop/s, HBM {bf16.hbm_bw:.4g} B/s; (b) (a) "
+        f"plus {1e6 * HOST_DISPATCH_S:g} us host dispatch an op; card {smi}")
+    dev = measured["device_ms"]
+    device = "not measured"
+    if dev:
+        device = f"{dev:.1f} ms; of it " + ", ".join(
+            f"{k} {100 * v / dev:.1f}%"
+            for k, v in measured["stage_ms"].items())
+    log(f"  measured (phase 43): {measured['step_ms']:.1f} ms a step, "
+        f"{measured['tok_s']:.0f} tok/s, a profiled step's device time "
+        f"{device}")
+    for label, config in configs:
+        t0 = time.perf_counter()
+        res = simulate_training(cfg, n_stages=1,
+                                n_microbatches=kw["microbatches"],
+                                seq_len=kw["seq"], global_batch=kw["batch"],
+                                config=config)
+        cpu_s = time.perf_counter() - t0
+        log(f"  ({label}) {_train_price_line(res, measured)}; "
+            f"{1e3 * cpu_s:.1f} ms CPU")
+        if not (math.isfinite(res.step_time_s) and res.step_time_s > 0
+                and res.tokens_per_s > 0):
+            raise AssertionError(f"({label}): price {res.stats()}")
+        one = simulate_training(cfg, n_stages=1, n_microbatches=1,
+                                seq_len=kw["seq"], global_batch=kw["batch"],
+                                config=config)
+        flat = sim.run(sim.from_training_step(cfg, seq_len=kw["seq"],
+                                              batch=kw["batch"]), config)
+        if (one.step_time_s != flat.makespan
+                or one.engine.breakdown != flat.breakdown
+                or one.engine.energy != flat.energy):
+            raise AssertionError(f"({label}): 1 stage, 1 microbatch "
+                                 f"{one.step_time_s} != the flat chain "
+                                 f"{flat.makespan}")
+        log(f"  ({label}) 1 stage, 1 microbatch: {1e3 * one.step_time_s:.6f}"
+            f" ms, the flat from_training_step chain through engine.run "
+            f"bit for bit (makespan, breakdown, energy)")
+    res = simulate_training(cfg, n_stages=1,
+                            n_microbatches=kw["microbatches"],
+                            seq_len=kw["seq"], global_batch=kw["batch"],
+                            config=sim.EngineConfig())
+    log(f"  the float32 default EngineConfig() ({hw.PEAK_FLOPS:.4g} flop/s,"
+        f" the CUDA cores' float32 rate): "
+        f"{_train_price_line(res, measured)}; the model trains in bf16 with "
+        f"a float32 attention backward")
+    out = train_launch.dry_run(emit=log, **DRY_RUN)
+    for r in out:
+        if not (math.isfinite(r.step_time_s) and r.step_time_s > 0):
+            raise AssertionError(f"dry run: {r.stats()}")
+        log(f"  dry run at train_4k's {r.meta['global_batch']} x "
+            f"{r.meta['seq_len']} in {r.n_microbatches} microbatches: "
+            f"{_train_price_line(r, None)}; tok/s / phase 43's measured "
+            f"{r.tokens_per_s / measured['tok_s']:.4f} (microbatches of "
+            f"{r.meta['global_batch'] // r.n_microbatches}, phase 43's of "
+            f"{kw['batch'] // kw['microbatches']})")
+
+
+def training_studies(smi):
+    """Phase 46: the training and cluster studies at H100 rates.
+    ``training_sweep`` over ``TRAIN_STUDY`` for ``TRAIN_STUDY_MODELS`` on
+    ``TRAIN_STUDY_CONFIG`` at the bf16 peak: step ms, tok/s, bubble
+    against its bound and the stages' mean utilization a cell, 1F1B over
+    GPipe at the deepest pipe.  Then ``cluster_sweep`` over
+    ``CLUSTER_STUDY`` for ``CLUSTER_STUDY_MODELS`` on each of
+    ``CLUSTER_LAYOUTS`` at the bf16 peak: the best placement by cluster
+    tok/s at each size, each algorithm's best, the cheapest placement
+    under ``STEP_TARGET_S`` a step, the host seconds.  Asserts finite
+    positive step times, the grid's cell counts, and that the DGX layout's
+    node tier (group size 1) carries no hop."""
+    config = dataclasses.replace(default_config(), **TRAIN_STUDY_CONFIG)
+    log(f"training study (engine output): {TRAIN_STUDY} on hbm, 2 ports, "
+        f"{1e6 * TRAIN_STUDY_CONFIG['host_dispatch_s']:g} us dispatch, one "
+        f"H100 at its bf16 peak a stage; card {smi}")
+    for arch in TRAIN_STUDY_MODELS:
+        t0 = time.perf_counter()
+        results = training_sweep(get_config(arch), base_config=config,
+                                 **TRAIN_STUDY)
+        cpu_s = time.perf_counter() - t0
+        by_cell = {}
+        for res, rec in zip(results, as_training_records(results)):
+            by_cell[(res.schedule, res.n_stages, res.n_microbatches)] = res
+            if not (math.isfinite(rec["step_time_s"])
+                    and rec["step_time_s"] > 0):
+                raise AssertionError(f"{arch} training cell {rec}")
+            log(f"  {arch} {res.schedule} p={res.n_stages} "
+                f"m={res.n_microbatches}: {1e3 * rec['step_time_s']:.6f} ms,"
+                f" {rec['tokens_per_s']:.0f} tok/s, bubble "
+                f"{rec['bubble_fraction']:.4f} (bound "
+                f"{rec['bubble_bound']:.4f}), stage util "
+                f"{rec['stage_util_mean']:.3f}")
+        want = (len(TRAIN_STUDY["schedules"])
+                * len(TRAIN_STUDY["n_stages_grid"])
+                * len(TRAIN_STUDY["n_microbatches_grid"]))
+        if len(results) != want:
+            raise AssertionError(f"{arch}: {len(results)} training cells")
+        p = max(TRAIN_STUDY["n_stages_grid"])
+        m = max(TRAIN_STUDY["n_microbatches_grid"])
+        g, o = by_cell[("gpipe", p, m)], by_cell[("1f1b", p, m)]
+        log(f"  {arch}: 1f1b over gpipe at p={p} m={m} "
+            f"{g.step_time_s / o.step_time_s:.4f}x (< 1: the shared ports "
+            f"favour the flush schedule); grid {1e3 * cpu_s:.1f} ms CPU")
+    dgx = hw.Fabric.cluster(64, **CLUSTER_LAYOUTS[1][1])
+    k = dgx.leaves_per_group()[0]
+    B = 256e6
+    t = sim.collective_time("all_reduce", B, 64, dgx, algo="hierarchical",
+                            config=default_config())
+    closed = (2.0 * (k - 1) * (hw.ICI_LAT_S + B / k / hw.ICI_BW)
+              + 2.0 * (64 // k - 1) * (hw.INTER_LAT_S
+                                       + B / 64 / hw.INTER_BW))
+    if (dgx.describe() != "8ici x 1node x 8inter"
+            or dgx.span_tier(range(k)) != 0 or dgx.span_tier((0, k)) != 2
+            or abs(t - closed) > 1e-12 * closed):
+        raise AssertionError(f"DGX layout {dgx.describe()}: hierarchical "
+                             f"{t} against {closed}")
+    log(f"DGX layout {dgx.describe()}: a node's 8 GPUs span the NVSwitch "
+        f"tier, two nodes the InfiniBand tier, the node tier of 1 nothing; "
+        f"hierarchical all-reduce of {B:.4g} B over 64 GPUs "
+        f"{1e3 * t:.6f} ms, the per-tier closed form {1e3 * closed:.6f} ms")
+    log(f"cluster study (engine output): {CLUSTER_STUDY}, 1f1b, one H100 "
+        f"at its bf16 peak a GPU; NVLink {hw.ICI_BW:.4g} B/s, InfiniBand "
+        f"{hw.INTER_BW:.4g} B/s a port (data sheets); hop latencies NVLink "
+        f"{1e6 * hw.ICI_LAT_S:g} / {1e6 * hw.NODE_LAT_S:g} us and "
+        f"InfiniBand {1e6 * hw.INTER_LAT_S:g} us are estimates "
+        f"(sim/hw.py), not measured; TCO the JAX package's model "
+        f"(${hw.ACCEL_COST_USD:,.0f} a GPU over 3 years, "
+        f"${hw.USD_PER_KWH:g}/kWh), not an H100 price; card {smi}")
+    for layout, fab_kw in CLUSTER_LAYOUTS:
+        for arch in CLUSTER_STUDY_MODELS:
+            t0 = time.perf_counter()
+            results = cluster_sweep(get_config(arch),
+                                    base_config=default_config(),
+                                    **CLUSTER_STUDY, **fab_kw)
+            rows = as_cluster_records(results)
+            cpu_s = time.perf_counter() - t0
+            if fab_kw and any(op.tier == "node" for r in results
+                              for op in r.program.ops):
+                raise AssertionError(f"{layout}: a hop on the node tier")
+            bad = [r for r in rows if not (math.isfinite(r["step_time_s"])
+                                           and r["step_time_s"] > 0)]
+            if bad or not rows:
+                raise AssertionError(f"{arch} {layout}: {len(rows)} cells, "
+                                     f"bad {bad[:1]}")
+            log(f"  {layout}, {arch}: {len(rows)} cells in {cpu_s:.3f} s "
+                f"host CPU")
+            for n in CLUSTER_STUDY["n_accel_grid"]:
+                at_n = [r for r in rows if r["n_accel"] == n]
+                best = max(at_n, key=lambda r: r["cluster_tokens_per_s"])
+                algos = {a: max(r["cluster_tokens_per_s"] for r in at_n
+                                if r["collective_algo"] == a)
+                         for a in CLUSTER_STUDY["algos"]}
+                log(f"    {n} GPUs ({best['fabric']}): best dp"
+                    f"{best['dp_degree']} x pp{best['pp_degree']} x tp"
+                    f"{best['tp_degree']} {best['collective_algo']}: "
+                    f"{1e3 * best['step_time_s']:.6f} ms a step, "
+                    f"{best['cluster_tokens_per_s']:.0f} tok/s, "
+                    f"${best['tco_usd_per_mtok']:.6f}/Mtok; best tok/s by "
+                    f"algorithm "
+                    + ", ".join(f"{a} {v:.0f}" for a, v in algos.items()))
+            fast = [r for r in rows if r["step_time_s"] <= STEP_TARGET_S]
+            if fast:
+                c = min(fast, key=lambda r: r["tco_usd_per_step"])
+                log(f"    cheapest under {STEP_TARGET_S:g} s a step: "
+                    f"{c['n_accel']} GPUs dp{c['dp_degree']} x pp"
+                    f"{c['pp_degree']} x tp{c['tp_degree']} "
+                    f"{c['collective_algo']}: "
+                    f"{1e3 * c['step_time_s']:.6f} ms, "
+                    f"${c['tco_usd_per_step']:.6f} a step")
+            else:
+                log(f"    no placement under {STEP_TARGET_S:g} s a step")
 
 
 def _counts():
@@ -3413,10 +3690,22 @@ def main():
         *TRAIN_FLASH_SHAPE, 0, torch.bfloat16, smi)
     train_err = check_training_against_cpu()
     torch.cuda.empty_cache()
-    train_by_variant, train_ms, train_tok_s, train_gib, train_device = \
-        train_full(smi)
+    (train_by_variant, train_ms, train_tok_s, train_gib, train_device,
+     train_stage_ms) = train_full(smi)
     torch.cuda.empty_cache()
     windowed_by_variant = serve_windowed(smi)
+    # phase 45: phase 43's step priced beside its measure; phase 46: the
+    # training and cluster studies.  They launch nothing
+    counts = _counts()
+    t0 = time.perf_counter()
+    price_training({"step_ms": train_ms, "tok_s": train_tok_s,
+                    "device_ms": train_device,
+                    "stage_ms": train_stage_ms}, smi)
+    training_studies(smi)
+    log(f"phases 45-46: {time.perf_counter() - t0:.3f} s host")
+    if _counts() != counts:
+        raise AssertionError(f"pricing changed the launch counts: {counts} "
+                             f"-> {_counts()}")
     log(f"training: grad errors {grad_err:.3e} (Functions), {train_err:.3e} "
         f"(card vs CPU); tinyllama_1_1b {train_ms:.1f} ms a step, "
         f"{train_tok_s:.0f} tok/s, {train_gib:.3f} GiB, device ms a step "

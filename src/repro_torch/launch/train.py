@@ -18,9 +18,19 @@ The batch of step i is ``synthetic_batch`` at seed ``seed + i``: the
 pipeline runs one worker, so that batches come in seed order and a resumed
 run sees the batches an uninterrupted run would (the reference's two
 workers may swap neighbours, and its resumed pipeline starts again at
-seed 0).  Not ported: ``--dry-run``, ``--stages`` and ``--schedule`` (they
-price the step through ``sim.training``), and ``--multi-pod`` and the
-production mesh (distribution); they raise ``NotImplementedError``.
+seed 0).  Not ported: ``--multi-pod`` and the production mesh
+(distribution); it raises ``NotImplementedError``.
+
+``--dry-run`` launches nothing: it prices the same (arch x shape x
+microbatches) cell through the training simulator
+(``repro_torch.sim.training``), the pre-launch sanity check for a
+schedule choice: the step time, tokens/s, per-stage utilization and the
+pipeline bubble under GPipe and 1F1B at ``--stages`` pipeline stages,
+priced on one H100 at its bf16 peak (``dry_run``).  It touches no device
+and no tensor:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --dry-run \
+      --stages 2 --microbatches 4
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ import time
 
 import torch
 
+from repro_torch.apps.serving import default_config
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.config import SHAPE_BY_NAME, ModelConfig
@@ -88,6 +99,42 @@ def train(cfg: ModelConfig, *, batch, seq, steps, microbatches=1,
             "step_s": step_s}
 
 
+def dry_run(arch: str, shape_name: str, *, n_stages: int = 1,
+            n_microbatches: int = 1, schedule: str = "both",
+            smoke: bool = False, emit=print):
+    """Price the (arch x shape x microbatches) training cell through the
+    simulator instead of launching it; returns the ``TrainingResult``
+    list (one per schedule).
+
+    The price is on one H100 at its dense bf16 peak
+    (``apps.serving.default_config()``, 989e12), the type the models
+    train in (``bytes_per_param=2``).  It is the counterpart of the
+    reference's default, the TPU v5e's bf16 peak; the engine's own
+    ``EngineConfig()`` is the CUDA cores' float32 rate, 67e12, and would
+    price a bf16 step some 15x slow."""
+    from repro_torch.sim.training import SCHEDULES, simulate_training
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    shape = SHAPE_BY_NAME[shape_name]
+    batch, seq = (4, 64) if smoke else (shape.global_batch, shape.seq_len)
+    schedules = SCHEDULES if schedule == "both" else (schedule,)
+    config = default_config()
+    out = []
+    for sched in schedules:
+        r = simulate_training(cfg, n_stages=n_stages,
+                              n_microbatches=n_microbatches,
+                              schedule=sched, seq_len=seq,
+                              global_batch=batch, config=config)
+        out.append(r)
+        utils = " ".join(f"{k}={v:.2f}"
+                         for k, v in r.per_stage_utilization.items())
+        emit(f"[dry-run] {arch}/{shape_name} {sched} p={n_stages} "
+             f"m={n_microbatches}: step={r.step_time_s*1e3:.3f}ms "
+             f"({r.tokens_per_s:.0f} tok/s) "
+             f"bubble={r.bubble_fraction:.3f} "
+             f"(bound {r.bubble_bound:.3f}) {utils}")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama_1_1b")
@@ -103,17 +150,20 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--dry-run", action="store_true")
-    ap.add_argument("--stages", type=int, default=None)
-    ap.add_argument("--schedule", default=None,
-                    choices=("gpipe", "1f1b", "both"))
+    ap.add_argument("--dry-run", action="store_true",
+                    help="simulate the step instead of launching it")
+    ap.add_argument("--stages", type=int, default=1,
+                    help="pipeline stages for --dry-run")
+    ap.add_argument("--schedule", default="both",
+                    choices=("gpipe", "1f1b", "both"),
+                    help="pipeline schedule(s) for --dry-run")
     args = ap.parse_args(argv)
 
-    if args.dry_run or args.stages is not None or args.schedule is not None:
-        raise NotImplementedError(
-            "--dry-run, --stages and --schedule price the step through the "
-            "training simulator, sim/training.py, not yet ported (ROADMAP "
-            "Queue 1 item 17)")
+    if args.dry_run:
+        dry_run(args.arch, args.shape, n_stages=args.stages,
+                n_microbatches=args.microbatches, schedule=args.schedule,
+                smoke=args.smoke)
+        return
     if args.multi_pod:
         raise NotImplementedError(
             "--multi-pod needs the production mesh, not yet ported (ROADMAP "

@@ -9,7 +9,7 @@ structure (deps, reduction affinity), a ``device_class`` placement tag
 the CPU, NN ops on the accelerators), fabric-tier fields the engine prices
 per hop, and a reporting phase.
 
-The port's copy of ``repro/sim/ir.py``'s core and four of its lowerings:
+The port's copy of ``repro/sim/ir.py``'s core and five of its lowerings:
 
   from_graph          the declarative ``repro_torch.core.graph.Graph`` ->
                       tile-level ops via the dataflow tiling optimizer,
@@ -18,10 +18,26 @@ The port's copy of ``repro/sim/ir.py``'s core and four of its lowerings:
   from_serving_step   one serving-scheduler iteration -> a <=2-op batched
                       step (with ``serving_step_signature`` and
                       ``positions_for_signature``, the memo's key),
+  from_training_step  one optimizer step (forward, backward at 2x the
+                      forward FLOPs with activation re-reads, the
+                      data-parallel gradient all-reduce, the AdamW
+                      update) -> a <=4-op chain, for the whole model or
+                      one pipeline stage's layer share; with a fabric,
+                      TP and DP collectives as per-hop transfers,
   from_tasks          ``TileTask`` lists (``core/scheduler.py``).
 
-The reference's other lowerings (compiled HLO, training steps, fabric
-collectives) are not copied yet.
+``from_collective`` lowers one collective (all-reduce / reduce-scatter /
+all-gather / all-to-all) over a group of accelerators on a hierarchical
+``hw.Fabric`` into per-hop transfer ops: each step of ring / tree /
+hierarchical is one ``CostedOp`` whose ``tier`` is the fabric tier it
+crosses and whose ``lane`` names the contended link set; the engine prices
+it as ``hops * tier_latency + collective_bytes / tier_bandwidth``.
+``collective_time`` is the same price without the engine.  The
+single-tier identities of the reference hold at ``ici_lat_s=0`` (the TPU
+v5e's value); the port's default is the H100's NVLink hop, 2 us.
+
+Not copied yet: ``from_hlo``, the compiled-HLO lowering; it waits for a
+torch analyzer that emits the cost dict it consumes.
 """
 from __future__ import annotations
 
@@ -81,9 +97,9 @@ _OP_FIELDS = frozenset(f.name for f in dataclasses.fields(CostedOp))
 def replace(op, **changes):
     """``dataclasses.replace`` with a fast path for :class:`CostedOp`.
 
-    Lowerings that stamp out op templates clone many ops (``Program.then``
-    here; the reference's training and cluster lowerings by the hundred
-    thousand); ``dataclasses.replace`` re-runs the frozen ``__init__`` — one guarded
+    The training and cluster lowerings clone hundreds of thousands of ops
+    per sweep (segment templates stamped out per stage and microbatch);
+    ``dataclasses.replace`` re-runs the frozen ``__init__`` — one guarded
     ``object.__setattr__`` per field — which dominates program
     construction.  ``CostedOp`` has no ``__post_init__`` and no derived
     state, so a shallow ``__dict__`` copy produces the identical frozen
@@ -489,6 +505,451 @@ def positions_for_signature(n_decode: int, pos_sum: int) -> Tuple[int, ...]:
     if n_decode <= 0:
         return ()
     return (int(pos_sum) - (n_decode - 1),) + (1,) * (n_decode - 1)
+
+
+# ---------------------------------------------------------------------------
+# lowering 2d: one training step -> fwd/bwd/reduce/update chain
+
+
+# AdamW arithmetic per parameter (two moment EMAs, bias correction, weight
+# decay, the update itself) — the constant the optimizer-update op charges
+OPTIMIZER_FLOPS_PER_PARAM = 12.0
+# backward pass = grad wrt activations + grad wrt weights: the canonical
+# 2x-forward FLOP accounting (recomputation/remat would add a third pass)
+BWD_FLOPS_MULT = 2.0
+
+
+def partition_stages(n_layers: int, n_stages: int) -> Tuple[int, ...]:
+    """Balanced layer partition for pipeline parallelism: the first
+    ``n_layers % n_stages`` stages carry one extra layer.  The training
+    simulator (``repro_torch.sim.training``) and ``from_training_step``
+    take every stage's layer share from here."""
+    n_layers, n_stages = int(n_layers), int(n_stages)
+    if n_stages < 1:
+        raise ValueError(f"n_stages must be >= 1, got {n_stages}")
+    if n_layers < n_stages:
+        raise ValueError(
+            f"cannot split {n_layers} layers over {n_stages} stages: "
+            "every stage needs at least one layer")
+    base, extra = divmod(n_layers, n_stages)
+    return tuple(base + (1 if s < extra else 0) for s in range(n_stages))
+
+
+# ---------------------------------------------------------------------------
+# lowering: collectives -> per-hop fabric transfers
+#
+# Every algorithm step becomes one op on the lane of the fabric tier it
+# crosses; steps chain, independent groups (distinct lanes) overlap.  On a
+# homogeneous uncontended fabric the makespan is therefore the textbook
+# closed form, asserted exactly in tests/test_collectives.py:
+#
+#   ring all-reduce       2*(p-1) steps of B/p   -> 2*(p-1)/p * B/bw
+#                                                   + 2*(p-1)*lat
+#   ring RS / AG          (p-1) steps of B/p     ->   (p-1)/p * B/bw
+#                                                   + (p-1)*lat
+#   tree all-reduce       2*ceil(log2 p) steps   -> 2*ceil(log2 p)
+#                         of B                      * (lat + B/bw)
+#   all-to-all            (p-1) pairwise steps   -> (p-1)*(lat + (B/p)/bw)
+#                         of B/p
+#   hierarchical          ring-RS within each sub-group, recursive
+#   all-reduce            all-reduce of B/k across sub-group leads,
+#                         ring-AG back — the composed per-tier bound.
+#
+# The k parallel shard-rings of the hierarchical cross-tier phase run on
+# disjoint lanes with identical cost; the lowering emits the lead ring as
+# their (equal-time) representative to keep programs small.
+
+COLLECTIVE_KINDS = ("all_reduce", "reduce_scatter", "all_gather",
+                    "all_to_all")
+COLLECTIVE_ALGOS = ("ring", "tree", "hierarchical")
+
+
+def _sinks(ops: Sequence[CostedOp]) -> Tuple[str, ...]:
+    consumed = {d for op in ops for d in op.deps}
+    return tuple(op.name for op in ops if op.name not in consumed)
+
+
+def _hop_chain(prefix: str, n_steps: int, step_bytes: float, tier: str,
+               lane: str, deps: Tuple[str, ...], phase: str,
+               device_class: str, count: float) -> List[CostedOp]:
+    """``n_steps`` chained per-hop transfers of ``step_bytes`` each on one
+    lane; ``count`` compresses that many back-to-back collectives into the
+    same ops (bytes and latency hops both scale — exact, since the steps
+    serialize on the lane anyway)."""
+    ops: List[CostedOp] = []
+    for i in range(n_steps):
+        nm = f"{prefix}/s{i}"
+        ops.append(CostedOp(
+            name=nm, collective_bytes=count * step_bytes,
+            wire_bytes=count * step_bytes, tier=tier, lane=lane,
+            hops=count, deps=deps if not ops else (ops[-1].name,),
+            phase=phase, device_class=device_class))
+    return ops
+
+
+def _lower_collective(kind: str, nbytes: float, members: Tuple[int, ...],
+                      fabric, prefix: str, deps: Tuple[str, ...],
+                      phase: str, device_class: str,
+                      count: float, algo: str) -> List[CostedOp]:
+    p = len(members)
+    if p <= 1:
+        return []
+    span = fabric.span_tier(members)
+    tier = fabric.tiers[span].name
+    lane = fabric.lane(members, span)
+    if kind == "all_to_all":
+        # pairwise exchange: each of the p-1 steps trades one B/p shard
+        # with the k-th neighbor (algorithm choice does not change the
+        # uncontended cost, so every algo lowers the same way)
+        return _hop_chain(prefix, p - 1, nbytes / p, tier, lane, deps,
+                          phase, device_class, count)
+    if algo == "ring":
+        steps = {"all_reduce": 2 * (p - 1), "reduce_scatter": p - 1,
+                 "all_gather": p - 1}[kind]
+        return _hop_chain(prefix, steps, nbytes / p, tier, lane, deps,
+                          phase, device_class, count)
+    if algo == "tree":
+        depth = max(1, (p - 1).bit_length())   # ceil(log2 p)
+        if kind == "all_reduce":
+            # binomial reduce to the root + broadcast back: full payload
+            # per level
+            return _hop_chain(prefix, 2 * depth, nbytes, tier, lane, deps,
+                              phase, device_class, count)
+        # recursive halving (RS) / doubling (AG): level k moves B/2^k
+        ops: List[CostedOp] = []
+        sizes = [nbytes / (2 ** (k + 1)) for k in range(depth)]
+        if kind == "all_gather":
+            sizes.reverse()
+        for i, sz in enumerate(sizes):
+            nm = f"{prefix}/s{i}"
+            ops.append(CostedOp(
+                name=nm, collective_bytes=count * sz, wire_bytes=count * sz,
+                tier=tier, lane=lane, hops=count,
+                deps=deps if not ops else (ops[-1].name,),
+                phase=phase, device_class=device_class))
+        return ops
+    if algo == "hierarchical":
+        if kind != "all_reduce":
+            raise ValueError(
+                f"hierarchical lowering covers all_reduce only, got {kind}")
+        if span == 0:
+            return _lower_collective(kind, nbytes, members, fabric, prefix,
+                                     deps, phase, device_class, count,
+                                     "ring")
+        per = fabric.leaves_per_group()[span - 1]
+        groups: Dict[int, List[int]] = {}
+        for m in members:
+            groups.setdefault(m // per, []).append(m)
+        subs = [tuple(sorted(g)) for g in groups.values()]
+        if len(subs) == 1:
+            return _lower_collective(kind, nbytes, members, fabric, prefix,
+                                     deps, phase, device_class, count,
+                                     "ring")
+        k = len(subs[0])
+        if any(len(s) != k for s in subs):
+            raise ValueError(
+                "hierarchical all_reduce needs uniform sub-groups per "
+                f"tier, got sizes {[len(s) for s in subs]}")
+        if k == 1:
+            # nothing below the spanning tier: plain ring across members
+            return _lower_collective(kind, nbytes, members, fabric, prefix,
+                                     deps, phase, device_class, count,
+                                     "ring")
+        ops = []
+        # phase 1: ring reduce-scatter inside every sub-group (parallel
+        # lanes)
+        for gi, sub in enumerate(subs):
+            ops.extend(_lower_collective(
+                "reduce_scatter", nbytes, sub, fabric, f"{prefix}/rs{gi}",
+                deps, phase, device_class, count, "ring"))
+        rs_sinks = _sinks(ops) if ops else deps
+        # phase 2: all-reduce the B/k shard across the sub-group leads
+        # (recursively hierarchical, so 3-tier fabrics compose)
+        reps = tuple(s[0] for s in subs)
+        up = _lower_collective("all_reduce", nbytes / k, reps, fabric,
+                               f"{prefix}/up", rs_sinks, phase,
+                               device_class, count, "hierarchical")
+        ops.extend(up)
+        up_sinks = _sinks(up) if up else rs_sinks
+        # phase 3: ring all-gather back inside every sub-group
+        for gi, sub in enumerate(subs):
+            ops.extend(_lower_collective(
+                "all_gather", nbytes, sub, fabric, f"{prefix}/ag{gi}",
+                up_sinks, phase, device_class, count, "ring"))
+        return ops
+    raise ValueError(f"unknown collective algo {algo!r}; "
+                     f"one of {COLLECTIVE_ALGOS}")
+
+
+def from_collective(kind: str, nbytes: float, group, fabric=None, *,
+                    algo: str = "ring", count: float = 1.0,
+                    prefix: str = "", phase: str = "collective",
+                    deps: Sequence[str] = (),
+                    device_class: str = "accel",
+                    name: str = "") -> Program:
+    """Lower ONE collective over ``group`` into per-hop fabric transfers.
+
+    ``group`` is a member-id sequence or a plain count (members ``0..p-1``);
+    ``fabric`` defaults to a flat single-tier ICI fabric over the group.
+    ``count`` compresses that many identical back-to-back collectives
+    (e.g. one per transformer layer) into the same per-hop ops — bytes
+    and latency hops scale together, so the cost is exact.  A 1-member
+    group lowers to the empty Program (composing it via ``Program.then``
+    is bit-identical to a no-op; asserted in tests/test_collectives.py).
+    """
+    from repro_torch.sim import hw
+    if kind not in COLLECTIVE_KINDS:
+        raise ValueError(f"unknown collective kind {kind!r}; "
+                         f"one of {COLLECTIVE_KINDS}")
+    if algo not in COLLECTIVE_ALGOS:
+        raise ValueError(f"unknown collective algo {algo!r}; "
+                         f"one of {COLLECTIVE_ALGOS}")
+    members = (tuple(range(int(group))) if isinstance(group, int)
+               else tuple(int(m) for m in group))
+    if len(set(members)) != len(members):
+        raise ValueError(f"duplicate members in collective group {members}")
+    if fabric is None:
+        fabric = hw.Fabric.single_tier(max(members) + 1 if members else 1)
+    ops = _lower_collective(kind, float(nbytes), members, fabric,
+                            prefix or kind, tuple(deps), phase,
+                            device_class, float(count), algo)
+    return Program(ops, name=name or f"{kind}/{algo}", source="collective",
+                   meta={"kind": kind, "algo": algo, "nbytes": float(nbytes),
+                         "group": members, "count": float(count),
+                         "fabric": fabric.describe()})
+
+
+def collective_time(kind: str, nbytes: float, group, fabric=None, *,
+                    algo: str = "ring", count: float = 1.0,
+                    config=None) -> float:
+    """Uncontended analytic time of one collective: the longest
+    dependency path over the lowered per-hop ops, priced from ``config``
+    (default ``EngineConfig()``: one H100, whose ``ici_lat_s`` is 2 us)
+    via ``hw.resolve_tier_params``.  Parallel sub-group chains live on
+    disjoint lanes, so on an otherwise idle fabric the engine's makespan
+    equals this bound exactly."""
+    from repro_torch.sim import hw
+    if config is None:
+        from repro_torch.sim.engine import EngineConfig
+        config = EngineConfig()
+    prog = from_collective(kind, nbytes, group, fabric, algo=algo,
+                           count=count)
+    finish: Dict[str, float] = {}
+    for op in prog.ops:    # lowering emits in topological order
+        lat, bw = hw.resolve_tier_params(config, op.tier)
+        cost = op.hops * lat + op.collective_bytes / bw
+        start = max((finish[d] for d in op.deps if d in finish),
+                    default=0.0)
+        finish[op.name] = start + cost
+    return max(finish.values(), default=0.0)
+
+
+def _training_terms(cfg, seq_len: int, batch: int, bytes_per_param: float,
+                    bytes_per_act: float) -> Dict[str, float]:
+    """Whole-model per-step cost terms of one fwd+bwd over ``batch``
+    sequences of ``seq_len`` tokens — the shared accounting behind
+    ``from_training_step``.
+
+      fwd_flops    dense ``2 * N_active * tokens`` plus the causal
+                   attention term ``4 * n_attn * kv_dim * S*(S-1)/2`` per
+                   sequence (the ``from_serving_step`` prefill formula),
+      act_bytes    stored activations: one residual-stream tensor per
+                   layer (``n_layers * d_model * tokens * bytes_per_act``),
+                   written by the forward and re-read by the backward,
+      weight_bytes streamed active weights (charged per pass — training
+                   streams them forward AND backward),
+      grad_bytes   dense gradient traffic (active params),
+      opt_params   the full parameter count the optimizer state covers
+                   (MoE: every expert has moments, not just routed ones).
+    """
+    n_active, kv_dim, n_attn, weight_bytes = \
+        _decode_terms(cfg, bytes_per_param)
+    tokens = float(batch) * float(seq_len)
+    attn = 4.0 * n_attn * kv_dim * (seq_len * (seq_len - 1) // 2) * batch
+    return {
+        "fwd_flops": 2.0 * n_active * tokens + attn,
+        "act_bytes": float(cfg.n_layers) * float(cfg.d_model) * tokens
+        * bytes_per_act,
+        "weight_bytes": weight_bytes,
+        "grad_bytes": n_active * bytes_per_param,
+        "opt_params": float(cfg.param_count()),
+        "tokens": tokens,
+    }
+
+
+def from_training_step(cfg, *, seq_len: int = 1024, batch: int = 8,
+                       stage: Optional[int] = None, n_stages: int = 1,
+                       bytes_per_param: float = 2.0,
+                       bytes_per_act: float = 2.0,
+                       optimizer_bytes_per_param: float = 12.0,
+                       dp_degree: int = 1, tp_degree: int = 1,
+                       fabric=None, collective_algo: str = "ring",
+                       overlap_dp: bool = False,
+                       tp_group: Optional[Sequence[int]] = None,
+                       dp_group: Optional[Sequence[int]] = None,
+                       name: str = "") -> Program:
+    """Lower ONE training optimizer step to a <=4-op chain Program.
+
+    The chain is ``fwd -> bwd [-> reduce] -> update``:
+
+      ``train/fwd``     forward over ``batch`` sequences: streams the
+                        (active) weights, writes the stored activations;
+      ``train/bwd``     backward at ``BWD_FLOPS_MULT`` (2x) the forward
+                        FLOPs: re-streams the weights, RE-READS the stored
+                        activations, writes the dense gradients;
+      ``train/reduce``  the data-parallel gradient all-reduce, emitted only
+                        when ``dp_degree > 1``: operand-sum metric =
+                        gradient bytes, ring wire bytes =
+                        ``2 * (d-1)/d * grad_bytes``;
+      ``train/update``  the AdamW update: ``OPTIMIZER_FLOPS_PER_PARAM``
+                        flops per (full, not active) parameter, reading the
+                        gradients + optimizer state
+                        (``optimizer_bytes_per_param`` covers fp32 m, v and
+                        master weights) and writing the state back plus the
+                        fresh streaming weights.
+
+    ``stage``/``n_stages`` select one pipeline stage's share of the model:
+    the layers partition via ``partition_stages`` and every term scales by
+    ``layers_in_stage / n_layers`` (embeddings and the attention mix are
+    apportioned uniformly — a deliberate first-order model).  ``stage=None``
+    with ``n_stages=1`` is the whole model; the training simulator
+    (``repro_torch.sim.training``) calls this per stage and per
+    microbatch, so a 1-stage 1-microbatch simulated step is THIS chain,
+    bit for bit.
+
+    **Cluster placement** (``fabric`` given): compute, weights, gradients
+    and optimizer state shard ``tp_degree``-ways (Megatron-style — the
+    residual-stream activations stay replicated per TP rank), with two
+    TP all-reduces per layer per pass lowered via ``from_collective``
+    (compressed: ``count = 2 * layers``) after the forward and the
+    backward; the DP gradient all-reduce becomes explicit per-hop
+    transfers over ``dp_group`` with ``collective_algo``
+    (ring / tree / hierarchical) instead of the legacy single
+    ``train/reduce`` op.  ``overlap_dp`` starts the gradient all-reduce
+    alongside the backward (grads stream out as bwd retires layers;
+    first-order), with the update waiting on both.  ``tp_group`` /
+    ``dp_group`` place the collectives on fabric member ids (defaults:
+    TP ranks ``0..tp-1``, DP peers at stride ``tp_degree``).  With
+    ``fabric=None`` the legacy <=4-op chain is produced bit-for-bit.
+    """
+    if n_stages > 1 and stage is None:
+        raise ValueError("stage index required when n_stages > 1; use "
+                         "repro_torch.sim.training for the full pipeline")
+    tp = int(tp_degree)
+    dp = int(dp_degree)
+    if fabric is None:
+        if tp != 1:
+            raise ValueError(
+                "tp_degree > 1 requires a fabric; pass "
+                "hw.Fabric.single_tier(tp_degree * dp_degree) for a flat "
+                "group")
+        if overlap_dp:
+            raise ValueError("overlap_dp requires a fabric")
+    share = 1.0
+    layers_here = float(cfg.n_layers)
+    if stage is not None:
+        layers = partition_stages(cfg.n_layers, n_stages)
+        if not 0 <= stage < n_stages:
+            raise ValueError(f"stage {stage} out of range for "
+                             f"{n_stages} stages")
+        share = layers[stage] / float(cfg.n_layers)
+        layers_here = float(layers[stage])
+    t = _training_terms(cfg, seq_len, batch, bytes_per_param, bytes_per_act)
+    fwd_flops = t["fwd_flops"] * share
+    act_bytes = t["act_bytes"] * share
+    weight_bytes = t["weight_bytes"] * share
+    grad_bytes = t["grad_bytes"] * share
+    opt_params = t["opt_params"] * share
+    if tp > 1:   # TP shards compute/weights/grads/state; acts replicate
+        fwd_flops /= tp
+        weight_bytes /= tp
+        grad_bytes /= tp
+        opt_params /= tp
+    opt_state_bytes = opt_params * optimizer_bytes_per_param
+
+    ops = [
+        CostedOp(name="train/fwd", flops=fwd_flops, dot_flops=fwd_flops,
+                 bytes_in=weight_bytes, bytes_out=act_bytes,
+                 phase="fwd", device_class="accel"),
+    ]
+    fwd_side: Tuple[str, ...] = ("train/fwd",)
+    tp_members: Tuple[int, ...] = ()
+    if fabric is not None and tp > 1:
+        tp_members = (tuple(int(m) for m in tp_group)
+                      if tp_group is not None else tuple(range(tp)))
+        if len(tp_members) != tp:
+            raise ValueError(f"tp_group has {len(tp_members)} members "
+                             f"for tp_degree={tp}")
+        # two all-reduces per layer per pass over the residual stream
+        tp_bytes = t["tokens"] * float(cfg.d_model) * bytes_per_act
+        tpf = from_collective("all_reduce", tp_bytes, tp_members, fabric,
+                              algo=collective_algo,
+                              count=2.0 * layers_here,
+                              prefix="train/tpf", phase="tp",
+                              deps=fwd_side)
+        ops.extend(tpf.ops)
+        if tpf.ops:
+            fwd_side = _sinks(tpf.ops)
+    ops.append(
+        CostedOp(name="train/bwd",
+                 flops=BWD_FLOPS_MULT * fwd_flops,
+                 dot_flops=BWD_FLOPS_MULT * fwd_flops,
+                 bytes_in=weight_bytes + act_bytes,   # activation re-reads
+                 bytes_out=grad_bytes,
+                 deps=fwd_side, phase="bwd", device_class="accel"))
+    bwd_side: Tuple[str, ...] = ("train/bwd",)
+    if fabric is not None and tp > 1:
+        tp_bytes = t["tokens"] * float(cfg.d_model) * bytes_per_act
+        tpb = from_collective("all_reduce", tp_bytes, tp_members, fabric,
+                              algo=collective_algo,
+                              count=2.0 * layers_here,
+                              prefix="train/tpb", phase="tp",
+                              deps=bwd_side)
+        ops.extend(tpb.ops)
+        if tpb.ops:
+            bwd_side = _sinks(tpb.ops)
+    update_deps: Tuple[str, ...] = bwd_side
+    if dp > 1:
+        if fabric is None:
+            ops.append(CostedOp(
+                name="train/reduce",
+                collective_bytes=grad_bytes,
+                wire_bytes=2.0 * (dp - 1) / dp * grad_bytes,
+                deps=bwd_side, phase="reduce", device_class="accel"))
+            update_deps = ("train/reduce",)
+        else:
+            dp_members = (tuple(int(m) for m in dp_group)
+                          if dp_group is not None
+                          else tuple(d * tp for d in range(dp)))
+            if len(dp_members) != dp:
+                raise ValueError(f"dp_group has {len(dp_members)} members "
+                                 f"for dp_degree={dp}")
+            red = from_collective("all_reduce", grad_bytes, dp_members,
+                                  fabric, algo=collective_algo,
+                                  prefix="train/dp", phase="reduce",
+                                  deps=fwd_side if overlap_dp else bwd_side)
+            ops.extend(red.ops)
+            red_sinks = _sinks(red.ops) if red.ops else ()
+            if overlap_dp:
+                update_deps = tuple(bwd_side) + red_sinks
+            else:
+                update_deps = red_sinks or bwd_side
+    ops.append(CostedOp(
+        name="train/update",
+        flops=OPTIMIZER_FLOPS_PER_PARAM * opt_params,
+        bytes_in=grad_bytes + opt_state_bytes,
+        bytes_out=opt_state_bytes + weight_bytes,
+        deps=update_deps, phase="opt", device_class="accel"))
+    return Program(ops, name=name or f"{getattr(cfg, 'name', 'model')}"
+                   f"/train", source="training",
+                   meta={"seq_len": seq_len, "batch": batch,
+                         "stage": stage, "n_stages": n_stages,
+                         "dp_degree": dp_degree, "tp_degree": tp,
+                         "share": share, "tokens": t["tokens"],
+                         "collective_algo": collective_algo,
+                         "overlap_dp": bool(overlap_dp),
+                         "fabric": fabric.describe() if fabric is not None
+                         else None})
 
 
 # ---------------------------------------------------------------------------

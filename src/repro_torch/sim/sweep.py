@@ -29,12 +29,15 @@ central differences on numpy) and returns an exact-engine-verified design —
 "the cheapest config meeting a latency target" is one call.
 
 ``fleet_sweep`` runs the serving fleet's router x replica-count grid
-(``repro_torch.sim.serving``) out of one shared step-cost memo.
+(``repro_torch.sim.serving``) out of one shared step-cost memo;
+``training_sweep`` the pipeline schedule x stages x microbatches grid and
+``cluster_sweep`` the DP x PP x TP placement x collective-algorithm grid
+over ``hw.Fabric.cluster`` (``repro_torch.sim.training``), flattened by
+``as_training_records`` / ``as_cluster_records`` (the latter with per-step
+energy and TCO, ``hw.tco_per_step``).
 
 The port's copy of ``repro/sim/sweep.py``.  Not copied yet: ``lower_hlo``
-(it waits for an HLO lowering), ``training_sweep``, ``cluster_sweep``,
-``placements_for``, ``as_training_records`` and ``as_cluster_records``
-(they wait for the training and cluster simulators).
+(it waits for an HLO lowering).
 """
 from __future__ import annotations
 
@@ -50,8 +53,10 @@ from repro_torch.sim.engine import EngineConfig, EngineResult
 from repro_torch.sim.hw import PARAM_FIELDS, SoCTopology
 from repro_torch.sim.ir import Program
 
-__all__ = ["sweep", "batched", "optimize", "topology_sweep", "fleet_sweep",
-           "lower_graph", "graph_digest", "clear_caches", "as_records",
+__all__ = ["sweep", "batched", "optimize", "topology_sweep",
+           "training_sweep", "fleet_sweep", "cluster_sweep",
+           "placements_for", "lower_graph", "graph_digest", "clear_caches",
+           "as_records", "as_training_records", "as_cluster_records",
            "BatchedSweep", "OptimizeResult"]
 
 _CACHE_MAX = 64
@@ -526,6 +531,38 @@ def topology_sweep(program: Program, topologies: Sequence[SoCTopology],
     return sweep(program, configs, **kw)
 
 
+def training_sweep(cfg, *, schedules: Sequence[str] = ("gpipe", "1f1b"),
+                   n_stages_grid: Sequence[int] = (1, 2, 4),
+                   n_microbatches_grid: Sequence[int] = (1, 4, 8),
+                   seq_len: int = 512, global_batch: Optional[int] = None,
+                   base_config: Optional[EngineConfig] = None,
+                   **kw) -> List:
+    """Run the pipeline-parallel design-space grid: one
+    ``repro_torch.sim.training.TrainingResult`` per (n_stages, n_microbatches,
+    schedule) cell, in that nesting order.  Every cell simulates the SAME
+    amount of work — ``global_batch`` defaults to the least common
+    multiple of ``n_microbatches_grid`` so every microbatch count divides
+    it; a caller-supplied value must divide by every entry.  Extra keyword
+    arguments pass through to ``simulate_training``."""
+    import math
+
+    from repro_torch.sim.training import simulate_training
+    base = base_config if base_config is not None else EngineConfig()
+    if global_batch is None:
+        global_batch = math.lcm(*n_microbatches_grid)
+    out = []
+    for p in n_stages_grid:
+        for m in n_microbatches_grid:
+            for schedule in schedules:
+                res = simulate_training(
+                    cfg, n_stages=p, n_microbatches=m, schedule=schedule,
+                    seq_len=seq_len, global_batch=global_batch,
+                    config=base, **kw)
+                res.meta.update({"model": getattr(cfg, "name", "model")})
+                out.append(res)
+    return out
+
+
 def fleet_sweep(cfg, *, routers: Sequence[str] = ("round_robin",
                                                   "least_outstanding",
                                                   "session_affinity"),
@@ -565,6 +602,127 @@ def fleet_sweep(cfg, *, routers: Sequence[str] = ("round_robin",
                              "trace_kind": trace_kind, "seed": seed})
             out.append(res)
     return out
+
+
+def placements_for(n_accel: int, *, max_tp: int = 8,
+                   max_pp: int = 8) -> List[Tuple[int, int, int]]:
+    """All ``(dp, pp, tp)`` placements with ``dp * pp * tp == n_accel``,
+    TP and PP restricted to powers of two up to their caps (the shapes
+    real launch configs use: TP within a node, PP across a handful of
+    stages, DP soaking up the rest)."""
+    out = []
+    tp = 1
+    while tp <= min(max_tp, n_accel):
+        pp = 1
+        while tp * pp <= n_accel and pp <= max_pp:
+            if n_accel % (tp * pp) == 0:
+                out.append((n_accel // (tp * pp), pp, tp))
+            pp *= 2
+        tp *= 2
+    return out
+
+
+def cluster_sweep(cfg, *, n_accel_grid: Sequence[int] = (8, 64, 512),
+                  algos: Sequence[str] = ("ring", "tree", "hierarchical"),
+                  placements: Optional[Sequence[Tuple[int, int, int]]]
+                  = None,
+                  seq_len: int = 512, global_batch: int = 32,
+                  schedule: str = "1f1b",
+                  base_config: Optional[EngineConfig] = None,
+                  accels_per_chip: int = 4, chips_per_node: int = 8,
+                  max_tp: int = 8, max_pp: int = 8, **kw) -> List:
+    """Run the cluster design-space grid: one ``TrainingResult`` per
+    (n_accel, (dp, pp, tp), collective_algo) cell over a
+    ``hw.Fabric.cluster`` of each size — the "cheapest N-accelerator
+    config that trains the model under a step-time target" question is
+    ``min`` over ``as_cluster_records`` rows filtered on ``step_time_s``.
+
+    ``global_batch`` is the CLUSTER batch: each DP replica simulates
+    ``global_batch / dp`` sequences (floored at one sequence per
+    microbatch), with ``n_microbatches = min(2 * pp, 16)`` so deeper
+    pipes get enough microbatches to fill.  Extra kwargs pass through to
+    ``simulate_training``."""
+    from repro_torch.sim.training import simulate_training
+    base = base_config if base_config is not None else EngineConfig()
+    out = []
+    for n in n_accel_grid:
+        fab = hw.Fabric.cluster(n, accels_per_chip=accels_per_chip,
+                                chips_per_node=chips_per_node)
+        cells = (placements if placements is not None
+                 else placements_for(n, max_tp=max_tp, max_pp=max_pp))
+        for dp, pp, tp in cells:
+            if dp * pp * tp != n:
+                continue
+            m = min(2 * pp, 16)
+            replica_batch = m * max(1, round(global_batch / (dp * m)))
+            for algo in algos:
+                res = simulate_training(
+                    cfg, n_stages=pp, n_microbatches=m,
+                    schedule=schedule, seq_len=seq_len,
+                    global_batch=replica_batch, config=base,
+                    dp_degree=dp, tp_degree=tp, fabric=fab,
+                    collective_algo=algo, **kw)
+                res.meta.update({"model": getattr(cfg, "name", "model"),
+                                 "cluster_global_batch": global_batch})
+                out.append(res)
+    return out
+
+
+def as_cluster_records(results: Iterable) -> List[Dict[str, float]]:
+    """Flatten cluster ``TrainingResult``s to tidy rows with the
+    placement axes, whole-cluster throughput/energy, and per-step TCO
+    (``hw.tco_per_step``: amortized accelerator capex + energy)."""
+    rows = []
+    for r in results:
+        dp = int(r.meta.get("dp_degree", 1))
+        tp = int(r.meta.get("tp_degree", 1))
+        n_accel = int(r.meta.get("n_accel", dp * tp * r.n_stages))
+        replica_j = r.engine.energy["total_j"]
+        cluster_j = replica_j * dp * tp
+        cluster_tokens = r.tokens * dp
+        tco = hw.tco_per_step(n_accel, r.step_time_s, cluster_j)
+        rows.append({
+            "program": r.program.name,
+            "model": r.meta.get("model", ""),
+            "n_accel": n_accel,
+            "dp_degree": dp, "pp_degree": r.n_stages, "tp_degree": tp,
+            "collective_algo": r.meta.get("collective_algo", "ring"),
+            "fabric": r.meta.get("fabric"),
+            "schedule": r.schedule,
+            "n_microbatches": r.n_microbatches,
+            "replica_batch": r.meta.get("global_batch"),
+            "seq_len": r.meta.get("seq_len"),
+            "bound": r.engine.roofline.bound,
+            "cluster_tokens_per_s": (cluster_tokens / r.step_time_s
+                                     if r.step_time_s else 0.0),
+            "replica_j": replica_j, "cluster_j": cluster_j,
+            "tco_usd_per_step": tco,
+            "tco_usd_per_mtok": (tco / (cluster_tokens / 1e6)
+                                 if cluster_tokens else 0.0),
+            **r.stats(),
+        })
+    return rows
+
+
+def as_training_records(results: Iterable) -> List[Dict[str, float]]:
+    """Flatten ``TrainingResult``s to tidy per-cell dicts (the training
+    analogue of ``as_records``)."""
+    rows = []
+    for r in results:
+        rows.append({
+            "program": r.program.name,
+            "model": r.meta.get("model", ""),
+            "schedule": r.schedule,
+            "n_stages": r.n_stages,
+            "n_microbatches": r.n_microbatches,
+            "seq_len": r.meta.get("seq_len"),
+            "global_batch": r.meta.get("global_batch"),
+            "interface": r.config.interface,
+            "bound": r.engine.roofline.bound,
+            "total_j": r.engine.energy["total_j"],
+            **r.stats(),
+        })
+    return rows
 
 
 def as_records(results: Iterable[EngineResult]) -> List[Dict[str, float]]:

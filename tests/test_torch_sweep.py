@@ -12,10 +12,12 @@ runs at the reference's TPU v5e constants passed explicitly
 (``test_torch_sim.V5E``; graphs tiled for ``V5E_TILING``); every result of
 the numpy paths is compared with ``==``.
 
-Where a reference test lowers with ``from_hlo``, ``from_collective`` or
-``from_training_step`` (not ported yet), the reference's lowering is built
-and each of its ops is turned record by record into the port's
-``CostedOp``: both packages price the same op list.
+Where a reference test lowers with ``from_training_step`` or
+``from_collective``, each package lowers with its own and the two op lists
+are held equal op for op.  Where it lowers with ``from_hlo`` (not ported
+yet), the reference's lowering is built and each of its ops is turned
+record by record into the port's ``CostedOp``: both packages price the
+same op list.
 
 The port's torch backend of ``CostModel`` (float64, ``torch.func``) is held
 against the port's numpy backend at rtol 1e-9 (only the order of the row
@@ -112,6 +114,15 @@ def to_port(jprog):
 def both_programs(make):
     jprog = make()
     return jprog, to_port(jprog)
+
+
+def lowered(make):
+    """``make(ir, hw, model)`` through each package (the gemma_2b SMOKE
+    config): the port's own lowering, held op for op against the
+    reference's."""
+    jprog, tprog = make(jir, jhw, JSMOKE), make(tir, thw, TSMOKE)
+    assert_same_ops(jprog, tprog)
+    return jprog, tprog
 
 
 def hlo_chain(n_ops):
@@ -341,11 +352,11 @@ def test_utilization_counts_provisioned_workers():
 
 
 def _parallel_lanes():
-    return both_programs(lambda: jir.Program(
-        list(jir.from_collective("all_reduce", 32e6, (0, 1, 2, 3),
-                                 jhw.Fabric.cluster(16), prefix="a").ops)
-        + list(jir.from_collective("all_reduce", 32e6, (4, 5, 6, 7),
-                                   jhw.Fabric.cluster(16), prefix="b").ops),
+    return lowered(lambda ir, hw, _: ir.Program(
+        list(ir.from_collective("all_reduce", 32e6, (0, 1, 2, 3),
+                                hw.Fabric.cluster(16), prefix="a").ops)
+        + list(ir.from_collective("all_reduce", 32e6, (4, 5, 6, 7),
+                                  hw.Fabric.cluster(16), prefix="b").ops),
         name="parallel-lanes"))
 
 
@@ -804,17 +815,17 @@ def test_batched_records_and_best():
 
 
 # ---------------------------------------------------------------------------
-# collectives in the analytic model (the reference's lowerings, as records)
+# collectives in the analytic model (each package's own lowerings)
 
 
 def _collective_programs():
     """(collective chain, multi-tier ring): tests/test_costmodel.py's
     ``_collective_chain()`` and its 8-way node-spanning all-reduce."""
-    chain = both_programs(lambda: jir.from_training_step(
-        JSMOKE, seq_len=128, batch=4, dp_degree=4,
-        fabric=jhw.Fabric.single_tier(4)))
-    ring = both_programs(lambda: jir.from_collective(
-        "all_reduce", 64e6, 8, jhw.Fabric.cluster(8)))
+    chain = lowered(lambda ir, hw, cfg: ir.from_training_step(
+        cfg, seq_len=128, batch=4, dp_degree=4,
+        fabric=hw.Fabric.single_tier(4)))
+    ring = lowered(lambda ir, hw, _: ir.from_collective(
+        "all_reduce", 64e6, 8, hw.Fabric.cluster(8)))
     return chain, ring
 
 
@@ -845,9 +856,8 @@ def test_collective_chain_bit_identical():
 
 
 def test_dag_bounds_bracket_collectives():
-    fab = jhw.Fabric.cluster(16)
-    progs = [both_programs(lambda: jir.from_collective(
-        "all_reduce", 64e6, 16, fab, algo="hierarchical")),
+    progs = [lowered(lambda ir, hw, _: ir.from_collective(
+        "all_reduce", 64e6, 16, hw.Fabric.cluster(16), algo="hierarchical")),
         _parallel_lanes()]
     fields = dict(ici_lat_s=1e-6, n_workers=4)
     for jprog, tprog in progs:
@@ -864,12 +874,12 @@ def test_dag_bounds_bracket_collectives():
 
 
 def test_batched_winner_matches_exact_on_collective_grid():
-    fab = jhw.Fabric.cluster(8)
-    jprog, tprog = both_programs(lambda: jir.Program(
-        list(jir.from_training_step(JSMOKE, seq_len=128, batch=4).ops)
-        + list(jir.from_collective("all_reduce", 256e6, 8, fab,
-                                   deps=("train/update",),
-                                   prefix="grad").ops),
+    jprog, tprog = lowered(lambda ir, hw, cfg: ir.Program(
+        list(ir.from_training_step(cfg, seq_len=128, batch=4).ops)
+        + list(ir.from_collective("all_reduce", 256e6, 8,
+                                  hw.Fabric.cluster(8),
+                                  deps=("train/update",),
+                                  prefix="grad").ops),
         name="train+node-ring"))
     assert tengine.prepare(tprog).is_chain
     grid = [dict(node_bw=b, node_lat_s=l)
@@ -887,9 +897,9 @@ def test_batched_winner_matches_exact_on_collective_grid():
 def test_fabric_overrides_are_unsupported_in_the_analytic_model():
     fab = thw.Fabric(tiers=(thw.FabricTier("ici", 8, bandwidth=99e9),))
     cfg = tcfg(fabric=fab)
-    _, tprog = both_programs(lambda: jir.from_collective(
-        "all_reduce", 1e6, 8, jhw.Fabric(
-            tiers=(jhw.FabricTier("ici", 8, bandwidth=99e9),))))
+    _, tprog = lowered(lambda ir, hw, _: ir.from_collective(
+        "all_reduce", 1e6, 8, hw.Fabric(
+            tiers=(hw.FabricTier("ici", 8, bandwidth=99e9),))))
     with pytest.raises(tcm.Unsupported):
         tcm.CostModel(tprog, cfg, backend="numpy")
     assert tengine.run(tprog, cfg).makespan > 0.0
