@@ -326,7 +326,35 @@ printing a result:
    ``Fabric.cluster``'s 4 x 8 layout and on a DGX H100's (8 GPUs on one
    NVSwitch, InfiniBand between nodes): the best placement at each size,
    the cheapest under 1 s a step, the host seconds.  Phases 45-46 launch
-   no kernel: the counts are asserted unchanged across them.
+   no kernel: the counts are asserted unchanged across them;
+47. the NCCL path at world size 1: a world-1 NCCL group and
+   ``launch.mesh.make_host_mesh(1, 1)`` on the card; a raw ``all_reduce``
+   and ``broadcast`` over each of its dimensions' groups (the port's own
+   collectives skip a dimension of size 1); ``launch.train``'s
+   smoke path (tinyllama_1_1b's SMOKE at head dim 16, batch 4 x 64, 3
+   steps) with the mesh and ``rules_for``'s rules installed, its losses
+   and params bit for bit those of the no-mesh run (12 flash launches
+   each); ``pipeline_apply`` on a 1-stage mesh against its sequential run;
+   a checkpoint restored onto the mesh with the rules' placements and
+   saved again from its DTensor leaves, every leaf equal; ``--multi-pod``
+   raising the reference's RuntimeError (512 ranks); the group destroyed;
+48. two ranks on the one card over gloo (NCCL puts no two ranks on one
+   GPU; gloo's CUDA side is ``all_reduce`` and ``broadcast``), spawned
+   with a ``FileStore`` in a temp dir: (a) granite_moe_1b_a400m at full
+   width and depth, a prefill of ``SERVE``'s 4 x 1024 through phase 30's
+   path, first as one process, then on mesh (data 1, model 2) with the MoE
+   on expert parallelism, 16 experts a rank: each MoE layer fed the
+   single process's input to it chooses the same experts and agrees
+   within ``BF16_TOL``; the whole EP prefill launches flash 24 times a
+   rank (its counts set to 0 just before, read just after), its logits
+   and expert choices logged against the single process's; each rank's
+   EP prefill ms beside its single-process ms (alone on the card) and its
+   ``all_reduce`` ms; (b) a data-parallel train step of tinyllama_1_1b
+   cut to 4 layers at full width, global batch 2 x 512, one sequence a
+   rank, against one process on the whole batch (phase 42's bounds; and
+   in float32 at 1e-4); (c) gemma3_1b's MLP with d_ff split over the two
+   ranks inside a region that binds ``model`` (``tp_project``), against
+   the unsplit MLP, with ``bf16_tp_collectives`` off and on.
 
 Kernel times are CUDA events around back-to-back calls queued behind a
 device-side wait (``torch.cuda._sleep``) that outlasts their enqueue, so
@@ -335,8 +363,8 @@ before the last is a JSON ``kernels`` summary (flash's launches by path:
 gemma3_1b serving, phi3_mini_3_8b serving, calibration, serve_batch
 (gemma3_1b), granite_moe_1b_a400m serving, deepseek_v2_lite_16b serving,
 zamba2_2_7b serving, whisper_small serving, internvl2_26b serving,
-tinyllama_1_1b training, gemma3_1b serving with the windowed flag, and its
-times at head dims 16, 32, 64 (non-causal; and tinyllama_1_1b's training
+tinyllama_1_1b training, gemma3_1b serving with the windowed flag, phase
+48's EP prefill (each rank's own count), and its times at head dims 16, 32, 64 (non-causal; and tinyllama_1_1b's training
 shape), 80, 96, 128 and 192;
 the scan's entry:
 its launches by path, calibration and falcon_mamba_7b serving, and its
@@ -347,19 +375,26 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import json
 import math
+import os
+import pickle
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 import torch.nn.functional as F
+from torch.distributed.device_mesh import init_device_mesh
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -407,6 +442,12 @@ from repro_torch.sim.sweep import (as_cluster_records,  # noqa: E402
                                    as_training_records, cluster_sweep,
                                    training_sweep)
 from repro_torch.sim.training import simulate_training  # noqa: E402
+from repro_torch.ckpt import load_checkpoint, save_checkpoint  # noqa: E402
+from repro_torch.core.config import SHAPE_BY_NAME  # noqa: E402
+from repro_torch.dist.pipeline import pipeline_apply  # noqa: E402
+from repro_torch.dist.sharding import rules_for  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.models.layers import mlp_apply, mlp_init  # noqa: E402
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}   # tests/test_kernels.py
 BF16_TOL = 2e-2              # tests/test_torch_serve.py
@@ -639,10 +680,24 @@ CLUSTER_LAYOUTS = (("Fabric.cluster defaults, 4 x 8", {}),
                    ("DGX H100, 8 x 1", dict(accels_per_chip=8,
                                             chips_per_node=1)))
 STEP_TARGET_S = 1.0
+# phase 47: launch.train's smoke path (batch 4 x 64) on a (1, 1) NCCL mesh
+NCCL_STEPS = 3
+# phase 48: two ranks on the one card over gloo (NCCL puts no two ranks on
+# one GPU); granite's EP prefill at SERVE's batch, timed EP_TIMED times; the
+# data-parallel step of tinyllama cut to TRAIN_CUT layers at
+# TRAIN_CUT_BATCH, one sequence a rank; gemma3_1b's MLP split over the ranks
+EP_RANKS = 2
+EP_ARCH = "granite_moe_1b_a400m"
+EP_TIMED = 5
+TP_ARCH = "gemma3_1b"
+TP_TOKENS = (4, 1024)
+RANK_TIMEOUT_S = 600
 
 
 def log(*args):
-    print(*args, flush=True)
+    # one write a line: phase 48's ranks share the stream
+    sys.stdout.write(" ".join(map(str, args)) + "\n")
+    sys.stdout.flush()
 
 
 def rand_qkv(B, H, Hkv, S, D, dtype, seed=0, v_width=None):
@@ -2092,12 +2147,14 @@ def _run_cut(cfg, params, tokens, toks, dev):
     return steps + [cache]
 
 
-def _log_flips(cfg, cpu_routes, card_routes):
+def _log_flips(cfg, cpu_routes, card_routes, names=("CPU", "card")):
     """Per layer of the prefill, the share of tokens whose expert sets agree
     between the card's run and the CPU's (each fed its own input); for the
     first layer with a flip, its first flipped (token, slot) and the CPU's
     probability gap between its k-th and (k+1)-th expert there, beside that
-    gap's median over all tokens: a flip sits on a near-tie."""
+    gap's median over all tokens: a flip sits on a near-tie.  ``names``:
+    the two runs' names in the lines, the reference run's first."""
+    ref, run = names
     e = cfg.moe
     for layer, (c, g) in enumerate(zip(cpu_routes[:cfg.n_layers],
                                        card_routes[:cfg.n_layers])):
@@ -2106,7 +2163,7 @@ def _log_flips(cfg, cpu_routes, card_routes):
         same = (cidx.sort(-1).values == gidx.sort(-1).values).all(-1)
         share = 100 * same.float().mean()
         log(f"  routing, prefill layer {layer}: {share:.4f}% of "
-            f"{same.numel()} token expert sets agree, card run against CPU "
+            f"{same.numel()} token expert sets agree, {run} run against {ref} "
             f"run")
         if bool(same.all()):
             continue
@@ -2114,9 +2171,9 @@ def _log_flips(cfg, cpu_routes, card_routes):
         gap = p[:, e.top_k - 1] - p[:, e.top_k]
         t = int((~same).nonzero()[0])
         slot = int((cidx[t] != gidx[t]).nonzero()[0])
-        log(f"  first flip: layer {layer}, token {t}, slot {slot} (CPU "
-            f"expert {int(cidx[t, slot])}, card {int(gidx[t, slot])}); the "
-            f"CPU's top-{e.top_k} edge gap there {float(gap[t]):.3e}, median "
+        log(f"  first flip: layer {layer}, token {t}, slot {slot} ({ref} "
+            f"expert {int(cidx[t, slot])}, {run} {int(gidx[t, slot])}); the "
+            f"{ref}'s top-{e.top_k} edge gap there {float(gap[t]):.3e}, median "
             f"over flipped tokens {float(gap[~same].median()):.3e}, over all "
             f"tokens {float(gap.median()):.3e}")
         break
@@ -3512,6 +3569,461 @@ def training_studies(smi):
                 log(f"    no placement under {STEP_TARGET_S:g} s a step")
 
 
+# ---------------------------------------------------------------------------
+# phases 47-48: distribution
+
+
+def check_nccl_world1(smi):
+    """Phase 47: the NCCL path at world size 1.  A world-1 NCCL group and
+    ``make_host_mesh(1, 1)`` on the card; ``launch.train``'s smoke path
+    (tinyllama_1_1b's SMOKE at a kernel head dim, batch 4 x 64,
+    ``NCCL_STEPS`` steps) on the mesh with ``rules_for``'s rules installed
+    (``train.installed``) against the same run with no mesh: losses and
+    params bit for bit, 2 flash launches a layer a step each way;
+    ``pipeline_apply`` on a 1-stage mesh against its sequential run; a
+    checkpoint restored onto the mesh with the rules' placements, and a
+    checkpoint of those DTensor leaves, leaf for leaf equal; ``--multi-pod``
+    raising the reference's RuntimeError.  The group is destroyed after.
+    The port's collectives skip a mesh dimension of size 1, as the
+    reference's do, so none of them reaches NCCL at world 1: a raw
+    ``all_reduce`` and ``broadcast`` over each dimension's group show that
+    the groups run; the port's reductions cross ranks in phase 48 (gloo)
+    and in the CPU tests."""
+    if dist.is_initialized():
+        raise AssertionError("a process group is already up")
+    t0 = time.perf_counter()
+    cfg = _card_smoke("tinyllama_1_1b")
+    shape = SHAPE_BY_NAME["train_4k"]
+    kw = dict(batch=4, seq=64, steps=NCCL_STEPS, device="cuda",
+              log=lambda *a: None)
+    runs = {}
+    mesh = make_host_mesh(1, 1, device_type="cuda")
+    try:
+        backend = dist.get_backend()
+        for name in mesh.mesh_dim_names:
+            group = mesh.get_group(name)
+            x = torch.arange(4096, dtype=torch.float32, device="cuda")
+            y = x.clone()
+            dist.all_reduce(y, group=group)
+            dist.broadcast(y, src=0, group=group)
+            torch.cuda.synchronize()
+            if not torch.equal(x, y):
+                raise AssertionError(f"phase 47: NCCL over {name!r} changed "
+                                     f"a world-1 tensor")
+        log(f"phase 47: {backend} all_reduce and broadcast over each of "
+            f"{mesh.mesh_dim_names}'s groups at world 1: tensor unchanged "
+            f"(the port's own collectives skip a dimension of size 1)")
+        for label, m in (("no mesh", None), ("mesh", mesh)):
+            before = fa.flash_attention.launches
+            with train_launch.installed(m, cfg, shape):
+                runs[label] = train_launch.train(cfg, **kw)
+            torch.cuda.synchronize()
+            runs[label]["launches"] = fa.flash_attention.launches - before
+        alone, on_mesh = runs["no mesh"], runs["mesh"]
+        expect = 2 * cfg.n_layers * NCCL_STEPS
+        log(f"phase 47: {backend} world {dist.get_world_size()}, mesh "
+            f"{mesh}; smoke losses no mesh {alone['losses']}, on the mesh "
+            f"{on_mesh['losses']}; flash launches {alone['launches']}, "
+            f"{on_mesh['launches']} (expected {expect}); card {smi}")
+        if backend != "nccl" or on_mesh["losses"] != alone["losses"] \
+                or not all(torch.equal(a, b) for a, b in zip(
+                    tree.leaves(on_mesh["params"]),
+                    tree.leaves(alone["params"]))) \
+                or not alone["launches"] == on_mesh["launches"] == expect:
+            raise AssertionError("phase 47: the mesh run parted from the "
+                                 "no-mesh run")
+        stage_mesh = init_device_mesh("cuda", (1,),
+                                      mesh_dim_names=("stage",))
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        w = torch.randn(1024, 1024, generator=gen, device="cuda") / 32
+        x = torch.randn(64, 1024, generator=gen, device="cuda")
+        piped = pipeline_apply(stage_mesh, _tanh_stage, w, x, 4)
+        err = (piped - _tanh_stage(w, x)).abs().max().item()
+        log(f"phase 47: 1-stage pipeline, 4 microbatches of 16 x 1024, "
+            f"against sequential: max_abs_err {err:.3e} (limit 1e-5)")
+        if not err <= 1e-5:
+            raise AssertionError(f"phase 47: pipeline {err}")
+        ckpt = _build.BUILD_DIR.parent / "mesh_ckpt"   # git-ignored
+        shutil.rmtree(ckpt, ignore_errors=True)
+        params = alone["params"]
+        placements = rules_for(cfg, shape, mesh).tree_shardings(
+            T.param_axes(cfg), params)
+        save_checkpoint(str(ckpt), 1, params)
+        restored = load_checkpoint(str(ckpt), template=params,
+                                   shardings=placements, mesh=mesh)["tree"]
+        save_checkpoint(str(ckpt), 2, restored)      # DTensor leaves
+        again = load_checkpoint(str(ckpt), template=params)["tree"]
+        shutil.rmtree(ckpt, ignore_errors=True)
+        leaves = list(zip(tree.leaves(restored), tree.leaves(again),
+                          tree.leaves(params)))
+        if not all(a.device_mesh == mesh and torch.equal(a.to_local(), c)
+                   and torch.equal(b, c) for a, b, c in leaves):
+            raise AssertionError("phase 47: the checkpoint restored onto "
+                                 "the mesh differs")
+        log(f"phase 47: checkpoint of {len(leaves)} leaves restored onto "
+            f"the mesh with the rules' placements "
+            f"({tree.leaves(restored)[0].placements}), saved from DTensor "
+            f"leaves and reloaded: every leaf equal")
+        try:
+            train_launch.main(["--multi-pod"])
+        except RuntimeError as e:
+            if "512" not in str(e):
+                raise
+            log(f"phase 47: --multi-pod raises RuntimeError: {e}")
+        else:
+            raise AssertionError("phase 47: --multi-pod did not raise")
+    finally:
+        dist.destroy_process_group()
+    log(f"phase 47: {time.perf_counter() - t0:.1f} s")
+
+
+def _tanh_stage(w, x):
+    return torch.tanh(x @ w)
+
+
+def _rank_main(rank, world, store, out_dir, smi, single_ms):
+    """A phase-48 rank: the gloo group on a ``FileStore``, then
+    ``_rank_phases``; what it returns is pickled to ``out_dir``."""
+    torch.cuda.set_device(0)
+    torch.set_num_threads(2)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store, world), rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        out = _rank_phases(rank, world, smi, single_ms)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def run_ranks(smi, single_ms):
+    """Phase 48: ``EP_RANKS`` ranks spawned on the one card (spawn start
+    method, a gloo group on a ``FileStore`` in a temp dir); each runs
+    ``_rank_phases``.  A rank that fails, or is still running after
+    ``RANK_TIMEOUT_S``, fails the phase; every rank is stopped before
+    this returns.  Returns the ranks' results in rank order."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(
+            _rank_main, args=(EP_RANKS, os.path.join(tmp, "store"), tmp, smi,
+                              single_ms),
+            nprocs=EP_RANKS, join=False, start_method="spawn")
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"phase 48: ranks still running "
+                                         f"after {RANK_TIMEOUT_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join(30)
+        out = []
+        for rank in range(EP_RANKS):
+            with open(os.path.join(tmp, f"rank{rank}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+    log(f"phase 48: {EP_RANKS} ranks in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _in_turn(rank, world, fn):
+    """``fn()`` on each rank in turn, the others waiting at a barrier, so
+    that it runs alone on the card; returns this rank's result."""
+    out = None
+    for r in range(world):
+        if r == rank:
+            out = fn()
+            torch.cuda.synchronize()
+        dist.barrier()
+    return out
+
+
+def _median_ms(fn, n):
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+@contextlib.contextmanager
+def _timed_all_reduce():
+    """Host ms of every ``torch.distributed.all_reduce`` in the block, the
+    card synchronized before and after each: {"ms": total, "calls": n}."""
+    spent = {"ms": 0.0, "calls": 0}
+    all_reduce = dist.all_reduce
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = all_reduce(*args, **kw)
+        torch.cuda.synchronize()
+        spent["ms"] += 1e3 * (time.perf_counter() - t0)
+        spent["calls"] += 1
+        return out
+    dist.all_reduce = timed
+    try:
+        yield spent
+    finally:
+        dist.all_reduce = all_reduce
+
+
+@contextlib.contextmanager
+def _captured_moe():
+    """Keeps, for each call of ``moe_mod.moe_apply`` in the block, its
+    input, its output and the expert indices its router chose."""
+    records, apply = [], moe_mod.moe_apply
+
+    def capture(p, x, cfg, dispatch=None):
+        with _captured_routes() as routes:
+            out, aux = apply(p, x, cfg, dispatch)
+        records.append((x, out, routes[-1][2]))
+        return out, aux
+    moe_mod.moe_apply = capture
+    try:
+        yield records
+    finally:
+        moe_mod.moe_apply = apply
+
+
+def _rank_phases(rank, world, smi, single_ms):
+    """Phase 48 on one rank: (a) the EP prefill, (b) the data-parallel
+    step, (c) the TP MLP.  Returns their numbers."""
+    out = {"rank": rank}
+    out.update(_ep_prefill(rank, world, smi, single_ms))
+    out.update(_dp_step(rank, world, smi))
+    out.update(_tp_mlp(rank, world, smi))
+    return out
+
+
+def _ep_prefill(rank, world, smi, single_ms):
+    """48a: granite_moe_1b_a400m at full width and depth (params from seed
+    0 made on the card: the same on both ranks), a prefill of ``SERVE``'s
+    batch of prompts through ``make_prefill_step`` (phase 30's path),
+    first as one process (no mesh; each MoE layer's input, output and
+    experts kept), then on mesh (data 1, model world): the MoE on expert
+    parallelism, ``n_experts / world`` experts a rank.  Each MoE layer on
+    EP fed the single-process run's input to it must choose the same
+    experts and agree within ``BF16_TOL``; the whole EP prefill runs the
+    flash kernel once a layer (counts set to 0 just before, read just
+    after), its logits and expert choices are logged against the single
+    process's.  Then the EP prefill timed (median of ``EP_TIMED``), and
+    once more with each ``all_reduce`` timed."""
+    cfg = get_config(EP_ARCH)
+    e = cfg.moe
+    B, S = SERVE["batch"], SERVE["prompt_len"]
+    params = T.init_params(cfg, seed=0, device="cuda")
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, S)), device="cuda")
+    batch = prefill_inputs(cfg, tokens)
+    prefill = make_prefill_step(cfg, S + SERVE["max_new"])
+    mesh = make_host_mesh(1, world, device_type="cuda")
+    with torch.inference_mode():
+        with _captured_moe() as single:
+            ref_logits, _ = prefill(params, batch)
+        alone_ms = _in_turn(rank, world,
+                            lambda: _median_ms(lambda: prefill(params, batch),
+                                               EP_TIMED))
+        dist_ctx.set_mesh(mesh)
+        try:
+            worst, same = 0.0, True
+            for i, (x, expect, idx) in enumerate(single):
+                with _captured_routes() as routes:
+                    got, _ = moe_mod.moe_apply(params["layers"][i]["moe"],
+                                               x, cfg)
+                diff = (got.float() - expect.float()).abs()
+                scale = expect.float().abs().max().item()
+                ok = bool((diff <= BF16_TOL * scale
+                           + BF16_TOL * expect.float().abs()).all())
+                worst = max(worst, diff.max().item() / scale)
+                same &= torch.equal(routes[-1][2], idx)
+                if not ok:
+                    raise AssertionError(f"48a rank {rank}: MoE layer {i} on "
+                                         f"EP off the single process by "
+                                         f"{diff.max().item()}")
+            if not same:
+                raise AssertionError(f"48a rank {rank}: an MoE layer on EP "
+                                     f"chose other experts on the single "
+                                     f"process's input")
+            fa.reset_counts()
+            with _captured_moe() as ep:
+                ep_logits, _ = prefill(params, batch)
+            torch.cuda.synchronize()
+            launches = fa.flash_attention.launches
+            by_variant = dict(fa.flash_attention.launches_by_variant)
+            name = fa.variant(cfg.resolved_head_dim, torch.bfloat16)
+            if launches != cfg.n_layers or by_variant[name] != cfg.n_layers:
+                raise AssertionError(f"48a rank {rank}: flash launches "
+                                     f"{by_variant}, expected {cfg.n_layers} "
+                                     f"of {name}")
+            ep_ms = _median_ms(lambda: prefill(params, batch), EP_TIMED)
+            with _timed_all_reduce() as spent:
+                timed_ms = _median_ms(lambda: prefill(params, batch), 1)
+        finally:
+            dist_ctx.set_mesh(None)
+    agree = _agreement((a[2], b[2]) for a, b in zip(single, ep))
+    logit_err = (ep_logits.float() - ref_logits.float()).abs().max().item()
+    logit_scale = ref_logits.float().abs().max().item()
+    if not bool(torch.isfinite(ep_logits).all()):
+        raise AssertionError(f"48a rank {rank}: non-finite logits")
+    log(f"[rank {rank}] 48a: {cfg.name} ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {e.n_experts} experts top-{e.top_k}, "
+        f"{e.n_experts // world} a rank) prefill {B} x {S} on mesh {mesh}: "
+        f"each MoE layer fed the single process's input chose its experts "
+        f"and agrees within {BF16_TOL} (largest {worst:.3e} of max |out|); "
+        f"flash {by_variant}; whole prefill: logits max_abs_err "
+        f"{logit_err:.3e} (max |logit| {logit_scale:.3e}), "
+        f"{100 * agree[0]:.4f}% of {agree[2]} expert indices and "
+        f"{100 * agree[1]:.4f}% of token expert sets equal the single "
+        f"process's; EP prefill {ep_ms:.3f} ms (median of {EP_TIMED}), "
+        f"alone as one process {alone_ms:.3f} ms (phase 30: "
+        f"{single_ms:.3f}); {spent['calls']} all_reduce calls "
+        f"{spent['ms']:.3f} ms over gloo of a {timed_ms:.3f} ms prefill "
+        f"timed with them (each call synchronized); card {smi}")
+    if rank == 0 and agree[1] < 1.0:
+        _log_flips(cfg, [(x.float().reshape(-1, cfg.d_model).cpu(),
+                          params["layers"][i]["moe"]["router"].cpu(),
+                          idx.cpu()) for i, (x, _, idx) in enumerate(single)],
+                   ep, names=("single-process", "EP"))
+    return {"ep_launches": launches, "ep_by_variant": by_variant,
+            "ep_ms": ep_ms, "ep_alone_ms": alone_ms,
+            "ep_all_reduce_ms": spent["ms"], "ep_timed_ms": timed_ms,
+            "ep_all_reduce_calls": spent["calls"], "ep_layer_err": worst,
+            "ep_logit_err": logit_err, "ep_logit_scale": logit_scale,
+            "ep_index_agreement": agree[0], "ep_set_agreement": agree[1]}
+
+
+def _step_with_grads(cfg, params, batch):
+    """One train step (lr ``TRAIN_LR``, warmup 1) of ``params`` (in place)
+    on ``batch``: (metrics as floats, the gradients handed to the clip, the
+    step's ms)."""
+    step = make_train_step(cfg, TrainConfig(lr=TRAIN_LR, warmup=1))
+    embedding = _float32_embedding() \
+        if params["embed"].dtype == torch.float32 \
+        else contextlib.nullcontext()
+    with _captured_grads() as grads, embedding:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, metrics = step(params, adamw_init(params), batch, 1)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    return {k: float(v) for k, v in metrics.items()}, list(grads), ms
+
+
+def _dp_step(rank, world, smi):
+    """48b: tinyllama_1_1b cut to ``TRAIN_CUT`` layers at full width, the
+    global batch ``TRAIN_CUT_BATCH`` (one sequence a rank): a train step
+    on mesh (data world, model 1) with ``rules_for``'s rules, each rank
+    taking its sequence, against one process on the whole batch (run
+    alone on the card, in turn): loss and grad norm at ``BF16_TOL``, every
+    gradient leaf at relative L2 3e-2 in bf16; all at 1e-4 in float32
+    (phase 42's bounds).  Each step's ms, and the DP step's all-reduce
+    ms."""
+    cfg = _cut("tinyllama_1_1b", TRAIN_CUT)
+    Bg, Sg = TRAIN_CUT_BATCH
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in synthetic_batch(
+        cfg, Bg, Sg, np.random.default_rng(3)).items()}
+    params = T.init_params(cfg, seed=1, device="cuda")
+    mesh = make_host_mesh(world, 1, device_type="cuda")
+    _step_with_grads(cfg, tree.map_tree(torch.clone, params), batch)  # warm
+    out, failed = {}, []
+    for dtype in (torch.bfloat16, torch.float32):
+        def copy():
+            return tree.map_tree(
+                lambda t: t.to(dtype, copy=True) if dtype == torch.float32
+                else t.clone(), params)
+        single = _in_turn(rank, world, lambda: _step_with_grads(
+            cfg, copy(), batch))
+        dp_params = copy()
+        with train_launch.installed(mesh, cfg, SHAPE_BY_NAME["train_4k"]), \
+                _timed_all_reduce() as spent:
+            got = _step_with_grads(cfg, dp_params, batch)
+        tol, grad_tol = (BF16_TOL, GRAD_TOL[dtype]) \
+            if dtype == torch.bfloat16 else (GRAD_TOL[dtype],) * 2
+        for key in ("loss", "nll", "zloss", "moe_loss", "grad_norm"):
+            a, b = got[0][key], single[0][key]
+            if not (math.isfinite(a) and abs(a - b) <= tol * abs(b) + 1e-6):
+                failed.append(f"48b rank {rank} {dtype} {key}: DP {a} one "
+                              f"process {b}")
+        errs = {key: _rel_l2(g, e_) for key, g, e_ in
+                zip(tree.flatten(params), got[1], single[1])}
+        worst = max(errs.values())
+        label = str(dtype)[6:]
+        over = {k: f"{v:.3e}" for k, v in errs.items() if not v <= grad_tol}
+        if over:
+            failed.append(f"48b rank {rank} {label}: gradient leaves over "
+                          f"{grad_tol}: {over}")
+        log(f"[rank {rank}] 48b {label}: {cfg.name} cut to {cfg.n_layers} "
+            f"layers, global batch {Bg} x {Sg} on mesh {mesh}: loss DP "
+            f"{got[0]['loss']:.6f} one process {single[0]['loss']:.6f}, "
+            f"grad_norm {got[0]['grad_norm']:.6f} / "
+            f"{single[0]['grad_norm']:.6f}, {len(got[1])} gradient leaves "
+            f"within {grad_tol} (largest {worst:.3e}); step ms DP "
+            f"{got[2]:.1f} (all_reduce {spent['ms']:.1f} ms in "
+            f"{spent['calls']} calls over gloo), one process alone "
+            f"{single[2]:.1f}; card {smi}")
+        out[f"dp_{label}"] = {"ms": got[2], "alone_ms": single[2],
+                              "all_reduce_ms": spent["ms"],
+                              "grad_err": worst}
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return out
+
+
+def _tp_mlp(rank, world, smi):
+    """48c: gemma3_1b's MLP (d 1152, d_ff 6912, geglu) with d_ff split over
+    the ``model`` ranks of mesh (1, world), inside a region that binds
+    ``model`` (``tp_project`` all-reduces the down projection), against
+    the unsplit MLP on 4 x 1024 tokens, in bf16 (the model's type) and
+    float32, with ``bf16_tp_collectives`` off and on: at ``BF16_TOL``,
+    float32 with the flag off at 1e-4."""
+    cfg = get_config(TP_ARCH)
+    d, f = cfg.d_model, cfg.d_ff
+    n = f // world
+    part = slice(rank * n, (rank + 1) * n)
+    mesh = make_host_mesh(1, world, device_type="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    mlp = mlp_init(gen, d, f, cfg.activation)
+    x = torch.randn(*TP_TOKENS, d, generator=gen, device="cuda")
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        full = {k: v.to(dtype) for k, v in mlp.items()}
+        local = {"up": full["up"][:, part], "gate": full["gate"][:, part],
+                 "down": full["down"][part]}
+        xd = x.to(dtype)
+        expect = mlp_apply(full, xd, cfg.activation).float()
+        scale = expect.abs().max().item()
+        for flag in (False, True):
+            dist_ctx.set_perf_flags(dist_ctx.PerfFlags(
+                bf16_tp_collectives=flag))
+            dist_ctx.set_mesh(mesh)
+            try:
+                with dist_ctx.bound_axes("model"):
+                    got = mlp_apply(local, xd, cfg.activation).float()
+                    ms = _median_ms(
+                        lambda: mlp_apply(local, xd, cfg.activation), 5)
+            finally:
+                dist_ctx.set_mesh(None)
+                dist_ctx.set_perf_flags(dist_ctx.PerfFlags())
+            tol = 1e-4 if dtype == torch.float32 and not flag else BF16_TOL
+            err = (got - expect).abs().max().item()
+            label = f"{str(dtype)[6:]}, bf16_tp_collectives {flag}"
+            log(f"[rank {rank}] 48c {label}: {TP_ARCH} MLP d {d} d_ff {f} "
+                f"({n} a rank) on {TP_TOKENS} tokens against the unsplit "
+                f"MLP: max_abs_err {err:.3e} (max |out| {scale:.3e}, limit "
+                f"{tol} of it); {ms:.3f} ms with the all-reduce; card {smi}")
+            if not err <= tol * scale:
+                raise AssertionError(f"48c rank {rank} {label}: {err}")
+            out[f"tp {label}"] = {"err": err, "ms": ms}
+    return out
+
+
 def _counts():
     """Every kernel wrapper's launch count."""
     return (mm.matmul.launches, dict(mm.matmul.launches_by_variant),
@@ -3706,6 +4218,24 @@ def main():
     if _counts() != counts:
         raise AssertionError(f"pricing changed the launch counts: {counts} "
                              f"-> {_counts()}")
+    # phases 47-48: distribution; the NCCL path at world size 1, then two
+    # ranks on the one card over gloo
+    t0 = time.perf_counter()
+    check_nccl_world1(smi)
+    ranks = run_ranks(smi, served[EP_ARCH]["prefill_ms"][-1])
+    ep_by_rank = {f"rank {r['rank']}": r["ep_by_variant"] for r in ranks}
+    for r in ranks:
+        log(f"phase 48 rank {r['rank']}: EP prefill {r['ep_ms']:.3f} ms "
+            f"(all_reduce {r['ep_all_reduce_ms']:.3f} ms of a "
+            f"{r['ep_timed_ms']:.3f} ms prefill timed with it, "
+            f"{100 * r['ep_all_reduce_ms'] / r['ep_timed_ms']:.1f}%), alone "
+            f"as one process {r['ep_alone_ms']:.3f} ms, phase 30 "
+            f"{served[EP_ARCH]['prefill_ms'][-1]:.3f} ms; expert indices "
+            f"equal {100 * r['ep_index_agreement']:.4f}%; DP step "
+            f"{ {k: v for k, v in r.items() if k.startswith('dp_')} }; TP "
+            f"{ {k: v for k, v in r.items() if k.startswith('tp ')} }; card "
+            f"{smi}")
+    log(f"phases 47-48: {time.perf_counter() - t0:.1f} s")
     log(f"training: grad errors {grad_err:.3e} (Functions), {train_err:.3e} "
         f"(card vs CPU); tinyllama_1_1b {train_ms:.1f} ms a step, "
         f"{train_tok_s:.0f} tok/s, {train_gib:.3f} GiB, device ms a step "
@@ -3719,7 +4249,8 @@ def main():
                      **encdec_vlm_by_path,
                      "tinyllama_1_1b training (4 steps)": train_by_variant,
                      "gemma3_1b serving, windowed_attention":
-                         windowed_by_variant}
+                         windowed_by_variant,
+                     "ep_prefill": ep_by_rank}
     log(f"flash_attention launches by path: {flash_by_path}")
     mm_by_path = {"calibration": cal_by_variant["matmul"],
                   **{f"graph batch {b}": n for b, n in graph_by_batch.items()},

@@ -12,7 +12,12 @@ package's ``repro.ckpt.checkpoint``, with its layout.
   * retention: the last ``keep`` checkpoints are kept; older ones go only
     AFTER the newest commit succeeds.
 
-Leaves are saved as full arrays, so any device can restore them.  numpy has
+Leaves are saved as full arrays, so any device can restore them, and a
+checkpoint restores onto any mesh (elastic scaling after node loss):
+``load_checkpoint(..., mesh, shardings)`` distributes each leaf with the
+placements ``dist.sharding.Rules.tree_shardings`` gives.  A ``DTensor``
+leaf is saved as its full logical value (``full_tensor()``, a collective
+every rank makes); under ``torch.distributed`` rank 0 writes.  numpy has
 no bf16: a bf16 leaf is saved as its raw 16-bit words (``int16``) and
 ``meta.json``'s ``dtypes`` names it, so it round-trips bit for bit.
 """
@@ -28,8 +33,10 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import tree
+from repro_torch.dist import context as dist_ctx
 
 _RAW = {torch.bfloat16: torch.int16}   # dtypes numpy lacks -> their words
 
@@ -49,10 +56,39 @@ def _to_tensor(a, dtype_name=None):
     return t.view(getattr(torch, dtype_name)) if dtype_name else t
 
 
+def _host(tree_, copy=False):
+    """``tree_`` on the host (a copy with ``copy``), each ``DTensor`` leaf
+    gathered to its full value (a collective every rank makes)."""
+    def leaf(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        if hasattr(t, "full_tensor"):
+            t = t.full_tensor()
+        return t.detach().to("cpu", copy=copy)
+    return tree.map_tree(leaf, tree_)
+
+
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0, or the only one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save_checkpoint(directory: str, step: int, tree_: Any,
                     extra: Optional[Dict] = None) -> Path:
     """Synchronous atomic save of a tree of tensors (or arrays).  Returns
-    the committed path."""
+    the committed path.  Under ``torch.distributed`` every rank calls it:
+    rank 0 writes, and the others wait until it has committed."""
+    host = _host(tree_)
+    final = Path(directory) / f"step_{step:010d}"
+    if _writes():
+        _write(directory, step, host, extra)
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+    return final
+
+
+def _write(directory: str, step: int, tree_: Any,
+           extra: Optional[Dict] = None) -> Path:
     d = Path(directory)
     d.mkdir(parents=True, exist_ok=True)
     final = d / f"step_{step:010d}"
@@ -76,11 +112,18 @@ def save_checkpoint(directory: str, step: int, tree_: Any,
 
 
 def load_checkpoint(directory: str, step: Optional[int] = None,
+                    mesh=None, shardings: Optional[Any] = None,
                     template: Optional[Any] = None) -> Dict:
     """Load the latest (or given) step.  With ``template`` (a tree of
     tensors), returns ``{"step", "tree", "extra"}``, the tree in the
     template's structure with each leaf on its template leaf's device;
-    else ``{"step", "arrays", "extra"}``, ``arrays`` {key: CPU tensor}."""
+    else ``{"step", "arrays", "extra"}``, ``arrays`` {key: CPU tensor}.
+    With ``shardings`` too (the template's tree with a tuple of
+    ``DTensor`` placements, or None, at each leaf, as
+    ``Rules.tree_shardings`` gives), each leaf is distributed onto
+    ``mesh`` (by default the active one) with its placements, from the
+    full value every rank reads: restoring onto another mesh than the one
+    that saved just works, because saved arrays are full logical values."""
     d = Path(directory)
     ckpts = sorted(p for p in d.glob("step_*") if p.is_dir())
     if not ckpts:
@@ -95,6 +138,20 @@ def load_checkpoint(directory: str, step: Optional[int] = None,
                 "extra": meta["extra"]}
     flat = {k: arrays[k].to(t.device) if isinstance(t, torch.Tensor)
             else arrays[k] for k, t in tree.flatten(template).items()}
+    if shardings is not None:
+        from torch.distributed.tensor import distribute_tensor
+        mesh = mesh if mesh is not None else dist_ctx.get_mesh()
+        if mesh is None:
+            raise ValueError("shardings need a mesh")
+        dev = torch.device(mesh.device_type) if mesh.device_type == "cpu" \
+            else torch.device(mesh.device_type, torch.cuda.current_device())
+        # the placements are tuples: leaves, where the layers are a list
+        for k, placements in tree.flatten(shardings,
+                                          containers=list).items():
+            if placements is None:   # as the reference: not distributed
+                continue
+            flat[k] = distribute_tensor(flat[k].to(dev), mesh, placements,
+                                        src_data_rank=None)
     return {"step": meta["step"], "tree": tree.unflatten(template, flat),
             "extra": meta["extra"]}
 
@@ -112,15 +169,17 @@ class CheckpointManager:
                    extra: Optional[Dict] = None):
         """Copies ``tree_`` to the host now (training may then update it in
         place) and writes it on a writer thread; one save in flight at a
-        time.  A failed save raises from the next call of ``wait``."""
+        time.  A failed save raises from the next call of ``wait``.  Under
+        ``torch.distributed`` every rank calls it (``DTensor`` leaves are
+        gathered), and rank 0 writes."""
         self.wait()
-        host = tree.map_tree(
-            lambda t: t.detach().to("cpu", copy=True)
-            if isinstance(t, torch.Tensor) else t, tree_)
+        host = _host(tree_, copy=True)
+        if not _writes():
+            return
 
         def work():
             try:
-                save_checkpoint(str(self.dir), step, host, extra)
+                _write(str(self.dir), step, host, extra)
                 self._gc()
             except BaseException as e:  # noqa: BLE001
                 self._err = e

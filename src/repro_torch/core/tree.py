@@ -10,17 +10,21 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List
 
 
-def flatten(tree, prefix: str = "") -> Dict[str, Any]:
-    """{path: leaf} of every leaf of ``tree``, in tree order."""
+def flatten(tree, prefix: str = "", containers=(list, tuple)
+            ) -> Dict[str, Any]:
+    """{path: leaf} of every leaf of ``tree``, in tree order.  Dicts and
+    the sequence types ``containers`` are walked; anything else is a
+    leaf."""
     if isinstance(tree, dict):
         items = tree.items()
-    elif isinstance(tree, (list, tuple)):
+    elif isinstance(tree, containers):
         items = enumerate(tree)
     else:
         return {prefix: tree}
     out = {}
     for k, v in items:
-        out.update(flatten(v, f"{prefix}/{k}" if prefix else str(k)))
+        out.update(flatten(v, f"{prefix}/{k}" if prefix else str(k),
+                           containers))
     return out
 
 

@@ -1,5 +1,5 @@
-"""Training launcher on one device: the single-device path of the JAX
-package's ``repro.launch.train``.
+"""Training launcher: the port's copy of the JAX package's
+``repro.launch.train``.
 
 ``train(cfg, ...)`` runs the loop: params from a seed (or given), AdamW,
 the data pipeline's synthetic batches, microbatching, async checkpoints
@@ -18,8 +18,23 @@ The batch of step i is ``synthetic_batch`` at seed ``seed + i``: the
 pipeline runs one worker, so that batches come in seed order and a resumed
 run sees the batches an uninterrupted run would (the reference's two
 workers may swap neighbours, and its resumed pipeline starts again at
-seed 0).  Not ported: ``--multi-pod`` and the production mesh
-(distribution); it raises ``NotImplementedError``.
+seed 0).
+
+The mesh, as the reference installs it: ``--smoke`` installs a (1, 1)
+host mesh (``launch.mesh.make_host_mesh``; a world-1 process group of its
+own outside ``torchrun``, and (N, 1) under ``torchrun`` at N ranks) and
+``rules_for``'s rules around the loop and clears both after; a (1, 1)
+mesh replicates everything, so the losses are those of one device.
+Without ``--smoke`` a world of one rank trains on one device; under
+``torchrun`` the production mesh is built (16 x 16 ranks; ``--multi-pod``
+2 x 16 x 16, which on fewer ranks raises the reference's
+``RuntimeError``).  On a mesh the train step is data-parallel
+(``train.step``), and a ``model`` axis larger than 1 raises
+``NotImplementedError`` (ROADMAP Queue 1 item 10b).  A multi-rank run on
+the CPU:
+
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+      --smoke --device cpu --steps 3
 
 ``--dry-run`` launches nothing: it prices the same (arch x shape x
 microbatches) cell through the training simulator
@@ -35,9 +50,13 @@ and no tensor:
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.apps.serving import default_config
 from repro_torch.ckpt import CheckpointManager
@@ -45,6 +64,9 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.config import SHAPE_BY_NAME, ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.data import DataPipeline
+from repro_torch.dist import context as dist_ctx
+from repro_torch.dist.sharding import rules_for, set_active_rules
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.train import TrainConfig, init_train_state, make_train_step
 
 
@@ -136,6 +158,7 @@ def dry_run(arch: str, shape_name: str, *, n_stages: int = 1,
 
 
 def main(argv=None):
+    """The CLI; returns ``train``'s dict (None with ``--dry-run``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama_1_1b")
     ap.add_argument("--shape", default="train_4k")
@@ -164,23 +187,59 @@ def main(argv=None):
                 n_microbatches=args.microbatches, schedule=args.schedule,
                 smoke=args.smoke)
         return
-    if args.multi_pod:
-        raise NotImplementedError(
-            "--multi-pod needs the production mesh, not yet ported (ROADMAP "
-            "Queue 1 item 10)")
     if args.resume and not args.ckpt_dir:
         ap.error("--resume needs --ckpt-dir")
     shape = SHAPE_BY_NAME[args.shape]
+    device = resolve_device(args.device)
+    if device.type == "cuda" and "LOCAL_RANK" in os.environ:
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
     if args.smoke:
         cfg = get_smoke_config(args.arch)
         batch, seq = 4, 64
+        # the rules shard what the run holds, not the shape it is cut from
+        shape = dataclasses.replace(shape, global_batch=batch, seq_len=seq)
     else:
         cfg = get_config(args.arch)
         batch, seq = shape.global_batch, shape.seq_len
-    train(cfg, batch=batch, seq=seq, steps=args.steps,
-          microbatches=args.microbatches, device=args.device,
-          ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-          resume=args.resume, seed=args.seed)
+    started = not dist.is_initialized()
+    try:
+        with installed(_mesh(args, device.type), cfg, shape):
+            return train(cfg, batch=batch, seq=seq, steps=args.steps,
+                         microbatches=args.microbatches, device=args.device,
+                         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                         resume=args.resume, seed=args.seed)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _mesh(args, device_type):
+    """The launch's mesh: ``--smoke``'s host mesh of the world's ranks
+    along ``data``; else the production mesh under ``torchrun`` or with
+    ``--multi-pod``, and none (one device) for a world of one rank."""
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if args.smoke:
+        return make_host_mesh(world, 1, device_type=device_type)
+    if args.multi_pod or world > 1:
+        return make_production_mesh(multi_pod=args.multi_pod,
+                                    device_type=device_type)
+    return None
+
+
+@contextlib.contextmanager
+def installed(mesh, cfg: ModelConfig, shape):
+    """``mesh`` and ``rules_for(cfg, shape, mesh)`` installed for the block
+    (nothing with no mesh), both cleared after."""
+    if mesh is None:
+        yield
+        return
+    set_active_rules(rules_for(cfg, shape, mesh))
+    dist_ctx.set_mesh(mesh)
+    try:
+        yield
+    finally:
+        set_active_rules(None)
+        dist_ctx.set_mesh(None)
 
 
 if __name__ == "__main__":

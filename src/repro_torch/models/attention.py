@@ -38,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.dist import context as dist_ctx
+from repro_torch.dist.tp import tp_project
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (apply_rope, dense_init, norm_init,
                                        rmsnorm)
@@ -227,7 +228,7 @@ def gqa_forward(p, x, cos, sin, *, cfg: ModelConfig, causal=True, window=0,
                                       causal=causal or bool(static_window),
                                       window=static_window or window)
     out = out.transpose(1, 2).reshape(B, S, H * hd)
-    return out @ p["o"], (k, v)
+    return tp_project(out, p["o"]), (k, v)
 
 
 def gqa_decode(p, x, cache_k, cache_v, cos, sin, *, cfg: ModelConfig, pos,

@@ -4,7 +4,9 @@ Parameters are plain dicts of tensors.  A dense weight is kept in the JAX
 package's ``(in, out)`` layout and applied as ``x @ w``.  Init draws from an
 explicit ``torch.Generator`` with the reference's distributions and scales;
 the numbers differ from ``jax.random``'s, so tests carry the reference's
-parameters across with ``repro_torch.convert``.
+parameters across with ``repro_torch.convert``.  ``mlp_apply``'s down
+projection closes a tensor-parallel region (``dist.tp.tp_project``): off a
+mesh it is the plain product.
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.dist.tp import tp_project
 
 
 def dense_init(gen, in_dim, out_dim, *, dtype=torch.bfloat16, scale=None):
@@ -101,4 +105,4 @@ def mlp_apply(p, x, activation):
         up = _act(activation, x @ p["gate"]) * up
     else:
         up = _act(activation, up)
-    return up @ p["down"]
+    return tp_project(up, p["down"])

@@ -13,7 +13,17 @@ reference computes them outside any Pallas kernel.
 ``"gather"`` (index gather and scatter, its default) and ``"einsum"``
 (one-hot dispatch and combine tensors, its baseline); with no
 ``dispatch`` it reads ``PerfFlags.moe_dispatch``, as the reference does.
-The reference's expert-parallel path across devices is not ported.
+The gather dispatch takes the reference's expert-parallel path when a mesh
+is installed whose ``model`` axis is larger than 1 and divides
+``n_experts`` (``_moe_ep``): each rank of ``model`` computes its share of
+the experts for its batch shard, and one ``all_reduce`` over ``model``
+combines them.  The shared expert stays outside that region, and the
+einsum ablation stays single-shard, as in the reference.  Inside the
+data-parallel train step (``dist.context.global_batch``) both dispatches
+route the global batch from each rank's shard of it: the capacity comes
+from the global token count, each rank's buffer slots follow the earlier
+shards' assignments, and the aux terms are global, as the reference's jit
+computes them at a ``model`` axis of 1.
 """
 from __future__ import annotations
 
@@ -49,15 +59,38 @@ def moe_init(gen, cfg: ModelConfig, *, dtype=torch.bfloat16):
     return p
 
 
+class _SumOver(torch.autograd.Function):
+    """``x`` summed over the mesh axes ``axes``, differentiably: the
+    gradient of each rank's copy is the sum of the ranks' gradients of the
+    result, so that the data-parallel mean of the gradients is the
+    gradient of the global term."""
+
+    @staticmethod
+    def forward(ctx, x, axes):
+        ctx.axes = axes
+        return dist_ctx.all_reduce(x.clone(), axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return dist_ctx.all_reduce(grad.clone(), ctx.axes), None
+
+
+def _probs(x32, router_w, top_k):
+    """(logits, probs (T, E), weights (T, k), experts (T, k)) of x32 (T,
+    d) float32 under the router."""
+    logits = x32 @ router_w                                # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    w, idx = torch.topk(probs, top_k, dim=-1)
+    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    return logits, probs, w, idx
+
+
 def _route(x32, router_w, n_experts, top_k):
     """x32: (T, d) float32.  Returns (weights (T, k) float32, experts (T, k),
     aux dict): the k most probable experts of each token, most probable
     first, their probabilities renormalised to sum to 1, and the
     Switch-style load-balance term and the router z-loss."""
-    logits = x32 @ router_w                                # (T, E)
-    probs = torch.softmax(logits, dim=-1)
-    w, idx = torch.topk(probs, top_k, dim=-1)
-    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    logits, probs, w, idx = _probs(x32, router_w, top_k)
     me = probs.mean(0)
     ce = F.one_hot(idx[:, 0], n_experts).float().mean(0)
     aux = {"load_balance": n_experts * (me * ce).sum(),
@@ -65,16 +98,53 @@ def _route(x32, router_w, n_experts, top_k):
     return w, idx, aux
 
 
-def _dispatch_indices(e_idx, n_experts, e_start, e_local, capacity):
+def _route_global(x32, router_w, n_experts, top_k, axes):
+    """``_route`` of this rank's shard x32 of a global batch over the mesh
+    axes ``axes``, and (n_tokens, offset): the global token count, and (E,)
+    each expert's assignments on the shards before this one (token-major
+    order runs across the shards).  The aux terms are the global batch's;
+    all comes from one ``all_reduce`` over ``axes``."""
+    index, count = dist_ctx.shard_of(axes)
+    logits, probs, w, idx = _probs(x32, router_w, top_k)
+    E, n = n_experts, x32.shape[0] * count
+    table = probs.new_zeros(count, E)
+    table[index] = torch.bincount(idx.reshape(-1), minlength=E).float()
+    sums = _SumOver.apply(torch.cat([
+        probs.sum(0), (torch.logsumexp(logits, dim=-1) ** 2).sum()[None],
+        torch.bincount(idx[:, 0], minlength=E).float(),
+        table.reshape(-1)]), axes)
+    me, rz, ce = sums[:E] / n, sums[E] / n, sums[E + 1:2 * E + 1] / n
+    offset = sums[2 * E + 1:].detach().reshape(count, E)[:index].sum(0)
+    aux = {"load_balance": E * (me * ce).sum(), "router_z": rz}
+    return w, idx, aux, (n, offset.long())
+
+
+def _routing(x32, router_w, e):
+    """``_route``'s results and (n_tokens, offset), the token count that
+    sets the expert capacity and None or (E,) the assignments to each
+    expert ahead of these tokens.  Under ``dist_ctx.global_batch(axes)``
+    the tokens are this rank's shard of a global batch, as the reference's
+    jit sees a batch sharded by the rules, and the routing is the global
+    batch's (``_route_global``)."""
+    axes = dist_ctx.global_batch_axes()
+    if dist_ctx.shard_of(axes)[1] > 1:
+        return _route_global(x32, router_w, e.n_experts, e.top_k, axes)
+    return (*_route(x32, router_w, e.n_experts, e.top_k),
+            (x32.shape[0], None))
+
+
+def _dispatch_indices(e_idx, n_experts, e_start, e_local, capacity,
+                      offset=None):
     """Capacity-buffer coordinates for the experts ``e_start`` ..
-    ``e_start + e_local - 1``.  e_idx: (T, k) expert of each assignment.
+    ``e_start + e_local - 1``.  e_idx: (T, k) expert of each assignment;
+    ``offset``: None or (E,) each expert's assignments ahead of these.
     Returns:
       buf_token (e_local, capacity): the token feeding each buffer slot
         (sentinel T for an empty slot),
       slot_of (T, k): the flat buffer slot of each assignment (sentinel
         e_local * capacity for another expert's or one past capacity).
     An assignment's place in its expert's buffer is its rank among that
-    expert's assignments in token-major order."""
+    expert's assignments in token-major order, after ``offset``'s."""
     T, k = e_idx.shape
     dev = e_idx.device
     flat = e_idx.reshape(-1)                               # (T*k,)
@@ -84,6 +154,8 @@ def _dispatch_indices(e_idx, n_experts, e_start, e_local, capacity):
     onehot = torch.arange(n_experts, device=dev)[:, None] == flat[None, :]
     pos = torch.cumsum(onehot.long(), 1) - 1               # rank per expert
     pos = pos.gather(0, flat[None, :])[0]                  # (T*k,)
+    if offset is not None:
+        pos = pos + offset[flat]
     local = (flat >= e_start) & (flat < e_start + e_local) & (pos < capacity)
     n_slots = e_local * capacity
     slot_of = torch.where(local, (flat - e_start) * capacity + pos, n_slots)
@@ -107,23 +179,54 @@ def _capacity(T, e):
     return max(1, math.ceil(T * e.top_k * e.capacity_factor / e.n_experts))
 
 
-def _moe_local(p, x, cfg: ModelConfig):
-    """x: (T, d) tokens.  Returns (out (T, d) in x's dtype, aux)."""
+def _moe_local(p, x, cfg: ModelConfig, e_start=0, e_local=None,
+               reduce_axis=None):
+    """x: (T, d) tokens.  Returns (out (T, d) in x's dtype, aux).  With
+    ``e_local``, the experts ``e_start`` .. ``e_start + e_local - 1`` of
+    ``p``'s stacks only, their float32 combine summed over the mesh axis
+    ``reduce_axis``: one rank's share of expert parallelism."""
     e = cfg.moe
     T, d = x.shape
-    capacity = _capacity(T, e)
-    w, idx, aux = _route(x.float(), p["router"], e.n_experts, e.top_k)
-    buf_token, slot_of = _dispatch_indices(idx, e.n_experts, 0, e.n_experts,
-                                           capacity)
+    e_local = e_local or e.n_experts
+    w, idx, aux, (n, offset) = _routing(x.float(), p["router"], e)
+    capacity = _capacity(n, e)
+    buf_token, slot_of = _dispatch_indices(idx, e.n_experts, e_start,
+                                           e_local, capacity, offset)
     xpad = torch.cat([x, x.new_zeros(1, d)])
-    xb = xpad[buf_token.reshape(-1)].reshape(e.n_experts, capacity, d)
-    yb = _expert_ffn(p["gate"], p["up"], p["down"], xb)
-    ypad = torch.cat([yb.reshape(e.n_experts * capacity, d),
+    xb = xpad[buf_token.reshape(-1)].reshape(e_local, capacity, d)
+    yb = _expert_ffn(*(p[k][e_start:e_start + e_local]
+                       for k in ("gate", "up", "down")), xb)
+    ypad = torch.cat([yb.reshape(e_local * capacity, d),
                       yb.new_zeros(1, d)])
     out = torch.zeros(T, d, dtype=torch.float32, device=x.device)
     for j in range(e.top_k):
         out = out + w[:, j:j + 1] * ypad[slot_of[:, j]].float()
+    if reduce_axis is not None:
+        dist_ctx.all_reduce(out, reduce_axis)
     return out.to(x.dtype), aux
+
+
+def _moe_ep(p, x, cfg: ModelConfig, ep_size: int):
+    """Expert parallelism over the mesh's ``model`` axis, the reference's
+    ``shard_map`` region as manual SPMD.  x: (B, S, d), this rank's shard of
+    the batch over ``dp_axes()`` (the same on every rank of ``model``).
+    Every rank routes its tokens to all experts and computes its own
+    ``n_experts / ep_size``; the float32 combine is summed over ``model``,
+    and the aux terms are averaged over the data axes.  Returns the rank's
+    output shard (B, S, d) and the aux dict."""
+    B, S, d = x.shape
+    dp = dist_ctx.dp_axes()
+    e_local = cfg.moe.n_experts // ep_size
+    e_start = dist_ctx.axis_rank("model") * e_local
+    with dist_ctx.bound_axes("model", *dist_ctx.axis_names(dp)):
+        out, aux = _moe_local(p, x.reshape(B * S, d), cfg, e_start, e_local,
+                              reduce_axis="model")
+        if dp:  # make the aux scalars the same on every data shard
+            terms = dist_ctx.all_reduce(
+                torch.stack([aux["load_balance"], aux["router_z"]]), dp,
+                op="mean")
+            aux = {"load_balance": terms[0], "router_z": terms[1]}
+    return out.reshape(B, S, d), aux
 
 
 def _moe_einsum(p, xf, cfg: ModelConfig):
@@ -131,10 +234,12 @@ def _moe_einsum(p, xf, cfg: ModelConfig):
     style: the reference's baseline.  xf: (T, d)."""
     e = cfg.moe
     T = xf.shape[0]
-    capacity = _capacity(T, e)
-    w, idx, aux = _route(xf.float(), p["router"], e.n_experts, e.top_k)
+    w, idx, aux, (n, offset) = _routing(xf.float(), p["router"], e)
+    capacity = _capacity(n, e)
     onehot_e = F.one_hot(idx, e.n_experts).float()        # (T, k, E)
     pos = torch.cumsum(onehot_e.reshape(T * e.top_k, e.n_experts), 0) - 1
+    if offset is not None:
+        pos = pos + offset.float()
     pos_tk = (pos.reshape(T, e.top_k, e.n_experts) * onehot_e).sum(-1)
     within = (pos_tk < capacity)[..., None].float()       # (T, k, 1)
     # one_hot of a position past capacity is all zeros, as in jax.nn.one_hot
@@ -155,7 +260,11 @@ def moe_apply(p, x, cfg: ModelConfig, dispatch=None):
     ``PerfFlags.moe_dispatch``."""
     B, S, d = x.shape
     dispatch = dispatch or dist_ctx.perf_flags().moe_dispatch
-    if dispatch == "gather":
+    ep = dist_ctx.mesh_axis_size("model")
+    if dispatch == "gather" and dist_ctx.get_mesh() is not None and ep > 1 \
+            and cfg.moe.n_experts % ep == 0:
+        out, aux = _moe_ep(p, x, cfg, ep)
+    elif dispatch == "gather":
         out, aux = _moe_local(p, x.reshape(B * S, d), cfg)
     elif dispatch == "einsum":
         out, aux = _moe_einsum(p, x.reshape(B * S, d), cfg)

@@ -3,9 +3,11 @@ families): init, prefill, decode.
 
 Entry points, as in the JAX package:
   init_params(cfg, seed, device)                  -> params
+  param_axes(cfg)                                 -> logical-axes tree
   train_forward(cfg, params, batch)               -> (logits, aux)
   loss_fn(cfg, params, batch)                     -> (loss, metrics)
   init_cache(cfg, batch, max_seq, device)         -> cache
+  cache_axes(cfg, batch, max_seq)                 -> logical-axes tree
   prefill_forward(cfg, params, batch, max_seq)    -> (last-token logits, cache)
   (``batch``: ``tokens``, and whisper's ``frames`` or InternVL2's
   ``patches``, the stub frontends' precomputed embeddings)
@@ -139,6 +141,74 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict:
     return p
 
 
+def _mlp_axes(gated):
+    p = {"up": ("d_model", "d_ff"), "down": ("d_ff", "d_model")}
+    if gated:
+        p["gate"] = ("d_model", "d_ff")
+    return p
+
+
+def _block_axes(cfg: ModelConfig, shared=False):
+    """``_block_init``'s structure with the reference's logical axes at each
+    leaf (its stacked leaves' without the leading ``"layers"``)."""
+    if cfg.family in ("ssm", "hybrid") and not shared:
+        ssm = {"in_proj": ("d_model", "d_inner"), "conv_w": ("d_inner", None),
+               "conv_b": ("d_inner",)}
+        if cfg.ssm.version == 1:
+            ssm.update(x_proj=("d_inner", None), dt_proj=(None, "d_inner"),
+                       dt_bias=("d_inner",), A_log=("d_inner", None),
+                       D=("d_inner",))
+        else:
+            ssm.update(A_log=(None,), dt_bias=(None,), D=(None,),
+                       norm=(None,))
+        ssm["out_proj"] = ("d_inner", "d_model")
+        return {"norm1": (None,), "ssm": ssm}
+    if cfg.mla is not None:
+        att = {"q": ("d_model", "heads_x_dim"), "kv_a": ("d_model", None),
+               "kv_norm": (None,), "kv_b": (None, "heads_x_dim"),
+               "o": ("heads_x_dim", "d_model")}
+    else:
+        att = {"q": ("d_model", "heads_x_dim"),
+               "k": ("d_model", "kv_heads_x_dim"),
+               "v": ("d_model", "kv_heads_x_dim"),
+               "o": ("heads_x_dim", "d_model")}
+    p = {"norm1": (None,), "attn": att, "norm2": (None,)}
+    if cfg.family == "encdec" and not shared:
+        p["norm_x"] = (None,)
+        p["xattn"] = dict(att)
+    if cfg.family == "moe":
+        p["moe"] = {"router": ("d_model", None),
+                    "gate": ("experts", "d_model", None),
+                    "up": ("experts", "d_model", None),
+                    "down": ("experts", None, "d_model")}
+        if cfg.moe.n_shared:
+            p["moe"]["shared"] = _mlp_axes(True)
+    else:
+        p["mlp"] = _mlp_axes(cfg.activation in ("swiglu", "geglu"))
+    return p
+
+
+def param_axes(cfg: ModelConfig) -> Dict:
+    """The logical axes of ``init_params(cfg)``'s leaves, in its structure:
+    the reference's axes tree leaf for leaf, a block's leaves without the
+    stacked ``"layers"`` axis the port's per-block tensors lack.  What
+    ``dist.sharding.Rules.tree_shardings`` takes."""
+    _check_family(cfg)
+    p = {"embed": ("vocab", "d_model"),
+         "layers": [_block_axes(cfg) for _ in range(cfg.n_layers)],
+         "final_norm": (None,)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = ("d_model", "vocab")
+    if cfg.family == "encdec":
+        p["encoder"] = {"layers": [_block_axes(cfg, shared=True)
+                                   for _ in range(cfg.encoder.n_layers)],
+                        "final_norm": (None,)}
+        p["pos"] = (None, "d_model")
+    if cfg.family == "hybrid":
+        p["shared_attn"] = _block_axes(cfg, shared=True)
+    return p
+
+
 # ---------------------------------------------------------------------------
 # helpers
 
@@ -174,11 +244,36 @@ def _rope_for(cfg: ModelConfig, positions):
     return rope_tables(positions, dim, cfg.rope_theta)
 
 
+class _Gather(torch.autograd.Function):
+    """``embed[tokens]``, whose gradient sums each token's rows in float32
+    and rounds once to the table's dtype.  Autograd's own backward of the
+    indexing (``index_put_`` with accumulate) reads and writes the bf16
+    table once for each occurrence of a token, so a frequent token's row
+    is rounded hundreds of times: with a zipfian batch of 1,024 tokens on
+    an H100 its bf16 gradient moved by 3.7% relative L2 between the whole
+    batch and two halves of it summed.  ``F.embedding``'s CPU backward
+    rounds in the same way, so the tests on the CPU need this one."""
+
+    @staticmethod
+    def forward(ctx, embed, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.table = (embed.shape, embed.dtype)
+        return embed[tokens]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (tokens,), (shape, dtype) = ctx.saved_tensors, ctx.table
+        out = torch.zeros(shape, dtype=torch.float32, device=grad.device)
+        out.index_put_((tokens.reshape(-1),),
+                       grad.reshape(-1, shape[1]).float(), accumulate=True)
+        return out.to(dtype), None
+
+
 def _embed_tokens(cfg: ModelConfig, p, tokens, offset=0):
     """Token embeddings (B, S, d) in bf16; the encdec family adds the
     learned positions from ``offset`` on (the start clamped into the table,
     as the reference's ``dynamic_slice`` clamps it)."""
-    x = p["embed"][tokens]
+    x = _Gather.apply(p["embed"], tokens)
     if cfg.family == "encdec":
         S = tokens.shape[1]
         start = min(max(offset, 0), p["pos"].shape[0] - S)
@@ -409,6 +504,28 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
     if cfg.family == "encdec":
         xkv = _kv_cache(cfg.n_layers, cfg, batch, cfg.encoder.n_ctx, device)
         c.update(xk=xkv["k"], xv=xkv["v"])
+    return c
+
+
+def cache_axes(cfg: ModelConfig, batch: int, max_seq: int) -> Dict:
+    """The logical axes of ``init_cache(cfg, batch, max_seq)``'s leaves,
+    the reference's (the caches keep its stacked layouts)."""
+    kv = ("layers", "batch", "kv_heads", "kv_seq", "head_dim")
+    if cfg.family in ("ssm", "hybrid"):
+        c = {"conv": ("layers", "batch", "d_inner", None),
+             "ssm": ("layers", "batch", "d_inner", None)
+             if cfg.ssm.version == 1
+             else ("layers", "batch", "ssm_heads", None, None)}
+        if cfg.family == "hybrid":
+            c.update(k=kv, v=kv)
+        return c
+    if cfg.mla is not None:
+        return {"ckv": ("layers", "batch", "kv_seq", "kv_lora"),
+                "krope": ("layers", "batch", "kv_seq", None)}
+    c = {"k": kv, "v": kv}
+    if cfg.family == "encdec":
+        xkv = ("layers", "batch", "kv_heads", None, "head_dim")
+        c.update(xk=xkv, xv=xkv)
     return c
 
 

@@ -1221,3 +1221,108 @@ def test_train_step_on_card_matches_cpu(cuda, arch, monkeypatch):
         np.testing.assert_allclose(a.detach().float().cpu().numpy(), b,
                                    rtol=0,
                                    atol=2.5e-3 + 2 ** -8 * np.abs(b).max())
+
+
+# ---------------------------------------------------------------------------
+# the NCCL path at world size 1 (chip_smoke.py's phase 47)
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A (1, 1) mesh on a world-1 NCCL group of this process (started by
+    ``make_host_mesh``), the group destroyed after."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    assert not dist.is_initialized()
+    mesh = make_host_mesh(1, 1, device_type="cuda")
+    yield mesh
+    dist.destroy_process_group()
+
+
+def _smoke_card_cfg():
+    return dataclasses.replace(get_smoke_config("tinyllama_1_1b"),
+                               head_dim=16)
+
+
+@pytest.mark.gpu
+def test_smoke_train_on_a_world1_nccl_mesh_matches_no_mesh(nccl_mesh):
+    """``launch.train``'s smoke path with the mesh and ``rules_for``'s
+    rules installed gives the no-mesh run's losses and params bit for bit
+    (a (1, 1) mesh skips every collective), 2 flash launches a layer a
+    step each way."""
+    import torch.distributed as dist
+    from repro_torch.core.config import SHAPE_BY_NAME
+    from repro_torch.launch import train as tlaunch
+    assert dist.get_backend() == "nccl"
+    cfg = _smoke_card_cfg()
+    kw = dict(batch=4, seq=64, steps=3, device="cuda", log=lambda *a: None)
+    runs = []
+    for mesh in (None, nccl_mesh):
+        before = fa.flash_attention.launches
+        with tlaunch.installed(mesh, cfg, SHAPE_BY_NAME["train_4k"]):
+            runs.append(tlaunch.train(cfg, **kw))
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches - before == 2 * cfg.n_layers * 3
+    assert runs[0]["losses"] == runs[1]["losses"]
+    for a, b in zip(tree.leaves(runs[0]["params"]),
+                    tree.leaves(runs[1]["params"])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_nccl_groups_of_the_world1_mesh_run(nccl_mesh):
+    """A raw all_reduce and broadcast over each mesh dimension's NCCL group
+    leave a world-1 tensor as it was: the port's own collectives skip a
+    dimension of size 1, so these are what reaches NCCL at world 1."""
+    import torch.distributed as dist
+    for name in nccl_mesh.mesh_dim_names:
+        group = nccl_mesh.get_group(name)
+        x = torch.arange(4096, dtype=torch.float32, device="cuda")
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        dist.broadcast(y, src=0, group=group)
+        torch.cuda.synchronize()
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_one_stage_pipeline_on_nccl_matches_sequential(nccl_mesh):
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.dist.pipeline import pipeline_apply
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("stage",))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    w = torch.randn(256, 256, generator=gen, device="cuda") / 16
+    x = torch.randn(32, 256, generator=gen, device="cuda")
+    got = pipeline_apply(mesh, lambda w, h: torch.tanh(h @ w), w, x, 4)
+    torch.testing.assert_close(got, torch.tanh(x @ w), rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_checkpoint_restores_onto_the_nccl_mesh(nccl_mesh, tmp_path):
+    """Params saved from the card restore onto the mesh with the rules'
+    placements (DTensor leaves on the card), and a checkpoint of those
+    leaves reloads equal."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.ckpt import load_checkpoint, save_checkpoint
+    from repro_torch.core.config import SHAPE_BY_NAME
+    from repro_torch.dist.sharding import rules_for
+    cfg = _smoke_card_cfg()
+    params = T.init_params(cfg, seed=0, device="cuda")
+    sh = rules_for(cfg, SHAPE_BY_NAME["train_4k"], nccl_mesh).tree_shardings(
+        T.param_axes(cfg), params)
+    save_checkpoint(str(tmp_path), 1, params)
+    out = load_checkpoint(str(tmp_path), template=params, shardings=sh,
+                          mesh=nccl_mesh)["tree"]
+    save_checkpoint(str(tmp_path), 2, out)
+    again = load_checkpoint(str(tmp_path), template=params)["tree"]
+    for a, b, c in zip(tree.leaves(out), tree.leaves(again),
+                       tree.leaves(params)):
+        assert isinstance(a, DTensor) and a.device.type == "cuda"
+        assert torch.equal(a.to_local(), c) and torch.equal(b, c)
+
+
+@pytest.mark.gpu
+def test_multi_pod_raises_on_one_card(nccl_mesh):
+    from repro_torch.launch import train as tlaunch
+    with pytest.raises(RuntimeError, match="need 512 devices, have 1"):
+        tlaunch.main(["--multi-pod"])

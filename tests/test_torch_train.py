@@ -341,8 +341,70 @@ def test_cli_smoke_resumes_at_the_next_step(tmp_path, capsys):
                   "--ckpt-dir", ckpt, "--resume"])
     out = capsys.readouterr().out
     assert "[restore] resumed at step 3" in out and "step 3 loss=" in out
-    with pytest.raises(NotImplementedError, match="Queue 1 item"):
-        tlaunch.main(["--smoke", "--device", "cpu", "--multi-pod"])
+    # the reference's error on a world too small for the multi-pod mesh
+    with pytest.raises(RuntimeError, match="need 512 devices, have 1"):
+        tlaunch.main(["--device", "cpu", "--multi-pod"])
+
+
+def test_cli_smoke_installs_and_clears_a_mesh(monkeypatch):
+    """``--smoke`` trains on a (1, 1) host mesh with ``rules_for``'s rules
+    installed, its losses bit for bit those of no mesh, and clears both,
+    and the world-1 process group it started, afterwards."""
+    import torch.distributed as dist
+    from repro_torch.dist import context as dist_ctx
+    from repro_torch.dist import sharding
+    seen = []
+    train = tlaunch.train
+
+    def spy(cfg, **kw):
+        mesh, rules = dist_ctx.get_mesh(), sharding.active_rules()
+        seen.append((dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                     rules.mesh is mesh, rules.table["batch"]))
+        return train(cfg, **kw)
+    monkeypatch.setattr(tlaunch, "train", spy)
+    out = tlaunch.main(["--smoke", "--device", "cpu", "--steps", "2"])
+    assert seen == [({"data": 1, "model": 1}, True, None)]
+    assert dist_ctx.get_mesh() is None and sharding.active_rules() is None
+    assert not dist.is_initialized()
+    alone = train(tconfigs.get_smoke_config("tinyllama_1_1b"), batch=4,
+                  seq=64, steps=2, device="cpu", log=lambda *a: None)
+    assert out["losses"] == alone["losses"]
+
+
+@pytest.mark.parametrize("world, entry", [(2, "data"), (8, None)])
+def test_cli_smoke_shards_its_own_batch(tmp_path, world, entry):
+    """Under ``torchrun``, ``--smoke``'s rules are those of the batch it
+    trains (4 x 64), not of the shape it is cut from (train_4k's 256 x
+    4096): 2 ranks each take half of it, and 8 ranks, which 4 rows do not
+    divide, each take all of it; either way the losses are one process's
+    (within the bf16 data-parallel step's 2e-2)."""
+    import _torch_dist
+    ranks = _torch_dist.spawn(_torch_dist.rank_smoke_cli, world, tmp_path, 2)
+    alone = tlaunch.train(tconfigs.get_smoke_config("tinyllama_1_1b"), batch=4,
+                  seq=64, steps=2, device="cpu", log=lambda *a: None)
+    for seen, losses in ranks:
+        assert seen == [entry]
+        assert losses == ranks[0][1]
+        assert losses == pytest.approx(alone["losses"], rel=2e-2)
+
+
+def test_embedding_gradient_sums_each_row_in_float32():
+    """The embedding's gradient sums a token's rows in float32 and rounds
+    once: bit for bit a float32 sum cast to bf16, however often a token
+    occurs."""
+    from repro_torch.models import transformer as TT
+    gen = torch.Generator().manual_seed(0)
+    embed = torch.randn(50, 8, generator=gen).to(torch.bfloat16)
+    embed.requires_grad_(True)
+    tokens = torch.tensor([[1, 1, 1, 7, 1, 3], [1, 7, 1, 1, 1, 0]])
+    g = torch.randn(2, 6, 8, generator=gen).to(torch.bfloat16)
+    out = TT._Gather.apply(embed, tokens)
+    assert torch.equal(out, embed.detach()[tokens])
+    out.backward(g)
+    expect = torch.zeros(50, 8).index_put_(
+        (tokens.reshape(-1),), g.reshape(-1, 8).float(), accumulate=True)
+    assert embed.grad.dtype == torch.bfloat16
+    assert torch.equal(embed.grad, expect.to(torch.bfloat16))
 
 
 def test_cuda_requested_without_card_raises(monkeypatch):
