@@ -339,7 +339,7 @@ printing a result:
    saved again from its DTensor leaves, every leaf equal; ``--multi-pod``
    raising the reference's RuntimeError (512 ranks); the group destroyed;
 48. two ranks on the one card over gloo (NCCL puts no two ranks on one
-   GPU; gloo's CUDA side is ``all_reduce`` and ``broadcast``), spawned
+   GPU; gloo stages its CUDA collectives through the host), spawned
    with a ``FileStore`` in a temp dir: (a) granite_moe_1b_a400m at full
    width and depth, a prefill of ``SERVE``'s 4 x 1024 through phase 30's
    path, first as one process, then on mesh (data 1, model 2) with the MoE
@@ -354,7 +354,21 @@ printing a result:
    rank, against one process on the whole batch (phase 42's bounds; and
    in float32 at 1e-4); (c) gemma3_1b's MLP with d_ff split over the two
    ranks inside a region that binds ``model`` (``tp_project``), against
-   the unsplit MLP, with ``bf16_tp_collectives`` off and on.
+   the unsplit MLP, with ``bf16_tp_collectives`` off and on;
+49. on the same two ranks, the train step over a ``model`` axis (mesh
+   (data 1, model 2), ``rules_for``'s rules at train_4k, params and
+   AdamW's moments the rules' DTensors, each rank holding its shards):
+   (a) tinyllama_1_1b and falcon_mamba_7b each cut to 4 layers at full
+   width, global batch 2 x 512, bf16, against one process's step on the
+   whole batch (phase 48b's bounds on the metrics and on every leaf's
+   gradient, ``m`` and sqrt(``v``) shard; the updated params within phase
+   42's bound), the flash kernel (D 64, 16 query heads on 2 KV heads a
+   rank) or the scan (4096 of d_inner's 8192 channels a rank) launched
+   twice a layer under autograd; (b) tinyllama_1_1b at full width and depth, 2 x 4096 tokens,
+   4 steps through ``launch.train.train`` beside one process alone at the
+   same batch: ms a step (steps 2-4, synced), peak GiB a rank, the losses
+   (within ``BF16_TOL``), flash launches a rank (2 x 22 a step), and one
+   more step with every gloo collective timed: their share.
 
 Kernel times are CUDA events around back-to-back calls queued behind a
 device-side wait (``torch.cuda._sleep``) that outlasts their enqueue, so
@@ -364,10 +378,11 @@ gemma3_1b serving, phi3_mini_3_8b serving, calibration, serve_batch
 (gemma3_1b), granite_moe_1b_a400m serving, deepseek_v2_lite_16b serving,
 zamba2_2_7b serving, whisper_small serving, internvl2_26b serving,
 tinyllama_1_1b training, gemma3_1b serving with the windowed flag, phase
-48's EP prefill (each rank's own count), and its times at head dims 16, 32, 64 (non-causal; and tinyllama_1_1b's training
+48's EP prefill and phase 49's TP steps (each rank's own count), and its times at head dims 16, 32, 64 (non-causal; and tinyllama_1_1b's training
 shape), 80, 96, 128 and 192;
 the scan's entry:
-its launches by path, calibration and falcon_mamba_7b serving, and its
+its launches by path, calibration, falcon_mamba_7b serving and phase
+49a's TP step, and its
 times at the serving shape); the last line is ``{"ok": true, "device":
 {...}}``.
 """
@@ -444,7 +459,9 @@ from repro_torch.sim.sweep import (as_cluster_records,  # noqa: E402
 from repro_torch.sim.training import simulate_training  # noqa: E402
 from repro_torch.ckpt import load_checkpoint, save_checkpoint  # noqa: E402
 from repro_torch.core.config import SHAPE_BY_NAME  # noqa: E402
+from repro_torch.dist import sharding  # noqa: E402
 from repro_torch.dist.pipeline import pipeline_apply  # noqa: E402
+from repro_torch.dist.tp import mark_shard  # noqa: E402
 from repro_torch.dist.sharding import rules_for  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models.layers import mlp_apply, mlp_init  # noqa: E402
@@ -692,6 +709,13 @@ EP_TIMED = 5
 TP_ARCH = "gemma3_1b"
 TP_TOKENS = (4, 1024)
 RANK_TIMEOUT_S = 600
+# phase 49: the train step over a 'model' axis on the same two ranks, mesh
+# (data 1, model 2), the rules of train_4k: (a) each arch cut to TRAIN_CUT
+# layers at full width, global batch TRAIN_CUT_BATCH, against one process
+# at phase 48b's bounds; (b) tinyllama_1_1b at full width and depth,
+# TP_FULL, beside one process at the same batch
+TP_CUTS = ("tinyllama_1_1b", "falcon_mamba_7b")
+TP_FULL = dict(batch=2, seq=4096, steps=4)
 
 
 def log(*args):
@@ -3023,9 +3047,9 @@ def _captured_grads():
     got = []
     clip = step_mod.clip_by_global_norm
 
-    def capture(grads, max_norm):
+    def capture(grads, max_norm, **kw):
         got[:] = [g.detach().clone() for g in grads]
-        return clip(grads, max_norm)
+        return clip(grads, max_norm, **kw)
     step_mod.clip_by_global_norm = capture
     try:
         yield got
@@ -3753,25 +3777,33 @@ def _median_ms(fn, n):
 
 
 @contextlib.contextmanager
-def _timed_all_reduce():
-    """Host ms of every ``torch.distributed.all_reduce`` in the block, the
-    card synchronized before and after each: {"ms": total, "calls": n}."""
-    spent = {"ms": 0.0, "calls": 0}
-    all_reduce = dist.all_reduce
+def _timed_collectives():
+    """Host ms of every ``all_reduce``, ``all_gather_into_tensor`` and
+    ``reduce_scatter_tensor`` in the block, the card synchronized before
+    and after each: {"ms": total, "calls": n, "by_kind": {name: ms}}."""
+    spent = {"ms": 0.0, "calls": 0, "by_kind": {}}
+    names = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")
+    saved = {n: getattr(dist, n) for n in names}
 
-    def timed(*args, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = all_reduce(*args, **kw)
-        torch.cuda.synchronize()
-        spent["ms"] += 1e3 * (time.perf_counter() - t0)
-        spent["calls"] += 1
-        return out
-    dist.all_reduce = timed
+    def timed(name):
+        def fn(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = saved[name](*args, **kw)
+            torch.cuda.synchronize()
+            ms_ = 1e3 * (time.perf_counter() - t0)
+            spent["ms"] += ms_
+            spent["calls"] += 1
+            spent["by_kind"][name] = spent["by_kind"].get(name, 0.0) + ms_
+            return out
+        return fn
+    for n in names:
+        setattr(dist, n, timed(n))
     try:
         yield spent
     finally:
-        dist.all_reduce = all_reduce
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
 
 
 @contextlib.contextmanager
@@ -3793,12 +3825,18 @@ def _captured_moe():
 
 
 def _rank_phases(rank, world, smi, single_ms):
-    """Phase 48 on one rank: (a) the EP prefill, (b) the data-parallel
-    step, (c) the TP MLP.  Returns their numbers."""
+    """Phases 48 and 49 on one rank: (48a) the EP prefill, (48b) the
+    data-parallel step, (48c) the TP MLP; (49a) the train step over
+    ``model`` on the cuts, (49b) on tinyllama_1_1b at full width and depth.
+    Returns their numbers."""
     out = {"rank": rank}
     out.update(_ep_prefill(rank, world, smi, single_ms))
     out.update(_dp_step(rank, world, smi))
     out.update(_tp_mlp(rank, world, smi))
+    torch.cuda.empty_cache()
+    out.update(_tp_cuts(rank, world, smi))
+    torch.cuda.empty_cache()
+    out.update(_tp_full(rank, world, smi))
     return out
 
 
@@ -3863,7 +3901,7 @@ def _ep_prefill(rank, world, smi, single_ms):
                                      f"{by_variant}, expected {cfg.n_layers} "
                                      f"of {name}")
             ep_ms = _median_ms(lambda: prefill(params, batch), EP_TIMED)
-            with _timed_all_reduce() as spent:
+            with _timed_collectives() as spent:
                 timed_ms = _median_ms(lambda: prefill(params, batch), 1)
         finally:
             dist_ctx.set_mesh(None)
@@ -3899,21 +3937,24 @@ def _ep_prefill(rank, world, smi, single_ms):
             "ep_index_agreement": agree[0], "ep_set_agreement": agree[1]}
 
 
-def _step_with_grads(cfg, params, batch):
-    """One train step (lr ``TRAIN_LR``, warmup 1) of ``params`` (in place)
-    on ``batch``: (metrics as floats, the gradients handed to the clip, the
-    step's ms)."""
+def _step_state(cfg, params, batch):
+    """One train step (lr ``TRAIN_LR``, warmup 1) of ``params`` (in place;
+    plain tensors, or on a ``model`` axis the rules' DTensors; float32
+    ones train in float32, ``_float32_embedding``) on ``batch``: (metrics
+    as floats, the gradients handed to the clip, the optimizer state after
+    it, the step's ms)."""
     step = make_train_step(cfg, TrainConfig(lr=TRAIN_LR, warmup=1))
+    opt = adamw_init(params)
     embedding = _float32_embedding() \
         if params["embed"].dtype == torch.float32 \
         else contextlib.nullcontext()
     with _captured_grads() as grads, embedding:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, _, metrics = step(params, adamw_init(params), batch, 1)
+        _, _, metrics = step(params, opt, batch, 1)
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
-    return {k: float(v) for k, v in metrics.items()}, list(grads), ms
+    return {k: float(v) for k, v in metrics.items()}, list(grads), opt, ms
 
 
 def _dp_step(rank, world, smi):
@@ -3931,19 +3972,19 @@ def _dp_step(rank, world, smi):
         cfg, Bg, Sg, np.random.default_rng(3)).items()}
     params = T.init_params(cfg, seed=1, device="cuda")
     mesh = make_host_mesh(world, 1, device_type="cuda")
-    _step_with_grads(cfg, tree.map_tree(torch.clone, params), batch)  # warm
+    _step_state(cfg, tree.map_tree(torch.clone, params), batch)  # warm
     out, failed = {}, []
     for dtype in (torch.bfloat16, torch.float32):
         def copy():
             return tree.map_tree(
                 lambda t: t.to(dtype, copy=True) if dtype == torch.float32
                 else t.clone(), params)
-        single = _in_turn(rank, world, lambda: _step_with_grads(
+        single = _in_turn(rank, world, lambda: _step_state(
             cfg, copy(), batch))
         dp_params = copy()
         with train_launch.installed(mesh, cfg, SHAPE_BY_NAME["train_4k"]), \
-                _timed_all_reduce() as spent:
-            got = _step_with_grads(cfg, dp_params, batch)
+                _timed_collectives() as spent:
+            got = _step_state(cfg, dp_params, batch)
         tol, grad_tol = (BF16_TOL, GRAD_TOL[dtype]) \
             if dtype == torch.bfloat16 else (GRAD_TOL[dtype],) * 2
         for key in ("loss", "nll", "zloss", "moe_loss", "grad_norm"):
@@ -3965,10 +4006,10 @@ def _dp_step(rank, world, smi):
             f"grad_norm {got[0]['grad_norm']:.6f} / "
             f"{single[0]['grad_norm']:.6f}, {len(got[1])} gradient leaves "
             f"within {grad_tol} (largest {worst:.3e}); step ms DP "
-            f"{got[2]:.1f} (all_reduce {spent['ms']:.1f} ms in "
+            f"{got[3]:.1f} (all_reduce {spent['ms']:.1f} ms in "
             f"{spent['calls']} calls over gloo), one process alone "
-            f"{single[2]:.1f}; card {smi}")
-        out[f"dp_{label}"] = {"ms": got[2], "alone_ms": single[2],
+            f"{single[3]:.1f}; card {smi}")
+        out[f"dp_{label}"] = {"ms": got[3], "alone_ms": single[3],
                               "all_reduce_ms": spent["ms"],
                               "grad_err": worst}
     if failed:
@@ -3978,8 +4019,9 @@ def _dp_step(rank, world, smi):
 
 def _tp_mlp(rank, world, smi):
     """48c: gemma3_1b's MLP (d 1152, d_ff 6912, geglu) with d_ff split over
-    the ``model`` ranks of mesh (1, world), inside a region that binds
-    ``model`` (``tp_project`` all-reduces the down projection), against
+    the ``model`` ranks of mesh (1, world), each slice marked as the rank's
+    shard, inside a region that binds ``model`` (``tp_project``
+    all-reduces the down projection), against
     the unsplit MLP on 4 x 1024 tokens, in bf16 (the model's type) and
     float32, with ``bf16_tp_collectives`` off and on: at ``BF16_TOL``,
     float32 with the flag off at 1e-4."""
@@ -3994,8 +4036,10 @@ def _tp_mlp(rank, world, smi):
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         full = {k: v.to(dtype) for k, v in mlp.items()}
-        local = {"up": full["up"][:, part], "gate": full["gate"][:, part],
-                 "down": full["down"][part]}
+        # this rank's d_ff shards, marked so (``dist.tp.mark_shard``)
+        local = {"up": mark_shard(full["up"][:, part], 1),
+                 "gate": mark_shard(full["gate"][:, part], 1),
+                 "down": mark_shard(full["down"][part], 0)}
         xd = x.to(dtype)
         expect = mlp_apply(full, xd, cfg.activation).float()
         scale = expect.abs().max().item()
@@ -4022,6 +4066,240 @@ def _tp_mlp(rank, world, smi):
                 raise AssertionError(f"48c rank {rank} {label}: {err}")
             out[f"tp {label}"] = {"err": err, "ms": ms}
     return out
+
+
+def _adamw_first_step(old, m, v, lr, weight_decay=0.1, b1=0.9, b2=0.95,
+                      eps=1e-8):
+    """``old`` after AdamW's first step (count 1) from its moments after
+    that step, in ``optim.adamw_update``'s operations
+    (``tests/_torch_dist.py::adamw_first_step``)."""
+    c = torch.ones((), device=old.device)
+    bc1, bc2 = 1 - b1 ** c, 1 - b2 ** c
+    p32 = old.float()
+    step = (m / bc1) / (torch.sqrt(v / bc2) + eps) + weight_decay * p32
+    return (p32 - lr * step).to(old.dtype)
+
+
+def _hold_shards(label, one, got, dims, index, n, before):
+    """The TP step's local shards (``got`` = metrics, gradients, {key:
+    param}, {key: m}, {key: v}) against one process's (``one`` = metrics,
+    gradients, updated params, opt; ``before`` its params before the step)
+    sliced to this rank's ``index`` of ``n`` along each leaf's split
+    dimension (``dims``): the metrics at ``BF16_TOL``, every gradient,
+    ``m`` and sqrt(``v``) at relative L2 ``GRAD_TOL`` in bf16, every
+    updated param within one step of its dtype of AdamW's first step from
+    the rank's own ``m`` and ``v`` (``_adamw_first_step``: a missed or
+    sign-flipped update is off by lr or 2 lr) and within 2.5 lr plus one
+    bf16 step of its largest value of one process's (phase 42's bound),
+    and each split leaf held as its shard only.  Returns (failures, the
+    largest leaf error and its key)."""
+    failed = []
+    tol = GRAD_TOL[torch.bfloat16]
+    for key in ("loss", "nll", "zloss", "moe_loss", "grad_norm"):
+        a, b = got[0][key], one[0][key]
+        if not (math.isfinite(a) and abs(a - b) <= BF16_TOL * abs(b) + 1e-6):
+            failed.append(f"{label} {key}: TP {a} one process {b}")
+    m, v = tree.flatten(one[3]["m"]), tree.flatten(one[3]["v"])
+    before = tree.flatten(before)
+    worst, name = 0.0, None
+    for (key, full), g, ge in zip(tree.flatten(one[2]).items(), got[1],
+                                  one[1]):
+        d = dims[key]
+
+        def mine(t):
+            return t if d is None else t.narrow(d, index * t.shape[d] // n,
+                                                t.shape[d] // n)
+        local = got[2][key]
+        if local.shape != mine(full).shape or (
+                d is not None and local.shape[d] * n != full.shape[d]):
+            failed.append(f"{label} {key}: shard {tuple(local.shape)} of "
+                          f"{tuple(full.shape)}")
+            continue
+        err = max(_rel_l2(g, mine(ge)), _rel_l2(got[3][key], mine(m[key])),
+                  _rel_l2(got[4][key].sqrt(), mine(v[key]).sqrt()))
+        if not err <= tol:
+            failed.append(f"{label} {key}: relative L2 {err:.3e}")
+        if err >= worst:
+            worst, name = err, key
+        stepped = _adamw_first_step(mine(before[key]), got[3][key],
+                                    got[4][key], TRAIN_LR).float()
+        off = ((local.float() - stepped).abs()
+               - torch.finfo(local.dtype).eps * stepped.abs()
+               - 1e-6 * TRAIN_LR).max().item()
+        if not off <= 0:
+            failed.append(f"{label} {key}: updated param off AdamW's step "
+                          f"from its moments by {off} beyond one step")
+        expect = mine(full).detach().float()
+        bound = 2.5 * TRAIN_LR + 2 ** -8 * expect.abs().max().item()
+        if not (local.float() - expect).abs().max().item() <= bound:
+            failed.append(f"{label} {key}: updated param off by more than "
+                          f"{bound}")
+    return failed, worst, name
+
+
+def _tp_cuts(rank, world, smi):
+    """49a: ``TP_CUTS`` each cut to ``TRAIN_CUT`` layers at full width,
+    global batch ``TRAIN_CUT_BATCH``, params from seed 1 made on the card
+    (the same on both ranks): one process's bf16 train step on the whole
+    batch (alone on the card, in turn), then the step on mesh (data 1,
+    model world) with ``rules_for``'s rules, the params placed by them as
+    DTensors: every leaf's shard against one process's slice
+    (``_hold_shards``).  The kernel counts set to 0 just before the TP step
+    and read just after: tinyllama's flash at D 64 on 16 query heads of 2
+    KV heads a rank, falcon's scan on 4096 of its 8192 channels a rank,
+    each twice a layer (forward and recompute)."""
+    out, failed = {}, []
+    mesh = make_host_mesh(1, world, device_type="cuda")
+    for arch in TP_CUTS:
+        cfg = _cut(arch, TRAIN_CUT)
+        Bg, Sg = TRAIN_CUT_BATCH
+        batch = {k: torch.from_numpy(v).to("cuda") for k, v in
+                 synthetic_batch(cfg, Bg, Sg, np.random.default_rng(3)).items()}
+        params = T.init_params(cfg, seed=1, device="cuda")
+
+        def one_step():
+            p = tree.map_tree(torch.clone, params)
+            metrics, grads, opt, _ = _step_state(cfg, p, batch)
+            return metrics, grads, p, opt
+        one = _in_turn(rank, world, one_step)
+        with train_launch.installed(mesh, cfg, SHAPE_BY_NAME["train_4k"]):
+            rules = sharding.active_rules()
+            placements = rules.tree_shardings(T.param_axes(cfg), params)
+            dparams = sharding.distribute(params, placements, mesh)
+            fa.reset_counts()
+            ms.mamba_scan.launches = 0
+            metrics, grads, opt, step_ms = _step_state(cfg, dparams, batch)
+            launches = {"flash_attention": fa.flash_attention.launches,
+                        "flash_by_variant": dict(
+                            fa.flash_attention.launches_by_variant),
+                        "mamba_scan": ms.mamba_scan.launches}
+            local = {k: tree.flatten(sharding.local_shards(t))
+                     for k, t in (("p", dparams), ("m", opt["m"]),
+                                  ("v", opt["v"]))}
+            index = dist_ctx.model_rank()
+        dims = {k: sharding.sharded_dim(pl, "model", mesh) for k, pl in
+                tree.flatten(placements, containers=list).items()}
+        kernel = "mamba_scan" if cfg.family == "ssm" else "flash_attention"
+        expect = 2 * cfg.n_layers
+        if launches[kernel] != expect:
+            failed.append(f"49a rank {rank} {arch}: {launches}, expected "
+                          f"{expect} {kernel}")
+        bad, worst, name = _hold_shards(
+            f"49a rank {rank} {arch}", one, (metrics, grads, local["p"],
+                                             local["m"], local["v"]),
+            dims, index, world, params)
+        failed += bad
+        split = sum(d is not None for d in dims.values())
+        heads = cfg.n_heads // world if cfg.family != "ssm" else None
+        log(f"[rank {rank}] 49a {cfg.name} cut to {cfg.n_layers} layers at "
+            f"full width, global batch {Bg} x {Sg} on mesh {mesh}: {split} of "
+            f"{len(dims)} leaves split over model; loss TP "
+            f"{metrics['loss']:.6f} one process {one[0]['loss']:.6f}, "
+            f"grad_norm {metrics['grad_norm']:.6f} / "
+            f"{one[0]['grad_norm']:.6f}; every leaf's gradient, m and "
+            f"sqrt(v) within {GRAD_TOL[torch.bfloat16]} (largest "
+            f"{worst:.3e}, {name}); kernels {launches} "
+            + (f"(flash at {heads} query heads on "
+               f"{cfg.n_kv_heads // world} KV heads of D "
+               f"{cfg.resolved_head_dim})" if heads else
+               f"(the scan on {cfg.ssm.expand * cfg.d_model // world} "
+               f"channels)")
+            + f"; step ms TP {step_ms:.1f}; card {smi}")
+        out[f"tp_cut {arch}"] = {"launches": launches, "grad_err": worst,
+                                 "ms": step_ms}
+        del params, dparams, one, opt, grads, local
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return out
+
+
+def _tp_full(rank, world, smi):
+    """49b: tinyllama_1_1b at full width and depth, ``TP_FULL`` (train_4k's
+    seq, a global batch of 2), through ``launch.train.train`` (params from
+    seed 0, the data pipeline's batches): first one process alone on the
+    card (rank 0; rank 1 waits), then on mesh (data 1, model world) with
+    ``rules_for``'s rules installed, where ``train`` places the params and
+    moments by the rules.  Each: ms a step (steps 2-4, synced), peak GiB,
+    the losses (TP within ``BF16_TOL`` of one process's).  The flash counts
+    set to 0 just before the TP run and read just after: 2 x 22 a step a
+    rank, all ``wgmma`` at D 64 on 16 query heads of 2 KV heads.  Then one
+    more TP step with every collective timed (each synchronized): their
+    share of that step, and its peak GiB a rank alone (the peak counter
+    reset after the placement and the first steps)."""
+    cfg = get_config("tinyllama_1_1b")
+    kw = dict(TP_FULL, device="cuda", seed=0, log=lambda *a: None)
+    tokens = kw["batch"] * kw["seq"]
+    alone = [None]
+    if rank == 0:
+        torch.cuda.reset_peak_memory_stats()
+        res = train_launch.train(cfg, **kw)
+        alone[0] = {"ms": 1e3 * statistics.mean(res["step_s"][1:]),
+                    "step_ms": [1e3 * x for x in res["step_s"]],
+                    "gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "losses": res["losses"]}
+        del res
+        torch.cuda.empty_cache()
+    dist.barrier()
+    dist.broadcast_object_list(alone, src=0)
+    alone = alone[0]
+    mesh = make_host_mesh(1, world, device_type="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with train_launch.installed(mesh, cfg, SHAPE_BY_NAME["train_4k"]):
+        fa.reset_counts()
+        res = train_launch.train(cfg, **kw)
+        launches = fa.flash_attention.launches
+        by_variant = dict(fa.flash_attention.launches_by_variant)
+        step_ms = 1e3 * statistics.mean(res["step_s"][1:])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        step = make_train_step(cfg, TrainConfig(total_steps=kw["steps"] + 1))
+        batch = {k: torch.from_numpy(v).to("cuda") for k, v in
+                 synthetic_batch(cfg, kw["batch"], kw["seq"],
+                                 np.random.default_rng(9)).items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with _timed_collectives() as spent:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(res["params"], res["opt"], batch, kw["steps"])
+            torch.cuda.synchronize()
+            timed_ms = 1e3 * (time.perf_counter() - t0)
+        step_peak = torch.cuda.max_memory_allocated() / 2**30
+        local = sum(t.to_local().numel() for t in tree.leaves(res["params"]))
+    expect = 2 * cfg.n_layers * kw["steps"]
+    name = fa.variant(cfg.resolved_head_dim, torch.bfloat16)
+    losses = res["losses"]
+    off = max(abs(a - b) / abs(b) for a, b in zip(losses, alone["losses"]))
+    log(f"[rank {rank}] 49b {cfg.name} full width and depth "
+        f"({cfg.n_layers} layers, {cfg.param_count() / 1e9:.3f} B params, "
+        f"{local / 1e6:.1f} M on this rank), {kw['batch']} x {kw['seq']} "
+        f"tokens on mesh {mesh}, {kw['steps']} steps: ms a step "
+        f"{[round(1e3 * x, 1) for x in res['step_s']]} (steps 2-4 mean "
+        f"{step_ms:.1f} ms, {tokens / step_ms * 1e3:.0f} tok/s), peak "
+        f"{peak:.3f} GiB a rank over the run (placement and steps), "
+        f"{step_peak:.3f} GiB over one step, flash {by_variant} ({launches}, expected "
+        f"{expect}); one process alone at the same batch: "
+        f"{[round(x, 1) for x in alone['step_ms']]} (mean {alone['ms']:.1f} "
+        f"ms), {alone['gib']:.3f} GiB; losses TP "
+        f"{[round(x, 4) for x in losses]} one process "
+        f"{[round(x, 4) for x in alone['losses']]} (largest relative "
+        f"difference {off:.3e}); a timed step {timed_ms:.1f} ms, of it "
+        f"{spent['calls']} collectives {spent['ms']:.1f} ms over gloo "
+        f"({100 * spent['ms'] / timed_ms:.1f}%; by kind "
+        f"{ {k: round(v, 1) for k, v in spent['by_kind'].items()} }); card "
+        f"{smi}")
+    if launches != expect or by_variant[name] != expect:
+        raise AssertionError(f"49b rank {rank}: flash {by_variant}, expected "
+                             f"{expect} of {name}")
+    if not (all(math.isfinite(x) for x in losses) and off <= BF16_TOL):
+        raise AssertionError(f"49b rank {rank}: losses {losses} against one "
+                             f"process's {alone['losses']}")
+    return {"tp_full": {"ms": step_ms, "alone_ms": alone["ms"], "gib": peak,
+                        "step_gib": step_peak, "alone_gib": alone["gib"], "launches": launches,
+                        "by_variant": by_variant, "timed_ms": timed_ms,
+                        "collective_ms": spent["ms"],
+                        "collective_calls": spent["calls"],
+                        "loss_off": off}}
 
 
 def _counts():
@@ -4110,6 +4388,7 @@ def main():
     scan_rows = time_scan_serving(serve_shape, smi)
     scan_by_path = {"calibration": cal_launches["mamba_scan"],
                     "falcon_mamba_7b serving": scan_serve_launches}
+    # phase 49a's TP step (each rank's own count) joins it after phase 48
     log(f"mamba_scan launches by path: {scan_by_path}")
     check_model_against_cpu("phi3_mini_3_8b", PHI3_CUT, PHI3_PROMPTS)
     torch.cuda.empty_cache()
@@ -4218,8 +4497,9 @@ def main():
     if _counts() != counts:
         raise AssertionError(f"pricing changed the launch counts: {counts} "
                              f"-> {_counts()}")
-    # phases 47-48: distribution; the NCCL path at world size 1, then two
-    # ranks on the one card over gloo
+    # phases 47-49: distribution; the NCCL path at world size 1, then two
+    # ranks on the one card over gloo (48: EP, DP, a TP MLP; 49: the train
+    # step over a 'model' axis)
     t0 = time.perf_counter()
     check_nccl_world1(smi)
     ranks = run_ranks(smi, served[EP_ARCH]["prefill_ms"][-1])
@@ -4235,7 +4515,19 @@ def main():
             f"{ {k: v for k, v in r.items() if k.startswith('dp_')} }; TP "
             f"{ {k: v for k, v in r.items() if k.startswith('tp ')} }; card "
             f"{smi}")
-    log(f"phases 47-48: {time.perf_counter() - t0:.1f} s")
+    for r in ranks:
+        full = r["tp_full"]
+        log(f"phase 49 rank {r['rank']}: cuts "
+            f"{ {k: v for k, v in r.items() if k.startswith('tp_cut')} }; "
+            f"tinyllama_1_1b {TP_FULL['batch']} x {TP_FULL['seq']} on model "
+            f"{EP_RANKS}: {full['ms']:.1f} ms a step (one process alone "
+            f"{full['alone_ms']:.1f}), {full['gib']:.3f} GiB a rank over the "
+            f"run, {full['step_gib']:.3f} over one step (alone "
+            f"{full['alone_gib']:.3f} over its run), collectives {full['collective_ms']:.1f}"
+            f" ms of a {full['timed_ms']:.1f} ms timed step "
+            f"({100 * full['collective_ms'] / full['timed_ms']:.1f}%), flash "
+            f"{full['launches']} a rank; card {smi}")
+    log(f"phases 47-49: {time.perf_counter() - t0:.1f} s")
     log(f"training: grad errors {grad_err:.3e} (Functions), {train_err:.3e} "
         f"(card vs CPU); tinyllama_1_1b {train_ms:.1f} ms a step, "
         f"{train_tok_s:.0f} tok/s, {train_gib:.3f} GiB, device ms a step "
@@ -4250,8 +4542,19 @@ def main():
                      "tinyllama_1_1b training (4 steps)": train_by_variant,
                      "gemma3_1b serving, windowed_attention":
                          windowed_by_variant,
-                     "ep_prefill": ep_by_rank}
+                     "ep_prefill": ep_by_rank,
+                     "tp_cut (tinyllama_1_1b, 4 layers, model 2)": {
+                         f"rank {r['rank']}": r[
+                             "tp_cut tinyllama_1_1b"]["launches"][
+                                 "flash_by_variant"] for r in ranks},
+                     "tp_train (tinyllama_1_1b, model 2, 4 steps)": {
+                         f"rank {r['rank']}": r["tp_full"]["by_variant"]
+                         for r in ranks}}
     log(f"flash_attention launches by path: {flash_by_path}")
+    scan_by_path["tp_cut (falcon_mamba_7b, 4 layers, model 2)"] = {
+        f"rank {r['rank']}": r["tp_cut falcon_mamba_7b"]["launches"][
+            "mamba_scan"] for r in ranks}
+    log(f"mamba_scan launches by path: {scan_by_path}")
     mm_by_path = {"calibration": cal_by_variant["matmul"],
                   **{f"graph batch {b}": n for b, n in graph_by_batch.items()},
                   "camera frame": camera_launches}

@@ -24,6 +24,12 @@ the reference's entry for entry.  ``tree_shardings`` turns each spec into
 ``Replicate()`` for each), what ``distribute_tensor`` takes.  An axes tree
 is the params' (or cache's) structure with a tuple of logical names at each
 leaf (``models.transformer.param_axes`` / ``cache_axes``).
+
+The train step over a ``model`` axis holds params and AdamW's moments as
+``DTensor``s with those placements (``distribute``; ``ckpt.load_checkpoint``
+restores them so) and computes on their local shards (``local_shards``,
+each marked with the dimension it is split along over ``model``:
+``dist.tp.mark_shard``), updating them in place.
 """
 from __future__ import annotations
 
@@ -237,3 +243,67 @@ def constrain(x, axes: Sequence[Optional[str]]):
         return x
     spec = rules.spec_for(axes, x.shape)
     return x.redistribute(rules.mesh, rules.placements(spec))
+
+
+# ---------------------------------------------------------------------------
+# DTensors and their local shards
+
+
+def sharded_dim(placements, axis: str, mesh=None) -> Optional[int]:
+    """The tensor dimension that ``placements`` (a ``DTensor``'s, one a
+    mesh dimension) shard over the mesh dimension ``axis`` of ``mesh`` (by
+    default the active one), or None where they replicate over it."""
+    from repro_torch.dist.context import get_mesh
+    names = list(mesh_shape(mesh if mesh is not None else get_mesh()))
+    if axis not in names or placements is None:
+        return None
+    p = placements[names.index(axis)]
+    return p.dim if p.is_shard() else None
+
+
+def is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def distribute(tree_, shardings, mesh):
+    """Each leaf of ``tree_`` (full values, the same on every rank) as a
+    ``DTensor`` on ``mesh`` with its placements from ``shardings``
+    (``Rules.tree_shardings``): every rank keeps only its shard, cut from
+    its own copy without communication, in storage of its own (a shard
+    along dim 0 would be a view that keeps the whole leaf alive, a
+    replicated leaf the input itself, which the step would update)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from repro_torch.core import tree
+    flat = tree.flatten(tree_)
+    for k, placements in tree.flatten(shardings, containers=list).items():
+        t = distribute_tensor(flat[k], mesh, placements, src_data_rank=None)
+        local = t.to_local()
+        if local.untyped_storage().data_ptr() == \
+                flat[k].untyped_storage().data_ptr():
+            t = DTensor.from_local(local.clone(), mesh, placements,
+                                   run_check=False, shape=t.shape,
+                                   stride=t.stride())
+        flat[k] = t
+    return tree.unflatten(tree_, flat)
+
+
+def local_shards(tree_):
+    """``tree_`` with each ``DTensor`` leaf replaced by its local shard (the
+    same storage: an in-place update of the shard updates the DTensor),
+    marked with the dimension it is split along over ``model``
+    (``tp.mark_shard``; None where it is replicated there).  Other leaves
+    pass through."""
+    import torch
+    from repro_torch.core import tree
+    from repro_torch.dist.tp import mark_shard
+
+    def leaf(t):
+        if not is_dtensor(t):
+            return t
+        with torch.no_grad():
+            local = t.to_local()
+        return mark_shard(local, sharded_dim(t.placements, "model",
+                                             t.device_mesh))
+    return tree.map_tree(leaf, tree_)
+

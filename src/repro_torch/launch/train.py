@@ -28,10 +28,13 @@ mesh replicates everything, so the losses are those of one device.
 Without ``--smoke`` a world of one rank trains on one device; under
 ``torchrun`` the production mesh is built (16 x 16 ranks; ``--multi-pod``
 2 x 16 x 16, which on fewer ranks raises the reference's
-``RuntimeError``).  On a mesh the train step is data-parallel
-(``train.step``), and a ``model`` axis larger than 1 raises
-``NotImplementedError`` (ROADMAP Queue 1 item 10b).  A multi-rank run on
-the CPU:
+``RuntimeError``), and, as the reference's launcher places them with
+``jax.device_put``, the params and AdamW's moments are placed by the rules
+(``dist.sharding.distribute``): each rank holds its shard of every leaf
+the rules split over ``model``, and the step (``train.step``) is tensor-
+and data-parallel on the local shards; ``--resume`` restores onto the mesh
+with the rules' placements.  A (N, 1) mesh replicates every leaf and the
+step is data-parallel.  A multi-rank run on the CPU:
 
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
       --smoke --device cpu --steps 3
@@ -65,8 +68,11 @@ from repro_torch.core.config import SHAPE_BY_NAME, ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.data import DataPipeline
 from repro_torch.dist import context as dist_ctx
-from repro_torch.dist.sharding import rules_for, set_active_rules
+from repro_torch.dist.sharding import (active_rules, distribute, rules_for,
+                                       set_active_rules)
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.models import transformer as T
+from repro_torch.optim import adamw_init
 from repro_torch.train import TrainConfig, init_train_state, make_train_step
 
 
@@ -80,17 +86,34 @@ def train(cfg: ModelConfig, *, batch, seq, steps, microbatches=1,
           log=print):
     """Train ``cfg`` for steps [start, steps): start is 0, or with
     ``resume`` one past the newest checkpoint under ``ckpt_dir``.  Params
-    come from ``init_params(cfg, seed, device)``.  Returns a dict:
+    come from ``init_params(cfg, seed, device)``; on an installed mesh
+    whose ``model`` axis is larger than 1 they and AdamW's moments are
+    placed by the active rules (``Rules.tree_shardings``), and a resume
+    restores them onto the mesh with those placements.  Returns a dict:
     ``params``, ``opt``, ``start``, and per step run its ``losses``
     (floats) and ``step_s`` (host clock, device synced)."""
     device = resolve_device(device)
-    params, opt = init_train_state(cfg, seed, device)
+    restore = {}
+    mesh = dist_ctx.get_mesh()
+    if mesh is not None and dist_ctx.model_size() > 1:
+        # the reference's device_put of params and moments with the rules'
+        # shardings: each rank keeps its shard of every split leaf, and the
+        # moments are made on the shards (never at full size)
+        params = T.init_params(cfg, seed, device)
+        param_sh = active_rules().tree_shardings(T.param_axes(cfg), params)
+        params = distribute(params, param_sh, mesh)
+        opt = adamw_init(params)
+        restore = {"mesh": mesh, "shardings": {
+            "params": param_sh,
+            "opt": {"m": param_sh, "v": param_sh, "count": None}}}
+    else:
+        params, opt = init_train_state(cfg, seed, device)
     step_fn = make_train_step(cfg, TrainConfig(total_steps=steps,
                                                n_microbatches=microbatches))
     mgr = CheckpointManager(ckpt_dir, keep=3) if ckpt_dir else None
     start = 0
     if resume and mgr is not None and mgr.latest_step() is not None:
-        out = mgr.restore(template={"params": params, "opt": opt})
+        out = mgr.restore(template={"params": params, "opt": opt}, **restore)
         params, opt = out["tree"]["params"], out["tree"]["opt"]
         start = out["step"] + 1
         log(f"[restore] resumed at step {start}")
@@ -115,6 +138,8 @@ def train(cfg: ModelConfig, *, batch, seq, steps, microbatches=1,
         if mgr is not None:
             mgr.save_async(steps - 1, {"params": params, "opt": opt})
             mgr.wait()
+            if dist.is_initialized() and dist.get_world_size() > 1:
+                dist.barrier()   # every rank sees the committed checkpoint
     finally:
         pipe.stop()
     return {"params": params, "opt": opt, "start": start, "losses": losses,

@@ -21,6 +21,12 @@ against the cache, or against the encoder's keys; MLA's in the compressed
 space) is plain PyTorch too, as the JAX package computes it outside any
 Pallas kernel.
 
+In the train step over a ``model`` axis (``dist.tp``) the query heads
+are this rank's shard of them, and the local head counts come from the
+weights' widths: the flash kernel runs on this rank's heads, their KV
+heads split alongside or, too few to split, cut to those its query heads
+use.  MLA's compressed KV (``kv_a``, ``kv_norm``) is every rank's whole.
+
 Under ``PerfFlags.windowed_attention`` a local layer takes a static window
 (``static_window``).  In prefill and training the card runs the flash
 kernel with its window mask, which skips every KV tile before the window,
@@ -38,7 +44,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.dist import context as dist_ctx
-from repro_torch.dist.tp import tp_project
+from repro_torch.dist import tp
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (apply_rope, dense_init, norm_init,
                                        rmsnorm)
@@ -207,14 +213,28 @@ def gqa_forward(p, x, cos, sin, *, cfg: ModelConfig, causal=True, window=0,
     With ``xa``, the encoder's output (B, Skv, d), it is cross-attention: k
     and v come from ``xa``, with no RoPE and no causal mask, through
     ``chunked_attention`` (see the module docstring)."""
-    B, S, _ = x.shape
-    H, Hkv = cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
+    split = tp.shard_dim(p["q"]) == 1
+    whole_kv = split and tp.shard_dim(p["k"]) != 1
+    x = tp.enter(x, split)
+    wk, wv = p["k"], p["v"]
+    if split:
+        if xa is not None:
+            xa = dist_ctx.copy_to(xa)
+        if whole_kv:
+            # too few KV heads to split (MQA): each rank computes them all
+            # and uses its query heads' one; their gradients are summed
+            wk, wv = dist_ctx.copy_to(wk), dist_ctx.copy_to(wv)
+    B, S, _ = x.shape
+    # this rank's heads: the weights' widths (all of them off a mesh)
+    H, Hkv = p["q"].shape[1] // hd, wk.shape[1] // hd
     kv_src = x if xa is None else xa
     Skv = kv_src.shape[1]
     q = (x @ p["q"]).reshape(B, S, H, hd).transpose(1, 2)
-    k = (kv_src @ p["k"]).reshape(B, Skv, Hkv, hd).transpose(1, 2)
-    v = (kv_src @ p["v"]).reshape(B, Skv, Hkv, hd).transpose(1, 2)
+    k = (kv_src @ wk).reshape(B, Skv, Hkv, hd).transpose(1, 2)
+    v = (kv_src @ wv).reshape(B, Skv, Hkv, hd).transpose(1, 2)
+    if whole_kv:
+        k, v = _kv_of_rank_heads(k, v, H, cfg.n_heads)
     if xa is not None:
         out = chunked_attention(q, k, v, causal=False, window=window)
     else:
@@ -228,7 +248,22 @@ def gqa_forward(p, x, cos, sin, *, cfg: ModelConfig, causal=True, window=0,
                                       causal=causal or bool(static_window),
                                       window=static_window or window)
     out = out.transpose(1, 2).reshape(B, S, H * hd)
-    return tp_project(out, p["o"]), (k, v)
+    return tp.tp_project(out, p["o"]), (k, v)
+
+
+def _kv_of_rank_heads(k, v, h_local, h_total):
+    """k, v (B, Hkv, S, D), all the KV heads (too few to split over
+    ``model``), cut to the one that this rank's ``h_local`` query heads (of
+    ``h_total``) attend to.  Where the KV heads do not divide over
+    ``model``, neither do the query heads of one group divide the rank's:
+    they share one KV head (MQA; at model 16 also tinyllama's, granite's
+    and internvl2's GQA)."""
+    group = h_total // k.shape[1]
+    if group % h_local:
+        raise NotImplementedError(
+            f"{h_local} query heads a rank across KV groups of {group}")
+    kv = dist_ctx.model_rank() * h_local // group
+    return k[:, kv:kv + 1], v[:, kv:kv + 1]
 
 
 def gqa_decode(p, x, cache_k, cache_v, cos, sin, *, cfg: ModelConfig, pos,
@@ -282,21 +317,30 @@ def mla_forward(p, x, cos, sin, *, cfg: ModelConfig):
     whose output is sliced back.  Returns (out, (c_kv (B, S, lora), k_rope
     (B, S, dr))) for the cache."""
     m = cfg.mla
-    B, S, _ = x.shape
-    H = cfg.n_heads
     dn, dr, dv, R = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim, m.kv_lora_rank
+    split = tp.shard_dim(p["q"]) == 1
+    x = tp.enter(x, split)
+    kv_a, kv_norm, kv_b = p["kv_a"], p["kv_norm"], p["kv_b"]
+    if split:
+        # the compressed KV is every head's: each rank computes it whole and
+        # its gradients are summed; kv_b is per head (contiguous), so its
+        # shard is this rank's heads
+        kv_a, kv_norm = dist_ctx.copy_to(kv_a), dist_ctx.copy_to(kv_norm)
+        kv_b = tp.part(kv_b, 1)
+    B, S, _ = x.shape
+    H = p["q"].shape[1] // (dn + dr)     # this rank's heads
     q = (x @ p["q"]).reshape(B, S, H, dn + dr).transpose(1, 2)
-    kv = x @ p["kv_a"]
-    c_kv = rmsnorm(kv[..., :R], p["kv_norm"])
+    kv = x @ kv_a
+    c_kv = rmsnorm(kv[..., :R], kv_norm)
     q_rope = _rope_heads(q[..., dn:], cos, sin)
     k_rope = _rope_heads(kv[:, None, :, R:], cos, sin)[:, 0]   # (B, S, dr)
-    kvb = (c_kv @ p["kv_b"]).reshape(B, S, H, dn + dv).transpose(1, 2)
+    kvb = (c_kv @ kv_b).reshape(B, S, H, dn + dv).transpose(1, 2)
     k = torch.cat([kvb[..., :dn], k_rope[:, None].expand(B, H, S, dr)], -1)
     qf = torch.cat([q[..., :dn], q_rope], -1)
     v = F.pad(kvb[..., dn:], (0, dn + dr - dv))
     out = ops.flash_attention(qf, k, v, causal=True)[..., :dv]
     out = out.transpose(1, 2).reshape(B, S, H * dv)
-    return out @ p["o"], (c_kv, k_rope)
+    return tp.tp_project(out, p["o"]), (c_kv, k_rope)
 
 
 def mla_decode(p, x, cache_ckv, cache_krope, cos, sin, *, cfg: ModelConfig,

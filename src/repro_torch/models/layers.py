@@ -16,7 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.tp import tp_project
+from repro_torch.dist import tp
 
 
 def dense_init(gen, in_dim, out_dim, *, dtype=torch.bfloat16, scale=None):
@@ -100,9 +100,13 @@ def _act(name, x):
 
 
 def mlp_apply(p, x, activation):
+    """The MLP; where ``up`` is this rank's ``d_ff`` shard (the train step
+    over a ``model`` axis), column-parallel ``gate``/``up`` and a
+    row-parallel ``down`` (``dist.tp``)."""
+    x = tp.enter(x, tp.shard_dim(p["up"]) == 1)
     up = x @ p["up"]
     if "gate" in p:
         up = _act(activation, x @ p["gate"]) * up
     else:
         up = _act(activation, up)
-    return tp_project(up, p["down"])
+    return tp.tp_project(up, p["down"])

@@ -18,7 +18,12 @@ is installed whose ``model`` axis is larger than 1 and divides
 ``n_experts`` (``_moe_ep``): each rank of ``model`` computes its share of
 the experts for its batch shard, and one ``all_reduce`` over ``model``
 combines them.  The shared expert stays outside that region, and the
-einsum ablation stays single-shard, as in the reference.  Inside the
+einsum ablation stays single-shard, as in the reference.  In the train
+step over a ``model`` axis the stacks are the rank's ``experts`` shard and
+the same path trains: the tokens and combine weights enter the experts
+through ``copy_to`` and the combine leaves through ``reduce_from``
+(``dist.context``), the router stays every rank's whole, and the shared
+expert runs on ``d_ff`` shards (``mlp_apply``).  Inside the
 data-parallel train step (``dist.context.global_batch``) both dispatches
 route the global batch from each rank's shard of it: the capacity comes
 from the global token count, each rank's buffer slots follow the earlier
@@ -34,6 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.dist import context as dist_ctx
+from repro_torch.dist import tp
 from repro_torch.models.layers import dense_init, mlp_apply, mlp_init
 
 
@@ -57,22 +63,6 @@ def moe_init(gen, cfg: ModelConfig, *, dtype=torch.bfloat16):
         p["shared"] = mlp_init(gen, d, e.n_shared * dff, "swiglu",
                                dtype=dtype)
     return p
-
-
-class _SumOver(torch.autograd.Function):
-    """``x`` summed over the mesh axes ``axes``, differentiably: the
-    gradient of each rank's copy is the sum of the ranks' gradients of the
-    result, so that the data-parallel mean of the gradients is the
-    gradient of the global term."""
-
-    @staticmethod
-    def forward(ctx, x, axes):
-        ctx.axes = axes
-        return dist_ctx.all_reduce(x.clone(), axes)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return dist_ctx.all_reduce(grad.clone(), ctx.axes), None
 
 
 def _probs(x32, router_w, top_k):
@@ -109,7 +99,7 @@ def _route_global(x32, router_w, n_experts, top_k, axes):
     E, n = n_experts, x32.shape[0] * count
     table = probs.new_zeros(count, E)
     table[index] = torch.bincount(idx.reshape(-1), minlength=E).float()
-    sums = _SumOver.apply(torch.cat([
+    sums = dist_ctx.summed(torch.cat([
         probs.sum(0), (torch.logsumexp(logits, dim=-1) ** 2).sum()[None],
         torch.bincount(idx[:, 0], minlength=E).float(),
         table.reshape(-1)]), axes)
@@ -180,11 +170,15 @@ def _capacity(T, e):
 
 
 def _moe_local(p, x, cfg: ModelConfig, e_start=0, e_local=None,
-               reduce_axis=None):
-    """x: (T, d) tokens.  Returns (out (T, d) in x's dtype, aux).  With
-    ``e_local``, the experts ``e_start`` .. ``e_start + e_local - 1`` of
-    ``p``'s stacks only, their float32 combine summed over the mesh axis
-    ``reduce_axis``: one rank's share of expert parallelism."""
+               partial=False):
+    """x: (T, d) tokens.  Returns (out (T, d) float32, aux).  With
+    ``e_local``, the experts ``e_start`` .. ``e_start + e_local - 1`` only
+    (of ``p``'s stacks, or ``p``'s stacks where they hold just those: a
+    rank's ``experts`` shard); with ``partial`` the float32 combine is this
+    rank's share of expert parallelism over ``model``, its sum over the
+    ranks left to the caller: the tokens and combine weights enter the
+    experts through ``copy_to``, so that their gradients sum the ranks'
+    experts, while the routing is every rank's whole."""
     e = cfg.moe
     T, d = x.shape
     e_local = e_local or e.n_experts
@@ -192,18 +186,20 @@ def _moe_local(p, x, cfg: ModelConfig, e_start=0, e_local=None,
     capacity = _capacity(n, e)
     buf_token, slot_of = _dispatch_indices(idx, e.n_experts, e_start,
                                            e_local, capacity, offset)
+    if partial:
+        x, w = dist_ctx.copy_to(x, "model"), dist_ctx.copy_to(w, "model")
     xpad = torch.cat([x, x.new_zeros(1, d)])
     xb = xpad[buf_token.reshape(-1)].reshape(e_local, capacity, d)
-    yb = _expert_ffn(*(p[k][e_start:e_start + e_local]
-                       for k in ("gate", "up", "down")), xb)
+    stacks = (p[k] for k in ("gate", "up", "down"))
+    if p["gate"].shape[0] != e_local:
+        stacks = (s[e_start:e_start + e_local] for s in stacks)
+    yb = _expert_ffn(*stacks, xb)
     ypad = torch.cat([yb.reshape(e_local * capacity, d),
                       yb.new_zeros(1, d)])
     out = torch.zeros(T, d, dtype=torch.float32, device=x.device)
     for j in range(e.top_k):
         out = out + w[:, j:j + 1] * ypad[slot_of[:, j]].float()
-    if reduce_axis is not None:
-        dist_ctx.all_reduce(out, reduce_axis)
-    return out.to(x.dtype), aux
+    return out, aux
 
 
 def _moe_ep(p, x, cfg: ModelConfig, ep_size: int):
@@ -211,22 +207,31 @@ def _moe_ep(p, x, cfg: ModelConfig, ep_size: int):
     ``shard_map`` region as manual SPMD.  x: (B, S, d), this rank's shard of
     the batch over ``dp_axes()`` (the same on every rank of ``model``).
     Every rank routes its tokens to all experts and computes its own
-    ``n_experts / ep_size``; the float32 combine is summed over ``model``,
-    and the aux terms are averaged over the data axes.  Returns the rank's
-    output shard (B, S, d) and the aux dict."""
+    ``n_experts / ep_size`` (of ``p``'s whole stacks, or of its ``experts``
+    shard in the train step over ``model``); the float32 combine is summed
+    over ``model``, and the aux terms are averaged over the data axes.
+    Returns the rank's output (B, S, d), its slice of the sequence under
+    the sequence-sharded residual, and the aux dict."""
     B, S, d = x.shape
     dp = dist_ctx.dp_axes()
     e_local = cfg.moe.n_experts // ep_size
     e_start = dist_ctx.axis_rank("model") * e_local
     with dist_ctx.bound_axes("model", *dist_ctx.axis_names(dp)):
         out, aux = _moe_local(p, x.reshape(B * S, d), cfg, e_start, e_local,
-                              reduce_axis="model")
-        if dp:  # make the aux scalars the same on every data shard
+                              partial=True)
+        out = out.reshape(B, S, d)
+        # the float32 combine summed over 'model' (under the
+        # sequence-sharded residual, each rank keeping its slice)
+        out = dist_ctx.reduce_scatter_to(out, "model", 1) \
+            if dist_ctx.seq_sharded() else dist_ctx.reduce_from(out, "model")
+        # make the aux scalars the same on every data shard (a global
+        # batch's routing has made them so already)
+        if dp and dist_ctx.global_batch_axes() is None:
             terms = dist_ctx.all_reduce(
                 torch.stack([aux["load_balance"], aux["router_z"]]), dp,
                 op="mean")
             aux = {"load_balance": terms[0], "router_z": terms[1]}
-    return out.reshape(B, S, d), aux
+    return out.to(x.dtype), aux
 
 
 def _moe_einsum(p, xf, cfg: ModelConfig):
@@ -258,20 +263,36 @@ def moe_apply(p, x, cfg: ModelConfig, dispatch=None):
     router-z terms).  ``dispatch``: ``"gather"`` or ``"einsum"``, both the
     same function (capacity drops included); None reads
     ``PerfFlags.moe_dispatch``."""
-    B, S, d = x.shape
     dispatch = dispatch or dist_ctx.perf_flags().moe_dispatch
-    ep = dist_ctx.mesh_axis_size("model")
-    if dispatch == "gather" and dist_ctx.get_mesh() is not None and ep > 1 \
-            and cfg.moe.n_experts % ep == 0:
-        out, aux = _moe_ep(p, x, cfg, ep)
-    elif dispatch == "gather":
-        out, aux = _moe_local(p, x.reshape(B * S, d), cfg)
-    elif dispatch == "einsum":
-        out, aux = _moe_einsum(p, x.reshape(B * S, d), cfg)
-    else:
+    if dispatch not in ("gather", "einsum"):
         raise ValueError(f"dispatch must be 'gather' or 'einsum', got "
                          f"{dispatch!r}")
-    out = out.reshape(B, S, d)
+    ep = dist_ctx.mesh_axis_size("model")
+    # the experts' shard (the train step over 'model'), or whole stacks on
+    # a mesh whose 'model' axis divides them (the inference EP path)
+    shard = tp.shard_dim(p["gate"]) == 0
+    # the sequence-sharded residual's tokens gathered; the experts and the
+    # routing see every token of this rank's batch
+    xs = tp.enter(x, False)
+    B, S, d = xs.shape
+    if dispatch == "gather" and (shard or (
+            dist_ctx.get_mesh() is not None and ep > 1
+            and cfg.moe.n_experts % ep == 0)):
+        out, aux = _moe_ep(p, xs, cfg, ep)
+    else:
+        if dispatch == "gather":
+            out, aux = _moe_local(p, xs.reshape(B * S, d), cfg)
+            out = out.to(xs.dtype)
+        else:
+            # the one-hot ablation is single-shard, as in the reference: a
+            # rank's expert shard is gathered, and every rank computes the
+            # whole MoE (the gradient of its shard is its slice)
+            q = dict(p)
+            if shard:
+                q.update({k: dist_ctx.gather_from(p[k], "model", 0)
+                          for k in ("gate", "up", "down")})
+            out, aux = _moe_einsum(q, xs.reshape(B * S, d), cfg)
+        out = tp.leave(out.reshape(B, S, d), False)
     if "shared" in p:
         out = out + mlp_apply(p["shared"], x, "swiglu")
     return out, aux

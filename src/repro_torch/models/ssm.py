@@ -19,6 +19,14 @@ the reference: projections and the causal conv in bf16, dt, B and C in
 float32, x widened to float32 for the scan, the final state float32 and the
 conv tail bf16.
 
+In the train step over a ``model`` axis (``dist.tp``) a mixer computes
+this rank's ``d_inner`` channels (Mamba2: its heads): the scan kernel runs
+on ``d_inner / model`` channels, Mamba1's row-parallel ``x_proj`` is
+summed over the ranks before the scan, and the fused projections whose
+contiguous shard is not this rank's channels (``in_proj``; Mamba2's
+``conv_w`` and ``conv_b`` too) are gathered at use
+(``_mamba1_rank_channels``, ``_mamba2_rank_heads``).
+
 Mamba2 runs the chunked SSD in plain torch, as the reference runs it in
 plain ``jnp`` (no Pallas kernel): a loop over chunks of c = min(chunk, S)
 steps carries the (B, H, P, N) float32 state; inside a chunk the decay
@@ -36,6 +44,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.config import ModelConfig
+from repro_torch.dist import context as dist_ctx
+from repro_torch.dist import tp
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, norm_init, rmsnorm
 
@@ -121,14 +131,18 @@ def conv1d_step(x_t, conv_state, w, b):
 # mamba1 selective scan
 
 
-def _ssm_coeffs1(p, xz, cfg: ModelConfig):
+def _ssm_coeffs1(p, xz, cfg: ModelConfig, split=False):
     s = cfg.ssm
-    d_in = s.expand * cfg.d_model
+    d_in = xz.shape[-1] // 2
     N = s.d_state
     dt_rank = p["dt_proj"].shape[0]
     x, z = xz[..., :d_in], xz[..., d_in:]
     x = F.silu(causal_conv1d(x, p["conv_w"], p["conv_b"]))
     proj = x @ p["x_proj"]
+    if split:
+        # x_proj is row-parallel inside the block: dt, B and C are summed
+        # over the ranks' channels, then each rank uses them for its own
+        proj = dist_ctx.summed(proj, "model")
     # the bf16 product plus the float32 bias is float32, as in the reference
     dt = F.softplus((proj[..., :dt_rank] @ p["dt_proj"]).float()
                     + p["dt_bias"])                             # (B, S, d_in)
@@ -185,14 +199,18 @@ def mamba1_forward(p, x_seq, cfg: ModelConfig, impl="scan", state=None):
     as in the reference, only its ``ssm`` part is read.
     """
     s = cfg.ssm
+    split = tp.shard_dim(p["out_proj"]) == 0
+    x_seq = tp.enter(x_seq, split)
+    if split:
+        p = _mamba1_rank_channels(p)
     B, S, _ = x_seq.shape
-    d_in = s.expand * cfg.d_model
+    d_in = p["in_proj"].shape[1] // 2     # this rank's channels
     N = s.d_state
     xz = x_seq @ p["in_proj"]
     # conv tail = last (k-1) pre-conv inputs, for decode continuation; a
     # copy, since a view would hold the whole xz for as long as the state
     conv_tail = xz[:, -(s.d_conv - 1):, :d_in].transpose(1, 2).contiguous()
-    x, z, dt, Bm, Cm, A = _ssm_coeffs1(p, xz, cfg)
+    x, z, dt, Bm, Cm, A = _ssm_coeffs1(p, xz, cfg, split)
     xf = x.float()
     h0 = None if state is None else state["ssm"]
 
@@ -214,7 +232,29 @@ def mamba1_forward(p, x_seq, cfg: ModelConfig, impl="scan", state=None):
             raise ValueError(f"unknown mamba1 impl {impl!r}")
         y = y + p["D"][None, None] * xf
     y = (y * F.silu(z.float())).to(x_seq.dtype)
-    return y @ p["out_proj"], {"ssm": hT, "conv": conv_tail.to(torch.bfloat16)}
+    return tp.tp_project(y, p["out_proj"]), \
+        {"ssm": hT, "conv": conv_tail.to(torch.bfloat16)}
+
+
+def _mamba1_rank_channels(p):
+    """Mamba1's leaves for this rank's ``d_inner`` channels, in the train
+    step over ``model``.  Every leaf but one is split per channel and
+    computes on its shard: ``conv_w``, ``conv_b``, ``x_proj`` (rows),
+    ``dt_proj`` (columns), ``dt_bias``, ``A_log``, ``D``, ``out_proj``.
+    ``in_proj`` fuses x and z side by side, so that its contiguous shard is
+    x for rank 0, not half of each: it is gathered at use and this rank's
+    x and z columns taken."""
+    w = tp.whole(p["in_proj"], 1)
+    d_in = w.shape[1] // 2
+    n, r = dist_ctx.model_size(), dist_ctx.model_rank()
+    k = d_in // n
+    out = {name: tp.part(p[name], dim) for name, dim in (
+        ("conv_w", 0), ("conv_b", 0), ("x_proj", 0), ("dt_proj", 1),
+        ("dt_bias", 0), ("A_log", 0), ("D", 0))}
+    out["in_proj"] = torch.cat([w[:, r * k:(r + 1) * k],
+                                w[:, d_in + r * k:d_in + (r + 1) * k]], 1)
+    out["out_proj"] = p["out_proj"]
+    return out
 
 
 def mamba1_decode(p, x_t, state, cfg: ModelConfig):
@@ -292,9 +332,13 @@ def mamba2_forward(p, x_seq, cfg: ModelConfig, state=None):
     the reference asserts.  state (a carried state): as in the reference,
     only its ``ssm`` part is read."""
     s = cfg.ssm
+    split = tp.shard_dim(p["out_proj"]) == 0
+    x_seq = tp.enter(x_seq, split)
+    if split:
+        p = _mamba2_rank_heads(p, cfg)
     B, S, _ = x_seq.shape
-    d_in = s.expand * cfg.d_model
-    H, P, N = s.n_heads, s.head_dim, s.d_state
+    H, P, N = p["A_log"].shape[0], s.head_dim, s.d_state   # this rank's
+    d_in = H * P
     c = min(s.chunk, S)
     assert S % c == 0, (S, c)
 
@@ -314,10 +358,55 @@ def mamba2_forward(p, x_seq, cfg: ModelConfig, state=None):
         if state is None else state["ssm"]
     y, hT = _ssd_chunks(dt * A, xf, Bm, Cm, dt, h0, c)
     y = (y + p["D"][None, None, :, None] * xf).reshape(B, S, d_in)
-    y = rmsnorm(y.to(x_seq.dtype), p["norm"])
+    if split:
+        y = _split_rmsnorm(y.to(x_seq.dtype), p["norm"],
+                           s.expand * cfg.d_model)
+    else:
+        y = rmsnorm(y.to(x_seq.dtype), p["norm"])
     y = y.float() * F.silu(z.float())
-    return y.to(x_seq.dtype) @ p["out_proj"], \
+    return tp.tp_project(y.to(x_seq.dtype), p["out_proj"]), \
         {"ssm": hT, "conv": conv_tail.to(torch.bfloat16)}
+
+
+def _split_rmsnorm(y, scale, width, eps=1e-6):
+    """``layers.rmsnorm`` of a row whose ``width`` channels are split over
+    ``model``: y holds this rank's, and the mean square is the ranks'
+    sums of squares summed."""
+    y32 = y.float()
+    var = dist_ctx.summed((y32 * y32).sum(-1, keepdim=True),
+                          "model") / width
+    return (y32 * torch.rsqrt(var + eps) * scale).to(y.dtype)
+
+
+def _mamba2_rank_heads(p, cfg: ModelConfig):
+    """Mamba2's leaves for this rank's heads, in the train step over
+    ``model``.  ``in_proj`` fuses z, x, B, C and dt, and ``conv_w`` /
+    ``conv_b`` run over x, B and C: their contiguous shards are not this
+    rank's channels, so they are gathered at use and this rank's z, x and
+    dt columns taken with every rank's B and C.  ``A_log``, ``dt_bias``,
+    ``D`` and the gate norm's ``norm`` are replicated: this rank's heads
+    (channels) are sliced.  ``out_proj`` is split per channel (rows) and
+    computes on its shard."""
+    s = cfg.ssm
+    d_in, N = s.expand * cfg.d_model, s.d_state
+    n, r = dist_ctx.model_size(), dist_ctx.model_rank()
+    k, h = d_in // n, s.n_heads // n
+    dev = p["out_proj"].device
+
+    def cols(*spans):
+        return torch.cat([torch.arange(a, b, device=dev) for a, b in spans])
+    mine = (r * k, (r + 1) * k)
+    in_cols = cols(mine, (d_in + mine[0], d_in + mine[1]),
+                   (2 * d_in, 2 * d_in + 2 * N),
+                   (2 * d_in + 2 * N + r * h, 2 * d_in + 2 * N + (r + 1) * h))
+    conv_cols = cols(mine, (d_in, d_in + 2 * N))
+    out = {"in_proj": tp.whole(p["in_proj"], 1).index_select(1, in_cols),
+           "conv_w": tp.whole(p["conv_w"], 0).index_select(0, conv_cols),
+           "conv_b": tp.whole(p["conv_b"], 0).index_select(0, conv_cols),
+           "norm": tp.part(p["norm"], 0), "out_proj": p["out_proj"]}
+    out.update({name: tp.part(p[name], 0)
+                for name in ("A_log", "dt_bias", "D")})
+    return out
 
 
 def mamba2_decode(p, x_t, state, cfg: ModelConfig):

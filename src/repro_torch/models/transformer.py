@@ -50,9 +50,19 @@ select the reference's ablations: ``windowed_attention`` gives a
 local:global arch's local layers a static window in prefill, training and
 decode; ``ssm_impl`` picks Mamba1's scan; ``moe_dispatch`` the MoE's
 dispatch; ``attn_remat_chunk`` acts in ``attention.chunked_attention``.
+
+In the train step over a ``model`` axis (``train.step``) the same
+functions compute on this rank's shards of the leaves the rules split
+(``dist.tp``): the embedding and the logits are vocab-parallel
+(``_token_rows``, ``_logits``, and ``loss_fn``'s log-sum-exp over the
+shards), and under ``PerfFlags.seq_sharded_residual`` the blocks'
+residual stream is this rank's slice of the sequence (``_seq_sharded``).
+An activation checkpoint's recompute runs under the forward's
+distribution context (``_run``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional
 
 import torch
@@ -62,6 +72,7 @@ from repro_torch.core import tree
 from repro_torch.core.config import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.dist import context as dist_ctx
+from repro_torch.dist import tp
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -222,9 +233,13 @@ def _recorded(p, x) -> bool:
 
 def _run(remat, fn, *args):
     """``fn(*args)``, checkpointed when ``remat``: its activations are
-    recomputed in the backward rather than kept."""
+    recomputed in the backward rather than kept, under the distribution
+    context of the forward (``dist.context.snapshot``: bound axes, global
+    batch, sequence sharding), which the backward may run outside of."""
     if remat:
-        return checkpoint(fn, *args, use_reentrant=False)
+        state = dist_ctx.snapshot()
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=lambda: (
+            contextlib.nullcontext(), dist_ctx.restored(state)))
     return fn(*args)
 
 
@@ -252,28 +267,48 @@ class _Gather(torch.autograd.Function):
     is rounded hundreds of times: with a zipfian batch of 1,024 tokens on
     an H100 its bf16 gradient moved by 3.7% relative L2 between the whole
     batch and two halves of it summed.  ``F.embedding``'s CPU backward
-    rounds in the same way, so the tests on the CPU need this one."""
+    rounds in the same way, so the tests on the CPU need this one.  With
+    ``valid`` (a bool mask of the tokens' shape) the rows of the tokens
+    outside it are zeros and take no gradient."""
 
     @staticmethod
-    def forward(ctx, embed, tokens):
-        ctx.save_for_backward(tokens)
+    def forward(ctx, embed, tokens, valid=None):
+        ctx.save_for_backward(tokens, valid)
         ctx.table = (embed.shape, embed.dtype)
-        return embed[tokens]
+        rows = embed[tokens]
+        if valid is not None:
+            rows = torch.where(valid[..., None], rows, 0)
+        return rows
 
     @staticmethod
     def backward(ctx, grad):
-        (tokens,), (shape, dtype) = ctx.saved_tensors, ctx.table
+        (tokens, valid), (shape, dtype) = ctx.saved_tensors, ctx.table
+        g = grad.reshape(-1, shape[1]).float()
+        if valid is not None:
+            g = torch.where(valid.reshape(-1, 1), g, 0)
         out = torch.zeros(shape, dtype=torch.float32, device=grad.device)
-        out.index_put_((tokens.reshape(-1),),
-                       grad.reshape(-1, shape[1]).float(), accumulate=True)
-        return out.to(dtype), None
+        out.index_put_((tokens.reshape(-1),), g, accumulate=True)
+        return out.to(dtype), None, None
+
+
+def _token_rows(embed, tokens):
+    """``embed[tokens]``.  Where ``embed`` is this rank's shard of the
+    vocab (the train step over ``model``), the rows of the tokens in its
+    range, the others masked to zero rows, summed over ``model``."""
+    if tp.shard_dim(embed) != 0:
+        return _Gather.apply(embed, tokens)
+    V = embed.shape[0]
+    local = tokens - dist_ctx.model_rank() * V
+    valid = (local >= 0) & (local < V)
+    rows = _Gather.apply(embed, local.clamp(0, V - 1), valid)
+    return dist_ctx.reduce_from(rows, "model")
 
 
 def _embed_tokens(cfg: ModelConfig, p, tokens, offset=0):
     """Token embeddings (B, S, d) in bf16; the encdec family adds the
     learned positions from ``offset`` on (the start clamped into the table,
     as the reference's ``dynamic_slice`` clamps it)."""
-    x = _Gather.apply(p["embed"], tokens)
+    x = _token_rows(p["embed"], tokens)
     if cfg.family == "encdec":
         S = tokens.shape[1]
         start = min(max(offset, 0), p["pos"].shape[0] - S)
@@ -285,11 +320,22 @@ def _embed_tokens(cfg: ModelConfig, p, tokens, offset=0):
     return x.to(torch.bfloat16)
 
 
-def _logits(cfg: ModelConfig, p, x):
-    x = apply_norm(cfg.norm, x, p["final_norm"])
+def _head(cfg: ModelConfig, p):
+    """(the output projection, whether it is this rank's vocab shard)."""
     if cfg.tie_embeddings:
-        return x @ p["embed"].T
-    return x @ p["lm_head"]
+        return p["embed"].T, tp.shard_dim(p["embed"]) == 0
+    return p["lm_head"], tp.shard_dim(p["lm_head"]) == 1
+
+
+def _logits(cfg: ModelConfig, p, x):
+    """The logits; this rank's vocab shard of them where the head is split
+    (the train step over ``model``: column-parallel, ``loss_fn``'s
+    vocab-parallel log-sum-exp takes them)."""
+    x = apply_norm(cfg.norm, x, p["final_norm"])
+    w, split = _head(cfg, p)
+    if split:
+        x = dist_ctx.copy_to(x)
+    return x @ w
 
 
 def _encoder_forward(cfg: ModelConfig, p, frames):
@@ -343,8 +389,7 @@ def _mamba_blocks(cfg: ModelConfig, layers, x, states, remat=False):
         if cfg.ssm.version == 1 else {}
 
     def block(x, pl):
-        h, st = forward(pl["ssm"], apply_norm(cfg.norm, x, pl["norm1"]), cfg,
-                        **kw)
+        h, st = forward(pl["ssm"], _norm(cfg, x, pl["norm1"]), cfg, **kw)
         return x + h, st
     for pl in layers:
         x, st = _run(remat, block, x, pl)
@@ -355,11 +400,20 @@ def _mamba_blocks(cfg: ModelConfig, layers, x, states, remat=False):
 def _shared_block(cfg: ModelConfig, shared, x, attend):
     """The hybrid family's shared block: attention (``attend(p, h)`` ->
     (out, state)), then the MLP; returns (x, the attention's state)."""
-    h, st = attend(shared["attn"], apply_norm(cfg.norm, x, shared["norm1"]))
+    h, st = attend(shared["attn"], _norm(cfg, x, shared["norm1"]))
     x = x + h
-    x = x + mlp_apply(shared["mlp"], apply_norm(cfg.norm, x, shared["norm2"]),
+    x = x + mlp_apply(shared["mlp"], _norm(cfg, x, shared["norm2"]),
                       cfg.activation)
     return x, st
+
+
+def _norm(cfg: ModelConfig, x, scale):
+    """A block's norm of the residual stream; under the sequence-sharded
+    residual each rank normalizes its slice of the sequence, so that the
+    scale's gradient is summed over ``model`` (``copy_to``)."""
+    if dist_ctx.seq_sharded():
+        scale = dist_ctx.copy_to(scale)
+    return apply_norm(cfg.norm, x, scale)
 
 
 def _backbone(cfg: ModelConfig, p, x, positions, xa=None):
@@ -375,7 +429,9 @@ def _backbone(cfg: ModelConfig, p, x, positions, xa=None):
     remat = _recorded(p, x)
     if cfg.family == "ssm":
         states = []
-        x = _mamba_blocks(cfg, p["layers"], x, states, remat)
+        with _seq_sharded(x):
+            x = tp.seq_whole(_mamba_blocks(cfg, p["layers"],
+                                           tp.seq_shards(x), states, remat))
         return x, (zero, zero), states
     cos, sin = _rope_for(cfg, positions)
     if cfg.family == "hybrid":
@@ -397,7 +453,7 @@ def _backbone(cfg: ModelConfig, p, x, positions, xa=None):
               and xa is None and cfg.window > 0)
 
     def block(x, pl, window):
-        h_in = apply_norm(cfg.norm, x, pl["norm1"])
+        h_in = _norm(cfg, x, pl["norm1"])
         if cfg.mla is not None:
             h, kv = attn.mla_forward(pl["attn"], h_in, cos, sin, cfg=cfg)
         else:
@@ -407,22 +463,36 @@ def _backbone(cfg: ModelConfig, p, x, positions, xa=None):
         x = x + h
         if xa is not None:
             h, xkv = attn.gqa_forward(pl["xattn"],
-                                      apply_norm(cfg.norm, x, pl["norm_x"]),
+                                      _norm(cfg, x, pl["norm_x"]),
                                       None, None, cfg=cfg, causal=False,
                                       xa=xa)
             x = x + h
             kv = kv + xkv
-        h, aux = _ffn(cfg, pl, apply_norm(cfg.norm, x, pl["norm2"]))
+        h, aux = _ffn(cfg, pl, _norm(cfg, x, pl["norm2"]))
         return x + h, kv, aux
 
     kvs, lb, rz = [], zero, zero
-    for pl, window in zip(p["layers"], _window_schedule(cfg)):
-        x, kv, aux = _run(remat, block, x, pl, window)
-        if aux is not None:
-            lb, rz = lb + aux["load_balance"], rz + aux["router_z"]
-        kvs.append(kv)
+    with _seq_sharded(x):
+        x = tp.seq_shards(x)
+        for pl, window in zip(p["layers"], _window_schedule(cfg)):
+            x, kv, aux = _run(remat, block, x, pl, window)
+            if aux is not None:
+                lb, rz = lb + aux["load_balance"], rz + aux["router_z"]
+            kvs.append(kv)
+        x = tp.seq_whole(x)
     L = cfg.n_layers
     return x, (lb / L, rz / L), kvs
+
+
+def _seq_sharded(x):
+    """The blocks' region of the sequence-sharded residual
+    (``PerfFlags.seq_sharded_residual``, where the reference constrains the
+    residual to ``("batch", "seq_model", None)`` at each block): on in the
+    train step over a ``model`` axis where the active rules shard
+    ``seq_model`` over it and the sequence of ``x`` divides
+    (``tp.seq_shards`` / ``tp.seq_whole`` then cut and gather it); off a
+    region that changes nothing."""
+    return dist_ctx.seq_sharded_region(tp.seq_shardable(x.shape[1]))
 
 
 # ---------------------------------------------------------------------------
@@ -450,9 +520,12 @@ def loss_fn(cfg: ModelConfig, params, batch):
     their coefficients, all in float32, as the reference's."""
     logits, aux = train_forward(cfg, params, batch)
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    label_logit = logits.gather(
-        -1, batch["labels"].long()[..., None])[..., 0]
+    labels = batch["labels"].long()
+    if _head(cfg, params)[1]:
+        logz, label_logit = _vocab_parallel_terms(logits, labels)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        label_logit = logits.gather(-1, labels[..., None])[..., 0]
     nll = (logz - label_logit).mean()
     zloss = 1e-4 * (logz ** 2).mean()
     moe_loss = torch.zeros((), dtype=torch.float32, device=logits.device)
@@ -462,6 +535,23 @@ def loss_fn(cfg: ModelConfig, params, batch):
     loss = nll + zloss + moe_loss
     return loss, {"loss": loss, "nll": nll, "zloss": zloss,
                   "moe_loss": moe_loss}
+
+
+def _vocab_parallel_terms(logits, labels):
+    """(logsumexp, the label's logit) over the whole vocab from this rank's
+    shard of the logits (B, S, V / model), float32: the global max by an
+    all-reduce (max; no gradient), the sum of exponentials and the label's
+    logit, from the shard that owns it, by ``reduce_from``."""
+    V = logits.shape[-1]
+    mx = logits.detach().amax(-1)
+    dist_ctx.all_reduce(mx, "model", op="max")
+    total = dist_ctx.reduce_from(torch.exp(logits - mx[..., None]).sum(-1),
+                                 "model")
+    local = labels - dist_ctx.model_rank() * V
+    valid = (local >= 0) & (local < V)
+    picked = logits.gather(-1, local.clamp(0, V - 1)[..., None])[..., 0]
+    return torch.log(total) + mx, dist_ctx.reduce_from(
+        torch.where(valid, picked, 0.0), "model")
 
 
 # ---------------------------------------------------------------------------

@@ -32,12 +32,24 @@ def cosine_schedule(base_lr: float, warmup: int, total: int):
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, sharded=None):
     """Scales every gradient of ``grads`` IN PLACE by min(1, max_norm /
     norm), norm the float32 L2 norm of all of them; returns (grads, norm),
-    the norm a 0-d float32 tensor."""
+    the norm a 0-d float32 tensor.  ``sharded`` (the train step over a
+    ``model`` axis): a bool a leaf, whether it is this rank's shard of a
+    leaf split over ``model``; those leaves' squares are summed over the
+    axis, and a replicated leaf counts once."""
     leaves = tree.leaves(grads)
-    gn = torch.stack([g.float().square().sum() for g in leaves]).sum().sqrt()
+    sq = [g.float().square().sum() for g in leaves]
+    if sharded is None:
+        gn = torch.stack(sq).sum().sqrt()
+    else:
+        from repro_torch.dist import context as dist_ctx
+        zero = torch.zeros((), dtype=torch.float32, device=sq[0].device)
+        split = torch.stack([zero, *(q for q, s in zip(sq, sharded) if s)])
+        split = dist_ctx.all_reduce(split.sum(), "model")
+        gn = (torch.stack([zero, *(q for q, s in zip(sq, sharded) if not s)])
+              .sum() + split).sqrt()
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     for g in leaves:
         g.mul_(scale.to(g.device))
@@ -45,9 +57,10 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 def _zeros32(params):
+    """float32 zeros like each leaf (a ``DTensor`` leaf's with its
+    placements: each rank holds its shard of the moments)."""
     return tree.map_tree(
-        lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-        params)
+        lambda p: torch.zeros_like(p, dtype=torch.float32), params)
 
 
 def _count(params):

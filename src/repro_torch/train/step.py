@@ -7,20 +7,33 @@ records them (``models.transformer``), as the reference remats its scan
 bodies.  On the card attention runs the flash kernel forward and its plain
 gradient backward (``kernels.ops``).
 
-On a mesh (``dist.context.set_mesh``) whose ``model`` axis is 1, so that
-the rules replicate every parameter, the step is data-parallel: each rank
-takes its shard of the global batch by the active rules' ``batch`` entry
-(``dist.sharding``; ``dp_axes()`` without rules), and the gradients and
-metrics are averaged over ``dp_axes()`` before clipping.  The model runs
-under ``dist.context.global_batch``, so that what it computes over the
-batch as a whole (the MoE's expert capacity, slot order and aux terms)
-is the global batch's.  The step so computes what the reference's jit
-computes on the global batch under those rules: one device's step on the
-whole batch.  A ``model`` axis larger than 1 is ROADMAP Queue 1 item 10b
-(the step over sharded parameters) and raises.
+On a mesh (``dist.context.set_mesh``) the step computes what the
+reference's jit computes on the global batch under the rules' shardings:
+one device's step on the whole batch.  Each rank takes its shard of the
+global batch by the active rules' ``batch`` entry (``dist.sharding``;
+``dp_axes()`` without rules), and the gradients and metrics are averaged
+over ``dp_axes()`` before clipping.  The model runs under
+``dist.context.global_batch``, so that what it computes over the batch as
+a whole (the MoE's expert capacity, slot order and aux terms) is the
+global batch's.
+
+On a mesh whose ``model`` axis is larger than 1 the params and AdamW's
+``m``/``v`` are ``DTensor``s with the rules' placements
+(``Rules.tree_shardings(param_axes(cfg), params)``, placed by
+``dist.sharding.distribute``; ``ckpt.load_checkpoint`` restores them so):
+each rank holds only its shard of every leaf the rules split.  The step is
+manual SPMD on the local shards (``dist.sharding.local_shards``, each
+marked with its split dimension), in a region that binds ``model``: heads,
+``d_ff``, vocab, experts and ``d_inner`` compute on their shards, and every
+collective is written out (``dist.tp``, ``dist.context.copy_to`` and its
+pairs; the vocab-parallel embedding and loss in ``models.transformer``).
+The clip sums a split leaf's squares over ``model``; AdamW is elementwise
+on the shards, which are updated in place.  With ``model`` 1 the params
+are plain tensors and the step is the data-parallel one.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import torch
@@ -28,6 +41,7 @@ import torch
 from repro_torch.core import tree
 from repro_torch.core.config import ModelConfig
 from repro_torch.dist import context as dist_ctx
+from repro_torch.dist import sharding, tp
 from repro_torch.dist.sharding import active_rules
 from repro_torch.models import transformer as T
 from repro_torch.optim import (adamw_init, adamw_update, clip_by_global_norm,
@@ -93,38 +107,49 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
         return metrics, grads
 
     def train_step(params, opt_state, batch, step):
-        dp = _data_parallel()
+        mesh = dist_ctx.get_mesh()
+        dp = dist_ctx.dp_axes() if mesh is not None else None
         entry = None
         if dp is not None:
             entry = _batch_entry()
             batch = _batch_shard(batch, entry, tc.n_microbatches)
-        with dist_ctx.global_batch(entry):
-            metrics, grads = accumulate(params, batch)
+        local, opt, sharded = params, opt_state, None
+        region = contextlib.nullcontext()
+        if mesh is not None and dist_ctx.model_size() > 1:
+            local, opt = _local_state(params, opt_state)
+            sharded = [tp.marked_dim(p) is not None
+                       for p in tree.leaves(local)]
+            region = dist_ctx.bound_axes("model")
+        with dist_ctx.global_batch(entry), region:
+            metrics, grads = accumulate(local, batch)
+        if sharded is not None:
+            for p in tree.leaves(local):   # the DTensors' own storage
+                p.requires_grad_(False)
         if dp is not None:
             means = _mean_over([*grads, *metrics.values()], dp)
             grads, metrics = means[:len(grads)], dict(
                 zip(metrics, means[len(grads):]))
-        grads, gnorm = clip_by_global_norm(list(grads), tc.grad_clip)
+        clip = {} if sharded is None else {"sharded": sharded}
+        grads, gnorm = clip_by_global_norm(list(grads), tc.grad_clip, **clip)
         lr = lr_fn(step)
-        adamw_update(grads, opt_state, params, lr=lr,
-                     weight_decay=tc.weight_decay)
+        adamw_update(grads, opt, local, lr=lr, weight_decay=tc.weight_decay)
         return params, opt_state, dict(metrics, grad_norm=gnorm, lr=lr)
 
     return train_step
 
 
-def _data_parallel():
-    """The data-parallel axes of the active mesh (None off a mesh, or on
-    one with no data axis larger than 1); raises on a ``model`` axis
-    larger than 1."""
-    if dist_ctx.get_mesh() is None:
-        return None
-    if dist_ctx.mesh_axis_size("model") > 1:
-        raise NotImplementedError(
-            "the train step over a 'model' axis larger than 1 (parameters "
-            "sharded by the rules, DTensor and local_map) is ROADMAP Queue 1 "
-            "item 10b")
-    return dist_ctx.dp_axes()
+def _local_state(params, opt_state):
+    """The local shards of ``params`` and of AdamW's moments, on a mesh
+    whose ``model`` axis is larger than 1, where they must be the rules'
+    ``DTensor``s."""
+    if not all(sharding.is_dtensor(p) for p in tree.leaves(params)):
+        raise ValueError(
+            "on a 'model' axis larger than 1 the train step takes the params "
+            "and moments as DTensors with the rules' placements "
+            "(dist.sharding.distribute)")
+    return sharding.local_shards(params), dict(
+        opt_state, m=sharding.local_shards(opt_state["m"]),
+        v=sharding.local_shards(opt_state["v"]))
 
 
 def _batch_entry():

@@ -1,7 +1,9 @@
 """Shared by ``tests/test_torch_train_grads*.py``: the port's ``loss_fn``
 and the gradient of every param leaf held against ``jax.value_and_grad`` of
 ``repro.models.transformer.loss_fn``, on the CPU, for one arch's SMOKE
-config.
+config; and by ``tests/test_torch_tp_step*.py``: the train step over a
+``model`` axis, each rank's metrics and gradient shards, held against the
+same (``check_tp_against_reference``).
 
 Inputs are ``tests/test_arch_smoke.py``'s batch, made with numpy; the
 reference's params go through ``repro_torch.convert``.
@@ -150,3 +152,78 @@ def check_loss_and_grads(arch, dtype, monkeypatch):
         err = np.linalg.norm(got - expect) / max(np.linalg.norm(expect),
                                                  1e-30)
         assert err <= GRAD_TOL[dtype], (key, err)
+
+
+def params_to_jax(tparams):
+    """The reference's params as float32 arrays from the port's: the
+    inverse of ``convert.params_from_jax`` (the blocks stacked again)."""
+    def arr(t):
+        return jnp.asarray(t.detach().float().numpy())
+
+    def plain(d):
+        return {k: plain(v) if isinstance(v, dict) else arr(v)
+                for k, v in d.items()}
+
+    def stack(blocks):
+        return {k: stack([b[k] for b in blocks])
+                if isinstance(blocks[0][k], dict)
+                else jnp.stack([arr(b[k]) for b in blocks])
+                for k in blocks[0]}
+    out = plain({k: v for k, v in tparams.items()
+                 if k not in ("layers", "encoder")})
+    out["layers"] = stack(tparams["layers"])
+    if "encoder" in tparams:
+        enc = tparams["encoder"]
+        out["encoder"] = {"layers": stack(enc["layers"]), **plain(
+            {k: v for k, v in enc.items() if k != "layers"})}
+    return out
+
+
+def check_tp_against_reference(arch, ranks, tparams, batch, monkeypatch):
+    """The float32 train step over a ``model`` axis (``ranks``:
+    ``_torch_dist.rank_tp_step``'s results, each rank's local gradients
+    and the split dimension of each leaf) against ``jax.value_and_grad``
+    of the reference's ``loss_fn`` on the same params (the port's
+    ``tparams`` in float32, ``params_to_jax``) and ``batch`` (numpy):
+    ``loss``, ``nll``, ``zloss`` and ``moe_loss`` within ``LOSS_TOL``, and
+    every rank's gradient shard against the slice of the reference's
+    gradient at ``GRAD_TOL`` (relative L2), in float32 with the
+    embedding's bf16 cast lifted in both, as ``check_loss_and_grads``.
+    Returns the largest gradient error."""
+    jcfg = jconfigs.get_smoke_config(arch)
+    monkeypatch.setattr(JT, "_embed_tokens", _jax_embed_f32)
+    jloss, jmetrics, jgrads = _reference_grads(
+        jcfg, params_to_jax(tparams), batch)
+    flat = {}
+
+    def walk(d, prefix=""):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/")
+            else:
+                flat[prefix + k] = v
+    walk(jgrads)
+    worst = 0.0
+    for r in ranks:
+        got = r[torch.float32]
+        np.testing.assert_allclose(got["metrics"]["loss"], jloss,
+                                   rtol=LOSS_TOL["float32"])
+        for key in ("nll", "zloss", "moe_loss"):
+            np.testing.assert_allclose(got["metrics"][key], jmetrics[key],
+                                       rtol=LOSS_TOL["float32"], atol=1e-7,
+                                       err_msg=key)
+        keys = list(tree.flatten(tparams))
+        assert len(keys) == len(got["grads"])
+        for key, g in zip(keys, got["grads"]):
+            expect = _reference_leaf(flat, key)
+            d = got["dims"][key]
+            if d is not None:
+                n, i = g.shape[d], got["model_index"]
+                expect = np.take(expect, range(i * n, (i + 1) * n), axis=d)
+            assert g.shape == expect.shape, key
+            got_g = g.float().numpy()
+            err = np.linalg.norm(got_g - expect) / max(
+                np.linalg.norm(expect), 1e-30)
+            assert err <= GRAD_TOL["float32"], (key, err)
+            worst = max(worst, err)
+    return worst

@@ -1326,3 +1326,25 @@ def test_multi_pod_raises_on_one_card(nccl_mesh):
     from repro_torch.launch import train as tlaunch
     with pytest.raises(RuntimeError, match="need 512 devices, have 1"):
         tlaunch.main(["--multi-pod"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["tinyllama_1_1b", "falcon_mamba_7b"])
+def test_tp_train_step_on_card_matches_one_process(cuda, arch, tmp_path):
+    """The train step over a (data 1, model 2) mesh of two gloo ranks on
+    the card, ``arch`` cut to 2 layers at full width, 2 x 512 tokens, bf16,
+    against one process's step on the card: the metrics at 2e-2, every
+    leaf's gradient, m and sqrt(v) shard at 3e-2 relative L2, each updated
+    param within one bf16 step of AdamW's step from the rank's own m and v
+    and within 2.5 lr plus one bf16 step of one process's
+    (``chip_smoke.py`` phase 49a at 4 layers).  The flash kernel (D 64, 16 query heads on 2 KV heads a
+    rank) or the scan (4096 of 8192 channels a rank) runs twice a layer."""
+    import _torch_dist
+    out = _torch_dist.spawn(_torch_dist.rank_tp_card, 2, tmp_path, arch, 2,
+                            2, 512, timeout=600)
+    ranks = [o[0] for o in out]
+    single = out[0][1][torch.bfloat16]
+    _torch_dist.assert_tp_matches(ranks, single, torch.bfloat16, 2, 2e-2,
+                                  3e-2)
+    expect = (0, 4) if arch == "falcon_mamba_7b" else (4, 0)
+    assert all(o[2] == expect for o in out), [o[2] for o in out]

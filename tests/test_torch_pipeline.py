@@ -25,7 +25,6 @@ from repro.models.layers import split_leaves
 from repro_torch import convert
 from repro_torch.configs import get_smoke_config
 from repro_torch.data import synthetic_batch
-from repro_torch.dist import context as dist_ctx
 from repro_torch.dist.pipeline import (partition_stages, pipeline_apply,
                                        stage_layer_slices)
 from repro_torch.launch.mesh import make_host_mesh
@@ -175,20 +174,3 @@ def test_data_parallel_step_matches_one_rank(tmp_path, arch, microbatches):
                 assert _rel_l2(g, e) <= grad_tol, dtype
         assert all(torch.equal(a, b) for a, b in
                    zip(ranks[0][dtype][1], ranks[1][dtype][1]))
-
-
-def test_train_step_refuses_a_model_axis():
-    class FakeMesh:
-        shape = {"data": 1, "model": 2}
-    cfg = get_smoke_config("tinyllama_1_1b")
-    from repro_torch.train import TrainConfig, init_train_state
-    from repro_torch.train import make_train_step
-    params, opt = init_train_state(cfg, 0, "cpu")
-    batch = {k: torch.from_numpy(v) for k, v in synthetic_batch(
-        cfg, 2, 8, np.random.default_rng(0)).items()}
-    dist_ctx.set_mesh(FakeMesh())
-    try:
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            make_train_step(cfg, TrainConfig())(params, opt, batch, 0)
-    finally:
-        dist_ctx.set_mesh(None)
