@@ -368,7 +368,33 @@ printing a result:
    4 steps through ``launch.train.train`` beside one process alone at the
    same batch: ms a step (steps 2-4, synced), peak GiB a rank, the losses
    (within ``BF16_TOL``), flash launches a rank (2 x 22 a step), and one
-   more step with every gloo collective timed: their share.
+   more step with every gloo collective timed: their share;
+50. on the same two ranks, the serving steps over ``model``
+   (``serve.step`` with mesh (data 1, model 2) and ``rules_for``'s rules
+   installed, the params the rules' DTensors, the cache placed by the
+   rules: gemma3_1b's one KV head split on ``head_dim``): gemma3_1b at full
+   width and depth, a prefill of 2 x 1024 and 32 decode steps,
+   teacher-forced on one process's greedy tokens: every step's bf16
+   logits against one process's float32 run, their largest error at most
+   1.5 times one process's bf16 run's (``SERVE_TP_RATIO``), the distance to
+   one process's bf16 logits logged, at least 95% of the greedy tokens
+   equal; the same steps in float32 within 1e-3 of one process's float32
+   run (``SERVE_TP_TOL``); a planted fault in each dtype (rank 1's half of
+   each new key and value erased) measured by the same checks and logged;
+   flash launched once a layer a rank (26, ``wgmma`` at D 256), prefill ms
+   and decode ms a step a rank beside one process alone;
+51. ``core.sampling.measure_sampled`` on the card: flash at gemma3_1b's
+   serving shape, the float32 matmul (``tf32x3``) at the ``model`` grid's
+   first shape and the scan at falcon_mamba_7b's serving shape, each in a
+   loop of 64 launches timed in full (CUDA events) and unsampled from 2
+   and from 1 launches, with each estimate's ``sampling_error``;
+52. the dry run on the card's host, with no launch
+   (``launch.dryrun.lower_cell`` on rank 0 of a fake process group, fake
+   tensors): tinyllama_1_1b's ``train_4k``, ``prefill_32k`` and
+   ``decode_32k`` on the 16 x 16 mesh and ``train_4k`` on 2 x 16 x 16, each
+   cell's trace s, rank 0's FLOPs, bytes, collective and temp bytes and its
+   roofline at the bf16 peak; then phase 43's one-device step analyzed and
+   priced beside phase 43's measured ms and phase 45's price.
 
 Kernel times are CUDA events around back-to-back calls queued behind a
 device-side wait (``torch.cuda._sleep``) that outlasts their enqueue, so
@@ -378,11 +404,13 @@ gemma3_1b serving, phi3_mini_3_8b serving, calibration, serve_batch
 (gemma3_1b), granite_moe_1b_a400m serving, deepseek_v2_lite_16b serving,
 zamba2_2_7b serving, whisper_small serving, internvl2_26b serving,
 tinyllama_1_1b training, gemma3_1b serving with the windowed flag, phase
-48's EP prefill and phase 49's TP steps (each rank's own count), and its times at head dims 16, 32, 64 (non-causal; and tinyllama_1_1b's training
+48's EP prefill, phase 49's TP steps and phase 50's serving steps (each
+rank's own count), phase 51's sampled loops, and its times at head dims
+16, 32, 64 (non-causal; and tinyllama_1_1b's training
 shape), 80, 96, 128 and 192;
 the scan's entry:
-its launches by path, calibration, falcon_mamba_7b serving and phase
-49a's TP step, and its
+its launches by path, calibration, falcon_mamba_7b serving, phase
+49a's TP step and phase 51's sampled loops, and its
 times at the serving shape); the last line is ``{"ok": true, "device":
 {...}}``.
 """
@@ -716,6 +744,36 @@ RANK_TIMEOUT_S = 600
 # TP_FULL, beside one process at the same batch
 TP_CUTS = ("tinyllama_1_1b", "falcon_mamba_7b")
 TP_FULL = dict(batch=2, seq=4096, steps=4)
+# phase 50: the serving steps over 'model' on the same two ranks: gemma3_1b
+# at full width and depth, a prefill of batch x prompt_len and steps decode
+# steps, teacher-forced on one process's greedy tokens
+SERVE_TP = dict(arch="gemma3_1b", batch=2, prompt_len=1024, steps=32)
+# the mesh's float32 logits within SERVE_TP_TOL of one process's float32
+# run's, every step, their largest error relative to the largest logit: on
+# the card 2.4e-6 to 2.7e-5 (the bf16 caches round the two runs apart),
+# and 1.0e-2 at the first step that reads the planted fault.  The bf16 runs
+# are not held to a bound of their own: two bf16 runs of the 26 layers each
+# sit about 2e-2 of the largest logit off the float32 one (and 2e-2 in
+# norm: gemma3_1b's 2 x 64 prompt on the CPU, 1.9-2.0e-2), 1.7-2.6e-2 off
+# each other on the card
+SERVE_TP_TOL = 1e-3
+# the mesh's bf16 logits held to one process's float32 run: their largest
+# error at most this many times one process's bf16 run's
+SERVE_TP_RATIO = 1.5
+# at least this share of the mesh's bf16 greedy tokens equal to one
+# process's
+SERVE_TP_GREEDY = 0.95
+# the planted fault: the mesh again for this many decode steps in each
+# dtype, rank 1's shard of each new key and value erased after the step
+# that wrote it, measured by the same checks (logged, not held)
+SERVE_TP_FAULT_STEPS = 4
+# phase 51: each kernel in a loop of SAMPLED_N launches, timed in full and
+# at 2 and 1 launches (core.sampling.measure_sampled)
+SAMPLED_N = 64
+# phase 52: the dry run on the card's host (fake process group, fake
+# tensors): tinyllama_1_1b's cells by mesh
+DRY_CELLS = {"pod16x16": ("train_4k", "prefill_32k", "decode_32k"),
+             "pod2x16x16": ("train_4k",)}
 
 
 def log(*args):
@@ -3062,14 +3120,16 @@ def _kernel_launches():
 
 
 @contextlib.contextmanager
-def _float32_embedding():
+def _float32_embedding(vocab_parallel=False):
     """``T._embed_tokens`` without its final bf16 cast, so that float32
     params train in float32 throughout (as ``tests/_torch_grads.py`` runs
-    them)."""
+    them).  ``vocab_parallel``: the rows gathered by ``T._token_rows``,
+    which also takes this rank's shard of the vocab."""
     embed = T._embed_tokens
 
     def embed_f32(cfg, p, tokens, offset=0):
-        x = p["embed"][tokens]
+        x = T._token_rows(p["embed"], tokens) if vocab_parallel \
+            else p["embed"][tokens]
         if cfg.family == "encdec":
             x = x + p["pos"][offset:offset + tokens.shape[1]]
         if cfg.name.startswith("gemma"):
@@ -3825,10 +3885,10 @@ def _captured_moe():
 
 
 def _rank_phases(rank, world, smi, single_ms):
-    """Phases 48 and 49 on one rank: (48a) the EP prefill, (48b) the
+    """Phases 48 to 50 on one rank: (48a) the EP prefill, (48b) the
     data-parallel step, (48c) the TP MLP; (49a) the train step over
-    ``model`` on the cuts, (49b) on tinyllama_1_1b at full width and depth.
-    Returns their numbers."""
+    ``model`` on the cuts, (49b) on tinyllama_1_1b at full width and depth;
+    (50) the serving steps over ``model``.  Returns their numbers."""
     out = {"rank": rank}
     out.update(_ep_prefill(rank, world, smi, single_ms))
     out.update(_dp_step(rank, world, smi))
@@ -3837,6 +3897,8 @@ def _rank_phases(rank, world, smi, single_ms):
     out.update(_tp_cuts(rank, world, smi))
     torch.cuda.empty_cache()
     out.update(_tp_full(rank, world, smi))
+    torch.cuda.empty_cache()
+    out.update(_serve_tp(rank, world, smi))
     return out
 
 
@@ -4302,6 +4364,350 @@ def _tp_full(rank, world, smi):
                         "loss_off": off}}
 
 
+def _whole_logits(lg, cfg):
+    """The whole logits of a serving step: off a mesh ``lg`` itself; on
+    the rules' shards the vocab shards of its ``DTensor`` gathered over
+    ``model`` (``dist.context``'s all-gather, which gloo stages through the
+    host for CUDA tensors)."""
+    if not sharding.is_dtensor(lg):
+        return lg
+    local = lg.to_local()
+    if local.shape[-1] == cfg.vocab:
+        return local
+    return dist_ctx.gather_from(local.contiguous(), "model", -1)
+
+
+def _serve_tp(rank, world, smi):
+    """Phase 50: the serving steps over ``model`` (``serve.step`` with a
+    mesh and rules installed): gemma3_1b at full width and depth (params
+    from seed 0 made on the card, the same on both ranks), ``SERVE_TP``'s
+    prefill and decode steps.  First one process alone on the card (rank
+    0; rank 1 waits): greedy decode, each step's last logits kept.  Then on
+    mesh (data 1, model world) with ``rules_for``'s rules at the decode
+    shape, the params the rules' DTensors (2 of the 4 query heads a rank;
+    the one KV head's cache split on ``head_dim``, 128 of 256 a rank; the
+    vocab split), teacher-forced on one process's tokens.  Every step's
+    logits (gathered) are held against one process's float32 run on the
+    same tokens (``_float32_embedding``; flash ``tf32x3``): their largest
+    error, relative to the largest logit, at most ``SERVE_TP_RATIO`` times
+    one process's bf16 run's, and at least ``SERVE_TP_GREEDY`` of the
+    greedy tokens equal to one process's; the distance between the two
+    bf16 runs is logged.  The mesh runs the same steps in float32 too:
+    every step's logits within ``SERVE_TP_TOL`` of one process's float32
+    run's.  Then a planted fault in each dtype, measured by the same checks
+    and logged: the mesh again for ``SERVE_TP_FAULT_STEPS`` steps, rank
+    1's half of each new key and value (the ``head_dim`` split) erased
+    after its step.  The flash launches a rank (counts set to 0 just before the prefill, read just
+    after the last step: one a layer, all ``wgmma`` at D 256); prefill ms
+    (its second call) and decode ms a step (steps 2 on, synced) beside one
+    process's."""
+    t0 = time.perf_counter()
+    cfg = get_config(SERVE_TP["arch"])
+    B, S, n = SERVE_TP["batch"], SERVE_TP["prompt_len"], SERVE_TP["steps"]
+    params = T.init_params(cfg, seed=0, device="cuda")
+    tokens = torch.as_tensor(np.random.default_rng(50).integers(
+        0, cfg.vocab, (B, S)), device="cuda")
+    pre, dec = make_prefill_step(cfg, S + n), make_decode_step(cfg)
+
+    def run(p, forced=None, steps=n, fault=None):
+        """(prefill ms, [decode ms], [last logits float32 on the host], [the
+        tokens fed], [each step's greedy tokens]); the prefill timed on its
+        second call, the flash counts set to 0 just before it; ``fault(cache,
+        i)`` after decode step i."""
+        pre(p, prefill_inputs(cfg, tokens))
+        fa.reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg, cache = pre(p, prefill_inputs(cfg, tokens))
+        torch.cuda.synchronize()
+        pre_ms = 1e3 * (time.perf_counter() - t)
+        whole = _whole_logits(lg, cfg)
+        logits, fed, outs, dec_ms = [whole[:, -1].float().cpu()], [], [], []
+        nxt = greedy(whole)
+        outs.append(nxt.cpu())
+        for i in range(steps):
+            inp = nxt if forced is None else forced[:, i:i + 1].cuda()
+            fed.append(inp.cpu())
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            nxt, cache, lg = dec(p, cache, inp, S + i)
+            torch.cuda.synchronize()
+            dec_ms.append(1e3 * (time.perf_counter() - t))
+            if fault is not None:
+                fault(cache, i)
+            whole = _whole_logits(lg, cfg)
+            logits.append(whole[:, -1].float().cpu())
+            outs.append(nxt.cpu())
+        return pre_ms, dec_ms, logits, fed, outs
+    one = [None]
+    single_logits = truth = None
+    if rank == 0:
+        with torch.no_grad():
+            pre_ms, dec_ms, single_logits, fed, outs = run(params)
+            fed = torch.cat(fed, 1)
+            p32 = tree.map_tree(lambda t: t.float(), params)
+            with _float32_embedding():
+                truth = run(p32, fed)[2]
+            del p32
+        one[0] = {"prefill_ms": pre_ms, "decode_ms": dec_ms, "fed": fed,
+                  "outs": outs}
+        torch.cuda.empty_cache()
+    dist.barrier()
+    dist.broadcast_object_list(one, src=0)
+    one = one[0]
+    mesh = make_host_mesh(1, world, device_type="cuda")
+    rules = rules_for(cfg, dataclasses.replace(
+        SHAPE_BY_NAME["decode_32k"], seq_len=S + n, global_batch=B), mesh)
+    dist_ctx.set_mesh(mesh)
+    sharding.set_active_rules(rules)
+    fed = one["fed"]
+
+    def erase(cache, i):
+        """The planted fault: rank 1's shard of step i's keys and values
+        erased, as if its write were lost."""
+        if rank == 1:
+            for key in ("k", "v"):
+                cache[key].to_local()[:, :, :, S + i].zero_()
+    try:
+        placed = rules.tree_shardings(T.param_axes(cfg), params)
+        dparams = sharding.distribute(params, placed, mesh)
+        d32 = sharding.distribute(tree.map_tree(lambda t: t.float(), params),
+                                  placed, mesh)
+        del params
+        torch.cuda.empty_cache()
+        pre_ms, dec_ms, logits, _, outs = run(dparams, fed)
+        launches = fa.flash_attention.launches
+        by_variant = dict(fa.flash_attention.launches_by_variant)
+        table = dict(rules.table)
+        _, _, f_logits, _, f_outs = run(dparams, fed, SERVE_TP_FAULT_STEPS,
+                                        erase)
+        del dparams
+        with _float32_embedding(vocab_parallel=True):
+            m32 = run(d32, fed)[2]
+            f32_fault = run(d32, fed, SERVE_TP_FAULT_STEPS, erase)[2]
+        del d32
+    finally:
+        dist_ctx.set_mesh(None)
+        sharding.set_active_rules(None)
+    torch.cuda.empty_cache()
+    # the mesh's greedy token of each step against one process's
+    def equal_share(got):
+        same = [float((a == b).float().mean())
+                for a, b in zip(got, one["outs"])]
+        return sum(same) / len(same)
+    equal, f_equal = equal_share(outs), equal_share(f_outs)
+    name = fa.variant(cfg.resolved_head_dim, torch.bfloat16)
+    res = {"serve_tp": {
+        "prefill_ms": pre_ms, "decode_ms": statistics.mean(dec_ms[1:]),
+        "alone_prefill_ms": one["prefill_ms"],
+        "alone_decode_ms": statistics.mean(one["decode_ms"][1:]),
+        "launches": launches, "by_variant": by_variant,
+        "greedy_equal": equal, "fault_greedy_equal": f_equal}}
+    errs = f32_errs = mesh_err = one_err = fault = None
+    if single_logits is not None:
+        def rel(a, b):
+            return float((a - b).abs().max() / b.abs().max())
+
+        def ratios(got):
+            return [rel(a, t) / rel(b, t)
+                    for a, b, t in zip(got, single_logits, truth)]
+        errs = [rel(a, b) for a, b in zip(logits, single_logits)]
+        f32_errs = [rel(a, t) for a, t in zip(m32, truth)]
+        mesh_err = [rel(a, t) for a, t in zip(logits, truth)]
+        one_err = [rel(b, t) for b, t in zip(single_logits, truth)]
+        fault = {"f32_err": [rel(a, t) for a, t in zip(f32_fault, truth)],
+                 "bf16_ratio": ratios(f_logits), "greedy_equal": f_equal}
+        fault["caught"] = (max(fault["f32_err"]) > SERVE_TP_TOL
+                           or max(fault["bf16_ratio"]) > SERVE_TP_RATIO
+                           or f_equal < SERVE_TP_GREEDY)
+        res["serve_tp"].update(max_rel_err=max(errs),
+                               f32_err=max(f32_errs),
+                               mesh_f32_err=max(mesh_err),
+                               one_f32_err=max(one_err),
+                               f32_ratio=max(ratios(logits)), fault=fault)
+    log(f"[rank {rank}] 50 {cfg.name} full width and depth "
+        f"({cfg.n_layers} layers) served on mesh {mesh}, rules "
+        f"{ {k: v for k, v in table.items() if v} }: prefill {B} x {S} "
+        f"{pre_ms:.1f} ms (one process alone {one['prefill_ms']:.1f} ms), "
+        f"decode {statistics.mean(dec_ms[1:]):.2f} ms a step over steps "
+        f"2-{n} (alone {statistics.mean(one['decode_ms'][1:]):.2f} ms), "
+        f"teacher-forced on one process's tokens; greedy tokens equal "
+        f"{100 * equal:.2f}%; flash {by_variant} ({launches}, expected "
+        f"{cfg.n_layers}); logits' largest error relative to the largest "
+        f"logit, by step: against one process's bf16 run "
+        f"{None if errs is None else [f'{e:.2e}' for e in errs]}, the "
+        f"mesh's against one process's float32 run "
+        f"{None if mesh_err is None else [f'{e:.2e}' for e in mesh_err]}, "
+        f"one process's bf16 run's against it "
+        f"{None if one_err is None else [f'{e:.2e}' for e in one_err]}; "
+        f"{time.perf_counter() - t0:.1f} s; card {smi}")
+    if f32_errs is not None:
+        log(f"[rank {rank}] 50 the mesh's float32 logits against one "
+            f"process's float32 run, by step "
+            f"{[f'{e:.2e}' for e in f32_errs]} (at most {SERVE_TP_TOL}); "
+            f"the mesh's bf16 error off the float32 run over one "
+            f"process's, largest {res['serve_tp']['f32_ratio']:.3f} (at "
+            f"most {SERVE_TP_RATIO}); planted fault (rank 1's half of each "
+            f"new key and value erased, {SERVE_TP_FAULT_STEPS} steps): "
+            f"float32 {[f'{e:.2e}' for e in fault['f32_err']]}, bf16 ratio "
+            f"{[f'{e:.3f}' for e in fault['bf16_ratio']]}, bf16 greedy "
+            f"equal {100 * fault['greedy_equal']:.2f}%; caught by the "
+            f"checks: {fault['caught']}")
+    if launches != cfg.n_layers or by_variant[name] != cfg.n_layers:
+        raise AssertionError(f"50 rank {rank}: flash {by_variant}, expected "
+                             f"{cfg.n_layers} of {name}")
+    if mesh_err is not None and not all(
+            m <= SERVE_TP_RATIO * o for m, o in zip(mesh_err, one_err)):
+        raise AssertionError(f"50: the mesh's logits off the float32 run by "
+                             f"{mesh_err}, one process's by {one_err}")
+    if f32_errs is not None and max(f32_errs) > SERVE_TP_TOL:
+        raise AssertionError(f"50: the mesh's float32 logits off one "
+                             f"process's by {f32_errs}")
+    if equal < SERVE_TP_GREEDY:
+        raise AssertionError(f"50 rank {rank}: {100 * equal:.2f}% of the "
+                             f"greedy tokens equal one process's")
+    return res
+
+
+def _loop_ms(call, n):
+    """Device ms of ``n`` back-to-back launches of ``call`` (``cuda_ms``:
+    CUDA events, held behind a device-side sleep)."""
+    return cuda_ms(call, n) * n
+
+
+def sampled_kernels(smi):
+    """Phase 51: ``core.sampling.measure_sampled`` on the card for each
+    kernel, a loop of ``SAMPLED_N`` launches: flash (bf16, ``wgmma``) at
+    gemma3_1b's serving shape, the float32 matmul (``tf32x3``) at the
+    ``model`` grid's first shape, the scan at falcon_mamba_7b's serving
+    shape with h_S.  The loop timed in full; the estimates unsampled from
+    2 launches (the two-point rule: startup and the marginal launch) and
+    from 1, each with its ``sampling_error`` against the full loop.
+    Returns {kernel: launches made here}."""
+    from repro_torch.core.sampling import (measure_sampled, sampling_error,
+                                           unsample)
+    t0 = time.perf_counter()
+    gcfg, fcfg = get_config("gemma3_1b"), get_config("falcon_mamba_7b")
+    q, k, v = rand_qkv(SERVE["batch"], gcfg.n_heads, gcfg.n_kv_heads,
+                       SERVE["prompt_len"], gcfg.resolved_head_dim,
+                       torch.bfloat16, seed=51)
+    M, N_, K = calibrate.MODEL_GRIDS["matmul"][0]
+    a, b = _matmul_inputs(M, N_, K, torch.float32, seed=51)
+    scan_shape = _scan_serve_shape(fcfg)
+    scan_in = _scan_inputs(*scan_shape, torch.float32, seed=51)
+    before = _counts()
+    cases = (
+        ("flash_attention", f"bf16 {SERVE['batch']}x{gcfg.n_heads}x"
+         f"{gcfg.n_kv_heads}x{SERVE['prompt_len']}x"
+         f"{gcfg.resolved_head_dim}",
+         lambda: ops.flash_attention(q, k, v, causal=True)),
+        ("matmul", f"float32 {M}x{N_}x{K} tf32x3",
+         lambda: ops.matmul(a, b)),
+        ("mamba_scan", f"float32 {'x'.join(map(str, scan_shape))} h_S",
+         lambda: ops.mamba_scan(*scan_in, return_state=True)))
+    out = {}
+    for kernel, shape, call in cases:
+        full = _loop_ms(call, SAMPLED_N)
+        ests = {}
+        for sample in (2, 1):
+            node = measure_sampled(lambda n: _loop_ms(call, n), SAMPLED_N,
+                                   sample)
+            est = unsample(node)
+            ests[sample] = (est, sampling_error(est, full))
+        log(f"sampled {kernel} {shape}: {SAMPLED_N} launches {full:.4f} ms "
+            f"({full / SAMPLED_N:.5f} ms a launch); unsampled from 2 "
+            f"launches {ests[2][0]:.4f} ms (sampling_error "
+            f"{ests[2][1]:.3e}), from 1 {ests[1][0]:.4f} ms (sampling_error "
+            f"{ests[1][1]:.3e}); card {smi}")
+        if not all(math.isfinite(e) and e > 0 for e, _ in ests.values()):
+            raise AssertionError(f"51 {kernel}: estimates {ests}")
+    after = _counts()
+    out = {"matmul": after[0] - before[0], "flash_attention":
+           after[2] - before[2], "mamba_scan": after[4] - before[4]}
+    log(f"phase 51: launches {out}; {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def dry_run_on_host(measured_ms, smi):
+    """Phase 52: the dry run on the card's host, with no launch: each of
+    ``DRY_CELLS``' tinyllama_1_1b cells traced on rank 0 of a fake process
+    group at the mesh's world size (``launch.dryrun.lower_cell``): trace
+    s, rank 0's FLOPs, bytes, collective bytes and temp bytes, and its
+    ``core.simulator.roofline`` on one H100 at its bf16 peak.  Then phase
+    43's one-device step (``TRAIN_FULL``: 8 x 4096 in 2 microbatches)
+    analyzed on fake tensors (``core.hlo.analyze_step``), priced the same
+    way and set beside phase 43's measured ms and phase 45's
+    ``simulate_training`` price.  Prices are not measurements."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.core.config import ShapeConfig
+    from repro_torch.core.hlo import analyze_step
+    from repro_torch.core.simulator import roofline
+    from repro_torch.launch import dryrun
+    t00 = time.perf_counter()
+    counts = _counts()
+    cfg = get_config("tinyllama_1_1b")
+
+    def line(hlo, rl):
+        r = rl.to_dict()
+        return (f"flops {hlo['flops']:.4e} (dot {hlo['dot_flops']:.4e}), "
+                f"bytes {hlo['bytes']:.4e}, collective bytes "
+                f"{hlo['collective_bytes']:.4e} (wire "
+                f"{hlo['wire_bytes']:.4e}; "
+                f"{ {k: v['count'] for k, v in hlo['collectives'].items()} }"
+                f"), temp {hlo['memory']['temp_bytes'] / 2**30:.3f} GiB; "
+                f"roofline compute {1e3 * r['compute_s']:.3f} ms, memory "
+                f"{1e3 * r['memory_s']:.3f} ms, collective "
+                f"{1e3 * r['collective_s']:.3f} ms, step "
+                f"{1e3 * r['step_s']:.3f} ms ({r['bound']}-bound)")
+    for mesh_name, shapes in DRY_CELLS.items():
+        world, make_mesh = dryrun.MESHES[mesh_name]
+        with dryrun.fake_world(world):
+            mesh = make_mesh()
+            for name in shapes:
+                shape = SHAPE_BY_NAME[name]
+                t0 = time.perf_counter()
+                hlo, _ = dryrun.lower_cell(cfg, shape, mesh)
+                trace_s = time.perf_counter() - t0
+                rl = roofline(hlo, cfg, shape, world)
+                log(f"dry run {cfg.name}|{name}|{mesh_name} (rank 0 of "
+                    f"{world}, fake tensors): traced in {trace_s:.1f} s; "
+                    f"{line(hlo, rl)}")
+                if not (hlo["flops"] > 0 and hlo["bytes"] > 0):
+                    raise AssertionError(f"52: {name} {hlo}")
+                if shape.kind == "train" and not hlo["collective_bytes"] > 0:
+                    raise AssertionError(f"52: {name} has no collectives")
+    kw = TRAIN_FULL
+    shape = ShapeConfig("phase43", seq_len=kw["seq"],
+                        global_batch=kw["batch"], kind="train")
+    t0 = time.perf_counter()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        params = T.init_params(cfg, 0, "cpu")
+        batch = {k: torch.empty(kw["batch"], kw["seq"], dtype=torch.long)
+                 for k in ("tokens", "labels")}
+        step = make_train_step(cfg, TrainConfig(
+            n_microbatches=kw["microbatches"]))
+        hlo = analyze_step(step, params, adamw_init(params), batch, 1)
+    trace_s = time.perf_counter() - t0
+    rl = roofline(hlo, cfg, shape, 1)
+    price = simulate_training(cfg, n_stages=1,
+                              n_microbatches=kw["microbatches"],
+                              seq_len=kw["seq"], global_batch=kw["batch"],
+                              config=default_config())
+    log(f"dry run of phase 43's step ({kw['batch']} x {kw['seq']}, "
+        f"{kw['microbatches']} microbatches, one device): traced in "
+        f"{trace_s:.1f} s; {line(hlo, rl)}; flash calls "
+        f"{hlo['custom_calls']}; its roofline step "
+        f"{1e3 * rl.step_s:.1f} ms beside phase 43's measured "
+        f"{measured_ms:.1f} ms (price / measured "
+        f"{1e3 * rl.step_s / measured_ms:.3f}) and phase 45's "
+        f"simulate_training price {1e3 * price.step_time_s:.1f} ms (price / "
+        f"measured {1e3 * price.step_time_s / measured_ms:.3f}); card {smi}")
+    if _counts() != counts:
+        raise AssertionError(f"the dry run changed the launch counts: "
+                             f"{counts} -> {_counts()}")
+    log(f"phase 52: {time.perf_counter() - t00:.1f} s")
+
+
 def _counts():
     """Every kernel wrapper's launch count."""
     return (mm.matmul.launches, dict(mm.matmul.launches_by_variant),
@@ -4527,7 +4933,20 @@ def main():
             f" ms of a {full['timed_ms']:.1f} ms timed step "
             f"({100 * full['collective_ms'] / full['timed_ms']:.1f}%), flash "
             f"{full['launches']} a rank; card {smi}")
-    log(f"phases 47-49: {time.perf_counter() - t0:.1f} s")
+    log(f"phases 47-50: {time.perf_counter() - t0:.1f} s")
+    for r in ranks:
+        st = r["serve_tp"]
+        log(f"phase 50 rank {r['rank']}: {SERVE_TP['arch']} "
+            f"{SERVE_TP['batch']} x {SERVE_TP['prompt_len']} on model "
+            f"{EP_RANKS}: prefill {st['prefill_ms']:.1f} ms (alone "
+            f"{st['alone_prefill_ms']:.1f}), decode {st['decode_ms']:.2f} ms "
+            f"a step (alone {st['alone_decode_ms']:.2f}), greedy equal "
+            f"{100 * st['greedy_equal']:.2f}%, flash {st['launches']} a "
+            f"rank; card {smi}")
+    # phase 51: the three kernels timed in full and sampled; phase 52: the
+    # dry run on the host, which launches nothing
+    sampled = sampled_kernels(smi)
+    dry_run_on_host(train_ms, smi)
     log(f"training: grad errors {grad_err:.3e} (Functions), {train_err:.3e} "
         f"(card vs CPU); tinyllama_1_1b {train_ms:.1f} ms a step, "
         f"{train_tok_s:.0f} tok/s, {train_gib:.3f} GiB, device ms a step "
@@ -4549,15 +4968,21 @@ def main():
                                  "flash_by_variant"] for r in ranks},
                      "tp_train (tinyllama_1_1b, model 2, 4 steps)": {
                          f"rank {r['rank']}": r["tp_full"]["by_variant"]
-                         for r in ranks}}
+                         for r in ranks},
+                     "serve_tp (gemma3_1b, model 2, prefill + 32 steps)": {
+                         f"rank {r['rank']}": r["serve_tp"]["by_variant"]
+                         for r in ranks},
+                     "sampling (phase 51)": sampled["flash_attention"]}
     log(f"flash_attention launches by path: {flash_by_path}")
     scan_by_path["tp_cut (falcon_mamba_7b, 4 layers, model 2)"] = {
         f"rank {r['rank']}": r["tp_cut falcon_mamba_7b"]["launches"][
             "mamba_scan"] for r in ranks}
+    scan_by_path["sampling (phase 51)"] = sampled["mamba_scan"]
     log(f"mamba_scan launches by path: {scan_by_path}")
     mm_by_path = {"calibration": cal_by_variant["matmul"],
                   **{f"graph batch {b}": n for b, n in graph_by_batch.items()},
-                  "camera frame": camera_launches}
+                  "camera frame": camera_launches,
+                  "sampling (phase 51)": sampled["matmul"]}
     log(f"matmul launches by path: {mm_by_path}")
     # one launch of the main path, averaged over its 26-layer local/global
     # mix, in each bf16 variant; the JSON line gives the one serving runs

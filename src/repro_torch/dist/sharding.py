@@ -279,13 +279,20 @@ def distribute(tree_, shardings, mesh):
     for k, placements in tree.flatten(shardings, containers=list).items():
         t = distribute_tensor(flat[k], mesh, placements, src_data_rank=None)
         local = t.to_local()
-        if local.untyped_storage().data_ptr() == \
+        if not _is_fake(local) and local.untyped_storage().data_ptr() == \
                 flat[k].untyped_storage().data_ptr():
             t = DTensor.from_local(local.clone(), mesh, placements,
                                    run_check=False, shape=t.shape,
                                    stride=t.stride())
         flat[k] = t
     return tree.unflatten(tree_, flat)
+
+
+def _is_fake(t) -> bool:
+    """Whether ``t`` is a fake tensor (the dry run's), which owns no
+    storage to compare."""
+    from torch._subclasses.fake_tensor import is_fake
+    return is_fake(t)
 
 
 def local_shards(tree_):

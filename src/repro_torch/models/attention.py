@@ -27,12 +27,21 @@ weights' widths: the flash kernel runs on this rank's heads, their KV
 heads split alongside or, too few to split, cut to those its query heads
 use.  MLA's compressed KV (``kv_a``, ``kv_norm``) is every rank's whole.
 
+In the serving steps on the rules' shards (``serve.step``) decode computes
+on this rank's shards of the weights and of the cache, in each layout the
+rules give it (``gqa_decode``, ``mla_decode``'s ``seq``): KV heads over
+``model``; ``head_dim`` over ``model`` where the KV heads are too few
+(every rank's partial q.k summed, P.V on its slice, the slices gathered);
+``kv_seq`` over ``data`` (flash-decoding: the scores' max and the
+exponentials' sums combined over the ranks, ``_attend``).
+
 Under ``PerfFlags.windowed_attention`` a local layer takes a static window
 (``static_window``).  In prefill and training the card runs the flash
 kernel with its window mask, which skips every KV tile before the window,
 so its work is O(S window) as the reference's ``windowed_attention``; the
 CPU runs ``windowed_attention``, the reference's plain path.  In decode the
-query reads only the window-sized slice of the cache.
+query reads only the window-sized slice of the cache (on the rules' shards,
+the part of that slice which lies in the rank's positions).
 ``PerfFlags.attn_remat_chunk`` checkpoints ``chunked_attention``'s body per
 KV chunk, so that its backward recomputes each chunk's scores.
 """
@@ -179,27 +188,40 @@ def windowed_attention(q, k, v, *, window: int, chunk: int = 512,
     return torch.cat(outs, 3).reshape(B, H, Sq, D)
 
 
-def decode_attention(q, k_cache, v_cache, *, pos, window=0, k_pos=None):
+def decode_attention(q, k_cache, v_cache, *, pos, window=0, k_pos=None,
+                     dim_split=False, seq=None):
     """Single-token decode.  q: (B, H, 1, D); caches: (B, Hkv, S, D).
 
     Keys at a position > ``pos`` are masked, and for ``window > 0`` so are
     keys ``window`` or more behind ``pos``.  ``k_pos``: the positions of
     the cache's rows when it is a slice (the static-window path); default
-    ``arange(S)``.  Query heads are grouped onto the native ``Hkv`` KV
-    heads."""
+    ``arange(S)`` from the rank's first position.  Query heads are grouped
+    onto the native ``Hkv`` KV heads.
+
+    On a cache sharded by the rules: ``dim_split``, D is this rank's slice
+    of the head dim over ``model`` (and q's the same slice): the partial
+    q.k of the slices are summed over ``model`` before the softmax, and the
+    output's slices gathered after P.V.  ``seq``: None or (mesh axes,
+    start), the rows being this rank's positions from ``start``
+    (``_attend``)."""
     B, H, _, D = q.shape
     _, Hkv, S, _ = k_cache.shape
     qg = q[:, :, 0].float().reshape(B, Hkv, H // Hkv, D)
-    s = torch.einsum("bkgd,bksd->bkgs", qg, k_cache.float()) * (D ** -0.5)
+    s = torch.einsum("bkgd,bksd->bkgs", qg, k_cache.float())
+    if dim_split:
+        s = dist_ctx.all_reduce(s.contiguous(), "model")
+        D = D * dist_ctx.model_size()
+    s = s * (D ** -0.5)
     if k_pos is None:
-        k_pos = torch.arange(S, device=q.device)
+        k_pos = (seq[1] if seq else 0) + torch.arange(S, device=q.device)
     mask = k_pos <= pos
     if window > 0:
         mask &= (pos - k_pos) < window
-    s = s.masked_fill(~mask, NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgs,bksd->bkgd", w, v_cache.float())
-    return out.reshape(B, H, 1, D).to(q.dtype)
+    out = _attend(s, mask, lambda w: torch.einsum(
+        "bkgs,bksd->bkgd", w, v_cache.float()), seq)
+    if dim_split:
+        out = dist_ctx.gather_from(out.contiguous(), "model", -1)
+    return out.reshape(B, H, 1, -1).to(q.dtype)
 
 
 def gqa_forward(p, x, cos, sin, *, cfg: ModelConfig, causal=True, window=0,
@@ -233,22 +255,22 @@ def gqa_forward(p, x, cos, sin, *, cfg: ModelConfig, causal=True, window=0,
     q = (x @ p["q"]).reshape(B, S, H, hd).transpose(1, 2)
     k = (kv_src @ wk).reshape(B, Skv, Hkv, hd).transpose(1, 2)
     v = (kv_src @ wv).reshape(B, Skv, Hkv, hd).transpose(1, 2)
+    if xa is None and cos is not None:
+        q = _rope_heads(q, cos, sin)
+        k = _rope_heads(k, cos, sin)
+    kv = (k, v)     # every KV head this rank computed: what a cache keeps
     if whole_kv:
         k, v = _kv_of_rank_heads(k, v, H, cfg.n_heads)
     if xa is not None:
         out = chunked_attention(q, k, v, causal=False, window=window)
+    elif static_window and q.device.type == "cpu":
+        out = windowed_attention(q, k, v, window=static_window)
     else:
-        if cos is not None:
-            q = _rope_heads(q, cos, sin)
-            k = _rope_heads(k, cos, sin)
-        if static_window and q.device.type == "cpu":
-            out = windowed_attention(q, k, v, window=static_window)
-        else:
-            out = ops.flash_attention(q, k, v,
-                                      causal=causal or bool(static_window),
-                                      window=static_window or window)
+        out = ops.flash_attention(q, k, v,
+                                  causal=causal or bool(static_window),
+                                  window=static_window or window)
     out = out.transpose(1, 2).reshape(B, S, H * hd)
-    return tp.tp_project(out, p["o"]), (k, v)
+    return tp.tp_project(out, p["o"]), kv
 
 
 def _kv_of_rank_heads(k, v, h_local, h_total):
@@ -266,43 +288,117 @@ def _kv_of_rank_heads(k, v, h_local, h_total):
     return k[:, kv:kv + 1], v[:, kv:kv + 1]
 
 
+def _attend(s, mask, weigh, seq=None):
+    """softmax(s masked to ``mask``) applied by ``weigh`` (the weighted sum
+    of the values, ``weigh(w)``).  ``seq``: None, or (mesh axes, start) where
+    the cache rows behind ``s`` are this rank's slice of the positions over
+    those axes: flash-decoding, the scores' max over the ranks by one
+    all-reduce, then each rank's sum of exponentials and weighted values
+    summed by one more."""
+    s = s.masked_fill(~mask, NEG_INF)
+    if seq is None:
+        return weigh(torch.softmax(s, dim=-1))
+    # a rank may hold none of a static window's rows
+    mx = s.amax(-1) if s.shape[-1] else s.new_full(s.shape[:-1], NEG_INF)
+    mx = dist_ctx.all_reduce(mx.contiguous(), seq[0], op="max")
+    e = torch.exp(s - mx[..., None]) * mask
+    acc = weigh(e)
+    both = dist_ctx.all_reduce(torch.cat(
+        [e.sum(-1).reshape(-1), acc.reshape(-1)]), seq[0])
+    n = mx.numel()
+    return both[n:].reshape(acc.shape) \
+        / both[:n].reshape(mx.shape + (1,) * (acc.dim() - mx.dim()))
+
+
+def _put_token(cache, new, pos, seq, dim=2):
+    """Writes ``new`` (one position along ``dim``) into ``cache`` at
+    ``pos``, where this rank holds that position (``seq``: its rows along
+    ``dim`` are its slice of the positions from ``seq[1]``)."""
+    at = pos - (seq[1] if seq else 0)
+    if 0 <= at < cache.shape[dim]:
+        cache.narrow(dim, at, 1).copy_(new)
+
+
 def gqa_decode(p, x, cache_k, cache_v, cos, sin, *, cfg: ModelConfig, pos,
-               window=0, xa_kv=None, static_window=None):
+               window=0, xa_kv=None, static_window=None, seq=None):
     """One-token decode.  x: (B, 1, d); cache_[kv]: (B, Hkv, S, hd).
 
     Writes this token's k and v into the caches IN PLACE at ``pos`` (the JAX
     package returns updated copies) and returns (out, cache_k, cache_v).
     With ``static_window`` the query reads only the window-sized slice of
-    the cache that ends at ``pos`` (clamped into the cache).  With ``xa_kv``, the encoder's precomputed (k, v) (B, Hkv, Skv, hd), it
-    is cross-attention: the query attends to every encoder position and the
-    caches are returned untouched."""
-    B = x.shape[0]
-    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    the cache that ends at ``pos`` (clamped into the cache).  With
+    ``xa_kv``, the encoder's precomputed (k, v) (B, Hkv, Skv, hd), it is
+    cross-attention: the query attends to every encoder position and the
+    caches are returned untouched.
+
+    On the rules' shards (the serving steps over a mesh) the weights are
+    this rank's shards (``dist.tp`` marks; the head counts come from their
+    widths, as in ``gqa_forward``) and the caches the rank's shards in the
+    rules' layout, ``seq`` None or (mesh axes, start) of their positions:
+
+      KV heads over ``model``: the rank's heads attend to its KV heads;
+      ``head_dim`` over ``model`` (too few KV heads to split): every rank
+        takes all the query heads (gathered where the rank computed its
+        own), the partial q.k of its slice of head_dim summed over
+        ``model``, P.V on the slice, the slices gathered, then its own
+        heads again (``decode_attention``'s ``dim_split``);
+      all KV heads on every rank, query heads split: the rank's heads
+        attend to their KV heads;
+      ``kv_seq`` over ``data`` (``seq``): flash-decoding over the ranks'
+        positions, the static window's slice cut to the rank's.
+    The output projection closes the region (``tp.tp_project``)."""
     hd = cfg.resolved_head_dim
+    B = x.shape[0]
+    q_split = tp.shard_dim(p["q"]) == 1
+    x = tp.enter(x, q_split)
+    H = p["q"].shape[1] // hd
     q = (x @ p["q"]).reshape(B, 1, H, hd).transpose(1, 2)
-    if xa_kv is not None:
-        k, v = xa_kv
-        out = decode_attention(q, k, v, pos=k.shape[2] - 1)
-        return out.transpose(1, 2).reshape(B, 1, H * hd) @ p["o"], \
-            cache_k, cache_v
-    k_new = (x @ p["k"]).reshape(B, 1, Hkv, hd).transpose(1, 2)
-    v_new = (x @ p["v"]).reshape(B, 1, Hkv, hd).transpose(1, 2)
-    if cos is not None:
-        q = _rope_heads(q, cos, sin)
-        k_new = _rope_heads(k_new, cos, sin)
-    cache_k[:, :, pos:pos + 1] = k_new.to(cache_k.dtype)
-    cache_v[:, :, pos:pos + 1] = v_new.to(cache_v.dtype)
-    if static_window:
-        S = cache_k.shape[2]
-        w = min(static_window, S)
-        start = min(max(pos - w + 1, 0), S - w)
-        out = decode_attention(
-            q, cache_k[:, :, start:start + w], cache_v[:, :, start:start + w],
-            pos=pos, k_pos=start + torch.arange(w, device=x.device))
+    k_c, v_c = (cache_k, cache_v) if xa_kv is None else xa_kv
+    dim_split = k_c.shape[3] < hd
+    if xa_kv is None:
+        Hkv = p["k"].shape[1] // hd
+        k_new = (x @ p["k"]).reshape(B, 1, Hkv, hd).transpose(1, 2)
+        v_new = (x @ p["v"]).reshape(B, 1, Hkv, hd).transpose(1, 2)
+        if cos is not None:
+            q = _rope_heads(q, cos, sin)
+            k_new = _rope_heads(k_new, cos, sin)
+        if dim_split:
+            k_new = dist_ctx.rank_slice(k_new, "model", 3)
+            v_new = dist_ctx.rank_slice(v_new, "model", 3)
+        _put_token(cache_k, k_new, pos, seq)
+        _put_token(cache_v, v_new, pos, seq)
+        at = pos
     else:
-        out = decode_attention(q, cache_k, cache_v, pos=pos, window=window)
+        seq, at = None, k_c.shape[2] - 1
+    gathered = dim_split and q_split
+    if gathered:
+        q = dist_ctx.gather_from(q.contiguous(), "model", 1)
+    elif q_split and k_c.shape[1] == cfg.n_kv_heads:
+        # every KV head here: this rank's query heads take theirs
+        group = cfg.n_heads // cfg.n_kv_heads
+        lo = dist_ctx.model_rank() * H // group
+        hi = ((dist_ctx.model_rank() + 1) * H - 1) // group + 1
+        k_c, v_c = k_c[:, lo:hi], v_c[:, lo:hi]
+    if dim_split:
+        q = dist_ctx.rank_slice(q, "model", 3)
+    k_pos = None
+    if static_window:
+        # the window's slice of the whole cache, then the part of it in
+        # this rank's rows (all of it off a kv_seq split)
+        first, n = (seq[1] if seq else 0), k_c.shape[2]
+        total = n * (dist_ctx.shard_of(seq[0])[1] if seq else 1)
+        w = min(static_window, total)
+        start = min(max(pos - w + 1, 0), total - w)
+        lo = min(max(start - first, 0), n)
+        hi = min(max(start + w - first, 0), n)
+        k_c, v_c = k_c[:, :, lo:hi], v_c[:, :, lo:hi]
+        k_pos = first + torch.arange(lo, hi, device=x.device)
+    out = decode_attention(q, k_c, v_c, pos=at, window=window, k_pos=k_pos,
+                           dim_split=dim_split, seq=seq)
+    if gathered:
+        out = dist_ctx.rank_slice(out, "model", 1)
     out = out.transpose(1, 2).reshape(B, 1, H * hd)
-    return out @ p["o"], cache_k, cache_v
+    return tp.tp_project(out, p["o"]), cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------
@@ -344,34 +440,40 @@ def mla_forward(p, x, cos, sin, *, cfg: ModelConfig):
 
 
 def mla_decode(p, x, cache_ckv, cache_krope, cos, sin, *, cfg: ModelConfig,
-               pos):
+               pos, seq=None):
     """One-token MLA decode in the absorbed form: attention runs in the
     compressed space, in float32.  x: (B, 1, d); cache_ckv: (B, S, lora);
     cache_krope: (B, S, dr).  Writes this token's c_kv and k_rope into the
-    caches IN PLACE at ``pos`` and returns (out, cache_ckv, cache_krope)."""
+    caches IN PLACE at ``pos`` and returns (out, cache_ckv, cache_krope).
+    On the rules' shards (the serving steps) the query heads and ``kv_b``
+    are this rank's heads, the compressed cache every head's, and ``seq``
+    None or (mesh axes, start) of the cache's positions (``_attend``)."""
     m = cfg.mla
     B = x.shape[0]
-    H = cfg.n_heads
     dn, dr, dv, R = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim, m.kv_lora_rank
+    split = tp.shard_dim(p["q"]) == 1
+    x = tp.enter(x, split)
+    kv_b = tp.part(p["kv_b"], 1) if split else p["kv_b"]
+    H = p["q"].shape[1] // (dn + dr)     # this rank's heads
     scale = (dn + dr) ** -0.5
     q = (x @ p["q"]).reshape(B, 1, H, dn + dr).transpose(1, 2)
     q_nope, q_rope = q[..., :dn], _rope_heads(q[..., dn:], cos, sin)
     kv = x @ p["kv_a"]
     c_new = rmsnorm(kv[..., :R], p["kv_norm"])             # (B, 1, R)
     kr_new = _rope_heads(kv[:, None, :, R:], cos, sin)[:, 0]
-    cache_ckv[:, pos:pos + 1] = c_new.to(cache_ckv.dtype)
-    cache_krope[:, pos:pos + 1] = kr_new.to(cache_krope.dtype)
-    wkb = p["kv_b"].reshape(R, H, dn + dv).float()
+    _put_token(cache_ckv, c_new, pos, seq, dim=1)
+    _put_token(cache_krope, kr_new, pos, seq, dim=1)
+    wkb = kv_b.reshape(R, H, dn + dv).float()
     w_k, w_v = wkb[..., :dn], wkb[..., dn:]
     ckv = cache_ckv.float()
     q_c = torch.einsum("bhd,rhd->bhr", q_nope[:, :, 0].float(), w_k)
     s = (torch.einsum("bhr,bsr->bhs", q_c, ckv)
          + torch.einsum("bhd,bsd->bhs", q_rope[:, :, 0].float(),
                         cache_krope.float())) * scale
-    mask = torch.arange(cache_ckv.shape[1], device=x.device) <= pos
-    s = s.masked_fill(~mask, NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    ctx_c = torch.einsum("bhs,bsr->bhr", w, ckv)
+    mask = (seq[1] if seq else 0) \
+        + torch.arange(cache_ckv.shape[1], device=x.device) <= pos
+    ctx_c = _attend(s, mask, lambda w: torch.einsum("bhs,bsr->bhr", w, ckv),
+                    seq)
     out = torch.einsum("bhr,rhv->bhv", ctx_c, w_v)
     out = out.reshape(B, 1, H * dv).to(x.dtype)
-    return out @ p["o"], cache_ckv, cache_krope
+    return tp.tp_project(out, p["o"]), cache_ckv, cache_krope

@@ -88,6 +88,15 @@ def _route(x32, router_w, n_experts, top_k):
     return w, idx, aux
 
 
+def _expert_counts(idx, n_experts):
+    """(E,) float32: how many of ``idx``'s entries name each expert.
+    ``bincount``'s, counted into a static shape, so that fake tensors
+    (the dry run, ``core.hlo.analyze_step``) can trace it."""
+    return torch.zeros(n_experts, dtype=torch.float32,
+                       device=idx.device).index_add_(
+        0, idx, torch.ones(idx.shape, dtype=torch.float32, device=idx.device))
+
+
 def _route_global(x32, router_w, n_experts, top_k, axes):
     """``_route`` of this rank's shard x32 of a global batch over the mesh
     axes ``axes``, and (n_tokens, offset): the global token count, and (E,)
@@ -98,10 +107,10 @@ def _route_global(x32, router_w, n_experts, top_k, axes):
     logits, probs, w, idx = _probs(x32, router_w, top_k)
     E, n = n_experts, x32.shape[0] * count
     table = probs.new_zeros(count, E)
-    table[index] = torch.bincount(idx.reshape(-1), minlength=E).float()
+    table[index] = _expert_counts(idx.reshape(-1), E)
     sums = dist_ctx.summed(torch.cat([
         probs.sum(0), (torch.logsumexp(logits, dim=-1) ** 2).sum()[None],
-        torch.bincount(idx[:, 0], minlength=E).float(),
+        _expert_counts(idx[:, 0], E),
         table.reshape(-1)]), axes)
     me, rz, ce = sums[:E] / n, sums[E] / n, sums[E + 1:2 * E + 1] / n
     offset = sums[2 * E + 1:].detach().reshape(count, E)[:index].sum(0)

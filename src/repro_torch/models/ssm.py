@@ -258,9 +258,16 @@ def _mamba1_rank_channels(p):
 
 
 def mamba1_decode(p, x_t, state, cfg: ModelConfig):
-    """One-token decode.  x_t: (B, 1, d).  state: dict(conv, ssm)."""
+    """One-token decode.  x_t: (B, 1, d).  state: dict(conv, ssm).  On the
+    rules' shards (the serving steps over ``model``) the state is this
+    rank's ``d_inner`` channels, as its leaves are
+    (``_mamba1_rank_channels``)."""
     s = cfg.ssm
-    d_in = s.expand * cfg.d_model
+    split = tp.shard_dim(p["out_proj"]) == 0
+    x_t = tp.enter(x_t, split)
+    if split:
+        p = _mamba1_rank_channels(p)
+    d_in = p["in_proj"].shape[1] // 2
     N = s.d_state
     dt_rank = p["dt_proj"].shape[0]
     xz = x_t[:, 0] @ p["in_proj"]
@@ -268,6 +275,8 @@ def mamba1_decode(p, x_t, state, cfg: ModelConfig):
     xc, conv_state = conv1d_step(x, state["conv"], p["conv_w"], p["conv_b"])
     xc = F.silu(xc)
     proj = xc @ p["x_proj"]
+    if split:
+        proj = dist_ctx.summed(proj, "model")
     dt = F.softplus((proj[..., :dt_rank] @ p["dt_proj"]).float()
                     + p["dt_bias"])                             # (B, d_in)
     Bm = proj[..., dt_rank:dt_rank + N].float()
@@ -278,7 +287,8 @@ def mamba1_decode(p, x_t, state, cfg: ModelConfig):
         + dt[..., None] * Bm[:, None, :] * xf[..., None]
     y = torch.einsum("bdn,bn->bd", h, Cm) + p["D"][None] * xf
     y = (y * F.silu(z.float())).to(x_t.dtype)
-    return (y @ p["out_proj"])[:, None], {"conv": conv_state, "ssm": h}
+    return tp.tp_project(y, p["out_proj"])[:, None], \
+        {"conv": conv_state, "ssm": h}
 
 
 # ---------------------------------------------------------------------------
@@ -411,25 +421,80 @@ def _mamba2_rank_heads(p, cfg: ModelConfig):
 
 def mamba2_decode(p, x_t, state, cfg: ModelConfig):
     """One-token decode.  x_t: (B, 1, d).  state: dict(conv (B, d_in + 2N,
-    k-1), ssm (B, H, P, N))."""
+    k-1), ssm (B, H, P, N)).
+
+    On the rules' shards (the serving steps over ``model``, ``out_proj``
+    split on its rows) the rank computes its heads
+    (``_mamba2_rank_heads``), and the states keep the rules' layout:
+    ``conv`` is split contiguously over ``model`` where its width divides
+    (not along the rank's channels: x, B and C sit side by side), else
+    whole; ``ssm`` is whole (the rules do not split ``ssm_heads``).  So
+    each is gathered, the rank's channels and heads taken, and the new
+    whole state cut back."""
     s = cfg.ssm
-    d_in = s.expand * cfg.d_model
-    H, P, N = s.n_heads, s.head_dim, s.d_state
+    split = tp.shard_dim(p["out_proj"]) == 0
+    x_t = tp.enter(x_t, split)
+    d_in, P, N = s.expand * cfg.d_model, s.head_dim, s.d_state
+    conv, h0 = state["conv"], state["ssm"]
+    if split:
+        p = _mamba2_rank_heads(p, cfg)
+    H = p["A_log"].shape[0]                                 # this rank's
+    k = H * P
+    if split:
+        r = dist_ctx.model_rank()
+        conv_split = conv.shape[1] < d_in + 2 * N
+        if conv_split:
+            conv = dist_ctx.gather_from(conv.contiguous(), "model", 1)
+        whole_conv = conv
+        conv = conv.index_select(1, torch.cat([
+            torch.arange(r * k, (r + 1) * k, device=conv.device),
+            torch.arange(d_in, d_in + 2 * N, device=conv.device)]))
+        whole_h = h0.shape[1] == s.n_heads
+        if whole_h:
+            h0 = h0[:, r * H:(r + 1) * H]
     zxbcdt = x_t[:, 0] @ p["in_proj"]
-    z = zxbcdt[..., :d_in]
-    xbc = zxbcdt[..., d_in:d_in + d_in + 2 * N]
+    z = zxbcdt[..., :k]
+    xbc = zxbcdt[..., k:2 * k + 2 * N]
     dt = F.softplus(zxbcdt[..., -H:].float() + p["dt_bias"])      # (B, H)
-    xc, conv_state = conv1d_step(xbc, state["conv"], p["conv_w"], p["conv_b"])
+    xc, conv_state = conv1d_step(xbc, conv, p["conv_w"], p["conv_b"])
     xc = _silu(xc)
-    x = xc[..., :d_in].reshape(-1, H, P).float()
-    Bm = xc[..., d_in:d_in + N].float()
-    Cm = xc[..., d_in + N:].float()
+    x = xc[..., :k].reshape(-1, H, P).float()
+    Bm = xc[..., k:k + N].float()
+    Cm = xc[..., k + N:].float()
     A = -torch.exp(p["A_log"])
     a = torch.exp(dt * A[None])                                   # (B, H)
-    h = state["ssm"] * a[..., None, None] \
+    h = h0 * a[..., None, None] \
         + (dt[..., None] * x)[..., None] * Bm[:, None, None, :]
     y = torch.einsum("bhpn,bn->bhp", h, Cm) + p["D"][None, :, None] * x
-    y = rmsnorm(y.reshape(-1, d_in).to(x_t.dtype), p["norm"])
+    y = y.reshape(-1, k).to(x_t.dtype)
+    y = _split_rmsnorm(y, p["norm"], d_in) if split \
+        else rmsnorm(y, p["norm"])
     y = y.float() * F.silu(z.float())
-    return (y.to(x_t.dtype) @ p["out_proj"])[:, None], \
+    if split:
+        # the new whole states: every rank's x inputs, and its heads' states
+        new_in = torch.cat([dist_ctx.gather_from(
+            xbc[..., :k].contiguous(), "model", 1), xbc[..., k:]], 1)
+        conv_state = torch.cat([whole_conv[..., 1:], new_in[..., None]], -1)
+        if conv_split:
+            conv_state = dist_ctx.rank_slice(conv_state, "model", 1)
+        if whole_h:
+            h = dist_ctx.gather_from(h.contiguous(), "model", 1)
+    return tp.tp_project(y.to(x_t.dtype), p["out_proj"])[:, None], \
         {"conv": conv_state, "ssm": h}
+
+
+def mamba2_whole_state(state, cfg: ModelConfig):
+    """A Mamba2 block's final state (``mamba2_forward``'s) in the whole
+    layout: where it was computed on the rank's heads (over ``model``),
+    ``conv``'s x channels gathered ahead of B and C and ``ssm``'s heads
+    gathered; else as it is."""
+    s = cfg.ssm
+    conv, h = state["conv"], state["ssm"]
+    two_n = 2 * s.d_state
+    if conv.shape[1] < s.expand * cfg.d_model + two_n:
+        k = conv.shape[1] - two_n
+        conv = torch.cat([dist_ctx.gather_from(conv[:, :k].contiguous(),
+                                               "model", 1), conv[:, k:]], 1)
+    if h.shape[1] < s.n_heads:
+        h = dist_ctx.gather_from(h.contiguous(), "model", 1)
+    return {"conv": conv, "ssm": h}

@@ -59,6 +59,13 @@ shards), and under ``PerfFlags.seq_sharded_residual`` the blocks'
 residual stream is this rank's slice of the sequence (``_seq_sharded``).
 An activation checkpoint's recompute runs under the forward's
 distribution context (``_run``).
+
+In the serving steps on the rules' shards (``serve.step``) the same
+prefill and decode run on this rank's shards, with ``layout`` ({cache key:
+(logical axes, spec)}): the cache is the rank's shard of each leaf
+(``local_cache``), the prefill cuts each layer's state to it
+(``_put_state``), and decode passes each attention the cache's slice of
+the positions (``_seq_split``).
 """
 from __future__ import annotations
 
@@ -620,18 +627,26 @@ def cache_axes(cfg: ModelConfig, batch: int, max_seq: int) -> Dict:
 
 
 def prefill_forward(cfg: ModelConfig, params, batch,
-                    max_seq: Optional[int] = None):
+                    max_seq: Optional[int] = None, layout=None):
     """Runs the full prompt, returns (last-token logits (B, 1, V), filled
     cache).  ``batch["tokens"]``: (B, S) integer tensor on the params'
     device; the encdec family also takes ``batch["frames"]`` (B, n_ctx, d)
     and the vlm family ``batch["patches"]`` (B, n_patches, d), whose
-    positions come first, so that the prompt is n_patches + S long."""
+    positions come first, so that the prompt is n_patches + S long.
+
+    ``layout`` (the serving steps on the rules' shards, ``serve.step``):
+    {cache key: (its logical axes, its ``PartitionSpec``)}; the cache is
+    then this rank's shard of each leaf (``local_cache``), each layer's
+    state cut to it as it is written (``_put_state``)."""
     _check_family(cfg)
     x, xa = _prepare_inputs(cfg, params, batch)
     B, S = x.shape[:2]
     max_seq = max(max_seq or S, S)
     x, _, states = _backbone(cfg, params, x,
                              torch.arange(S, device=x.device), xa=xa)
+    if layout is not None:
+        return _logits(cfg, params, x[:, -1:]), _sharded_cache(
+            cfg, states, B, max_seq, layout, x.device)
     cache = init_cache(cfg, B, max_seq, x.device)
     if cfg.family == "hybrid":
         # Mamba2 block i of superblock sb is layer sb * k + i, the order of
@@ -652,6 +667,101 @@ def prefill_forward(cfg: ModelConfig, params, batch,
     return _logits(cfg, params, x[:, -1:]), cache
 
 
+# ---------------------------------------------------------------------------
+# the cache on the rules' shards (the serving steps over a mesh)
+
+
+def local_cache(cfg: ModelConfig, batch: int, max_seq: int, layout,
+                device):
+    """This rank's shard of ``init_cache(cfg, batch, max_seq)`` (``batch``
+    the global batch) under ``layout`` ({key: (axes, spec)}): each leaf's
+    dimensions divided by the sizes of the mesh axes its spec names,
+    zeros."""
+    full = init_cache(cfg, batch, max_seq, "meta")
+    out = {}
+    for key, t in full.items():
+        spec = layout[key][1]
+        shape = [n // dist_ctx.shard_of(spec[d] if d < len(spec) else None)[1]
+                 for d, n in enumerate(t.shape)]
+        out[key] = torch.zeros(shape, dtype=t.dtype, device=device)
+    return out
+
+
+def _put_state(leaf, li, value, axes, spec):
+    """``leaf[li]`` (a layer of this rank's cache shard) <- ``value``, that
+    layer's state, cut to the shard: along a dimension the rank computed
+    whole (its size is not the shard's) its slice is taken; along
+    ``kv_seq``, the prompt's positions that fall in the rank's slice of
+    the cache."""
+    idx = [li]
+    for d in range(1, len(axes)):
+        vd = d - 1
+        entry = spec[d] if d < len(spec) else None
+        if axes[d] == "kv_seq":
+            start = dist_ctx.shard_of(entry)[0] * leaf.shape[d]
+            n = value.shape[vd]
+            lo, hi = min(start, n), min(start + leaf.shape[d], n)
+            value = value.narrow(vd, lo, hi - lo)
+            idx.append(slice(0, hi - lo))
+            continue
+        if entry is not None and value.shape[vd] != leaf.shape[d]:
+            value = value.narrow(
+                vd, dist_ctx.shard_of(entry)[0] * leaf.shape[d],
+                leaf.shape[d])
+        idx.append(slice(None))
+    leaf[tuple(idx)] = value
+
+
+def _sharded_cache(cfg: ModelConfig, states, B, max_seq, layout, device):
+    """``prefill_forward``'s cache on the rules' shards: ``local_cache`` of
+    the global batch, each layer's state written by ``_put_state``.  A
+    Mamba2 state computed on the rank's heads is first made whole
+    (``ssm.mamba2_whole_state``), since the rules' layout of it is not the
+    rank's heads."""
+    spec_b = layout[next(iter(layout))][1]
+    B_global = B * dist_ctx.shard_of(spec_b[1] if len(spec_b) > 1
+                                     else None)[1]
+    cache = local_cache(cfg, B_global, max_seq, layout, device)
+
+    def put(key, li, value):
+        _put_state(cache[key], li, value, *layout[key])
+    if cfg.family == "hybrid":
+        states, kvs = states
+        for sb, (k, v) in enumerate(kvs):
+            put("k", sb, k)
+            put("v", sb, v)
+    for li, st in enumerate(states):
+        if cfg.family in ("ssm", "hybrid"):
+            if cfg.ssm.version == 2:
+                st = ssm_mod.mamba2_whole_state(st, cfg)
+            put("conv", li, st["conv"])
+            put("ssm", li, st["ssm"])
+        elif cfg.mla is not None:
+            put("ckv", li, st[0])
+            put("krope", li, st[1])
+        else:
+            put("k", li, st[0])
+            put("v", li, st[1])
+            if cfg.family == "encdec":
+                put("xk", li, st[2])
+                put("xv", li, st[3])
+    return cache
+
+
+def _seq_split(layout, key, cache):
+    """(mesh axes, start) of this rank's slice of ``cache[key]``'s
+    positions where the layout splits ``kv_seq``; None where it does not
+    (or off the rules' shards)."""
+    if layout is None:
+        return None
+    axes, spec = layout[key]
+    d = axes.index("kv_seq")
+    entry = spec[d] if d < len(spec) else None
+    if entry is None:
+        return None
+    return entry, dist_ctx.shard_of(entry)[0] * cache[key].shape[d]
+
+
 def _mamba_steps(cfg: ModelConfig, params, cache, x, layers):
     """One decode step through the Mamba blocks ``layers`` (indices), their
     ``conv`` and ``ssm`` caches updated in place; returns x."""
@@ -667,9 +777,13 @@ def _mamba_steps(cfg: ModelConfig, params, cache, x, layers):
     return x
 
 
-def decode_forward(cfg: ModelConfig, params, cache, tokens, pos: int):
+def decode_forward(cfg: ModelConfig, params, cache, tokens, pos: int,
+                   layout=None):
     """One decode step.  tokens: (B, 1); pos: the position of this token.
-    Returns (logits (B, 1, V), cache), the cache updated in place."""
+    Returns (logits (B, 1, V), cache), the cache updated in place.
+    ``layout``: as ``prefill_forward``'s; the cache is then this rank's
+    shard of it, and attention computes on each layout the rules give
+    (``attention.gqa_decode``, ``attention.mla_decode``)."""
     _check_family(cfg)
     x = _embed_tokens(cfg, params, tokens, pos)
     if cfg.family == "ssm":
@@ -685,7 +799,8 @@ def decode_forward(cfg: ModelConfig, params, cache, tokens, pos: int):
                 cfg, params["shared_attn"], x,
                 lambda pa, h, sb=sb: attn.gqa_decode(
                     pa, h, cache["k"][sb], cache["v"][sb], cos, sin,
-                    cfg=cfg, pos=pos)[:2])
+                    cfg=cfg, pos=pos,
+                    seq=_seq_split(layout, "k", cache))[:2])
         return _logits(cfg, params, x), cache
     # the reference's static-window decode: a local layer reads only the
     # window's slice of its cache
@@ -698,12 +813,14 @@ def decode_forward(cfg: ModelConfig, params, cache, tokens, pos: int):
         if cfg.mla is not None:
             h, _, _ = attn.mla_decode(pl["attn"], h_in, cache["ckv"][li],
                                       cache["krope"][li], cos, sin, cfg=cfg,
-                                      pos=pos)
+                                      pos=pos,
+                                      seq=_seq_split(layout, "ckv", cache))
         else:
             h, _, _ = attn.gqa_decode(
                 pl["attn"], h_in, cache["k"][li], cache["v"][li], cos, sin,
                 cfg=cfg, pos=pos, window=window,
-                static_window=window if static else None)
+                static_window=window if static else None,
+                seq=_seq_split(layout, "k", cache))
         x = x + h
         if cfg.family == "encdec":
             h, _, _ = attn.gqa_decode(

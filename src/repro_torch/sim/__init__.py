@@ -3,7 +3,7 @@ or from the card's measured kernel table, and its design-space layer.
 
 ``hw`` holds the H100's constants and the SoC topology layer (``Device``,
 ``Link``, ``SoCTopology``, ``Fabric``); ``ir`` the ``CostedOp`` IR and its
-graph, decode and task lowerings; ``backends`` the compute-cost backends
+graph, HLO, decode and task lowerings; ``backends`` the compute-cost backends
 (roofline, systolic, measured table) and the calibration fit;
 ``costmodel`` the engine's per-op cost terms and the analytic
 ``CostModel`` (numpy, or float64 torch with ``torch.func`` gradients);
@@ -42,9 +42,6 @@ A training step priced on one H100 at its bf16 peak (what
                           seq_len=4096, global_batch=8,
                           config=default_config())
     r.step_time_s, r.tokens_per_s
-
-Still to copy from the reference: the HLO lowering (``from_hlo``,
-``lower_hlo``).
 """
 from repro_torch.sim.backends import (CostBackend,  # noqa: F401
                                       RooflineBackend, SystolicBackend,
@@ -59,7 +56,8 @@ from repro_torch.sim.hw import (Device, Fabric, FabricTier,  # noqa: F401
                                 resolve_tier_params, tco_per_step)
 from repro_torch.sim.ir import (CostedOp, Program,  # noqa: F401
                                 collective_time, from_collective,
-                                from_decode, from_graph, from_serving_step,
+                                from_decode, from_graph, from_hlo,
+                                from_serving_step,
                                 from_training_step, partition_stages)
 from repro_torch.sim.serving import (Request, ServingResult,  # noqa: F401
                                      as_serving_records, bursty_trace,
@@ -70,7 +68,8 @@ from repro_torch.sim.sweep import (BatchedSweep,  # noqa: F401
                                    OptimizeResult, as_cluster_records,
                                    as_records, as_training_records,
                                    batched, cluster_sweep, fleet_sweep,
-                                   lower_graph, optimize, placements_for,
+                                   lower_graph, lower_hlo, optimize,
+                                   placements_for,
                                    sweep, topology_sweep, training_sweep)
 from repro_torch.sim.training import (TrainingResult,  # noqa: F401
                                       bubble_bound, schedule_order,

@@ -9,10 +9,13 @@ structure (deps, reduction affinity), a ``device_class`` placement tag
 the CPU, NN ops on the accelerators), fabric-tier fields the engine prices
 per hop, and a reporting phase.
 
-The port's copy of ``repro/sim/ir.py``'s core and five of its lowerings:
+The port's copy of ``repro/sim/ir.py``'s core and six of its lowerings:
 
   from_graph          the declarative ``repro_torch.core.graph.Graph`` ->
                       tile-level ops via the dataflow tiling optimizer,
+  from_hlo            a cost dict in ``core.hlo``'s schema (``analyze_hlo``
+                      of saved XLA text, or ``analyze_step`` of a traced
+                      torch step) -> a chain of uniform macro-ops,
   from_decode         token-by-token decode of a ``ModelConfig`` -> a
                       per-token macro-op chain,
   from_serving_step   one serving-scheduler iteration -> a <=2-op batched
@@ -36,8 +39,6 @@ it as ``hops * tier_latency + collective_bytes / tier_bandwidth``.
 single-tier identities of the reference hold at ``ici_lat_s=0`` (the TPU
 v5e's value); the port's default is the H100's NVLink hop, 2 us.
 
-Not copied yet: ``from_hlo``, the compiled-HLO lowering; it waits for a
-torch analyzer that emits the cost dict it consumes.
 """
 from __future__ import annotations
 
@@ -332,7 +333,48 @@ def from_graph(g, batch: int = 1, max_tile_elems: int = 16384,
 
 
 # ---------------------------------------------------------------------------
-# lowering 2: autoregressive decode -> per-token macro-op chain
+# lowering 2: analyzed compiled HLO -> macro-op chain
+
+
+def from_hlo(hlo: Dict, n_ops: int = 8, name: str = "") -> Program:
+    """Lower an ``analyze_hlo`` cost dict to a chain of uniform macro-ops.
+
+    The compiled module is one fused step — per-instruction structure is not
+    recoverable from the aggregate dict — so the program is ``n_ops``
+    proportional slices executed in sequence.  All aggregates (flops, bytes,
+    collective/wire bytes) are preserved exactly, so the engine's roofline
+    and breakdown equal the closed-form values by construction.
+    """
+    n_ops = max(int(n_ops), 1)
+    flops = float(hlo.get("flops", 0.0))
+    dot = float(hlo.get("dot_flops", 0.0))
+    nbytes = float(hlo.get("bytes", 0.0))
+    coll = float(hlo.get("collective_bytes", 0.0))
+    # ring-model wire bytes when the analyzer produced them; the raw operand
+    # sum is the fallback ONLY when the key is absent (hand-written dicts) —
+    # a legitimate 0.0 (e.g. group-size-1 collectives) must stay 0.0
+    wire = float(hlo["wire_bytes"]) if "wire_bytes" in hlo else coll
+    trans = float(hlo.get("transcendentals", 0.0))
+    ops = []
+    for i in range(n_ops):
+        ops.append(CostedOp(
+            name=f"step/{i}",
+            flops=flops / n_ops,
+            dot_flops=dot / n_ops,
+            bytes_in=0.5 * nbytes / n_ops,
+            bytes_out=0.5 * nbytes / n_ops,
+            collective_bytes=coll / n_ops,
+            wire_bytes=wire / n_ops,
+            transcendentals=trans / n_ops,
+            deps=(f"step/{i-1}",) if i else (),
+            phase="step",
+            device_class="accel"))
+    return Program(ops, name=name or hlo.get("entry", "hlo"), source="hlo",
+                   meta={"n_ops": n_ops})
+
+
+# ---------------------------------------------------------------------------
+# lowering 2b: autoregressive decode -> per-token macro-op chain
 
 
 def _decode_terms(cfg, bytes_per_param: float

@@ -36,8 +36,7 @@ over ``hw.Fabric.cluster`` (``repro_torch.sim.training``), flattened by
 ``as_training_records`` / ``as_cluster_records`` (the latter with per-step
 energy and TCO, ``hw.tco_per_step``).
 
-The port's copy of ``repro/sim/sweep.py``.  Not copied yet: ``lower_hlo``
-(it waits for an HLO lowering).
+The port's copy of ``repro/sim/sweep.py``.
 """
 from __future__ import annotations
 
@@ -55,7 +54,8 @@ from repro_torch.sim.ir import Program
 
 __all__ = ["sweep", "batched", "optimize", "topology_sweep",
            "training_sweep", "fleet_sweep", "cluster_sweep",
-           "placements_for", "lower_graph", "graph_digest", "clear_caches",
+           "placements_for", "lower_graph", "lower_hlo", "graph_digest",
+           "clear_caches",
            "as_records", "as_training_records", "as_cluster_records",
            "BatchedSweep", "OptimizeResult"]
 
@@ -66,6 +66,7 @@ _CACHE_MAX = 64
 # structural digest — not object identity — lets independently-built but
 # identical graphs (fresh ``build_paper_graph`` calls) share one lowering.
 _graph_cache: "OrderedDict[tuple, Program]" = OrderedDict()
+_hlo_cache: "OrderedDict[tuple, Program]" = OrderedDict()
 
 # id -> (graph object, digest): ``from_graph`` backfills weight-derived
 # attrs in place, so a graph's byte content changes after its first
@@ -115,11 +116,28 @@ def lower_graph(g, batch: int = 1, max_tile_elems: int = 16384) -> Program:
     return prog
 
 
+def lower_hlo(hlo: Dict, n_ops: int = 8, name: str = "") -> Program:
+    """Memoized ``ir.from_hlo`` keyed on the dict's numeric content."""
+    key = (tuple(sorted((k, float(v)) for k, v in hlo.items()
+                        if isinstance(v, (int, float)))),
+           int(n_ops), name or str(hlo.get("entry", "hlo")))
+    prog = _hlo_cache.get(key)
+    if prog is not None:
+        _hlo_cache.move_to_end(key)
+    else:
+        prog = ir.from_hlo(hlo, n_ops=n_ops, name=name)
+        if len(_hlo_cache) >= _CACHE_MAX:
+            _hlo_cache.popitem(last=False)
+        _hlo_cache[key] = prog
+    return prog
+
+
 def clear_caches() -> None:
     """Drop the memoized lowerings (tests and long-lived sessions that
     churn through many graphs; the LRU eviction above bounds memory for
     everyone else)."""
     _graph_cache.clear()
+    _hlo_cache.clear()
     _digest_memo.clear()
 
 

@@ -699,3 +699,158 @@ def rank_tp_card(rank, world, arch, n_layers, B, S):
                        (torch.bfloat16,), device_type="cuda")
     launches = (fa.flash_attention.launches, ms.mamba_scan.launches)
     return _to_cpu(out), _to_cpu(single), launches
+
+
+# ---------------------------------------------------------------------------
+# the serving steps on the rules' shards
+
+
+@contextlib.contextmanager
+def lifted_embedding(dtype):
+    """For float32 params the embedding's bf16 cast lifted (as
+    ``train_step_state`` lifts it), so that the model runs in float32."""
+    from repro_torch.models import transformer as T
+    embed = T._embed_tokens
+
+    def embed_f32(cfg, p, tokens, offset=0):
+        x = T._token_rows(p["embed"], tokens)
+        if cfg.name.startswith("gemma"):
+            x = x * cfg.d_model ** 0.5
+        return x
+    if dtype == torch.float32:
+        T._embed_tokens = embed_f32
+    try:
+        yield
+    finally:
+        T._embed_tokens = embed
+
+
+def serve_inputs(cfg, B, S, steps, seed=5):
+    """(prompt tokens (B, S), the teacher-forced tokens (B, steps)) from
+    ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, cfg.vocab, (B, S), generator=g), \
+        torch.randint(0, cfg.vocab, (B, steps), generator=g)
+
+
+def serve_run(cfg, params, B, S, steps, dtype, routes=None, shard=(0, 1)):
+    """Prefill of ``serve_inputs``' prompts, then ``steps`` decode steps
+    teacher-forced on its tokens, through ``serve.step`` (on the rules'
+    shards where a mesh and rules are installed): (the float32 logits of
+    the prefill and of each step, whole; each step's greedy tokens; the
+    cache).  ``routes``: the experts another run's MoE chose, forced
+    (``forced_experts``)."""
+    from repro_torch.serve import step as st
+    toks, forced = serve_inputs(cfg, B, S, steps)
+    pos = st.prompt_positions(cfg, S)
+    pre = st.make_prefill_step(cfg, pos + steps)
+    dec = st.make_decode_step(cfg)
+
+    def whole(t):
+        return (t.full_tensor() if hasattr(t, "full_tensor") else t).float()
+    force = contextlib.nullcontext() if routes is None \
+        else forced_experts(routes, shard)
+    with lifted_embedding(dtype), force:
+        lg, cache = pre(params, st.prefill_inputs(cfg, toks))
+        logits, tokens = [whole(lg)], []
+        for i in range(steps):
+            nxt, cache, lg = dec(params, cache, forced[:, i:i + 1], pos + i)
+            logits.append(whole(lg))
+            tokens.append(nxt.clone())
+    return logits, tokens, cache
+
+
+def _shard_offsets(t):
+    """The global offset of each dimension of a DTensor's local shard."""
+    mesh, local = t.device_mesh, t.to_local()
+    idx = [0] * t.dim()
+    for i, p in enumerate(t.placements):
+        if p.is_shard():
+            idx[p.dim] = idx[p.dim] * mesh.size(i) + mesh.get_local_rank(i)
+    return [i * n for i, n in zip(idx, local.shape)]
+
+
+@contextlib.contextmanager
+def windowed(on=True):
+    """``PerfFlags.windowed_attention`` in force for the block where
+    ``on``: a local layer's decode reads only its window's slice of the
+    cache."""
+    import dataclasses
+    from repro_torch.dist import context as dist_ctx
+    before = dist_ctx.perf_flags()
+    if on:
+        dist_ctx.set_perf_flags(dataclasses.replace(
+            before, windowed_attention=True))
+    try:
+        yield
+    finally:
+        dist_ctx.set_perf_flags(before)
+
+
+@contextlib.contextmanager
+def conv_cache_f32(on=True):
+    """The port's Mamba ``conv`` cache made in float32 (it is bf16) for the
+    block where ``on``."""
+    from repro_torch.models import transformer as T
+    init = T.init_cache
+
+    def init_f32(*args, **kw):
+        cache = init(*args, **kw)
+        if "conv" in cache:
+            cache["conv"] = cache["conv"].float()
+        return cache
+    if on:
+        T.init_cache = init_f32
+    try:
+        yield
+    finally:
+        T.init_cache = init
+
+
+def rank_serve(rank, world, cases, shape, window=False, conv_f32=False):
+    """The serving steps (``serve_run``) of each case = (arch, dtype, B, S,
+    steps, routes) on a ``shape`` = (data, model) mesh with ``rules_for``'s
+    rules at a decode shape of the case's batch and positions installed,
+    the params the rules' DTensors where ``model`` > 1, under
+    ``windowed(window)`` and ``conv_cache_f32(conv_f32)``.  Returns {(arch, dtype, B): dict(logits, tokens,
+    cache: {key: (local shard, offsets)}, table: the rules' table)}."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.config import ShapeConfig
+    from repro_torch.dist import context as dist_ctx
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import step as st
+    mesh = make_host_mesh(*shape, device_type="cpu")
+    out = {}
+    for arch, dtype, B, S, steps, routes in cases:
+        cfg = get_smoke_config(arch)
+        params = cast(T.init_params(cfg, 1, "cpu"), dtype)
+        max_seq = st.prompt_positions(cfg, S) + steps
+        rules = sharding.rules_for(cfg, ShapeConfig(
+            "serve", seq_len=max_seq, global_batch=B, kind="decode"), mesh)
+        with mesh_installed(mesh, rules), windowed(window), \
+                conv_cache_f32(conv_f32):
+            if dist_ctx.model_size() > 1:
+                params = sharding.distribute(params, rules.tree_shardings(
+                    T.param_axes(cfg), params), mesh)
+            logits, tokens, cache = serve_run(
+                cfg, params, B, S, steps, dtype, routes,
+                dist_ctx.shard_of(rules.table.get("batch")))
+            out[(arch, dtype, B)] = {
+                "logits": logits, "tokens": tokens,
+                "cache": {k: (v.to_local().clone(), _shard_offsets(v))
+                          for k, v in cache.items()},
+                "table": dict(rules.table)}
+    return out
+
+
+def rank_greedy(rank, world, rows):
+    """``serve.step.greedy_vocab_parallel`` of ``rows`` (B, V), this rank
+    holding its 1/world of the vocab, on a (1, world) mesh."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve import step as st
+    mesh = make_host_mesh(1, world, device_type="cpu")
+    with mesh_installed(mesh):
+        V = rows.shape[1] // world
+        return st.greedy_vocab_parallel(rows[:, None, rank * V:(rank + 1) * V])

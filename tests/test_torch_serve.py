@@ -371,7 +371,8 @@ def test_port_imports_no_jax_and_no_reference():
         " 'launch.serve_batch', 'dist', 'dist.context', 'optim',"
         " 'optim.optimizers', 'train', 'train.step', 'data',"
         " 'data.pipeline', 'ckpt', 'ckpt.checkpoint', 'launch.train',"
-        " 'core.tree'):\n"
+        " 'core.tree', 'core.hlo', 'core.simulator', 'core.sampling',"
+        " 'launch.dryrun', 'launch.perf_iter'):\n"
         "    assert 'repro_torch.' + m in mods, mods\n"
         "assert len(mods) >= 70, mods\n"
         "assert not bad, bad\n")
