@@ -394,7 +394,31 @@ printing a result:
    ``decode_32k`` on the 16 x 16 mesh and ``train_4k`` on 2 x 16 x 16, each
    cell's trace s, rank 0's FLOPs, bytes, collective and temp bytes and its
    roofline at the bf16 peak; then phase 43's one-device step analyzed and
-   priced beside phase 43's measured ms and phase 45's price.
+   priced beside phase 43's measured ms and phase 45's price;
+53. ``examples_torch/quickstart.py``'s ``main`` on the card: the residual
+   unit's two convolutions on the matmul kernel (exactly 2 ``tf32x3``
+   launches an execute), each fed the card's inputs against the plain
+   version at the float32 matmul tolerance, the output against the same
+   script on the CPU at ``GRAPH_TOL``; the two products timed (kernel,
+   plain, ``torch.matmul``, bound); the H100-priced 4-worker makespan and
+   utilization;
+54. ``examples_torch/camera_pipeline.py``'s ``main`` on the card: the 720p
+   frame's ISP and CNN10 (phase 12's 4 ``tf32x3`` + 2 ``stream``) against
+   its measured half, ``launch.camera.run_frame``, on the CPU; ISP ms,
+   CNN10 ms, the frame
+   priced on 8 accelerators at H100 constants after the measured ISP and
+   its verdict against 33 ms;
+55. ``examples_torch/train_lm.py``'s ``main`` with ``--preset full``:
+   tinyllama_1_1b at full width and depth, 4 x 128 tokens, 4 steps and one
+   save, then ``--resume`` to 6 steps (``resumed from step 3``), in a
+   temporary directory: finite losses, the restored params and moments
+   bit-equal to a host copy of the saved state, 44 ``wgmma`` launches a
+   step; ms a step, tok/s, peak GiB, the checkpoint's GiB, save and
+   restore s; then steps 1-3 of its ``run`` on batches keyed by step at 1
+   x 128, on the card and on the CPU from the same params, each step's
+   loss and grad norm within 2e-2; flash timed at (4, 32, 4, 128, 64);
+56. ``examples_torch/serve_batch.py``: its ``main`` at its defaults
+   (gemma3_1b's SMOKE); its ``run_measured`` is phase 27's function.
 
 Kernel times are CUDA events around back-to-back calls queued behind a
 device-side wait (``torch.cuda._sleep``) that outlasts their enqueue, so
@@ -405,9 +429,12 @@ gemma3_1b serving, phi3_mini_3_8b serving, calibration, serve_batch
 zamba2_2_7b serving, whisper_small serving, internvl2_26b serving,
 tinyllama_1_1b training, gemma3_1b serving with the windowed flag, phase
 48's EP prefill, phase 49's TP steps and phase 50's serving steps (each
-rank's own count), phase 51's sampled loops, and its times at head dims
+rank's own count), phase 51's sampled loops, the train_lm and serve_batch
+examples, and its times at head dims
 16, 32, 64 (non-causal; and tinyllama_1_1b's training
-shape), 80, 96, 128 and 192;
+shapes, phase 43's and train_lm's), 80, 96, 128 and 192; the matmul's
+launches by path gain the quickstart and camera_pipeline examples, and its
+``examples`` the quickstart's two products;
 the scan's entry:
 its launches by path, calibration, falcon_mamba_7b serving, phase
 49a's TP step and phase 51's sampled loops, and its
@@ -419,6 +446,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import datetime
+import importlib.util
+import io
 import json
 import math
 import os
@@ -533,6 +562,7 @@ KERNEL_CASES = [  # B, H, Hkv, S, D, causal, window
     (1, 2, 2, 300, 80, False, 0),           # no causal mask
     (2, 12, 12, 1500, 64, False, 0),        # whisper_small encoder: no
     (1, 48, 8, 1280, 128, True, 0),         # mask; internvl2_26b prefill
+    (4, 32, 4, 128, 64, True, 0),           # train_lm example, full preset
 ]
 # deepseek_v2_lite_16b's MLA prefill attention in SERVE: B, H, Hkv, S, D,
 # causal, window, with v zero past column 128 (MLA pads v from 128 to 192)
@@ -774,6 +804,26 @@ SAMPLED_N = 64
 # tensors): tinyllama_1_1b's cells by mesh
 DRY_CELLS = {"pod16x16": ("train_4k", "prefill_32k", "decode_32k"),
              "pod2x16x16": ("train_4k",)}
+# phases 53-56: the port's examples (examples_torch/, loaded by path), each
+# through its own main or its factored functions.  quickstart's unit runs
+# conv0 as (1024, 72) @ (72, 64) and conv1 as (1024, 576) @ (576, 8), both
+# float32 tf32x3 (M > 16).  train_lm's full preset is tinyllama_1_1b at
+# full width and depth at the example's default batch 4 x 128 tokens:
+# TRAIN_LM["steps"] steps with one save at the last, then a resume to
+# TRAIN_LM["resume_steps"]
+EXAMPLES = Path(__file__).resolve().parent / "examples_torch"
+QUICKSTART_LAUNCHES = {"tf32x3": 2}
+TRAIN_LM = dict(steps=4, resume_steps=6, batch=4, seq=128)
+# and, since the example's two pipeline workers do not fix the order of the
+# batches, steps [TRAIN_FIXED["start"], TRAIN_FIXED["steps"]) through its
+# ``run`` on batches keyed by step (``synthetic_batch`` at seed i), cut to
+# one sequence, on the card and on the host's CPU from the same params
+# (step 0, whose lr is 0, left out: the CPU takes some 30 s a step)
+TRAIN_FIXED = dict(start=1, steps=4, batch=1)
+TRAIN_FIXED_TOL = 2e-2      # bf16, card against CPU (tests/test_torch_gpu.py)
+TRAIN_LM_SHAPE = (TRAIN_LM["batch"], get_config("tinyllama_1_1b").n_heads,
+                  get_config("tinyllama_1_1b").n_kv_heads, TRAIN_LM["seq"],
+                  get_config("tinyllama_1_1b").resolved_head_dim)
 
 
 def log(*args):
@@ -1956,12 +2006,12 @@ def _is_matmul_kernel(key):
                                         "splitk_sum_kernel"))
 
 
-def profile_graph(forward, wall_ms, smi, runs=5):
-    """Device time of a forward by kernel over ``runs`` forwards: the matmul
-    kernels' share against the rest (im2col copies, pads, activations,
-    pools, norms), and the device's busy share of the median wall time
-    measured without the profiler (and of the profiled wall time, which
-    the profiler's host cost lengthens)."""
+def profile_graph(forward, wall_ms, smi, runs=5, what="forward"):
+    """Device time of a forward (or another call, ``what``) by kernel over
+    ``runs`` calls: the matmul kernels' share against the rest (im2col
+    copies, pads, activations, pools, norms), and the device's busy share
+    of the median wall time measured without the profiler (and of the
+    profiled wall time, which the profiler's host cost lengthens)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     forward()
@@ -1982,8 +2032,8 @@ def profile_graph(forward, wall_ms, smi, runs=5):
     total = sum(e.self_device_time_total for e in events) / 1e3 / runs
     mm_ms = sum(e.self_device_time_total for e in events
                 if _is_matmul_kernel(e.key)) / 1e3 / runs
-    log(f"  profile ({runs} forwards): device {total:.4f} ms a "
-        f"forward = matmul kernels {mm_ms:.4f} ({100 * mm_ms / total:.1f}%) "
+    log(f"  profile ({runs} x {what}): device {total:.4f} ms a "
+        f"{what} = matmul kernels {mm_ms:.4f} ({100 * mm_ms / total:.1f}%) "
         f"+ other {total - mm_ms:.4f}; busy {100 * total / wall_ms:.1f}% of "
         f"the {wall_ms:.4f} ms wall ({100 * total / prof_ms:.1f}% of the "
         f"profiled {prof_ms:.4f} ms); card {smi}")
@@ -4708,6 +4758,329 @@ def dry_run_on_host(measured_ms, smi):
     log(f"phase 52: {time.perf_counter() - t00:.1f} s")
 
 
+def load_example(name):
+    """``examples_torch/<name>.py`` as a module (the directory is no
+    package); the tests load the examples through it too."""
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}",
+                                                  EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def quickstart_example(smi):
+    """Phase 53: ``examples_torch/quickstart.py``'s ``main`` on the card,
+    the matmul's counts set to 0 just before and read just after (conv0 and
+    conv1, ``QUICKSTART_LAUNCHES``), and once more around a second run of
+    the unit; each product, fed the card's inputs, against the plain
+    version at the float32 matmul tolerance, and the unit's output against
+    the same script on the CPU at ``GRAPH_TOL``; each product timed
+    (kernel, plain, ``torch.matmul``, bound).  Returns the launches by
+    variant, the products' rows and the largest product error."""
+    t0 = time.perf_counter()
+    qs = load_example("quickstart")
+    with tempfile.TemporaryDirectory() as d:
+        out, ran = _path_launches(lambda: qs.main(["--out", f"{d}/card"]))
+        g = out["graph"]
+        card, again = _path_launches(
+            lambda: g.values(qs.feeds(), device="cuda"))
+        log(f"quickstart: matmul launches {ran} in main, {again} in a "
+            f"second run (expected {QUICKSTART_LAUNCHES} each)")
+        if ran != QUICKSTART_LAUNCHES or again != QUICKSTART_LAUNCHES:
+            raise AssertionError(f"quickstart ran {ran}, then {again}")
+        cpu = qs.main(["--device", "cpu", "--out", f"{d}/cpu"])
+    plan, rows, worst = g.fusion_plan(), {}, 0.0
+    for n in _products(g):
+        node = graph_ops.run_node(g, n, {i: card[i].cpu() for i in n.inputs},
+                                  plan)
+        a, b, _ = graph_ops.matmul_operands(n, card)
+        (M, K), N = a.shape, b.shape[1]
+        name = mm.variant(M, N, K, torch.float32)
+        worst = max(worst, _check(
+            f"quickstart {n.name} {(M, N, K)} {name} vs plain on the card's "
+            f"inputs", card[n.name].cpu(), node, MM_TOL[torch.float32],
+            MM_TOL[torch.float32] * K ** 0.5))
+
+        def call():
+            return mm.matmul(a, b)
+        k_ms, host = cuda_ms(call, 20), host_us(call)
+        plain = cuda_ms(lambda: ref.matmul_ref(a, b), 20, hold=False)
+        lib = cuda_ms(lambda: torch.matmul(a, b), 20)
+        b_ms, by, _ = matmul_bound(M, N, K, torch.float32, name)
+        rows[f"quickstart {n.name} {M}x{N}x{K} {name}"] = dict(
+            ms=k_ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+            bound_by=by, host_us=host)
+        log(f"  quickstart {n.name} {(M, N, K)} {name}: kernel {k_ms:.4f} "
+            f"ms (host {host:.1f} us a call), plain {plain:.4f} ms, "
+            f"torch.matmul {lib:.4f} ms, bound {b_ms:.4f} ms by {by} "
+            f"({100 * b_ms / k_ms:.2f}%); card {smi}")
+    for o in g.outputs:
+        expect = cpu["outputs"][o]
+        scale = expect.abs().max().item()
+        err = _check(f"quickstart {o} card vs CPU", out["outputs"][o].cpu(),
+                     expect, GRAPH_TOL, GRAPH_TOL * scale)
+        log(f"  {o}: max_abs_err / max|CPU| = {err / scale:.3e}")
+    tl = out["timeline"]
+    log(f"quickstart: 4-worker makespan {1e6 * tl.makespan:.4f} us, "
+        f"utilization {tl.utilization():.4f} (priced at one H100's "
+        f"constants: a price, not a measurement); tiling "
+        f"{out['choice']}; phase 53: {time.perf_counter() - t0:.1f} s; "
+        f"card {smi}")
+    return ran, rows, worst
+
+
+def camera_example(frame_ms, smi):
+    """Phase 54: ``examples_torch/camera_pipeline.py``'s ``main`` on the
+    card, the matmul's counts set to 0 just before and read just after
+    (CNN10 at batch 1, phase 12's: ``GRAPH_LAUNCHES["cnn10"][1]``); its
+    RGB frame and DNN input against its measured half,
+    ``launch.camera.run_frame``, on the CPU at ``ISP_TOL`` and its logits
+    at ``GRAPH_TOL``; the ISP ms, CNN10 ms
+    (its first run, as the reference times it), the priced frame and its
+    verdict beside phase 12's measured frame.  Returns the launches."""
+    t0 = time.perf_counter()
+    cam = load_example("camera_pipeline")
+    out, ran = _path_launches(lambda: cam.main([]))
+    expect = GRAPH_LAUNCHES["cnn10"][1]
+    log(f"camera_pipeline: matmul launches {ran} (phase 12's frame: "
+        f"{expect})")
+    if ran != expect:
+        raise AssertionError(f"camera_pipeline ran {ran}")
+    cpu = camera.run_frame(camera.raw_frame(0),
+                           build_paper_graph(PAPER_NETS["cnn10"], batch=1),
+                           "cpu")
+    for key in ("rgb", "dnn_in"):
+        _check(f"camera_pipeline {key} card vs CPU", out[key].cpu(),
+               cpu[key], 0.0, ISP_TOL)
+    _check("camera_pipeline CNN10 logits card vs CPU", out["logits"].cpu(),
+           cpu["logits"], GRAPH_TOL,
+           GRAPH_TOL * cpu["logits"].abs().max().item())
+    total_ms = 1e3 * out["timeline"].makespan
+    log(f"camera_pipeline: ISP {out['isp_ms']:.4f} ms, CNN10 "
+        f"{out['cnn_ms']:.4f} ms (its first run: params copied to the "
+        f"card), class {out['cls']}; frame priced on 8 accelerators at one "
+        f"H100's constants after the measured ISP {total_ms:.4f} ms: "
+        f"{'MEETS' if total_ms < camera.BUDGET_MS else 'MISSES'} "
+        f"{camera.BUDGET_MS:g} ms; phase 12's measured frame "
+        f"{frame_ms['frame_ms']:.4f} ms; phase 54: "
+        f"{time.perf_counter() - t0:.1f} s; card {smi}")
+    return ran
+
+
+def train_lm_example(smi):
+    """Phase 55: ``examples_torch/train_lm.py``'s ``main`` with ``--preset
+    full`` (tinyllama_1_1b at full width and depth) on the card, in a
+    temporary checkpoint directory removed after: ``TRAIN_LM["steps"]``
+    steps with ``--ckpt-every`` past them (one save, at the last step),
+    then ``--resume`` to ``TRAIN_LM["resume_steps"]``, which must print
+    ``resumed from step 3`` and run the rest.  The flash counts are set to
+    0 just before each run and read just after: forward and recompute of
+    each layer, 44 ``wgmma`` launches a step at D 64.  The example's
+    ``restore`` is wrapped for the resume: the restored params and moments
+    must equal, bit for bit, a host copy of the saved run's.  Logs ms a
+    step (steps 1-3, synced), tok/s, peak GiB, the checkpoint's GiB, the
+    save and restore seconds.  Then ``train_lm_fixed_order``.  Returns the
+    launches by run."""
+    t00 = time.perf_counter()
+    ex = load_example("train_lm")
+    cfg = ex.preset_config("tinyllama_1_1b", "full")
+    kw = TRAIN_LM
+    name = fa.variant(cfg.resolved_head_dim, torch.bfloat16)
+    per_step = 2 * cfg.n_layers
+    d = tempfile.mkdtemp(prefix="train_lm_")
+    args = ["--preset", "full", "--batch", str(kw["batch"]), "--seq",
+            str(kw["seq"]), "--ckpt-dir", d, "--ckpt-every",
+            str(10 * kw["resume_steps"])]
+    log(f"train_lm: {cfg.name} full width and depth ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads on {cfg.n_kv_heads} of "
+        f"head dim {cfg.resolved_head_dim}, vocab {cfg.vocab}), "
+        f"{kw['batch']} x {kw['seq']}, {kw['steps']} steps then a resume to "
+        f"{kw['resume_steps']}, checkpoints in {d}; card memory allocated "
+        f"before {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    restore = ex.restore
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_counts()
+        first = ex.main([*args, "--steps", str(kw["steps"])])
+        torch.cuda.synchronize()
+        ran = {k: n for k, n in fa.flash_attention.launches_by_variant.items()
+               if n}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = first["losses"]
+        if ran != {name: per_step * kw["steps"]}:
+            raise AssertionError(f"train_lm ran {ran}, expected "
+                                 f"{per_step} {name} a step")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"train_lm losses {losses}")
+        saved = sorted(Path(d).glob("step_*"))
+        if [p.name for p in saved] != [f"step_{kw['steps'] - 1:010d}"]:
+            raise AssertionError(f"train_lm saved {saved}")
+        ckpt_gib = sum(f.stat().st_size for f in saved[0].iterdir()) / 2**30
+        step_ms = [1e3 * s for s in first["step_s"]]
+        mean_ms = statistics.mean(step_ms[1:])
+        tok_s = kw["batch"] * kw["seq"] / mean_ms * 1e3
+        t0 = time.perf_counter()
+        host = tree.flatten(to_device({"params": first["params"],
+                                       "opt": first["opt"]}, "cpu"))
+        copy_s = time.perf_counter() - t0
+        save_s = first["save_s"]
+        del first
+        torch.cuda.empty_cache()
+        held = {}
+
+        def checked(mgr, params, opt, log=print):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = restore(mgr, params, opt, log)
+            torch.cuda.synchronize()
+            held["s"] = time.perf_counter() - t0
+            got = tree.flatten({"params": out[0], "opt": out[1]})
+            held["unequal"] = sorted(
+                set(got) ^ set(host)) + [
+                k for k in host if k in got and not (
+                    got[k].dtype == host[k].dtype
+                    and torch.equal(got[k].cpu(), host[k]))]
+            return out
+        ex.restore = checked
+        fa.reset_counts()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            second = ex.main([*args, "--steps", str(kw["resume_steps"]),
+                              "--resume"])
+        torch.cuda.synchronize()
+        printed = printed.getvalue().splitlines()
+        for line in printed:
+            log(line)
+        resumed = {k: n for k, n in
+                   fa.flash_attention.launches_by_variant.items() if n}
+        # one more step profiled: the device's busy share of a step
+        i = kw["resume_steps"]
+        batch = synthetic_batch(cfg, kw["batch"], kw["seq"],
+                                np.random.default_rng(i))
+        tc = TrainConfig(lr=1e-3, warmup=20, total_steps=i + 1)
+        profile_graph(lambda: ex.run(cfg, tc, second["params"],
+                                     second["opt"], [batch], i, i + 1,
+                                     log=lambda s: None),
+                      mean_ms, smi, runs=1, what="train_lm step")
+    finally:
+        ex.restore = restore
+        shutil.rmtree(d, ignore_errors=True)
+    rest = kw["resume_steps"] - kw["steps"]
+    said = f"resumed from step {kw['steps'] - 1}"
+    if said not in printed or second["start"] != kw["steps"] \
+            or len(second["losses"]) != rest:
+        raise AssertionError(f"train_lm resume: {printed}")
+    if "s" not in held or held["unequal"]:
+        raise AssertionError(f"train_lm restore not bit-equal: {held}")
+    if resumed != {name: per_step * rest}:
+        raise AssertionError(f"train_lm resume ran {resumed}")
+    if not all(math.isfinite(x) for x in second["losses"]):
+        raise AssertionError(f"train_lm resumed losses {second['losses']}")
+    fixed = train_lm_fixed_order(ex, cfg, smi)
+    log(f"train_lm: losses {[round(x, 4) for x in losses]} then "
+        f"{[round(x, 4) for x in second['losses']]}; ms a step "
+        f"{[round(x, 2) for x in step_ms]} (steps 1-3 mean {mean_ms:.2f} ms), "
+        f"{tok_s:.0f} tok/s, peak {peak:.3f} GiB over the first run; "
+        f"checkpoint {ckpt_gib:.3f} GiB ({len(host)} leaves), saved in "
+        f"{save_s:.2f} s (host copy and write), {second['save_s']:.2f} s "
+        f"after the resume; restored in {held['s']:.2f} s, every leaf equal "
+        f"bit for bit to a host copy of the saved state (taken in "
+        f"{copy_s:.2f} s); flash {ran} then {resumed} ({per_step} a step); "
+        f"phase 55: {time.perf_counter() - t00:.1f} s; card {smi}")
+    return {f"{kw['steps']} steps": ran, f"resume, {rest} steps": resumed,
+            f"fixed order, steps {TRAIN_FIXED['start']}-"
+            f"{TRAIN_FIXED['steps'] - 1}": fixed}
+
+
+def train_lm_fixed_order(ex, cfg, smi):
+    """Phase 55, its second half: steps [``TRAIN_FIXED["start"]``,
+    ``TRAIN_FIXED["steps"]``) of the example's ``run`` at full width and
+    depth on batches keyed by step (``synthetic_batch`` at seed i,
+    ``TRAIN_FIXED["batch"]`` x ``TRAIN_LM["seq"]``) under ``main``'s
+    schedule, on the card and on the CPU from the same params (made on the
+    host from seed 0, copied to the card): each step's lr equal, its loss
+    and grad norm within ``TRAIN_FIXED_TOL`` of the CPU's.  From the second
+    step on, a loss reads the params that earlier steps updated.  The flash
+    counts are set to 0 just before the card's run and read just after.
+    Returns those launches."""
+    t0 = time.perf_counter()
+    kw = TRAIN_FIXED
+    start, n = kw["start"], kw["steps"]
+    tc = TrainConfig(lr=1e-3, warmup=20, total_steps=TRAIN_LM["resume_steps"])
+    batches = [synthetic_batch(cfg, kw["batch"], TRAIN_LM["seq"],
+                               np.random.default_rng(i))
+               for i in range(start, n)]
+    host = T.init_params(cfg, 0, "cpu")
+    card = to_device(host, "cuda")
+    torch.cuda.synchronize()
+    fa.reset_counts()
+    on_card = ex.run(cfg, tc, card, adamw_init(card), batches, start, n,
+                     log=lambda s: None)
+    torch.cuda.synchronize()
+    ran = {k: c for k, c in fa.flash_attention.launches_by_variant.items()
+           if c}
+    del card, on_card["params"], on_card["opt"]
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    on_cpu = ex.run(cfg, tc, host, adamw_init(host), batches, start, n,
+                    log=lambda s: None)
+    cpu_s = time.perf_counter() - t1
+    del host, on_cpu["params"], on_cpu["opt"]
+    expect = {fa.variant(cfg.resolved_head_dim, torch.bfloat16):
+              2 * cfg.n_layers * (n - start)}
+    log(f"train_lm fixed order ({cfg.name} full, {kw['batch']} x "
+        f"{TRAIN_LM['seq']}, steps {start}-{n - 1}, lr {on_card['lrs']}): "
+        f"losses "
+        f"card {[round(x, 4) for x in on_card['losses']]}, CPU "
+        f"{[round(x, 4) for x in on_cpu['losses']]}; grad norms card "
+        f"{[round(x, 3) for x in on_card['gnorms']]}, CPU "
+        f"{[round(x, 3) for x in on_cpu['gnorms']]}; flash {ran} (expected "
+        f"{expect}); CPU {cpu_s:.1f} s; {time.perf_counter() - t0:.1f} s; "
+        f"card {smi}")
+    if ran != expect:
+        raise AssertionError(f"train_lm fixed order ran {ran}")
+    if on_card["lrs"] != on_cpu["lrs"]:
+        raise AssertionError(f"lr {on_card['lrs']} vs {on_cpu['lrs']}")
+    for key in ("losses", "gnorms"):
+        for i, (a, b) in enumerate(zip(on_card[key], on_cpu[key])):
+            if not (math.isfinite(a) and abs(a - b) <= TRAIN_FIXED_TOL
+                    * abs(b)):
+                raise AssertionError(f"train_lm fixed order step {start + i} "
+                                     f"{key}: card {a}, CPU {b}")
+    return ran
+
+
+def serve_batch_example(phase27, smi):
+    """Phase 56: ``examples_torch/serve_batch.py``: its ``main`` at its
+    defaults (gemma3_1b's SMOKE config, one batch of 4 x 32 and 15 decode
+    steps; one flash launch an attention layer), the flash counts set to 0
+    just before and read just after.  Its ``run_measured`` is
+    ``launch.serve_batch.run_measured``, the function phase 27 ran at full
+    width: phase 27's counts stand for it.  Returns the launches by run."""
+    t0 = time.perf_counter()
+    sb = load_example("serve_batch")
+    if sb.run_measured is not run_measured:
+        raise AssertionError("the serve_batch example's run_measured is "
+                             "not launch.serve_batch's")
+    smoke = get_smoke_config("gemma3_1b")
+    torch.cuda.synchronize()
+    fa.reset_counts()
+    sb.main([])
+    torch.cuda.synchronize()
+    ran = {k: n for k, n in fa.flash_attention.launches_by_variant.items()
+           if n}
+    expect = {fa.variant(smoke.resolved_head_dim, torch.bfloat16):
+              _attn_layers(smoke)}
+    log(f"serve_batch main (SMOKE): flash launches {ran} (expected "
+        f"{expect}); its run_measured is phase 27's (flash {phase27}); "
+        f"phase 56: {time.perf_counter() - t0:.1f} s; card {smi}")
+    if ran != expect:
+        raise AssertionError(f"serve_batch main ran {ran}")
+    return {"main (gemma3_1b SMOKE)": ran,
+            "run_measured (gemma3_1b full, phase 27's run)": phase27}
+
+
 def _counts():
     """Every kernel wrapper's launch count."""
     return (mm.matmul.launches, dict(mm.matmul.launches_by_variant),
@@ -4947,6 +5320,18 @@ def main():
     # dry run on the host, which launches nothing
     sampled = sampled_kernels(smi)
     dry_run_on_host(train_ms, smi)
+    # phases 53-56: the examples, each through its main or its factored
+    # functions; flash timed at the shape train_lm's full preset gives it
+    t0 = time.perf_counter()
+    quickstart_ran, quickstart_rows, quickstart_err = quickstart_example(smi)
+    camera_example_ran = camera_example(frame_ms, smi)
+    torch.cuda.empty_cache()
+    train_lm_ran = train_lm_example(smi)
+    torch.cuda.empty_cache()
+    small[(TRAIN_LM_SHAPE, torch.bfloat16)] = time_flash(
+        *TRAIN_LM_SHAPE, 0, torch.bfloat16, smi)
+    serve_batch_ran = serve_batch_example(batch_by_variant, smi)
+    log(f"phases 53-56: {time.perf_counter() - t0:.1f} s")
     log(f"training: grad errors {grad_err:.3e} (Functions), {train_err:.3e} "
         f"(card vs CPU); tinyllama_1_1b {train_ms:.1f} ms a step, "
         f"{train_tok_s:.0f} tok/s, {train_gib:.3f} GiB, device ms a step "
@@ -4972,7 +5357,9 @@ def main():
                      "serve_tp (gemma3_1b, model 2, prefill + 32 steps)": {
                          f"rank {r['rank']}": r["serve_tp"]["by_variant"]
                          for r in ranks},
-                     "sampling (phase 51)": sampled["flash_attention"]}
+                     "sampling (phase 51)": sampled["flash_attention"],
+                     "train_lm example (tinyllama_1_1b, full)": train_lm_ran,
+                     "serve_batch example": serve_batch_ran}
     log(f"flash_attention launches by path: {flash_by_path}")
     scan_by_path["tp_cut (falcon_mamba_7b, 4 layers, model 2)"] = {
         f"rank {r['rank']}": r["tp_cut falcon_mamba_7b"]["launches"][
@@ -4982,7 +5369,9 @@ def main():
     mm_by_path = {"calibration": cal_by_variant["matmul"],
                   **{f"graph batch {b}": n for b, n in graph_by_batch.items()},
                   "camera frame": camera_launches,
-                  "sampling (phase 51)": sampled["matmul"]}
+                  "sampling (phase 51)": sampled["matmul"],
+                  "quickstart example": quickstart_ran,
+                  "camera_pipeline example": camera_example_ran}
     log(f"matmul launches by path: {mm_by_path}")
     # one launch of the main path, averaged over its 26-layer local/global
     # mix, in each bf16 variant; the JSON line gives the one serving runs
@@ -5019,9 +5408,10 @@ def main():
         "replaces": "src/repro/kernels/nvdla_matmul.py:60",
         "launches": cal_launches["matmul"],
         "launches_by_variant": cal_by_variant["matmul"],
-        "max_abs_err": max(new_err["matmul"], cal_err["matmul"], graph_err),
+        "max_abs_err": max(new_err["matmul"], cal_err["matmul"], graph_err,
+                           quickstart_err),
         **_mean_row(new_rows["matmul"]), "ms_by_variant": mm_by_variant,
-        "launches_by_path": mm_by_path}, {
+        "launches_by_path": mm_by_path, "examples": quickstart_rows}, {
         # the serving path's shape, with h_S out as prefill runs it
         "name": "mamba_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",

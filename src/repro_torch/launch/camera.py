@@ -1,9 +1,11 @@
 """Camera-powered deep learning (paper §V) on one device: a raw 720p Bayer
 frame -> the ISP -> a 32x32 DNN input -> CNN10 (batch 1), against a 33 ms
 frame budget.  Every convolution and FC layer of CNN10 runs on the NVDLA
-matmul kernel on the card.  Counterpart of the measured half of the JAX
-package's ``examples/camera_pipeline.py``; its simulated half (the frame
-priced on an SoC) waits for the port of the simulator (ROADMAP Queue 1).
+matmul kernel on the card.  ``run_frame`` is the counterpart of the
+measured half of the JAX package's ``examples/camera_pipeline.py`` and
+``frame_timeline`` of its simulated half (the lowered DNN priced on an SoC
+after the measured ISP); ``examples_torch/camera_pipeline.py`` composes the
+two.
 
   PYTHONPATH=src python -m repro_torch.launch.camera
   PYTHONPATH=src python -m repro_torch.launch.camera --device cpu --seed 1
@@ -20,6 +22,8 @@ from repro_torch.apps.camera import camera_pipeline
 from repro_torch.apps.paper_graphs import build_paper_graph
 from repro_torch.configs.paper_nets import PAPER_NETS
 from repro_torch.core.device import resolve_device
+from repro_torch.core.timeline import Timeline
+from repro_torch.sim.sweep import sweep
 
 FRAME_HW = (720, 1280)
 DNN_HW = (32, 32)
@@ -56,6 +60,18 @@ def run_frame(raw, graph, device="cuda"):
     return {"rgb": rgb, "dnn_in": dnn_in, "logits": logits, "cls": cls,
             "isp_ms": isp_ms, "cnn_ms": cnn_ms, "frame_ms": isp_ms + cnn_ms,
             "meets_budget": isp_ms + cnn_ms < BUDGET_MS}
+
+
+def frame_timeline(program, isp_s, config):
+    """The Fig 19 frame: the measured ISP on the host lane ("cpu", the
+    reference's name) from 0 to ``isp_s``, then ``program`` (the lowered
+    DNN) as the engine schedules it under ``config``, appended after it."""
+    (res,) = sweep(program, [config])
+    tl = Timeline()
+    tl.add("cpu", "isp", 0.0, isp_s, "host")
+    for e in res.timeline.events:
+        tl.add(e.worker, e.name, isp_s + e.start, e.duration, e.kind)
+    return tl
 
 
 def main(argv=None):

@@ -7,7 +7,9 @@ and no JAX:
   PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 import dataclasses
+import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -29,6 +31,9 @@ from repro_torch.models import transformer as T
 from repro_torch.optim import adamw_init
 from repro_torch.serve.policy import StaticBatching
 from repro_torch.train import TrainConfig, make_train_step
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+from chip_smoke import load_example  # noqa: E402  (the examples' loader)
 
 TOL = {"float32": (torch.float32, 1e-4),        # tests/test_kernels.py
        "bfloat16": (torch.bfloat16, 3e-2)}
@@ -1348,3 +1353,89 @@ def test_tp_train_step_on_card_matches_one_process(cuda, arch, tmp_path):
                                   3e-2)
     expect = (0, 4) if arch == "falcon_mamba_7b" else (4, 0)
     assert all(o[2] == expect for o in out), [o[2] for o in out]
+
+
+# ---------------------------------------------------------------------------
+# the port's examples (examples_torch/, loaded by path)
+
+
+@pytest.mark.gpu
+def test_quickstart_example_on_card_matches_cpu(cuda, tmp_path):
+    """``examples_torch/quickstart.py`` on the card against the same script
+    on the CPU: both convolutions on the kernel (two ``tf32x3`` launches an
+    execute), each fed the card's inputs at the float32 matmul tolerance,
+    the unit's output at rtol 5e-4, atol 5e-4 max|CPU|."""
+    qs = load_example("quickstart")
+    out, ran = _launched(mm.matmul,
+                         lambda: qs.main(["--out", str(tmp_path / "card")]))
+    assert ran == {"tf32x3": 2}
+    g = out["graph"]
+    card, ran = _launched(mm.matmul,
+                          lambda: g.values(qs.feeds(), device=cuda))
+    assert ran == {"tf32x3": 2}
+    plan = g.fusion_plan()
+    for name in ("conv0", "conv1"):
+        n = g.nodes[name]
+        node = graph_ops.run_node(g, n, {i: card[i].cpu() for i in n.inputs},
+                                  plan)
+        K = int(np.prod(g.nodes[n.inputs[1]].shape[:-1]))
+        np.testing.assert_allclose(card[name].cpu().numpy(), node.numpy(),
+                                   rtol=2e-4, atol=2e-4 * K ** 0.5,
+                                   err_msg=name)
+    cpu = qs.main(["--device", "cpu", "--out", str(tmp_path / "cpu")])
+    e = cpu["outputs"]["add"].numpy()
+    np.testing.assert_allclose(out["outputs"]["add"].cpu().numpy(), e,
+                               rtol=5e-4, atol=5e-4 * np.abs(e).max())
+
+
+@pytest.mark.gpu
+def test_train_lm_example_step_on_card_matches_cpu(cuda, monkeypatch):
+    """Two steps of ``examples_torch/train_lm.py``'s ``cpu-small`` preset
+    (head dim 32) through its ``run``, at steps 20-21 past the warmup (lr
+    near its peak), on the card and on the CPU from the same params and
+    batches: flash runs each layer's forward and its recompute; each step's
+    lr the CPU's, loss and grad norm within 2e-2, every gradient leaf within
+    3e-2 relative L2 (``test_train_step_on_card_matches_cpu``'s bounds);
+    every param within 2.5 times the lrs used, summed, plus one bf16 step of
+    its largest value; and the params' move over the two steps within 0.25
+    of the CPU's move, in L2 over every leaf (a skipped update is 1)."""
+    from repro_torch.data import synthetic_batch
+    from repro_torch.train import step as step_mod
+    tl = load_example("train_lm")
+    cfg = tl.preset_config("tinyllama_1_1b", "cpu-small")
+    tc = TrainConfig(lr=1e-3, warmup=20, total_steps=100)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    before = [p.detach().float().clone() for p in tree.leaves(params)]
+    gpu = to_device(params, cuda)
+    batches = [synthetic_batch(cfg, 4, 128, np.random.default_rng(i))
+               for i in (20, 21)]
+    captured = []
+    clip = step_mod.clip_by_global_norm
+
+    def capture(grads, max_norm):
+        captured.append([g.detach().float().cpu().clone() for g in grads])
+        return clip(grads, max_norm)
+    monkeypatch.setattr(step_mod, "clip_by_global_norm", capture)
+    launched = fa.flash_attention.launches
+    card = tl.run(cfg, tc, gpu, adamw_init(gpu), batches, 20, 22,
+                  log=lambda s: None)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches - launched == 4 * cfg.n_layers
+    cpu = tl.run(cfg, tc, params, adamw_init(params), batches, 20, 22,
+                 log=lambda s: None)
+    assert min(cpu["lrs"]) > 0.99e-3 and card["lrs"] == cpu["lrs"]
+    np.testing.assert_allclose(card["losses"], cpu["losses"], rtol=2e-2)
+    np.testing.assert_allclose(card["gnorms"], cpu["gnorms"], rtol=2e-2)
+    for step in (0, 1):
+        for g, e in zip(captured[step], captured[2 + step]):
+            assert float((g - e).norm() / e.norm().clamp(min=1e-30)) <= 3e-2
+    bound = 2.5 * sum(cpu["lrs"])
+    parted, moved = 0.0, 0.0
+    for a, b, b0 in zip(tree.leaves(card["params"]),
+                        tree.leaves(cpu["params"]), before):
+        a, b = a.detach().float().cpu(), b.detach().float()
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                   atol=bound + 2 ** -8 * b.abs().max().item())
+        parted += float(((a - b0) - (b - b0)).pow(2).sum())
+        moved += float((b - b0).pow(2).sum())
+    assert moved > 0 and parted <= 0.25 ** 2 * moved, (parted, moved)

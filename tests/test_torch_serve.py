@@ -355,14 +355,20 @@ def test_cuda_requested_without_card_raises(monkeypatch):
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """Every module of repro_torch, and chip_smoke.py, imported in a fresh
-    interpreter, leaves no jax* and no repro/repro.* module loaded."""
+    """Every module of repro_torch, chip_smoke.py and the four examples of
+    examples_torch/ (by path), imported in a fresh interpreter, leave no
+    jax* and no repro/repro.* module loaded."""
     code = (
-        "import importlib, pkgutil, sys, repro_torch\n"
+        "import importlib, importlib.util, pkgutil, sys, repro_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
         " 'repro_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "for name in ('quickstart', 'train_lm', 'camera_pipeline',"
+        " 'serve_batch'):\n"
+        "    spec = importlib.util.spec_from_file_location("
+        "name, f'examples_torch/{name}.py')\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.startswith('jax')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "assert 'repro_torch.models.ssm' in mods, mods\n"
