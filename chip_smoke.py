@@ -418,7 +418,20 @@ printing a result:
    x 128, on the card and on the CPU from the same params, each step's
    loss and grad norm within 2e-2; flash timed at (4, 32, 4, 128, 64);
 56. ``examples_torch/serve_batch.py``: its ``main`` at its defaults
-   (gemma3_1b's SMOKE); its ``run_measured`` is phase 27's function.
+   (gemma3_1b's SMOKE); its ``run_measured`` is phase 27's function;
+57. the tiling optimizer on the card (``core/tiling.py::
+   choose_matmul_tiling``): (a) every tile of every matmul variant
+   (``nvdla_matmul.tiles``) against the plain version at the
+   ``tests/test_kernels.py`` shapes, ragged ones (M 17, K 1) and a split-K
+   one, at the chooser's split for the tile, and the wrapper's and the
+   kernel's refusals of a tile it does not instantiate and of a split its k
+   ranges cannot give; (b) at the ``model`` grid, every Table-III product
+   at batch 64 and 1 and the quickstart's two convs, the chosen tile, its
+   stages and split, its ms beside the tile the kernel fixed before
+   (``previous_tile``, passed explicitly), ``torch.matmul`` and the bound,
+   and the wrapper's host us a call with the chooser; (c) every tf32x3 tile
+   at each of those shapes tf32x3 takes, the chooser's pick beside the
+   fastest, whose sum the chooser's constants were fit to.
 
 Kernel times are CUDA events around back-to-back calls queued behind a
 device-side wait (``torch.cuda._sleep``) that outlasts their enqueue, so
@@ -434,7 +447,8 @@ examples, and its times at head dims
 16, 32, 64 (non-causal; and tinyllama_1_1b's training
 shapes, phase 43's and train_lm's), 80, 96, 128 and 192; the matmul's
 launches by path gain the quickstart and camera_pipeline examples, and its
-``examples`` the quickstart's two products;
+``examples`` the quickstart's two products, and ``tiling`` phase 57's
+summary (the model grid's rows, the other shapes' sums by origin);
 the scan's entry:
 its launches by path, calibration, falcon_mamba_7b serving, phase
 49a's TP step and phase 51's sampled loops, and its
@@ -505,6 +519,7 @@ from repro_torch.serve.step import (greedy, make_decode_step,  # noqa: E402
 from repro_torch.core.tensor import TensorSpec  # noqa: E402
 from repro_torch.core.tiling import H100 as H100_TILING  # noqa: E402
 from repro_torch.core.tiling import choose_tiling  # noqa: E402
+from repro_torch.core import tiling  # noqa: E402
 from repro_torch.sim import hw  # noqa: E402
 from repro_torch.sim.serving import (Request, diurnal_trace,  # noqa: E402
                                      replay_serving, serving_sweep,
@@ -812,6 +827,19 @@ DRY_CELLS = {"pod16x16": ("train_4k", "prefill_32k", "decode_32k"),
 # TRAIN_LM["steps"] steps with one save at the last, then a resume to
 # TRAIN_LM["resume_steps"]
 EXAMPLES = Path(__file__).resolve().parent / "examples_torch"
+# phase 57: the tiling optimizer on the card.  (a) every tile of every
+# matmul variant against the plain version: tests/test_kernels.py's four
+# shapes, shapes off every tile (M 17, K 1) and one whose tiles are too few
+# for the SMs (K split); the decoding-row variants' own at M <= 16.  (b) the
+# quickstart's two convs (conv0 (1024, 72) @ (72, 64), conv1 (1024, 576) @
+# (576, 8)) beside the model grid and the nets' products.  (c) every tf32x3
+# tile, unsplit and at its split, at each of those shapes that tf32x3 takes
+TILE_CASES = [(128, 128, 128), (256, 128, 384), (512, 256, 256),
+              (128, 512, 640), (100, 72, 200), (17, 130, 33), (40, 24, 1),
+              (64, 128, 6272)]
+TILE_CASES_SMALL_M = [(1, 3, 1), (4, 100, 300), (16, 1030, 1000),
+                      (4, 128, 6272)]
+QUICKSTART_CONVS = [(1024, 64, 72), (1024, 8, 576)]
 QUICKSTART_LAUNCHES = {"tf32x3": 2}
 TRAIN_LM = dict(steps=4, resume_steps=6, batch=4, seq=128)
 # and, since the example's two pipeline workers do not fix the order of the
@@ -4332,7 +4360,7 @@ def _tp_full(rank, world, smi):
     seed 0, the data pipeline's batches): first one process alone on the
     card (rank 0; rank 1 waits), then on mesh (data 1, model world) with
     ``rules_for``'s rules installed, where ``train`` places the params and
-    moments by the rules.  Each: ms a step (steps 2-4, synced), peak GiB,
+    moments by the rules.  Each: ms a step (steps 2 on, synced), peak GiB,
     the losses (TP within ``BF16_TOL`` of one process's).  The flash counts
     set to 0 just before the TP run and read just after: 2 x 22 a step a
     rank, all ``wgmma`` at D 64 on 16 query heads of 2 KV heads.  Then one
@@ -4386,7 +4414,8 @@ def _tp_full(rank, world, smi):
         f"({cfg.n_layers} layers, {cfg.param_count() / 1e9:.3f} B params, "
         f"{local / 1e6:.1f} M on this rank), {kw['batch']} x {kw['seq']} "
         f"tokens on mesh {mesh}, {kw['steps']} steps: ms a step "
-        f"{[round(1e3 * x, 1) for x in res['step_s']]} (steps 2-4 mean "
+        f"{[round(1e3 * x, 1) for x in res['step_s']]} (steps "
+        f"2-{kw['steps']} mean "
         f"{step_ms:.1f} ms, {tokens / step_ms * 1e3:.0f} tok/s), peak "
         f"{peak:.3f} GiB a rank over the run (placement and steps), "
         f"{step_peak:.3f} GiB over one step, flash {by_variant} ({launches}, expected "
@@ -5081,6 +5110,186 @@ def serve_batch_example(phase27, smi):
             "run_measured (gemma3_1b full, phase 27's run)": phase27}
 
 
+def check_tiles():
+    """Phase 57 (a): every tile of every matmul variant against the plain
+    version on the card at ``TILE_CASES`` (and ``TILE_CASES_SMALL_M`` for
+    the decoding rows), each variant at the shapes it takes, at the
+    chooser's split of K for the tile; then the refusals: a tile no variant
+    instantiates raises in the wrapper, and the C entry point itself
+    returns cudaErrorInvalidValue for it and for a split count its k ranges
+    cannot give.  Returns the largest error by dtype and the tiles held."""
+    worst, held = dict.fromkeys(MM_TOL, 0.0), 0
+    for name, (_, dtype) in mm.VARIANTS.items():
+        tol = MM_TOL[dtype]
+        for M, N, K in TILE_CASES + TILE_CASES_SMALL_M:
+            if not mm._takes(name, M, N, K, dtype):
+                continue
+            a, b = _matmul_inputs(M, N, K, dtype, seed=3)
+            expect = ref.matmul_ref(a, b)
+            errs = []
+            for bm, bn, bk in mm.tiles(name):
+                t = mm.tiling_of(M, N, K, dtype, bm=bm, bn=bn, bk=bk,
+                                 kernel=name)
+                out = _ran(mm.matmul, name, lambda: mm.matmul(
+                    a, b, bm=bm, bn=bn, bk=bk, kernel=name))
+                if out.dtype != dtype or out.shape != (M, N):
+                    raise AssertionError(f"matmul gave {out.dtype} "
+                                         f"{out.shape}")
+                errs.append(_check(
+                    f"phase 57 {name} tile {(bm, bn, bk)} x{t.stages} "
+                    f"splits {t.splits} {(M, N, K)} {dtype}", out, expect,
+                    tol, tol * K ** 0.5))
+                held += 1
+            worst[dtype] = max(worst[dtype], max(errs))
+    a, b = _matmul_inputs(128, 128, 128, torch.float32)
+    try:
+        mm.matmul(a, b, bm=128, bn=128, bk=128)
+    except ValueError as e:
+        log(f"phase 57: the wrapper refuses tile (128, 128, 128): {e}")
+    else:
+        raise AssertionError("the wrapper took tile (128, 128, 128)")
+    lib, out = mm._lib(), torch.empty(128, 128, device="cuda")
+    n_ws = mm.tf32x3_workspace(128, 128, 128, 7)
+    ws = torch.empty(n_ws, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for tile, splits in (((128, 128, 128), 1), ((128, 128, 32), 7)):
+        rc = lib.nvdla_matmul(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                              ws.data_ptr(), n_ws, 128, 128, 128, 0,
+                              mm.VARIANTS["tf32x3"][0], *tile, splits,
+                              stream)
+        torch.cuda.synchronize()
+        log(f"phase 57: nvdla_matmul at tf32x3 tile {tile}, {splits} "
+            f"splits of K = 128: cudaError_t {rc}")
+        if rc != 1:   # cudaErrorInvalidValue
+            raise AssertionError(f"the kernel took tile {tile} x{splits}")
+    return worst, held
+
+
+def previous_tile(M, N, K, name):
+    """The tile and split that ``csrc/nvdla_matmul.cu`` chose by itself
+    before its tiles became launch parameters, for a float32 variant:
+    tf32x3 128 rows by 112 or 128 columns, whichever takes the fewer rounds
+    of tiles over 132 SMs times its width (ties 128; its ``tf32x3_bn``),
+    never split; the stream kernel's one tile at the split its
+    ``stream_split_k`` gave, which the chooser's rule keeps."""
+    if name == "tf32x3":
+        tiles_m = -(-M // 128)
+
+        def cost(bn):
+            return -(-(-(-N // bn) * tiles_m) // 132) * bn
+        return (128, 112 if cost(112) < cost(128) else 128, 32), 1
+    t = mm.tiling_of(M, N, K, torch.float32, kernel=name)
+    return (t.bm, t.bn, t.bk), t.splits
+
+
+def tiling_shapes():
+    """Phase 57 (b)'s float32 products by origin: the ``model`` grid, each
+    Table-III net's conv and FC products at batch 64 and 1 (unique shapes,
+    from the graphs' static shapes) and the quickstart's two convs."""
+    shapes = {"model": list(calibrate.MODEL_GRIDS["matmul"])}
+    for batch in (64, 1):
+        seen = shapes.setdefault(f"graph batch {batch}", [])
+        for net in PAPER_NETS:
+            g = build_paper_graph(PAPER_NETS[net], batch)
+            for n in _products(g):
+                s = graph_ops.product_shape(g, n)
+                if s not in seen:
+                    seen.append(s)
+    shapes["quickstart"] = list(QUICKSTART_CONVS)
+    return shapes
+
+
+def time_tiles(smi):
+    """Phase 57 (b): at each float32 shape of ``tiling_shapes`` the
+    chooser's tile (its stages and split) and its kernel ms beside the
+    previous tile's (``previous_tile``, passed explicitly), ``torch.matmul``
+    and the bound, and the wrapper's host us a call with the chooser; (c)
+    at each of those shapes that tf32x3 takes, every tf32x3 tile's ms,
+    unsplit and at the chooser's split for it, the chooser's pick beside the
+    fastest.  Returns the rows by origin and the picks' summed ms over the
+    fastest tiles'."""
+    rows = {}
+    for origin, shapes in tiling_shapes().items():
+        for M, N, K in shapes:
+            a, b = _matmul_inputs(M, N, K, torch.float32, seed=4)
+            t = mm.tiling_of(M, N, K, torch.float32)
+            prev, prev_splits = previous_tile(M, N, K, t.variant)
+            k_ms = cuda_ms(lambda: mm.matmul(a, b), 20)
+            same = prev == (t.bm, t.bn, t.bk) and prev_splits == t.splits
+            p_ms = k_ms if same else cuda_ms(lambda: mm.matmul(
+                a, b, bm=prev[0], bn=prev[1], bk=prev[2],
+                splits=prev_splits), 20)
+            lib = cuda_ms(lambda: torch.matmul(a, b), 20)
+            b_ms, by, _ = matmul_bound(M, N, K, torch.float32, t.variant)
+            host = host_us(lambda: mm.matmul(a, b))
+            row = dict(shape=[M, N, K], variant=t.variant,
+                       tile=[t.bm, t.bn, t.bk], stages=t.stages,
+                       splits=t.splits, ms=k_ms, previous_tile=list(prev),
+                       previous_splits=prev_splits, previous_ms=p_ms,
+                       library_ms=lib, bound_ms=b_ms, bound_by=by,
+                       host_us=host)
+            rows.setdefault(origin, []).append(row)
+            log(f"phase 57 {origin} {(M, N, K)} {t.variant}: tile "
+                f"{(t.bm, t.bn, t.bk)} x{t.stages} splits {t.splits}: "
+                f"{k_ms:.4f} ms; previous {prev} splits {prev_splits}: "
+                + ("the same tile" if same else f"{p_ms:.4f} ms") +
+                f" ({k_ms / p_ms:.3f}x); torch.matmul {lib:.4f} ms; bound "
+                f"{b_ms:.5f} ms by {by}; host {host:.1f} us a call")
+    kern = tiling.matmul_kernel("tf32x3")
+    picked = fastest = 0.0
+    for M, N, K in sorted({tuple(r["shape"]) for v in rows.values()
+                           for r in v if r["variant"] == "tf32x3"}):
+        a, b = _matmul_inputs(M, N, K, torch.float32, seed=4)
+        t = mm.tiling_of(M, N, K, torch.float32)
+        times = {}
+        for tile in kern.tiles:
+            for splits in sorted({1, tiling.split_count(M, N, K, tile, kern,
+                                                        hw.N_SMS)}):
+                times[tile[:3], splits] = cuda_ms(lambda: mm.matmul(
+                    a, b, bm=tile[0], bn=tile[1], bk=tile[2],
+                    splits=splits), 10)
+        best = min(times, key=times.get)
+        pick = times[(t.bm, t.bn, t.bk), t.splits]
+        picked, fastest = picked + pick, fastest + times[best]
+        log(f"phase 57 sweep {(M, N, K)}: picked {(t.bm, t.bn, t.bk)} "
+            f"splits {t.splits} {pick:.4f} ms, fastest {best[0]} splits "
+            f"{best[1]} {times[best]:.4f} ms; " + ", ".join(
+                f"{tile[0]}x{tile[1]}/{s} {ms_:.4f}"
+                for (tile, s), ms_ in times.items()))
+    log(f"phase 57 sweep: the chooser's tf32x3 picks {picked:.4f} ms in all, "
+        f"the fastest tiles {fastest:.4f} ms ({picked / fastest:.4f}x); "
+        f"card {smi}")
+    return rows, picked / fastest
+
+
+def tiling_phase(smi):
+    """Phase 57: the tiling optimizer on the card (``check_tiles``,
+    ``time_tiles``).  Returns the JSON line's ``tiling`` entry: the model
+    grid's rows, and by origin the summed ms of the chooser's tiles, the
+    previous tiles, ``torch.matmul`` and the bound (every row is on its
+    ``phase 57`` line)."""
+    t0 = time.perf_counter()
+    worst, held = check_tiles()
+    rows, sweep = time_tiles(smi)
+    model = rows["model"]
+    slow = [r for r in model if r["ms"] > 1.05 * r["previous_ms"]]
+    log(f"phase 57: {held} tiles held, max_abs_err float32 "
+        f"{worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e}; the "
+        f"model grid's chosen tiles within 5% of the previous tile's ms: "
+        f"{'MET' if not slow else 'MISSED at ' + str(slow)}; "
+        f"{time.perf_counter() - t0:.1f} s; card {smi}")
+    keys = ("ms", "previous_ms", "library_ms", "bound_ms")
+    return {"tiles_held": held, "max_abs_err": worst[torch.float32],
+            "max_abs_err_bf16": worst[torch.bfloat16],
+            "seconds": time.perf_counter() - t0, "model": [
+                {k: r[k] for k in ("shape", "variant", "tile", "stages",
+                                   "splits", *keys)} for r in model],
+            "sums": {origin: {"shapes": len(rs), **{
+                k: sum(r[k] for r in rs) for k in keys}}
+                for origin, rs in rows.items()},
+            "sweep_picked_over_fastest": sweep}
+
+
 def _counts():
     """Every kernel wrapper's launch count."""
     return (mm.matmul.launches, dict(mm.matmul.launches_by_variant),
@@ -5332,6 +5541,8 @@ def main():
         *TRAIN_LM_SHAPE, 0, torch.bfloat16, smi)
     serve_batch_ran = serve_batch_example(batch_by_variant, smi)
     log(f"phases 53-56: {time.perf_counter() - t0:.1f} s")
+    # phase 57: the tiling optimizer on the card
+    tiling_entry = tiling_phase(smi)
     log(f"training: grad errors {grad_err:.3e} (Functions), {train_err:.3e} "
         f"(card vs CPU); tinyllama_1_1b {train_ms:.1f} ms a step, "
         f"{train_tok_s:.0f} tok/s, {train_gib:.3f} GiB, device ms a step "
@@ -5351,10 +5562,12 @@ def main():
                          f"rank {r['rank']}": r[
                              "tp_cut tinyllama_1_1b"]["launches"][
                                  "flash_by_variant"] for r in ranks},
-                     "tp_train (tinyllama_1_1b, model 2, 4 steps)": {
+                     f"tp_train (tinyllama_1_1b, model 2, "
+                     f"{TP_FULL['steps']} steps)": {
                          f"rank {r['rank']}": r["tp_full"]["by_variant"]
                          for r in ranks},
-                     "serve_tp (gemma3_1b, model 2, prefill + 32 steps)": {
+                     f"serve_tp (gemma3_1b, model 2, prefill + "
+                     f"{SERVE_TP['steps']} steps)": {
                          f"rank {r['rank']}": r["serve_tp"]["by_variant"]
                          for r in ranks},
                      "sampling (phase 51)": sampled["flash_attention"],
@@ -5409,9 +5622,10 @@ def main():
         "launches": cal_launches["matmul"],
         "launches_by_variant": cal_by_variant["matmul"],
         "max_abs_err": max(new_err["matmul"], cal_err["matmul"], graph_err,
-                           quickstart_err),
+                           quickstart_err, tiling_entry["max_abs_err"]),
         **_mean_row(new_rows["matmul"]), "ms_by_variant": mm_by_variant,
-        "launches_by_path": mm_by_path, "examples": quickstart_rows}, {
+        "launches_by_path": mm_by_path, "examples": quickstart_rows,
+        "tiling": tiling_entry}, {
         # the serving path's shape, with h_S out as prefill runs it
         "name": "mamba_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",

@@ -10,6 +10,7 @@ kernel.  Counterpart of the JAX package's ``repro/core/graph_ops.py``.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
@@ -60,6 +61,16 @@ def matmul_operands(n, vals):
         return a, w.reshape(kh * kw * cin, cout), (nb, oh, ow, cout)
     a = x.reshape(x.shape[0], -1) if x.dim() > 2 else x
     return a, w, (a.shape[0], w.shape[1])
+
+
+def product_shape(g, n):
+    """(M, N, K) of a convolution or matmul node's product, from the
+    graph's static shapes: ``matmul_operands``' (a, b) are (M, K), (K, N)."""
+    w = g.nodes[n.inputs[1]].shape
+    if n.op == "convolution":
+        return math.prod(n.shape[:3]), w[3], w[0] * w[1] * w[2]
+    x = g.nodes[n.inputs[0]].shape
+    return x[0], w[1], math.prod(x[1:])
 
 
 def run_node(g, n, vals: Dict, fused_into: Dict[str, str]):

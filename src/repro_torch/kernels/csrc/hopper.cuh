@@ -198,7 +198,7 @@ __device__ __forceinline__ void acc_fence(Acc<N>& d) {
 // scale_d = 0 overwrites d.  wgmma_ss reads A from shared memory (K-major),
 // wgmma_rs from registers in the mma.sync m16n8k16 A layout (rows 16 w ..
 // 16 w + 15 for warp w).  TB = 1 marks B as MN-major (transpose-B).
-// Generated text: one overload per N the kernels use (64 and 256 from
+// Generated text: one overload per N the kernels use (64, 128 and 256 from
 // shared memory; 16, 32, 64, 80, 96, 128, 192 and 256 from registers: flash
 // attention's P V at N = D), as the instruction names every accumulator
 // register.
@@ -221,6 +221,35 @@ __device__ __forceinline__ void wgmma_ss(Acc<64>& d, uint64_t da, uint64_t db,
         "+f"(d.r[18]), "+f"(d.r[19]), "+f"(d.r[20]), "+f"(d.r[21]), "+f"(d.r[22]), "+f"(d.r[23]),
         "+f"(d.r[24]), "+f"(d.r[25]), "+f"(d.r[26]), "+f"(d.r[27]), "+f"(d.r[28]), "+f"(d.r[29]),
         "+f"(d.r[30]), "+f"(d.r[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_ss(Acc<128>& d, uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "},"
+      " %64, %65, p, 1, 1, 0, %67;\n"
+      "}\n"
+      : "+f"(d.r[0]), "+f"(d.r[1]), "+f"(d.r[2]), "+f"(d.r[3]), "+f"(d.r[4]), "+f"(d.r[5]),
+        "+f"(d.r[6]), "+f"(d.r[7]), "+f"(d.r[8]), "+f"(d.r[9]), "+f"(d.r[10]), "+f"(d.r[11]),
+        "+f"(d.r[12]), "+f"(d.r[13]), "+f"(d.r[14]), "+f"(d.r[15]), "+f"(d.r[16]), "+f"(d.r[17]),
+        "+f"(d.r[18]), "+f"(d.r[19]), "+f"(d.r[20]), "+f"(d.r[21]), "+f"(d.r[22]), "+f"(d.r[23]),
+        "+f"(d.r[24]), "+f"(d.r[25]), "+f"(d.r[26]), "+f"(d.r[27]), "+f"(d.r[28]), "+f"(d.r[29]),
+        "+f"(d.r[30]), "+f"(d.r[31]), "+f"(d.r[32]), "+f"(d.r[33]), "+f"(d.r[34]), "+f"(d.r[35]),
+        "+f"(d.r[36]), "+f"(d.r[37]), "+f"(d.r[38]), "+f"(d.r[39]), "+f"(d.r[40]), "+f"(d.r[41]),
+        "+f"(d.r[42]), "+f"(d.r[43]), "+f"(d.r[44]), "+f"(d.r[45]), "+f"(d.r[46]), "+f"(d.r[47]),
+        "+f"(d.r[48]), "+f"(d.r[49]), "+f"(d.r[50]), "+f"(d.r[51]), "+f"(d.r[52]), "+f"(d.r[53]),
+        "+f"(d.r[54]), "+f"(d.r[55]), "+f"(d.r[56]), "+f"(d.r[57]), "+f"(d.r[58]), "+f"(d.r[59]),
+        "+f"(d.r[60]), "+f"(d.r[61]), "+f"(d.r[62]), "+f"(d.r[63])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 

@@ -10,9 +10,14 @@
 // Here one block owns one output tile and walks K in a loop, with the
 // accumulator in registers.  The TPU kernel asserts that its blocks divide
 // M, N and K; this one takes any M, N and K and masks the ragged edges
-// itself: elements past an edge load as zeros and are never stored.  Its
-// tiles are its own: the Pallas bm/bn/bk and the TPU tiling chooser
-// (repro/core/tiling.py) have no counterpart here.
+// itself: elements past an edge load as zeros and are never stored.  The
+// Pallas bm/bn/bk become launch parameters: each variant instantiates a
+// few tiles (output rows and columns, k a step, pipeline stages), and the
+// caller names one, with the number of blocks K is split over.  The tiling
+// optimizer's Hopper chooser (repro_torch/core/tiling.py::
+// choose_matmul_tiling, the counterpart of repro/core/tiling.py's) picks
+// both; this file decides no tile and no split, and refuses a tile it does
+// not instantiate.
 //
 // What bounds it on the H100: a product of M rows does 2 M N K operations
 // on (M K + K N + M N) elements, so at M in the thousands it is bound by
@@ -35,19 +40,20 @@
 // The FMA and mma.sync kernels keep a small variant for M of at most 16
 // rows (the decoding shapes): its block holds 16 rows, so b is read once
 // and not many times over 128 rows of zeros.  Where the output tiles are too
-// few to fill the card's 132 SMs (a few rows by a narrow N), K is split over
-// blocks, whose float32 partials a second kernel sums: (4, 1152, 6912) has 9
-// output tiles.  Both load the next K tile into registers while the current
-// one is multiplied.
+// few to fill the card's 132 SMs (a few rows by a narrow N), the caller
+// splits K over blocks, whose float32 partials a second kernel sums. Both
+// load the next K tile into registers while the current one is multiplied.
+// Tiles: FMA 16 x 128 (k 16) and 128 x 128 (k 8); mma.sync 16 x 128 and
+// 128 x 128 (k 32).
 //
 // bf16 on Hopper (the wgmma variant), for M > 16 and K, N multiples of 8:
 // the card's full tensor-core rate needs wgmma, which reads its operands
 // from shared memory while the tiles stream in.  a's and b's tiles arrive by
 // TMA (128-byte swizzle, boxes of 64 bf16 on the inner dimension) in a
-// 3-stage ring guarded by mbarriers; a producer warpgroup keeps the loads in
-// flight and two consumer warpgroups multiply a 128 x 256 output tile, b
-// being MN-major (wgmma's transpose-B), and store it by TMA from shared
-// memory.  It never splits K.  The helpers it shares with the flash kernel
+// ring of 3 or 4 stages guarded by mbarriers; a producer warpgroup keeps the
+// loads in flight and two consumer warpgroups multiply a 128 x BN output
+// tile (BN 64, 128 or 256), b being MN-major (wgmma's transpose-B), and
+// store it by TMA from shared memory.  It never splits K.  The helpers it shares with the flash kernel
 // are in hopper.cuh.
 //
 // float32 with M > 16 (the tf32x3 variant): the reference tolerance (rtol
@@ -57,14 +63,19 @@
 // 0 (b transposed: TF32 wgmma has no transpose-B), and a wgmma kernel on the
 // bf16 one's skeleton sums lo·hi + hi·lo + hi·hi into one float32
 // accumulator (CUTLASS's 3xTF32: only lo·lo, about 2^-22 relative, is
-// dropped), at up to a third of the 495 TFLOP/s TF32 rate.
+// dropped), at up to a third of the 495 TFLOP/s TF32 rate.  Its tiles: BM
+// 64 or 128 rows (one or two consumer warpgroups) by BN 64, 112, 128 or 256
+// columns, with as many stages (2-4) as shared memory holds; where the
+// tiles are too few for the SMs, the caller splits K over blocks and the
+// float32 partials are summed as below.
 //
 // float32 with M <= 16 (the stream variant): the product reads b once and
 // is bound by that.  Each thread owns 4 adjacent columns, reads b as 16-byte
 // read-only loads, 8 k rows in flight, and uses each element M times from a
 // register; a's few rows come through the read-only cache as warp-wide
-// broadcasts.  Where the columns fill less than one wave, K is split and the
-// partials summed by the split-K sum kernel.
+// broadcasts; its tile is 16 rows by 1024 columns, 8 k rows a step.  Where
+// the columns fill less than one wave, the caller splits K and the split-K
+// sum kernel adds the partials.
 //
 // Which variant runs is the caller's choice (nvdla_matmul.py::variant):
 // float32 takes tf32x3 for M > 16 and stream otherwise; bf16 the wgmma one
@@ -361,16 +372,23 @@ matmul_bf16_kernel(const __nv_bfloat16* __restrict__ a,
 // bf16 on Hopper: wgmma fed by TMA through a ring of shared tiles
 
 namespace wg {
-constexpr int BM = 128, BN = 256, BK = 64;   // output tile, k per stage
-constexpr int STAGES = 3;
+constexpr int BM = 128, BK = 64;             // output rows a tile, k a stage
 constexpr int CONSUMERS = 2;                 // warpgroups of 64 rows each
 constexpr int THREADS = 128 * (CONSUMERS + 1);
 constexpr int A_BYTES = BM * BK * 2;         // one box [BM][64]
-constexpr int B_BYTES = BK * BN * 2;         // BN / 64 boxes [BK][64]
-constexpr int C_BYTES = 64 * BN * 2;         // BN / 64 boxes [64][64] a warpgroup
-constexpr size_t SMEM = 1024 + size_t(STAGES) * (A_BYTES + B_BYTES) +
-                        size_t(CONSUMERS) * C_BYTES +
-                        2 * STAGES * sizeof(uint64_t);
+// BN output columns a tile (64, 128 or 256), STAGES stages in the ring
+template <int BN_, int STAGES_>
+struct Tile {
+  static constexpr int BN = BN_, STAGES = STAGES_;
+  static constexpr int B_BYTES = BK * BN * 2;   // BN / 64 boxes [BK][64]
+  // BN / 64 boxes [64][64] a warpgroup
+  static constexpr int C_BYTES = 64 * BN * 2;
+  // tiling.py::_wgmma_tile computes the same
+  static constexpr size_t SMEM = 1024 + size_t(STAGES) * (A_BYTES + B_BYTES) +
+                                 size_t(CONSUMERS) * C_BYTES +
+                                 2 * STAGES * sizeof(uint64_t);
+  static_assert(SMEM <= 232448, "227 KB of shared memory a block");
+};
 }  // namespace wg
 
 // A persistent grid: block i owns output tiles i, i + gridDim.x, ... (BM x
@@ -379,14 +397,15 @@ constexpr size_t SMEM = 1024 + size_t(STAGES) * (A_BYTES + B_BYTES) +
 // of a's (BM x 64, K-major) and b's (64 x BN, MN-major) boxes into the
 // STAGES-deep ring, each stage guarded by a `full` barrier (TMA bytes) and an
 // `empty` one (one arrival per consumer warp); the ring runs on across tiles.
-// Consumer warpgroup w multiplies rows 64 w .. 64 w + 63 with m64n256k16
+// Consumer warpgroup w multiplies rows 64 w .. 64 w + 63 with m64nBNk16
 // wgmma, keeping one stage's products in flight while it waits for the next.
 // Its epilogue writes the float32 accumulator as bf16 into its own shared
 // tile (the 128-byte-swizzled boxes a TMA load of c would write), and one
 // thread stores those boxes to c by TMA while the warpgroup goes on to its
 // next tile: register-to-global stores of 4 bytes cost 28% of the time
 // (PERF.md).  TMA writes nothing past M and N; a's and b's boxes arrive as
-// zeros there.  3 stages leave room for the two output tiles.
+// zeros there.
+template <typename Tl>
 __global__ void __launch_bounds__(wg::THREADS, 1)
 matmul_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                          const __grid_constant__ CUtensorMap map_b,
@@ -394,6 +413,8 @@ matmul_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                          int N, int K) {
   using namespace wg;
   using namespace hopper;
+  constexpr int BN = Tl::BN, STAGES = Tl::STAGES;
+  constexpr int B_BYTES = Tl::B_BYTES, C_BYTES = Tl::C_BYTES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* As = align1024(smem_raw);          // [STAGES][BM][64]
   unsigned char* Bs = As + STAGES * A_BYTES;        // [STAGES][BN/64][BK][64]
@@ -494,6 +515,7 @@ matmul_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
 
 // a (M, K) and b (K, N) as tensor maps of 64-element boxes; K % 8 == 0 and
 // N % 8 == 0 so that their row strides are whole 16-byte units
+template <typename Tl>
 cudaError_t launch_wgmma(const void* a, const void* b, void* c, int M, int N,
                          int K, cudaStream_t stream) {
   using namespace wg;
@@ -517,12 +539,13 @@ cudaError_t launch_wgmma(const void* a, const void* b, void* c, int M, int N,
   if (err == cudaSuccess) err = hopper::device_sms(&device, &sms);
   static std::atomic<uint64_t> smem_set{0};
   if (err == cudaSuccess)
-    err = hopper::smem_limit_once(smem_set, matmul_bf16_wgmma_kernel,
-                                  (int)SMEM, device);
+    err = hopper::smem_limit_once(smem_set, matmul_bf16_wgmma_kernel<Tl>,
+                                  (int)Tl::SMEM, device);
   if (err != cudaSuccess) return err;
-  const long long tiles = (long long)((N + BN - 1) / BN) * ((M + BM - 1) / BM);
+  const long long tiles =
+      (long long)((N + Tl::BN - 1) / Tl::BN) * ((M + BM - 1) / BM);
   const int grid = (int)(tiles < sms ? tiles : sms);
-  matmul_bf16_wgmma_kernel<<<grid, THREADS, SMEM, stream>>>(
+  matmul_bf16_wgmma_kernel<Tl><<<grid, THREADS, Tl::SMEM, stream>>>(
       map_a, map_b, map_c, M, N, K);
   return cudaGetLastError();
 }
@@ -546,41 +569,39 @@ __global__ void splitk_sum_kernel(const float* __restrict__ ws,
   }
 }
 
-constexpr int SMALL_M = 16;    // at most this many rows: 16-row tiles, stream
-constexpr int N_SM = 132;      // SMs of an H100 SXM
-constexpr int SPLIT_ALIGN = 32;   // a split's k range is whole tiles of both kernels
-constexpr int MIN_SPLIT_K = 256;  // the least k a split takes
+constexpr int SMALL_M = 16;    // at most this many rows: the stream kernel
+constexpr int SPLIT_ALIGN = 32;   // a split's k range is whole k tiles of the
+                                  // FMA and mma.sync kernels
 
 // the split-K partials of ws summed into c by splitk_sum_kernel
 template <typename T>
 cudaError_t sum_splits(const float* ws, void* c, int M, int N, int splits,
                        cudaStream_t stream) {
   const long long mn = (long long)M * N;
-  const int blocks = (int)min((mn + 255) / 256, (long long)4 * N_SM);
+  const int blocks = (int)min((mn + 255) / 256, 4LL * 132);
   splitk_sum_kernel<T><<<blocks, 256, 0, stream>>>(ws, static_cast<T*>(c), mn,
                                                    splits);
   return cudaGetLastError();
 }
 
-// k per split: when the output tiles would fill less than one wave of the
-// card, K is split over blocks (about two blocks per SM, each at least
-// MIN_SPLIT_K deep), their float32 partials summed by a second kernel
-int split_k(int M, int N, int K) {
-  const int bm = M <= SMALL_M ? 16 : 128;
-  const long long tiles = (long long)((M + bm - 1) / bm) * ((N + 127) / 128);
-  int splits = 1;
-  if (tiles < N_SM)
-    splits = max(1, min((int)((2 * N_SM + tiles - 1) / tiles), K / MIN_SPLIT_K));
-  const int per = (K + splits - 1) / splits;
-  return (per + SPLIT_ALIGN - 1) / SPLIT_ALIGN * SPLIT_ALIGN;
+// k per split when K is split over `splits` blocks: ceil(K / splits)
+// rounded up to `align`; 0 (refused) unless that leaves each of the
+// `splits` k ranges non-empty (tiling.py::aligned_splits gives such counts)
+int split_chunk(int K, int splits, int align) {
+  if (splits < 1) return 0;
+  const int chunk = ((K + splits - 1) / splits + align - 1) / align * align;
+  return (K + chunk - 1) / chunk == splits ? chunk : 0;
 }
 
+// a kernel of the FMA or mma.sync family at a bm x bn tile over `splits`
+// k ranges, their float32 partials (ws: splits x M x N) summed by a second
+// kernel
 template <typename T, typename Kernel>
 cudaError_t launch(Kernel kernel, int threads, int bm, int bn, const void* a,
                    const void* b, void* c, float* ws, int M, int N, int K,
-                   cudaStream_t stream) {
-  const int kchunk = split_k(M, N, K), splits = (K + kchunk - 1) / kchunk;
-  if (splits > 1 && !ws) return cudaErrorInvalidValue;
+                   int splits, cudaStream_t stream) {
+  const int kchunk = split_chunk(K, splits, SPLIT_ALIGN);
+  if (!kchunk || (splits > 1 && !ws)) return cudaErrorInvalidValue;
   const dim3 grid((N + bn - 1) / bn, (M + bm - 1) / bm, splits);
   kernel<<<grid, threads, 0, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(c),
@@ -594,17 +615,22 @@ cudaError_t launch(Kernel kernel, int threads, int bm, int bn, const void* a,
 // float32 on the tensor cores: three TF32 passes (the tf32x3 variant)
 
 namespace tf {
-constexpr int BM = 128, BK = 32;   // output rows a tile; k per stage (one
-                                   // 128-byte row of fp32)
-constexpr int STAGES = 3;
-constexpr int CONSUMERS = 2;                 // warpgroups of 64 rows each
-constexpr int THREADS = 128 * (CONSUMERS + 1);
-constexpr int A_BYTES = BM * BK * 4;         // one box [BM][32]: a_hi or a_lo
-template <int BN>                            // hi and lo of a's and b^T's
-constexpr int STAGE_BYTES = 2 * A_BYTES + 2 * BN * BK * 4;   // boxes
-template <int BN>
-constexpr size_t SMEM = 1024 + size_t(STAGES) * STAGE_BYTES<BN> +
-                        2 * STAGES * sizeof(uint64_t);
+constexpr int BK = 32;   // k per stage: one 128-byte row of fp32
+// BM output rows a tile (64 or 128: one or two consumer warpgroups), BN
+// columns (64, 112, 128 or 256), STAGES stages in the ring
+template <int BM_, int BN_, int STAGES_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, STAGES = STAGES_;
+  static constexpr int CONSUMERS = BM / 64;      // warpgroups of 64 rows
+  static constexpr int THREADS = 128 * (CONSUMERS + 1);
+  static constexpr int A_BYTES = BM * BK * 4;    // a box [BM][32]: a_hi or a_lo
+  static constexpr int B_BYTES = BN * BK * 4;    // a box [BN][32]
+  static constexpr int STAGE = 2 * A_BYTES + 2 * B_BYTES;   // hi and lo
+  // tiling.py::_tf32x3_tile computes the same
+  static constexpr size_t SMEM =
+      1024 + size_t(STAGES) * STAGE + 2 * STAGES * sizeof(uint64_t);
+  static_assert(SMEM <= 232448, "227 KB of shared memory a block");
+};
 constexpr int SPLIT_T = 64;                  // tile edge of the split pass
 }  // namespace tf
 
@@ -658,23 +684,31 @@ tf32_split_kernel(const float* __restrict__ a, const float* __restrict__ b,
 
 // The product, on the skeleton of matmul_bf16_wgmma_kernel (a
 // persistent grid, a TMA ring guarded by full / empty mbarriers, a producer
-// warpgroup, two consumer warpgroups of 64 rows), with four boxes a stage:
-// a_hi, a_lo (BM x 32) and bT_hi, bT_lo (BN x 32), each through a 3-d map
-// whose third index picks hi or lo (so that rows past M or N arrive as
-// zeros, not as the other part's rows).  Each k8 step issues m64nBNk8
+// warpgroup, one or two consumer warpgroups of 64 rows), with four boxes a
+// stage: a_hi, a_lo (BM x 32) and bT_hi, bT_lo (BN x 32), each through a
+// 3-d map whose third index picks hi or lo (so that rows past M or N arrive
+// as zeros, not as the other part's rows).  Each k8 step issues m64nBNk8
 // three times, lo·hi and hi·lo before hi·hi, into one float32 accumulator.
-// The epilogue stores from registers: a float32 row piece of 8 columns is
-// one whole 32-byte sector.  What these stores cost was not measured (the
-// bf16 kernel's register stores cost 28% before it stored through shared
-// memory and TMA).  BN is 128 or 112 (tf32x3_bn).
-template <int BN>
-__global__ void __launch_bounds__(tf::THREADS, 1)
+// A block's work items are (split, tile) pairs, split-major: split z takes
+// k stages z kc .. z kc + kc - 1 and, with splits > 1, writes its float32
+// partial to partials[z] (M x N) for the split-K sum, else to c.  The
+// epilogue stores from registers: a float32 row piece of 8 columns is one
+// whole 32-byte sector.  What these stores cost was not measured (the bf16
+// kernel's register stores cost 28% before it stored through shared memory
+// and TMA).  With one consumer warpgroup the registers are not moved
+// between warpgroups (setmaxnreg): a thread of its 256 may hold 255.
+template <typename Tl>
+__global__ void __launch_bounds__(Tl::THREADS, 1)
 matmul_tf32x3_kernel(const __grid_constant__ CUtensorMap map_a,
                      const __grid_constant__ CUtensorMap map_b,
-                     float* __restrict__ c, int M, int N, int Kp) {
-  using namespace tf;
+                     float* __restrict__ c, float* __restrict__ partials,
+                     int M, int N, int Kp, int kc, int splits) {
   using namespace hopper;
-  constexpr int B_BYTES = BN * BK * 4, STAGE = STAGE_BYTES<BN>;
+  using tf::BK;
+  constexpr int BM = Tl::BM, BN = Tl::BN, STAGES = Tl::STAGES;
+  constexpr int CONSUMERS = Tl::CONSUMERS;
+  constexpr int A_BYTES = Tl::A_BYTES, B_BYTES = Tl::B_BYTES;
+  constexpr int STAGE = Tl::STAGE;
   extern __shared__ unsigned char smem_raw[];
   // [STAGES][a_hi, a_lo, bT_hi, bT_lo]
   unsigned char* ring = align1024(smem_raw);
@@ -683,6 +717,7 @@ matmul_tf32x3_kernel(const __grid_constant__ CUtensorMap map_a,
 
   const int tiles_n = (N + BN - 1) / BN;
   const int tiles = tiles_n * ((M + BM - 1) / BM);
+  const int items = tiles * splits;
   const int nk = Kp / BK;
   const int wgi = threadIdx.x / 128;
   if (threadIdx.x == 0) {
@@ -695,12 +730,14 @@ matmul_tf32x3_kernel(const __grid_constant__ CUtensorMap map_a,
   __syncthreads();
 
   if (wgi == CONSUMERS) {   // producer
-    setmaxnreg_dec<40>();
+    if constexpr (CONSUMERS > 1) setmaxnreg_dec<40>();
     if (threadIdx.x == CONSUMERS * 128) {
-      int it = 0;   // k stages loaded so far, over all this block's tiles
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int m0 = t / tiles_n * BM, n0 = t % tiles_n * BN;
-        for (int kt = 0; kt < nk; ++kt, ++it) {
+      int it = 0;   // k stages loaded so far, over all this block's items
+      for (int t = blockIdx.x; t < items; t += gridDim.x) {
+        const int z = t / tiles, r = t % tiles;
+        const int m0 = r / tiles_n * BM, n0 = r % tiles_n * BN;
+        const int kb = z * kc, ke = min(nk, kb + kc);
+        for (int kt = kb; kt < ke; ++kt, ++it) {
           const int s = it % STAGES;
           unsigned char* st = ring + s * STAGE;
           mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
@@ -715,15 +752,18 @@ matmul_tf32x3_kernel(const __grid_constant__ CUtensorMap map_a,
       }
     }
   } else {                  // consumers
-    setmaxnreg_inc<232>();
+    if constexpr (CONSUMERS > 1) setmaxnreg_inc<232>();
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const bool even = N % 2 == 0;   // pieces (col, col + 1) 8-byte aligned
     Acc<BN> acc;
     int it = 0;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const int m0 = t / tiles_n * BM, n0 = t % tiles_n * BN;
+    for (int t = blockIdx.x; t < items; t += gridDim.x) {
+      const int z = t / tiles, r = t % tiles;
+      const int m0 = r / tiles_n * BM, n0 = r % tiles_n * BN;
+      const int kb = z * kc, ke = min(nk, kb + kc);
+      float* out = splits > 1 ? partials + (long long)z * M * N : c;
       acc_zero(acc);
-      for (int kt = 0; kt < nk; ++kt, ++it) {
+      for (int kt = kb; kt < ke; ++kt, ++it) {
         const int s = it % STAGES;
         mbar_wait(&full[s], (it / STAGES) & 1);
         const unsigned char* a_hi = ring + s * STAGE + wgi * 64 * 128;
@@ -745,7 +785,7 @@ matmul_tf32x3_kernel(const __grid_constant__ CUtensorMap map_a,
         wgmma_commit();
         acc_fence(acc);
         wgmma_wait<1>();   // the previous stage's products are done
-        if (kt > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+        if (kt > kb && lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
       }
       wgmma_wait<0>();
       acc_fence(acc);
@@ -760,75 +800,38 @@ matmul_tf32x3_kernel(const __grid_constant__ CUtensorMap map_a,
           const int row = m0 + 64 * wgi + 16 * warp + lane / 4 + 8 * h;
           const int col = n0 + 8 * j + 2 * (lane % 4);
           if (row >= M || col >= N) continue;
-          float* out = c + (long long)row * N + col;
+          float* o = out + (long long)row * N + col;
           const float x = acc.r[4 * j + 2 * h], y = acc.r[4 * j + 2 * h + 1];
           if (even && col + 1 < N) {
-            *reinterpret_cast<float2*>(out) = make_float2(x, y);
+            *reinterpret_cast<float2*>(o) = make_float2(x, y);
           } else {
-            out[0] = x;
-            if (col + 1 < N) out[1] = y;
+            o[0] = x;
+            if (col + 1 < N) o[1] = y;
           }
         }
     }
   }
 }
 
-// the product's tile width: 128 or 112 columns, whichever takes the fewer
-// rounds of tiles over the SMs times its width (a last round of a few tiles
-// leaves most SMs idle; ties take 128)
-int tf32x3_bn(int M, int N, int sms) {
-  const long long tiles_m = (M + tf::BM - 1) / tf::BM;
-  auto cost = [&](long long bn) {
-    return ((N + bn - 1) / bn * tiles_m + sms - 1) / sms * bn;
-  };
-  return cost(112) < cost(128) ? 112 : 128;
+// float32 elements of the split operands, a's and b^T's hi and lo, (M + N)
+// rows of Kp, and of the split-K partials behind them (splits x M x N where
+// splits > 1); nvdla_matmul.py::tf32x3_workspace computes the same
+long long tf32x3_workspace(int M, int N, int K, int splits) {
+  return 2LL * kpad(K) * (M + N) +
+         (splits > 1 ? (long long)splits * M * N : 0);
 }
 
-// the product over the split operands in ws, BN columns a tile
-template <int BN>
-cudaError_t launch_tf32x3_product(const float* ws, float* c, int M, int N,
-                                  int Kp, int device, int sms,
-                                  cudaStream_t stream) {
-  using namespace tf;
-  // (Kp, rows, 2) maps: the third index picks hi or lo
-  CUtensorMap map_a, map_b;
-  const cuuint64_t row_bytes = (cuuint64_t)Kp * 4;
-  const cuuint64_t a_dims[3] = {(cuuint64_t)Kp, (cuuint64_t)M, 2};
-  const cuuint64_t a_strides[2] = {row_bytes, row_bytes * M};
-  const cuuint32_t a_box[3] = {BK, BM, 1};
-  const cuuint64_t b_dims[3] = {(cuuint64_t)Kp, (cuuint64_t)N, 2};
-  const cuuint64_t b_strides[2] = {row_bytes, row_bytes * N};
-  const cuuint32_t b_box[3] = {BK, BN, 1};
-  cudaError_t err = hopper::make_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                                     ws, 3, a_dims, a_strides, a_box);
-  if (err == cudaSuccess)
-    err = hopper::make_map(&map_b, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                           ws + 2LL * M * Kp, 3, b_dims, b_strides, b_box);
-  static std::atomic<uint64_t> smem_set{0};
-  if (err == cudaSuccess)
-    err = hopper::smem_limit_once(smem_set, matmul_tf32x3_kernel<BN>,
-                                  (int)SMEM<BN>, device);
-  if (err != cudaSuccess) return err;
-  const long long tiles = (long long)((N + BN - 1) / BN) * ((M + BM - 1) / BM);
-  const int grid = (int)(tiles < sms ? tiles : sms);
-  matmul_tf32x3_kernel<BN><<<grid, THREADS, SMEM<BN>, stream>>>(
-      map_a, map_b, c, M, N, Kp);
-  return cudaGetLastError();
-}
-
-// float32 elements of the split operands: a's and b^T's hi and lo, (M + N)
-// rows of Kp (nvdla_matmul.py::tf32x3_workspace computes the same)
-long long tf32x3_workspace(int M, int N, int K) {
-  return 2LL * kpad(K) * (M + N);
-}
-
-// ws: n_ws float32 elements, at least tf32x3_workspace(M, N, K), 16-byte
-// aligned.  The split pass, then the product on the same stream.
+// The split pass, then the product at tile Tl over `splits` k ranges on the
+// same stream, then (splits > 1) the split-K sum.  ws: n_ws float32
+// elements, at least tf32x3_workspace(M, N, K, splits), 16-byte aligned.
+template <typename Tl>
 cudaError_t launch_tf32x3(const float* a, const float* b, float* c, float* ws,
-                          long long n_ws, int M, int N, int K,
+                          long long n_ws, int M, int N, int K, int splits,
                           cudaStream_t stream) {
   using tf::SPLIT_T;
-  if (!ws || n_ws < tf32x3_workspace(M, N, K)) return cudaErrorInvalidValue;
+  const int kchunk = split_chunk(K, splits, tf::BK);
+  if (!kchunk || !ws || n_ws < tf32x3_workspace(M, N, K, splits))
+    return cudaErrorInvalidValue;
   const int Kp = kpad(K);
   const long long split_tiles =
       (long long)((M + SPLIT_T - 1) / SPLIT_T + (N + SPLIT_T - 1) / SPLIT_T) *
@@ -838,11 +841,35 @@ cudaError_t launch_tf32x3(const float* a, const float* b, float* c, float* ws,
   cudaError_t err = cudaGetLastError();
   int device = 0, sms = 0;
   if (err == cudaSuccess) err = hopper::device_sms(&device, &sms);
+  // (Kp, rows, 2) maps: the third index picks hi or lo
+  CUtensorMap map_a, map_b;
+  const cuuint64_t row_bytes = (cuuint64_t)Kp * 4;
+  const cuuint64_t a_dims[3] = {(cuuint64_t)Kp, (cuuint64_t)M, 2};
+  const cuuint64_t a_strides[2] = {row_bytes, row_bytes * M};
+  const cuuint32_t a_box[3] = {tf::BK, Tl::BM, 1};
+  const cuuint64_t b_dims[3] = {(cuuint64_t)Kp, (cuuint64_t)N, 2};
+  const cuuint64_t b_strides[2] = {row_bytes, row_bytes * N};
+  const cuuint32_t b_box[3] = {tf::BK, Tl::BN, 1};
+  if (err == cudaSuccess)
+    err = hopper::make_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ws, 3,
+                           a_dims, a_strides, a_box);
+  if (err == cudaSuccess)
+    err = hopper::make_map(&map_b, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                           ws + 2LL * M * Kp, 3, b_dims, b_strides, b_box);
+  static std::atomic<uint64_t> smem_set{0};
+  if (err == cudaSuccess)
+    err = hopper::smem_limit_once(smem_set, matmul_tf32x3_kernel<Tl>,
+                                  (int)Tl::SMEM, device);
   if (err != cudaSuccess) return err;
-  return tf32x3_bn(M, N, sms) == 112
-             ? launch_tf32x3_product<112>(ws, c, M, N, Kp, device, sms, stream)
-             : launch_tf32x3_product<128>(ws, c, M, N, Kp, device, sms,
-                                          stream);
+  float* partials = ws + 2LL * Kp * (M + N);
+  const long long items = (long long)((N + Tl::BN - 1) / Tl::BN) *
+                          ((M + Tl::BM - 1) / Tl::BM) * splits;
+  const int grid = (int)(items < sms ? items : sms);
+  matmul_tf32x3_kernel<Tl><<<grid, Tl::THREADS, Tl::SMEM, stream>>>(
+      map_a, map_b, c, partials, M, N, Kp, kchunk / tf::BK, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  return sum_splits<float>(partials, c, M, N, splits, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -917,24 +944,13 @@ matmul_f32_stream_kernel(const float* __restrict__ a,
   }
 }
 
-// k per split of the stream kernel: where its column blocks fill less than
-// one wave, K is split so that about 4 blocks an SM stream b, each at least
-// 64 k rows deep
-int stream_split_k(int N, int K) {
-  const int blocks_n = (N + S_BN - 1) / S_BN;
-  if (blocks_n >= N_SM) return K;
-  const int splits =
-      max(1, min((4 * N_SM + blocks_n - 1) / blocks_n, K / 64));
-  const int per = (K + splits - 1) / splits;
-  return (per + S_U - 1) / S_U * S_U;
-}
-
+// the stream kernel over `splits` k ranges, each a multiple of S_U rows
 template <int MT>
 cudaError_t launch_stream_mt(const float* a, const float* b, float* c,
-                             float* ws, int M, int N, int K,
+                             float* ws, int M, int N, int K, int splits,
                              cudaStream_t stream) {
-  const int kchunk = stream_split_k(N, K), splits = (K + kchunk - 1) / kchunk;
-  if (splits > 1 && !ws) return cudaErrorInvalidValue;
+  const int kchunk = split_chunk(K, splits, S_U);
+  if (!kchunk || (splits > 1 && !ws)) return cudaErrorInvalidValue;
   const dim3 grid((N + S_BN - 1) / S_BN, splits);
   matmul_f32_stream_kernel<MT><<<grid, S_NT, 0, stream>>>(
       a, b, c, splits > 1 ? ws : nullptr, M, N, K, kchunk);
@@ -946,10 +962,12 @@ cudaError_t launch_stream_mt(const float* a, const float* b, float* c,
 // M rounded up to 4, 8 or 16 rows: the kernel is bound by b's bytes, so the
 // FMAs of the rows past M cost nothing
 cudaError_t launch_stream(const float* a, const float* b, float* c, float* ws,
-                          int M, int N, int K, cudaStream_t stream) {
-  if (M <= 4) return launch_stream_mt<4>(a, b, c, ws, M, N, K, stream);
-  if (M <= 8) return launch_stream_mt<8>(a, b, c, ws, M, N, K, stream);
-  if (M <= SMALL_M) return launch_stream_mt<16>(a, b, c, ws, M, N, K, stream);
+                          int M, int N, int K, int splits,
+                          cudaStream_t stream) {
+  if (M <= 4) return launch_stream_mt<4>(a, b, c, ws, M, N, K, splits, stream);
+  if (M <= 8) return launch_stream_mt<8>(a, b, c, ws, M, N, K, splits, stream);
+  if (M <= SMALL_M)
+    return launch_stream_mt<16>(a, b, c, ws, M, N, K, splits, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -961,55 +979,102 @@ cudaError_t launch_stream(const float* a, const float* b, float* c, float* ws,
 enum Variant { kFma = 0, kMmaSync = 1, kWgmma = 2, kStream = 3, kTf32x3 = 4 };
 
 // float32 elements of the workspace an (M, N, K) product needs under a
-// variant: tf32x3's split operands; the split-K partials, splits * M * N,
-// of a variant that splits K over blocks (0 where it does not).  The wgmma
-// variant never splits.
-extern "C" long long nvdla_matmul_workspace(int M, int N, int K, int variant) {
-  if (M < 1 || N < 1 || K < 1 || variant == kWgmma) return 0;
-  if (variant == kTf32x3) return tf32x3_workspace(M, N, K);
-  const int kchunk =
-      variant == kStream ? stream_split_k(N, K) : split_k(M, N, K);
-  const int splits = (K + kchunk - 1) / kchunk;
+// variant with K split over `splits` blocks: tf32x3's split operands, and
+// the split-K partials, splits * M * N, where splits > 1.
+extern "C" long long nvdla_matmul_workspace(int M, int N, int K, int variant,
+                                            int splits) {
+  if (M < 1 || N < 1 || K < 1 || splits < 1) return 0;
+  if (variant == kTf32x3) return tf32x3_workspace(M, N, K, splits);
   return splits > 1 ? (long long)splits * M * N : 0;
+}
+
+// a tile's key: output rows and columns, k a step
+constexpr int tile(int bm, int bn, int bk) {
+  return (bm << 20) | (bn << 8) | bk;
 }
 
 // a: (M, K), b: (K, N), c: (M, N), all row-major, contiguous and of one type,
 // 16-byte aligned: dtype 0 is float32 (variants 0, 3 with M <= 16, 4), 1 is
 // bfloat16 (variant 1, or 2 when K % 8 == 0 and N % 8 == 0).  Any M, N,
-// K >= 1.  ws: n_ws float32 elements, at least
-// nvdla_matmul_workspace(M, N, K, variant), or null when that is 0; a
-// shorter workspace is refused.  Returns the cudaError_t of the launch (0 on
-// success).
+// K >= 1.  (bm, bn, bk) names one of the variant's tiles
+// (tiling.py::H100_MATMUL_KERNELS), K split over `splits` blocks (wgmma:
+// 1; a count tiling.py::aligned_splits gives); any other tile or count is
+// refused.  ws: n_ws float32 elements, at least nvdla_matmul_workspace(M,
+// N, K, variant, splits), or null when that is 0; a shorter workspace is
+// refused.  Returns the cudaError_t of the launch (0 on success).
 extern "C" int nvdla_matmul(const void* a, const void* b, void* c, void* ws,
                             long long n_ws, int M, int N, int K, int dtype,
-                            int variant, void* stream) {
+                            int variant, int bm, int bn, int bk, int splits,
+                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
-  if (M < 1 || N < 1 || K < 1 ||
-      (ws ? n_ws : 0) < nvdla_matmul_workspace(M, N, K, variant))
+  if (M < 1 || N < 1 || K < 1 || splits < 1 || bm < 1 || bm >= 2048 ||
+      bn < 1 || bn >= 4096 || bk < 1 || bk >= 256 ||
+      (ws ? n_ws : 0) < nvdla_matmul_workspace(M, N, K, variant, splits))
     return (int)cudaErrorInvalidValue;
-  const bool small = M <= SMALL_M;
   const float *af = static_cast<const float*>(a),
               *bf = static_cast<const float*>(b);
-  if (dtype == 0 && variant == kFma)
-    return small ? (int)launch<float>(matmul_f32_kernel<1, 16>, F_NT, 16,
-                                      F_BN, a, b, c, w, M, N, K, st)
-                 : (int)launch<float>(matmul_f32_kernel<8, 8>, F_NT, 128,
-                                      F_BN, a, b, c, w, M, N, K, st);
-  if (dtype == 0 && variant == kStream)
-    return (int)launch_stream(af, bf, static_cast<float*>(c), w, M, N, K, st);
-  if (dtype == 0 && variant == kTf32x3)
-    return (int)launch_tf32x3(af, bf, static_cast<float*>(c), w, n_ws, M, N,
-                              K, st);
-  if (dtype == 1 && variant == kMmaSync)
-    return small
-               ? (int)launch<__nv_bfloat16>(matmul_bf16_kernel<1, 4, 1, 4>,
-                                            128, 16, 128, a, b, c, w, M, N, K,
-                                            st)
-               : (int)launch<__nv_bfloat16>(matmul_bf16_kernel<2, 4, 4, 4>,
-                                            256, 128, 128, a, b, c, w, M, N,
-                                            K, st);
-  if (dtype == 1 && variant == kWgmma)
-    return (int)launch_wgmma(a, b, c, M, N, K, st);
+  float* cf = static_cast<float*>(c);
+  const int t = tile(bm, bn, bk);
+  if (dtype == 0 && variant == kFma) {
+    if (t == tile(16, F_BN, 16))
+      return (int)launch<float>(matmul_f32_kernel<1, 16>, F_NT, 16, F_BN, a,
+                                b, c, w, M, N, K, splits, st);
+    if (t == tile(128, F_BN, 8))
+      return (int)launch<float>(matmul_f32_kernel<8, 8>, F_NT, 128, F_BN, a,
+                                b, c, w, M, N, K, splits, st);
+  }
+  if (dtype == 0 && variant == kStream && t == tile(16, S_BN, S_U))
+    return (int)launch_stream(af, bf, cf, w, M, N, K, splits, st);
+  if (dtype == 0 && variant == kTf32x3) {
+    using tf::Tile;
+    switch (t) {
+      case tile(64, 64, 32):
+        return (int)launch_tf32x3<Tile<64, 64, 4>>(af, bf, cf, w, n_ws, M, N,
+                                                   K, splits, st);
+      case tile(64, 112, 32):
+        return (int)launch_tf32x3<Tile<64, 112, 4>>(af, bf, cf, w, n_ws, M, N,
+                                                    K, splits, st);
+      case tile(64, 128, 32):
+        return (int)launch_tf32x3<Tile<64, 128, 4>>(af, bf, cf, w, n_ws, M, N,
+                                                    K, splits, st);
+      case tile(64, 256, 32):
+        return (int)launch_tf32x3<Tile<64, 256, 2>>(af, bf, cf, w, n_ws, M, N,
+                                                    K, splits, st);
+      case tile(128, 64, 32):
+        return (int)launch_tf32x3<Tile<128, 64, 4>>(af, bf, cf, w, n_ws, M, N,
+                                                    K, splits, st);
+      case tile(128, 112, 32):
+        return (int)launch_tf32x3<Tile<128, 112, 3>>(af, bf, cf, w, n_ws, M,
+                                                     N, K, splits, st);
+      case tile(128, 128, 32):
+        return (int)launch_tf32x3<Tile<128, 128, 3>>(af, bf, cf, w, n_ws, M,
+                                                     N, K, splits, st);
+      case tile(128, 256, 32):
+        return (int)launch_tf32x3<Tile<128, 256, 2>>(af, bf, cf, w, n_ws, M,
+                                                     N, K, splits, st);
+    }
+  }
+  if (dtype == 1 && variant == kMmaSync) {
+    if (t == tile(16, 128, H_BK))
+      return (int)launch<__nv_bfloat16>(matmul_bf16_kernel<1, 4, 1, 4>, 128,
+                                        16, 128, a, b, c, w, M, N, K, splits,
+                                        st);
+    if (t == tile(128, 128, H_BK))
+      return (int)launch<__nv_bfloat16>(matmul_bf16_kernel<2, 4, 4, 4>, 256,
+                                        128, 128, a, b, c, w, M, N, K, splits,
+                                        st);
+  }
+  if (dtype == 1 && variant == kWgmma && splits == 1) {
+    using wg::Tile;
+    switch (t) {
+      case tile(wg::BM, 64, wg::BK):
+        return (int)launch_wgmma<Tile<64, 4>>(a, b, c, M, N, K, st);
+      case tile(wg::BM, 128, wg::BK):
+        return (int)launch_wgmma<Tile<128, 4>>(a, b, c, M, N, K, st);
+      case tile(wg::BM, 256, wg::BK):
+        return (int)launch_wgmma<Tile<256, 3>>(a, b, c, M, N, K, st);
+    }
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -22,7 +22,7 @@ from repro_torch.kernels import nvdla_matmul as _matmul
 from repro_torch.kernels import ref
 
 
-def _dispatch(name, plain, kernel, device, *args, **kw):
+def _dispatch(name, plain, kernel, device, /, *args, **kw):
     if device.type == "cpu":
         return plain(*args, **kw)
     if device.type == "cuda":
@@ -30,9 +30,22 @@ def _dispatch(name, plain, kernel, device, *args, **kw):
     raise ValueError(f"{name}: no implementation for device {device}")
 
 
-def matmul(a, b):
-    """a: (M, K) @ b: (K, N) -> (M, N) in a's dtype, float32 accumulation."""
-    return _dispatch("matmul", ref.matmul_ref, _matmul.matmul, a.device, a, b)
+def _matmul_plain(a, b, **kw):
+    """The plain version, after the check the kernel makes of the blocks
+    given: a block it does not instantiate raises here as on the card."""
+    if kw:
+        _matmul.tiling_of(a.shape[0], b.shape[1], a.shape[1], a.dtype, **kw)
+    return ref.matmul_ref(a, b)
+
+
+def matmul(a, b, **kw):
+    """a: (M, K) @ b: (K, N) -> (M, N) in a's dtype, float32 accumulation.
+    ``kw`` (``bm``, ``bn``, ``bk``, ``splits``, ``kernel``) goes to the
+    kernel (``nvdla_matmul.matmul``), as the reference's ``ops.matmul``
+    forwards its blocks; on the CPU it is checked as the kernel checks it
+    and changes nothing else."""
+    return _dispatch("matmul", _matmul_plain, _matmul.matmul, a.device, a, b,
+                     **kw)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -518,14 +518,16 @@ def test_cuda_matmul_fp32_variants_match_plain(cuda, kernel, M, N, K):
     ("mma_sync", 4, 1152, 6912)])
 def test_cuda_matmul_refuses_a_short_workspace(cuda, kernel, M, N, K):
     """The kernel sizes its workspace as the wrapper does
-    (``tf32x3_workspace`` for tf32x3) and refuses one element less with
-    cudaErrorInvalidValue (1), before it launches anything."""
+    (``tf32x3_workspace`` for tf32x3) at the chooser's tile and split, and
+    refuses one element less with cudaErrorInvalidValue (1), before it
+    launches anything."""
     lib = mm._lib()
     code = mm.VARIANTS[kernel][0]
     dtype = mm.VARIANTS[kernel][1]
-    n_ws = lib.nvdla_matmul_workspace(M, N, K, code)
+    t = mm.tiling_of(M, N, K, dtype, kernel=kernel)
+    n_ws = lib.nvdla_matmul_workspace(M, N, K, code, t.splits)
     if kernel == "tf32x3":
-        assert n_ws == mm.tf32x3_workspace(M, N, K)
+        assert n_ws == mm.tf32x3_workspace(M, N, K, t.splits)
     assert n_ws > 0
     a = torch.zeros(M, K, device=cuda, dtype=dtype)
     b = torch.zeros(K, N, device=cuda, dtype=dtype)
@@ -535,14 +537,87 @@ def test_cuda_matmul_refuses_a_short_workspace(cuda, kernel, M, N, K):
     for short in (n_ws - 1, 0):
         assert lib.nvdla_matmul(a.data_ptr(), b.data_ptr(), c.data_ptr(),
                                 ws.data_ptr(), short, M, N, K,
-                                mm._DTYPES[dtype], code, stream) == 1
+                                mm._DTYPES[dtype], code, t.bm, t.bn, t.bk,
+                                t.splits, stream) == 1
     torch.cuda.synchronize()
     assert bool((c == 7).all())   # nothing ran
     assert lib.nvdla_matmul(a.data_ptr(), b.data_ptr(), c.data_ptr(),
                             ws.data_ptr(), n_ws, M, N, K, mm._DTYPES[dtype],
-                            code, stream) == 0
+                            code, t.bm, t.bn, t.bk, t.splits, stream) == 0
     torch.cuda.synchronize()
     assert bool((c == 0).all())
+
+
+TILE_CASES = [(name, tile) for name in mm.VARIANTS
+              for tile in mm.tiles(name)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,tile", TILE_CASES)
+def test_cuda_matmul_every_tile_matches_plain(cuda, kernel, tile):
+    """Each tile each variant instantiates, at a shape off every tile (the
+    decoding rows' own for ``stream``), at the chooser's split of K for the
+    tile and unsplit, against the plain version at tests/test_kernels.py's
+    tolerances, one launch a call."""
+    dtype = mm.VARIANTS[kernel][1]
+    tol = dict(MM_TOL.values())[dtype]
+    M, N, K = (4, 100, 3000) if kernel == "stream" else (100, 72, 3000)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    a = torch.randn(M, K, generator=g, device=cuda).to(dtype)
+    b = torch.randn(K, N, generator=g, device=cuda).to(dtype)
+    expect = ref.matmul_ref(a, b).float().cpu().numpy()
+    bm, bn, bk = tile
+    for splits in sorted({mm.tiling_of(M, N, K, dtype, bm=bm, bn=bn, bk=bk,
+                                       kernel=kernel).splits, 1}):
+        out, ran = _launched(mm.matmul, lambda: mm.matmul(
+            a, b, bm=bm, bn=bn, bk=bk, splits=splits, kernel=kernel))
+        assert ran == {kernel: 1}
+        np.testing.assert_allclose(out.float().cpu().numpy(), expect,
+                                   rtol=tol, atol=tol * K ** 0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,K", [(64, 128, 6272), (1024, 64, 72),
+                                   (1024, 8, 576), (4096, 1024, 1152),
+                                   (4, 1152, 6912), (300, 200, 72)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_matmul_default_is_the_chooser_tile(cuda, M, N, K, dtype):
+    """The default call runs the chooser's tile and split: bit-equal to the
+    same tile passed explicitly."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    a = torch.randn(M, K, generator=g, device=cuda).to(dtype)
+    b = torch.randn(K, N, generator=g, device=cuda).to(dtype)
+    t = mm.tiling_of(M, N, K, dtype)
+    out = ops.matmul(a, b)
+    again = ops.matmul(a, b, bm=t.bm, bn=t.bn, bk=t.bk, splits=t.splits)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+
+
+@pytest.mark.gpu
+def test_cuda_matmul_refuses_an_uninstantiated_tile(cuda):
+    """The wrapper raises before launching; the kernel's entry point itself
+    returns cudaErrorInvalidValue (1) and writes nothing, for a tile it
+    does not instantiate and for a split count its k ranges cannot give."""
+    M = N = K = 1000
+    a = torch.zeros(M, K, device=cuda)
+    b = torch.zeros(K, N, device=cuda)
+    before = mm.matmul.launches
+    with pytest.raises(ValueError, match="instantiates"):
+        mm.matmul(a, b, bm=128, bn=128, bk=128)
+    assert mm.matmul.launches == before
+    lib, code = mm._lib(), mm.VARIANTS["tf32x3"][0]
+    c = torch.full((M, N), 7.0, device=cuda)
+    n_ws = mm.tf32x3_workspace(M, N, K, 9)
+    ws = torch.empty(n_ws, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    for tile, splits in (((128, 128, 128), 1), ((96, 128, 32), 1),
+                         ((128, 128, 32), 9), ((128, 128, 32), 0)):
+        assert lib.nvdla_matmul(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                ws.data_ptr(), n_ws, M, N, K, 0, code, *tile,
+                                splits, stream) == 1
+    torch.cuda.synchronize()
+    assert bool((c == 7).all())
 
 
 @pytest.mark.gpu

@@ -2,8 +2,8 @@
 
 On the CPU the port's ``ops.matmul`` runs its plain PyTorch version; it is
 compared with the JAX Pallas kernel in interpret mode at every
-``tests/test_kernels.py`` matmul parametrization and at the tiling
-chooser's default blocks, at that file's tolerances (fp32 2e-4, bf16 2e-2,
+``tests/test_kernels.py`` matmul parametrization (the port also at each
+tile its kernel instantiates) and at the tiling chooser's default blocks, at that file's tolerances (fp32 2e-4, bf16 2e-2,
 atol ``tol * sqrt(K)``; 1e-4 / 1e-3 for the default blocks), and with the
 JAX oracle on a shape no Pallas block divides.  ``tests/test_torch_gpu.py``
 holds the CUDA kernel against the plain version on the card.
@@ -56,10 +56,17 @@ def test_matmul_matches_jax_kernel(m, n, k, bm, bn, bk, dtype):
     a, b = _ab(0, m, n, k)
     expect = jops.matmul(jnp.asarray(a).astype(jdt),
                          jnp.asarray(b).astype(jdt), bm=bm, bn=bn, bk=bk)
-    out = ops.matmul(torch.from_numpy(a).to(tdt), torch.from_numpy(b).to(tdt))
+    at, bt = torch.from_numpy(a).to(tdt), torch.from_numpy(b).to(tdt)
+    out = ops.matmul(at, bt)
     assert out.dtype == tdt and out.shape == (m, n)
     np.testing.assert_allclose(_np(out), _np(expect), rtol=tol,
                                atol=tol * k ** 0.5)
+    # and at each tile the variant instantiates (the JAX side keeps the
+    # reference's blocks, which are no tile of the port's)
+    for tbm, tbn, tbk in mm.tiles(mm.variant(m, n, k, tdt)):
+        out = ops.matmul(at, bt, bm=tbm, bn=tbn, bk=tbk)
+        np.testing.assert_allclose(_np(out), _np(expect), rtol=tol,
+                                   atol=tol * k ** 0.5)
 
 
 def test_matmul_matches_jax_kernel_default_tiling():
@@ -213,3 +220,77 @@ def test_three_tf32_passes_meet_the_fp32_tolerance(M, N, K):
     with pytest.raises(AssertionError):
         np.testing.assert_allclose(one, expect, rtol=2e-4,
                                    atol=2e-4 * K ** 0.5)
+
+
+@pytest.mark.parametrize("name", list(mm.VARIANTS))
+def test_every_tile_is_taken_on_the_cpu(name):
+    """Each instantiated tile of each variant passes the block check on the
+    CPU and leaves the plain version's result as it is."""
+    dtype = mm.VARIANTS[name][1]
+    M = 4 if name == "stream" else 100
+    a, b = (torch.from_numpy(x).to(dtype) for x in _ab(5, M, 72, 200))
+    expect = ref.matmul_ref(a, b)
+    for bm, bn, bk in mm.tiles(name):
+        out = ops.matmul(a, b, bm=bm, bn=bn, bk=bk, kernel=name)
+        assert torch.equal(out, expect)
+        t = mm.tiling_of(M, 72, 200, dtype, bm=bm, bn=bn, bk=bk, kernel=name)
+        assert (t.bm, t.bn, t.bk, t.variant) == (bm, bn, bk, name)
+
+
+@pytest.mark.parametrize("block", [(128, 128, 128), (256, 128, 256),
+                                   (128, 128, 64), (64, 64, 16)])
+def test_uninstantiated_block_raises_on_the_cpu(block):
+    """A block the kernel does not instantiate raises on the CPU as on the
+    card, naming the tiles it has."""
+    a, b = (torch.from_numpy(x) for x in _ab(6, 128, 128, 128))
+    bm, bn, bk = block
+    with pytest.raises(ValueError, match="instantiates") as e:
+        ops.matmul(a, b, bm=bm, bn=bn, bk=bk)
+    assert str(mm.tiles("tf32x3")) in str(e.value)
+
+
+def test_any_zero_block_takes_the_chooser():
+    """As the reference's ``matmul``: the blocks count only when all three
+    are given."""
+    t = mm.tiling_of(64, 128, 6272, torch.float32)
+    for kw in ({}, {"bm": 128}, {"bm": 999, "bn": 0, "bk": 3}):
+        assert mm.tiling_of(64, 128, 6272, torch.float32, **kw) == t
+
+
+def test_split_counts_the_kernel_cannot_take_raise():
+    with pytest.raises(ValueError, match="split"):
+        mm.tiling_of(4096, 1024, 1152, torch.bfloat16, splits=2)
+    # 1000 over 9 splits: ranges of 128 leave 8 non-empty
+    with pytest.raises(ValueError, match="split"):
+        mm.tiling_of(64, 128, 1000, torch.float32, splits=9)
+    t = mm.tiling_of(64, 128, 1000, torch.float32, splits=8)
+    assert t.splits == 8
+    assert mm.tiling_of(64, 128, 6272, torch.float32, splits=1).splits == 1
+
+
+class _OnCard:
+    """Stands for a CUDA tensor where only its device is read."""
+    device = torch.device("cuda")
+
+
+def test_ops_forwards_blocks_to_the_kernel(monkeypatch):
+    seen = []
+    monkeypatch.setattr(mm, "matmul", lambda a, b, **kw: seen.append(kw))
+    ops.matmul(_OnCard(), _OnCard(), bm=64, bn=128, bk=32)
+    ops.matmul(_OnCard(), _OnCard())
+    assert seen == [{"bm": 64, "bn": 128, "bk": 32}, {}]
+    checked = []
+    real = mm.tiling_of
+    monkeypatch.setattr(mm, "tiling_of",
+                        lambda *a, **kw: checked.append(kw) or real(*a, **kw))
+    a, b = (torch.from_numpy(x) for x in _ab(7, 64, 128, 96))
+    ops.matmul(a, b, bm=64, bn=128, bk=32, splits=1)
+    assert checked == [{"bm": 64, "bn": 128, "bk": 32, "splits": 1}]
+
+
+def test_tf32x3_workspace_holds_the_split_partials():
+    M, N, K = 64, 128, 6272
+    t = mm.tiling_of(M, N, K, torch.float32)
+    assert t.splits > 1
+    assert mm.tf32x3_workspace(M, N, K, t.splits) == \
+        mm.tf32x3_workspace(M, N, K) + t.splits * M * N
