@@ -431,7 +431,19 @@ printing a result:
    (``previous_tile``, passed explicitly), ``torch.matmul`` and the bound,
    and the wrapper's host us a call with the chooser; (c) every tf32x3 tile
    at each of those shapes tf32x3 takes, the chooser's pick beside the
-   fastest, whose sum the chooser's constants were fit to.
+   fastest, whose sum the chooser's constants were fit to;
+58. the flash and scan kernels' block shapes from the caller: (a) every
+   tile of both Hopper flash variants (``flash_attention.tiles``) at every
+   head dim against the plain version at ragged S, S below one tile, a
+   window edge off the tile grid, GQA and MQA and without the causal mask,
+   and every scan tile (``mamba_scan.tiles``) in both types at both N with
+   h0 in and h_S out; the library's report of each instance (stages, shared
+   bytes, registers, local bytes) beside ``tile_of``'s layout, and no
+   instance for any other tile; (b) the wrappers' and the libraries'
+   refusals of a tile they do not instantiate; (c) each tile's ms beside
+   the default's, timed in turns a b b a in one call, at the shape the
+   PERF.md row of its variant and head dim times (the scan's serving shape
+   with h_S out), with its bound.
 
 Kernel times are CUDA events around back-to-back calls queued behind a
 device-side wait (``torch.cuda._sleep``) that outlasts their enqueue, so
@@ -448,7 +460,8 @@ examples, and its times at head dims
 shapes, phase 43's and train_lm's), 80, 96, 128 and 192; the matmul's
 launches by path gain the quickstart and camera_pipeline examples, and its
 ``examples`` the quickstart's two products, and ``tiling`` phase 57's
-summary (the model grid's rows, the other shapes' sums by origin);
+summary (the model grid's rows, the other shapes' sums by origin); each
+flash entry's ``tiles`` and the scan's phase 58's rows;
 the scan's entry:
 its launches by path, calibration, falcon_mamba_7b serving, phase
 49a's TP step and phase 51's sampled loops, and its
@@ -852,6 +865,35 @@ TRAIN_FIXED_TOL = 2e-2      # bf16, card against CPU (tests/test_torch_gpu.py)
 TRAIN_LM_SHAPE = (TRAIN_LM["batch"], get_config("tinyllama_1_1b").n_heads,
                   get_config("tinyllama_1_1b").n_kv_heads, TRAIN_LM["seq"],
                   get_config("tinyllama_1_1b").resolved_head_dim)
+# phase 58: the flash and scan kernels' block shapes from the caller.  (a)
+# every tile of both Hopper flash variants at every head dim against the
+# plain version, in its type at tests/test_kernels.py's tolerances, at
+# TILE_FLASH_CASES (B, H, Hkv, S, causal, window); every scan tile, both
+# types and both N, at TILE_SCAN_CASE (b, S, d) with h0 in and h_S out.
+# (b) the refusals.  (c) each tile timed beside the default in one call,
+# a b b a, at the shape PERF.md's row times for its variant and head dim
+# (B, H, Hkv, S, D, causal), the scan's at its serving shape with h_S out
+TILE_FLASH_CASES = [
+    (1, 4, 2, 100, True, 0),     # S ragged, GQA
+    (1, 2, 1, 40, True, 0),      # S below one tile, MQA
+    (1, 4, 1, 300, True, 70),    # a window edge off the tile grid, MQA
+    (1, 2, 2, 100, False, 0),    # no causal mask
+]
+TILE_SCAN_CASE = (2, 77, 40)
+GEMMA_PREFILL = (SERVE["batch"], get_config("gemma3_1b").n_heads,
+                 get_config("gemma3_1b").n_kv_heads, SERVE["prompt_len"],
+                 get_config("gemma3_1b").resolved_head_dim)
+TILE_FLASH_SHAPES = {
+    "wgmma": {16: (*PHI3_PREFILL[0], True), 32: (*PHI3_PREFILL[1], True),
+              64: (*TRAIN_FLASH_SHAPE, True), 80: (*ZAMBA_PREFILL, True),
+              96: (*PHI3_PREFILL[2], True), 128: (*INTERNVL_PREFILL, True),
+              192: (*DEEPSEEK_PREFILL, True), 256: (*GEMMA_PREFILL, True)},
+    "tf32x3": {16: (*PHI3_PREFILL[0], True), 32: (*PHI3_PREFILL[1], True),
+               64: (*WHISPER_ENCODER, False), 80: (*ZAMBA_PREFILL, True),
+               96: (*PHI3_PREFILL[2], True), 128: (*INTERNVL_PREFILL, True),
+               192: (*DEEPSEEK_PREFILL, True),
+               256: (*calibrate.MODEL_GRIDS["attention"][1], True)}}
+TILE_SCAN_SHAPE = (4, 1024, 8192, 16)
 
 
 def log(*args):
@@ -892,7 +934,7 @@ def build_kernels():
         if log_path.exists():   # ptxas report of a fresh build, by kernel
             for entry in log_path.read_text().split("Compiling entry")[1:]:
                 kernel = entry.split("'")[1]
-                kernel = kernel[kernel.find("GLOBAL__N_"):][-72:]
+                kernel = kernel[max(kernel.find("GLOBAL__N_"), 0):][-72:]
                 used = [line.split(":", 1)[-1].strip()
                         for line in entry.splitlines()
                         if "Used" in line or "spill" in line]
@@ -5290,6 +5332,251 @@ def tiling_phase(smi):
             "sweep_picked_over_fastest": sweep}
 
 
+def _tile_info(name, D, tile):
+    """``tile_of``'s layout of a flash instance beside the library's report
+    of it (``instance``); raises where they disagree."""
+    t = fa.tile_of(D, VARIANT_DTYPE[name], bq=tile[0], bk=tile[1],
+                   kernel=name)
+    got = fa.instance(name, D, *tile)
+    if got is None or (got["stages"], got["smem_bytes"], got["threads"]) \
+            != (t.stages, t.smem_bytes, t.threads):
+        raise AssertionError(f"flash {name} D {D} tile {tile}: the library "
+                             f"reports {got}, tile_of {t}")
+    return got
+
+
+VARIANT_DTYPE = {name: dtype for name, (_, dtype) in fa.VARIANTS.items()}
+
+
+def check_flash_tiles():
+    """Phase 58 (a), (b) for flash: every tile of both Hopper variants at
+    every head dim against the plain version at ``TILE_FLASH_CASES``, each
+    call checked to launch its variant once; the library's instance of
+    every tile beside ``tile_of``'s layout, and for every other (bq, bk) of
+    ``TILE_BQ`` x ``TILE_BK`` (and (256, 256)) in every variant no
+    instance; the wrapper's refusals.  Returns the largest error by type
+    and {variant: {D: {tile: instance}}}."""
+    worst, infos = dict.fromkeys(TOL, 0.0), {}
+    for name in ("wgmma", "tf32x3"):
+        dtype = VARIANT_DTYPE[name]
+        for D in fa.HEAD_DIMS:
+            for c, (B, H, Hkv, S, causal, window) in enumerate(
+                    TILE_FLASH_CASES):
+                q, k, v = rand_qkv(B, H, Hkv, S, D, dtype, seed=5 + c)
+                expect = ref.flash_attention_ref(q, k, v, causal=causal,
+                                                 window=window)
+                for tile in fa.tiles(name, D):
+                    out = _ran(fa.flash_attention, name,
+                               lambda: fa.flash_attention(
+                                   q, k, v, causal=causal, window=window,
+                                   bq=tile[0], bk=tile[1], kernel=name))
+                    worst[dtype] = max(worst[dtype], _check(
+                        f"phase 58 flash {name} D {D} tile {tile} "
+                        f"{(B, H, Hkv, S)} causal {causal} window {window}",
+                        out, expect, TOL[dtype], TOL[dtype]))
+    for name in fa.VARIANTS:
+        for D in fa.VARIANT_HEAD_DIMS[name]:
+            have = fa.tiles(name, D)
+            infos.setdefault(name, {})[D] = {
+                tile: _tile_info(name, D, tile) for tile in have}
+            for tile in [(bq, bk) for bq in fa.TILE_BQ for bk in fa.TILE_BK]\
+                    + [(256, 256)]:
+                if tile not in have and fa.instance(name, D, *tile):
+                    raise AssertionError(f"the library has flash {name} D "
+                                         f"{D} tile {tile}, tiles() not")
+    q, k, v = rand_qkv(1, 2, 1, 64, 64, torch.bfloat16)
+    for kw in (dict(bq=256, bk=256), dict(bq=64, bk=48), dict(bq=64)):
+        try:
+            fa.flash_attention(q, k, v, **kw)
+        except ValueError as e:
+            log(f"phase 58: the flash wrapper refuses {kw}: {e}")
+        else:
+            raise AssertionError(f"the flash wrapper took {kw}")
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, D, tile in (("wgmma", 64, (256, 256)), ("wgmma", 64, (64, 48)),
+                          ("tf32x3", 256, (128, 64)),
+                          ("mma_sync", 64, (128, 64))):
+        dtype = VARIANT_DTYPE[name]
+        qd, kd, vd, od = (torch.zeros(1, h, 64, D, dtype=dtype,
+                                      device="cuda") for h in (2, 1, 1, 2))
+        n_ws = fa._lib().flash_attention_workspace(1, 2, 1, 64, D)
+        ws = torch.empty(n_ws, device="cuda")
+        rc = fa._lib().flash_attention_fwd(
+            qd.data_ptr(), kd.data_ptr(), vd.data_ptr(), od.data_ptr(),
+            ws.data_ptr(), n_ws, 1, 2, 1, 64, D, 1, 0,
+            0 if dtype == torch.float32 else 1, fa.VARIANTS[name][0], *tile,
+            stream)
+        torch.cuda.synchronize()
+        log(f"phase 58: flash_attention_fwd {name} D {D} tile {tile}: "
+            f"cudaError_t {rc}")
+        if rc != 1:   # cudaErrorInvalidValue
+            raise AssertionError(f"the flash library took {name} D {D} "
+                                 f"tile {tile}")
+    return worst, infos
+
+
+def check_scan_tiles():
+    """Phase 58 (a), (b) for the scan: every tile in both types at both N
+    against the plain version at ``TILE_SCAN_CASE`` with h0 in and h_S out;
+    the library's instance of every tile; the refusals of the wrapper and
+    of the library.  Returns the largest error by type and {(dtype, N):
+    {tile: instance}}."""
+    worst, infos = dict.fromkeys(SCAN_TOL, 0.0), {}
+    b, S, d = TILE_SCAN_CASE
+    for dtype in SCAN_TOL:
+        tol = SCAN_TOL[dtype]
+        for N in ms.STATE_DIMS:
+            args = _scan_inputs(b, S, d, N, dtype, seed=6)
+            h0 = torch.randn(b, d, N, device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(7))
+            y_ref, h_ref = ref.mamba_scan_ref(*args, h0=h0,
+                                              return_state=True)
+            infos[(dtype, N)] = {}
+            for tile in ms.tiles():
+                before = ms.mamba_scan.launches
+                y, h = ms.mamba_scan(*args, h0=h0, return_state=True,
+                                     bd=tile[0], chunk=tile[1])
+                torch.cuda.synchronize()
+                if ms.mamba_scan.launches != before + 1:
+                    raise AssertionError("the scan did not launch once")
+                label = f"phase 58 scan tile {tile} {(b, S, d, N)} {dtype}"
+                worst[dtype] = max(worst[dtype],
+                                   _check(f"{label} y", y, y_ref, tol,
+                                          4 * tol),
+                                   _check(f"{label} h_S", h, h_ref, tol,
+                                          4 * tol))
+                infos[(dtype, N)][tile] = ms.instance(dtype, N, *tile)
+                if infos[(dtype, N)][tile] is None:
+                    raise AssertionError(f"the scan library lacks {tile}")
+    args = _scan_inputs(1, 8, 16, 16, torch.float32)
+    for kw in (dict(bd=48, chunk=16), dict(bd=16), dict(bd=128, chunk=128)):
+        try:
+            ms.mamba_scan(*args, **kw)
+        except ValueError as e:
+            log(f"phase 58: the scan wrapper refuses {kw}: {e}")
+        else:
+            raise AssertionError(f"the scan wrapper took {kw}")
+    y = torch.empty_like(args[0])
+    for tile in ((48, 16), (16, 0), (128, 128)):
+        rc = ms._lib().mamba_scan_fwd(
+            *(t.data_ptr() for t in args), None, y.data_ptr(), None, 1, 8,
+            16, 16, 0, *tile, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        log(f"phase 58: mamba_scan_fwd tile {tile}: cudaError_t {rc}")
+        if rc != 1 or ms.instance(torch.float32, 16, *tile) is not None:
+            raise AssertionError(f"the scan library took tile {tile}")
+    return worst, infos
+
+
+def _abba(default, tile, iters):
+    """Device ms of ``default`` and ``tile`` timed in turns, a b b a, each
+    the mean of its two runs."""
+    a1, b1 = cuda_ms(default, iters), cuda_ms(tile, iters)
+    b2, a2 = cuda_ms(tile, iters), cuda_ms(default, iters)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def time_flash_tiles(infos, smi):
+    """Phase 58 (c) for flash: at ``TILE_FLASH_SHAPES``'s shape of each
+    variant and head dim, every tile's ms beside the default's in one call
+    (a b b a), with the bound and the instance's stages, shared bytes,
+    registers and local bytes.  Returns {variant: {D: [row]}}."""
+    rows = {}
+    for name, shapes in TILE_FLASH_SHAPES.items():
+        dtype = VARIANT_DTYPE[name]
+        for D, (B, H, Hkv, S, _, causal) in shapes.items():
+            q, k, v = rand_qkv(B, H, Hkv, S, D, dtype, seed=8)
+            b_ms = bound(B, H, Hkv, S, D, 0, dtype, name, causal)[0]
+            first = fa.tiles(name, D)[0]
+
+            def call(tile):
+                return lambda: fa.flash_attention(
+                    q, k, v, causal=causal, bq=tile[0], bk=tile[1],
+                    kernel=name)
+            out = rows.setdefault(name, {}).setdefault(D, [])
+            for tile in fa.tiles(name, D):
+                if tile == first:
+                    d_ms = t_ms = cuda_ms(call(tile), 10)
+                else:
+                    d_ms, t_ms = _abba(call(first), call(tile), 10)
+                info = infos[name][D][tile]
+                out.append(dict(bq=tile[0], bk=tile[1], **info, ms=t_ms,
+                                default_ms=d_ms, bound_ms=b_ms))
+                log(f"phase 58 flash {name} D {D} tile {tile} "
+                    f"x{info['stages']}: {info['smem_bytes']} B shared, "
+                    f"{info['threads']} threads, {info['regs']} registers, "
+                    f"{info['local_bytes']} B local; {t_ms:.4f} ms, default "
+                    f"{first} {d_ms:.4f} ms ({t_ms / d_ms:.3f}x) at "
+                    f"{(B, H, Hkv, S, D)}{'' if causal else ' non-causal'}; "
+                    f"bound {b_ms:.4f} ms; card {smi}")
+    return rows
+
+
+def time_scan_tiles(infos, smi):
+    """Phase 58 (c) for the scan: every tile at ``TILE_SCAN_SHAPE``
+    (float32, h_S out, as prefill runs it) beside the default in one call,
+    a b b a.  Returns [row]."""
+    args = _scan_inputs(*TILE_SCAN_SHAPE, torch.float32, seed=2)
+    b_ms = scan_bound(*TILE_SCAN_SHAPE, torch.float32, states=1)[0]
+    rows = []
+
+    def call(tile):
+        return lambda: ms.mamba_scan(*args, return_state=True, bd=tile[0],
+                                     chunk=tile[1])
+    first = ms.tiles()[0]
+    for tile in ms.tiles():
+        if tile == first:
+            d_ms = t_ms = cuda_ms(call(tile), 10)
+        else:
+            d_ms, t_ms = _abba(call(first), call(tile), 10)
+        info = infos[(torch.float32, TILE_SCAN_SHAPE[-1])][tile]
+        rows.append(dict(bd=tile[0], chunk=tile[1], **info, ms=t_ms,
+                         default_ms=d_ms, bound_ms=b_ms))
+        log(f"phase 58 scan tile (bd, chunk) {tile}: {info['threads']} "
+            f"threads, {info['smem_bytes']} B shared, {info['regs']} "
+            f"registers, {info['local_bytes']} B local; {t_ms:.4f} ms, "
+            f"default {first} {d_ms:.4f} ms ({t_ms / d_ms:.3f}x) at "
+            f"{TILE_SCAN_SHAPE} float32 with h_S; bound {b_ms:.4f} ms; card "
+            f"{smi}")
+    return rows
+
+
+def block_tiles_phase(smi):
+    """Phase 58: the flash and scan kernels' block shapes from the caller
+    (``check_flash_tiles``, ``check_scan_tiles``, ``time_flash_tiles``,
+    ``time_scan_tiles``).  Returns the JSON line's ``tiles`` entries of
+    flash (by variant) and of the scan."""
+    t0 = time.perf_counter()
+    flash_err, flash_infos = check_flash_tiles()
+    scan_err, scan_infos = check_scan_tiles()
+    flash_rows = time_flash_tiles(flash_infos, smi)
+    scan_rows = time_scan_tiles(scan_infos, smi)
+    held = sum(len(fa.tiles(n, D)) for n in ("wgmma", "tf32x3")
+               for D in fa.HEAD_DIMS)
+    spills = [(n, D, (r["bq"], r["bk"]), r["local_bytes"])
+              for n, by_d in flash_rows.items() for D, rs in by_d.items()
+              for r in rs if r["local_bytes"]] + [
+        ("scan", key, tile, i["local_bytes"])
+        for key, by_tile in scan_infos.items()
+        for tile, i in by_tile.items() if i["local_bytes"]]
+    seconds = time.perf_counter() - t0
+    log(f"phase 58: {held} flash tiles held x {len(TILE_FLASH_CASES)} "
+        f"cases, max_abs_err float32 {flash_err[torch.float32]:.3e}, bf16 "
+        f"{flash_err[torch.bfloat16]:.3e}; {len(ms.tiles())} scan tiles x "
+        f"2 types x 2 N, max_abs_err float32 {scan_err[torch.float32]:.3e}, "
+        f"bf16 {scan_err[torch.bfloat16]:.3e}; spills {spills or 'none'}; "
+        f"{seconds:.1f} s (budget 40 s: "
+        f"{'MET' if seconds <= 40 else 'MISSED'}); card {smi}")
+    return ({"max_abs_err": flash_err[torch.float32],
+             "max_abs_err_bf16": flash_err[torch.bfloat16],
+             "seconds": seconds, "by_variant": {
+                 n: {str(D): rs for D, rs in by_d.items()}
+                 for n, by_d in flash_rows.items()}},
+            {"max_abs_err": scan_err[torch.float32],
+             "max_abs_err_bf16": scan_err[torch.bfloat16],
+             "shape": list(TILE_SCAN_SHAPE), "rows": scan_rows})
+
+
 def _counts():
     """Every kernel wrapper's launch count."""
     return (mm.matmul.launches, dict(mm.matmul.launches_by_variant),
@@ -5334,7 +5621,7 @@ def main():
     build_kernels()
     # the scan's loop over time, float32, N = 16
     per_step, n, steps = scan_sass(_build.library_path("mamba_scan"),
-                                   "mamba_scan_kernelIfLi16EE")
+                                   "mamba_scan_kernelIfLi16ELi32ELi32EE")
     log(f"mamba_scan L=4 SASS: {per_step:.2f} instructions per (thread, "
         f"timestep) ({n} in a loop of {steps:g} steps)")
     max_err, f32_err = check_kernel()
@@ -5543,6 +5830,8 @@ def main():
     log(f"phases 53-56: {time.perf_counter() - t0:.1f} s")
     # phase 57: the tiling optimizer on the card
     tiling_entry = tiling_phase(smi)
+    # phase 58: the flash and scan kernels' block shapes from the caller
+    flash_tiles, scan_tiles = block_tiles_phase(smi)
     log(f"training: grad errors {grad_err:.3e} (Functions), {train_err:.3e} "
         f"(card vs CPU); tinyllama_1_1b {train_ms:.1f} ms a step, "
         f"{train_tok_s:.0f} tok/s, {train_gib:.3f} GiB, device ms a step "
@@ -5607,7 +5896,10 @@ def main():
         "launches_by_path": flash_by_path,
         "max_abs_err": max_err, **avg[served], "bound_by": by,
         "ms_by_variant": {name: row["ms"] for name, row in avg.items()},
-        "head_dims": _head_dim_rows(small)}, {
+        "head_dims": _head_dim_rows(small),
+        "tiles": {"wgmma": flash_tiles["by_variant"]["wgmma"],
+                  "max_abs_err": flash_tiles["max_abs_err_bf16"],
+                  "seconds": flash_tiles["seconds"]}}, {
         "name": "flash_attention_fp32", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:99",
@@ -5615,7 +5907,9 @@ def main():
         "launches_by_variant": cal_by_variant["flash_attention"],
         "max_abs_err": max(f32_err, cal_err["attention"]),
         **f32_flash[fa.variant(256, torch.float32)],
-        "ms_by_variant": {name: r["ms"] for name, r in f32_flash.items()}}, {
+        "ms_by_variant": {name: r["ms"] for name, r in f32_flash.items()},
+        "tiles": {"tf32x3": flash_tiles["by_variant"]["tf32x3"],
+                  "max_abs_err": flash_tiles["max_abs_err"]}}, {
         "name": "matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/nvdla_matmul.cu",
         "replaces": "src/repro/kernels/nvdla_matmul.py:60",
@@ -5635,7 +5929,8 @@ def main():
                            state_err),
         **scan_rows["h_S"], "shape": list(serve_shape),
         "ms_by_state": {name: r["ms"] for name, r in scan_rows.items()},
-        "model_grid": _mean_row(new_rows["mamba_scan"])}]}))
+        "model_grid": _mean_row(new_rows["mamba_scan"]),
+        "tiles": scan_tiles}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

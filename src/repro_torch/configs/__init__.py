@@ -10,7 +10,7 @@ blocks with one shared attention block, zamba2), encdec (whisper) and vlm
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import Dict, List
 
 from repro_torch.core.config import ModelConfig
 
@@ -44,3 +44,8 @@ def get_config(arch_id: str) -> ModelConfig:
 
 def get_smoke_config(arch_id: str) -> ModelConfig:
     return _module(arch_id).SMOKE
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    """Every architecture's FULL config, by id in ``ARCH_IDS`` order."""
+    return {a: get_config(a) for a in ARCH_IDS}

@@ -186,13 +186,17 @@ def _inputs(kernel: str, shape: Sequence[int],
 
 _CALLS = {"matmul": ops.matmul, "attention": ops.flash_attention,
           "mamba": ops.mamba_scan}
+# the tiles a grid's samples pass, as the reference's do: attention at bq =
+# bk = 64 on the reference's grids; the model grid takes the defaults
+GRID_TILES = {"quick": {"attention": {"bq": 64, "bk": 64}},
+              "full": {"attention": {"bq": 64, "bk": 64}}}
 
 
 def _measure_kernel(kernel: str, shape: Sequence[int], repeat: int,
-                    device: torch.device) -> Dict:
+                    device: torch.device, **kw) -> Dict:
     args, flops, bytes_ = _inputs(kernel, shape, device)
     call = _CALLS[kernel]
-    seconds = _best_of(lambda: call(*args), repeat, device)
+    seconds = _best_of(lambda: call(*args, **kw), repeat, device)
     return {"kernel": kernel, "kind": kernel, "shape": list(shape),
             "flops": flops, "bytes": bytes_, "measured_s": seconds}
 
@@ -216,7 +220,9 @@ def measure(grid: str = "full", repeat: int = 3,
     device = resolve_device(device)
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"measure runs on cuda or cpu, not {device}")
-    records = [_measure_kernel(kernel, shape, repeat, device)
+    tiles = GRID_TILES.get(grid, {})
+    records = [_measure_kernel(kernel, shape, repeat, device,
+                               **tiles.get(kernel, {}))
                for kernel in kernels for shape in GRIDS[grid][kernel]]
     on_card = device.type == "cuda"
     name = torch.cuda.get_device_name(device) if on_card else "cpu"

@@ -1,0 +1,6 @@
+// Flash attention's kernels at head dim 256: every variant and tile the
+// library has there (flash_attention.cuh), in a translation unit of its own
+// so that nvcc compiles the head dims in parallel.
+#include "flash_attention.cuh"
+
+FLASH_ATTENTION_PART(256)

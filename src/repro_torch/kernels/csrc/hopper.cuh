@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (flash_attention.cu, nvdla_matmul.cu): inline PTX for mbarriers, TMA
+// (flash_attention.cuh, nvdla_matmul.cu): inline PTX for mbarriers, TMA
 // tensor loads and stores, wgmma shared-memory descriptors and products (bf16
 // and TF32), the TF32 hi/lo split, and register reallocation between
 // warpgroups, plus the host-side encoding of a TMA tensor map and the
@@ -198,10 +198,28 @@ __device__ __forceinline__ void acc_fence(Acc<N>& d) {
 // scale_d = 0 overwrites d.  wgmma_ss reads A from shared memory (K-major),
 // wgmma_rs from registers in the mma.sync m16n8k16 A layout (rows 16 w ..
 // 16 w + 15 for warp w).  TB = 1 marks B as MN-major (transpose-B).
-// Generated text: one overload per N the kernels use (64, 128 and 256 from
-// shared memory; 16, 32, 64, 80, 96, 128, 192 and 256 from registers: flash
-// attention's P V at N = D), as the instruction names every accumulator
-// register.
+// Generated text: one overload per N the kernels use (32, 64, 128 and 256
+// from shared memory: flash attention's S = Q K^T at N = bk; 16, 32, 64, 80,
+// 96, 128, 192 and 256 from registers: its P V at N = D), as the instruction
+// names every accumulator register.
+template <int TB>
+__device__ __forceinline__ void wgmma_ss(Acc<32>& d, uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "},"
+      " %16, %17, p, 1, 1, 0, %19;\n"
+      "}\n"
+      : "+f"(d.r[0]), "+f"(d.r[1]), "+f"(d.r[2]), "+f"(d.r[3]), "+f"(d.r[4]), "+f"(d.r[5]),
+        "+f"(d.r[6]), "+f"(d.r[7]), "+f"(d.r[8]), "+f"(d.r[9]), "+f"(d.r[10]), "+f"(d.r[11]),
+        "+f"(d.r[12]), "+f"(d.r[13]), "+f"(d.r[14]), "+f"(d.r[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
 template <int TB>
 __device__ __forceinline__ void wgmma_ss(Acc<64>& d, uint64_t da, uint64_t db,
                                          int scale_d) {

@@ -35,8 +35,13 @@
 // into registers while this one is scanned: the loop over time then waits
 // on no load from device memory.  Each lane writes its part of y_t to
 // shared memory; after the chunk, the block sums the L parts of each
-// (t, channel) and stores y along the channels.  Any S and d: channels past
-// d keep zeros and store nothing; steps past S see x = dt = 0, which keeps
+// (t, channel) and stores y along the channels.  The block's channels (bd,
+// L bd threads) and the chunk's timesteps (chunk) are the caller's to pick,
+// as the reference's bd and chunk are: bd and chunk each 16, 32 or 64,
+// (32, 32) by default; any other pair is refused, never replaced.  A block
+// whose staging needs more than 48 KB (bd 64 with chunk 32 or 64, bd 32
+// with chunk 64) takes it as dynamic shared memory.  Any S and d: channels
+// past d keep zeros and store nothing; steps past S see x = dt = 0, which keeps
 // the state, and store nothing.  The state enters the registers from h0
 // before the first chunk and leaves them for hT after the last, so the loop
 // over time is the same with or without them (its schedule is not: see the
@@ -64,10 +69,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int NTS = 128;   // threads per block
-constexpr int TC = 32;     // timesteps staged in shared memory at a time
 constexpr int L = 4;       // lanes per (batch, channel)
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -108,21 +113,32 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(v);
 }
 
-template <typename T, int N>
-__global__ void __launch_bounds__(NTS)
-mamba_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
-                  const T* __restrict__ Bm, const T* __restrict__ Cm,
-                  const float* __restrict__ A, const float* __restrict__ Dv,
-                  const float* __restrict__ h0, T* __restrict__ y,
-                  float* __restrict__ hT, int S, int d) {
+// A chunk of TC timesteps staged for CH channels: x, dt, B and C, and
+// Ps[t][tid], each lane's part of y_t (lane part 0's holds D x_t too)
+template <int N, int CH, int TC> struct Staged {
+  static constexpr int NTS = L * CH;   // threads per block
+  float Xs[TC][CH], Ds[TC][CH], Bs[TC][N], Cs[TC][N], Ps[TC][NTS];
+  static constexpr bool DYNAMIC = sizeof(float) * TC * (2 * CH + 2 * N + NTS)
+                                  > 48 * 1024;
+};
+
+// The scan of one block over the staged arrays it is given
+template <typename T, int N, int CH, int TC>
+__device__ __forceinline__ void scan_block(
+    float (&Xs)[TC][CH], float (&Ds)[TC][CH], float (&Bs)[TC][N],
+    float (&Cs)[TC][N], float (&Ps)[TC][L * CH], const T* __restrict__ x,
+    const T* __restrict__ dt, const T* __restrict__ Bm,
+    const T* __restrict__ Cm, const float* __restrict__ A,
+    const float* __restrict__ Dv, const float* __restrict__ h0,
+    T* __restrict__ y, float* __restrict__ hT, int S, int d) {
+  constexpr int NTS = L * CH;    // threads per block
   constexpr int NL = N / L;      // states per thread
-  constexpr int CH = NTS / L;    // channels per block
-  constexpr int XL = TC * CH / NTS, BL = TC * N / NTS;   // loads per thread
+  // loads per thread: x and dt exactly, B and C rounded up (the last
+  // round's threads past TC * N load nothing where NTS does not divide it)
+  constexpr int XL = TC * CH / NTS, BL = (TC * N + NTS - 1) / NTS;
+  constexpr bool B_WHOLE = TC * N % NTS == 0;
   static_assert(N % L == 0 && 32 % L == 0, "L lanes split N states in a warp");
-  static_assert(TC * CH % NTS == 0 && TC * N % NTS == 0, "whole loads");
-  // Ps[t][tid]: each lane's part of y_t (lane part 0's holds D x_t too)
-  __shared__ __align__(16) float Xs[TC][CH], Ds[TC][CH], Bs[TC][N],
-      Cs[TC][N], Ps[TC][NTS];
+  static_assert(TC * CH % NTS == 0, "whole loads of x and dt");
 
   const int tid = threadIdx.x, part = tid % L, c = tid / L;
   const int ch0 = blockIdx.x * CH, ch = ch0 + c;
@@ -144,6 +160,7 @@ mamba_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
 #pragma unroll
     for (int r = 0; r < BL; ++r) {
       const int i = tid + r * NTS;
+      if (!B_WHOLE && i >= TC * N) break;
       const bool in = t0 + i / N < S;
       const long long g = (row0 + t0) * N + i;
       rb[r] = in ? to_f(Bm[g]) : 0.f;
@@ -160,6 +177,7 @@ mamba_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
 #pragma unroll
     for (int r = 0; r < BL; ++r) {
       const int i = tid + r * NTS;
+      if (!B_WHOLE && i >= TC * N) break;
       Bs[i / N][i % N] = rb[r];
       Cs[i / N][i % N] = rc[r];
     }
@@ -227,28 +245,82 @@ mamba_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   }
 }
 
-template <typename T, int N>
-cudaError_t launch(const void* x, const void* dt, const void* B,
-                   const void* C, const float* A, const float* D,
-                   const float* h0, void* y, float* hT, int b, int S, int d,
-                   cudaStream_t stream) {
-  constexpr int CH = NTS / L;
-  const dim3 grid((d + CH - 1) / CH, b);
-  mamba_scan_kernel<T, N><<<grid, NTS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dt),
-      static_cast<const T*>(B), static_cast<const T*>(C), A, D, h0,
-      static_cast<T*>(y), hT, S, d);
+// The staged arrays: static shared memory where they fit its 48 KB, as the
+// default tile's always did (the loop over time's schedule is sensitive to
+// how they are addressed: see the note where h0 is loaded), else dynamic
+template <typename T, int N, int CH, int TC>
+__global__ void __launch_bounds__(L * CH)
+mamba_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
+                  const T* __restrict__ Bm, const T* __restrict__ Cm,
+                  const float* __restrict__ A, const float* __restrict__ Dv,
+                  const float* __restrict__ h0, T* __restrict__ y,
+                  float* __restrict__ hT, int S, int d) {
+  using Sm = Staged<N, CH, TC>;
+  if constexpr (Sm::DYNAMIC) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    Sm& sm = *reinterpret_cast<Sm*>(smem_raw);
+    scan_block<T, N, CH, TC>(sm.Xs, sm.Ds, sm.Bs, sm.Cs, sm.Ps, x, dt, Bm,
+                             Cm, A, Dv, h0, y, hT, S, d);
+  } else {
+    __shared__ __align__(16) float Xs[TC][CH], Ds[TC][CH], Bs[TC][N],
+        Cs[TC][N], Ps[TC][L * CH];
+    scan_block<T, N, CH, TC>(Xs, Ds, Bs, Cs, Ps, x, dt, Bm, Cm, A, Dv, h0, y,
+                             hT, S, d);
+  }
+}
+
+// A call of mamba_scan_fwd, its tile resolved
+struct Args {
+  const void *x, *dt, *B, *C;
+  const float *A, *D, *h0;
+  void* y;
+  float* hT;
+  int b, S, d;
+  cudaStream_t stream;
+};
+
+template <typename T, int N, int CH, int TC>
+cudaError_t launch(const Args& a) {
+  using Sm = Staged<N, CH, TC>;
+  auto kernel = mamba_scan_kernel<T, N, CH, TC>;
+  const size_t smem = Sm::DYNAMIC ? sizeof(Sm) : 0;
+  if (Sm::DYNAMIC) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((a.d + CH - 1) / CH, a.b);
+  kernel<<<grid, Sm::NTS, smem, a.stream>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.dt),
+      static_cast<const T*>(a.B), static_cast<const T*>(a.C), a.A, a.D, a.h0,
+      static_cast<T*>(a.y), a.hT, a.S, a.d);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_n(int N, const void* x, const void* dt, const void* B,
-                     const void* C, const float* A, const float* D,
-                     const float* h0, void* y, float* hT, int b, int S, int d,
-                     cudaStream_t st) {
-  if (N == 8) return launch<T, 8>(x, dt, B, C, A, D, h0, y, hT, b, S, d, st);
-  if (N == 16)
-    return launch<T, 16>(x, dt, B, C, A, D, h0, y, hT, b, S, d, st);
+// calls f(T, N, CH, TC as integral constants) for the instance of dtype
+// (0 float32, 1 bfloat16), N and the tile (bd, chunk); (0, 0) is the
+// default (32, 32); cudaErrorInvalidValue for any other
+template <typename F>
+cudaError_t with_instance(int dtype, int N, int bd, int chunk, F&& f) {
+  if (bd == 0 && chunk == 0) bd = chunk = 32;
+  auto tile = [&](auto t, auto n) -> cudaError_t {
+#define SCAN_TILE(CH_, TC_)                            \
+  if (bd == CH_ && chunk == TC_)                       \
+    return f(t, n, std::integral_constant<int, CH_>{}, \
+             std::integral_constant<int, TC_>{});
+    SCAN_TILE(16, 16) SCAN_TILE(16, 32) SCAN_TILE(16, 64)
+    SCAN_TILE(32, 16) SCAN_TILE(32, 32) SCAN_TILE(32, 64)
+    SCAN_TILE(64, 16) SCAN_TILE(64, 32) SCAN_TILE(64, 64)
+#undef SCAN_TILE
+    return cudaErrorInvalidValue;
+  };
+  auto state = [&](auto t) -> cudaError_t {
+    if (N == 8) return tile(t, std::integral_constant<int, 8>{});
+    if (N == 16) return tile(t, std::integral_constant<int, 16>{});
+    return cudaErrorInvalidValue;
+  };
+  if (dtype == 0) return state(float{});
+  if (dtype == 1) return state(__nv_bfloat16{});
   return cudaErrorInvalidValue;
 }
 
@@ -263,18 +335,41 @@ cudaError_t launch_n(int N, const void* x, const void* dt, const void* B,
 extern "C" int mamba_scan_fwd(const void* x, const void* dt, const void* B,
                               const void* C, const void* A, const void* D,
                               const void* h0, void* y, void* hT, int b, int S,
-                              int d, int N, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+                              int d, int N, int dtype, int bd, int chunk,
+                              void* stream) {
   if (b < 1 || S < 1 || d < 1 || b > 65535) return (int)cudaErrorInvalidValue;
-  const float* Af = static_cast<const float*>(A);
-  const float* Df = static_cast<const float*>(D);
-  const float* h0f = static_cast<const float*>(h0);
-  float* hTf = static_cast<float*>(hT);
-  if (dtype == 0)
-    return (int)launch_n<float>(N, x, dt, B, C, Af, Df, h0f, y, hTf, b, S, d,
-                                st);
-  if (dtype == 1)
-    return (int)launch_n<__nv_bfloat16>(N, x, dt, B, C, Af, Df, h0f, y, hTf,
-                                        b, S, d, st);
-  return (int)cudaErrorInvalidValue;
+  const Args a{x, dt, B, C, static_cast<const float*>(A),
+               static_cast<const float*>(D), static_cast<const float*>(h0), y,
+               static_cast<float*>(hT), b, S, d,
+               static_cast<cudaStream_t>(stream)};
+  return (int)with_instance(dtype, N, bd, chunk,
+                            [&](auto t, auto n, auto ch, auto tc) {
+    return launch<decltype(t), decltype(n)::value, decltype(ch)::value,
+                  decltype(tc)::value>(a);
+  });
+}
+
+// The instance of dtype, N and the tile (bd, chunk) ((0, 0): the default):
+// out[0..3] = its threads a block, shared-memory bytes, registers a thread
+// and local (spilled) bytes a thread, the last two from
+// cudaFuncGetAttributes.  Returns cudaErrorInvalidValue for an instance
+// the library does not have, as mamba_scan_fwd refuses it.
+extern "C" int mamba_scan_tile(int dtype, int N, int bd, int chunk,
+                               int* out) {
+  return (int)with_instance(dtype, N, bd, chunk,
+                            [&](auto t, auto n, auto ch, auto tc) {
+    using Sm = Staged<decltype(n)::value, decltype(ch)::value,
+                      decltype(tc)::value>;
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(
+        &attr, mamba_scan_kernel<decltype(t), decltype(n)::value,
+                                 decltype(ch)::value, decltype(tc)::value>);
+    if (err == cudaSuccess) {
+      out[0] = Sm::NTS;
+      out[1] = (int)sizeof(Sm);
+      out[2] = attr.numRegs;
+      out[3] = (int)attr.localSizeBytes;
+    }
+    return err;
+  });
 }

@@ -24,6 +24,18 @@ not 80 or 192).  A
 variant named off its head dims raises before the launch, and a failed
 launch raises; no variant stands in for another.
 
+The caller picks a block's tile, ``bq`` query rows by ``bk`` keys, as the
+reference's caller does; 0, 0 takes the variant's default.  The Hopper
+variants instantiate, at every head dim, bq 64 or 128 (two warpgroups) by
+bk 32, 64 or 128 wherever the block fits the card's shared memory, and the
+default; the older ones their one tile (``tiles(variant, D)``).  A tile
+that is not one of them raises ``ValueError`` (``tile_of``), here and in
+``ops.flash_attention`` on the CPU alike, and the library refuses it too:
+no tile stands in for another.  Unlike the reference, which clips bq and bk
+to S and asserts that they divide S, the kernel takes the named tile as it
+is for any S and masks the ragged edge.  There is no chooser: the reference
+has none for attention, and its callers that pass no tile get the default.
+
 The wrapper raises when autograd is recording and an input requires grad
 (``_build.refuse_grad``): ``repro_torch.kernels.ops.flash_attention`` is
 the differentiable entry point.
@@ -35,6 +47,7 @@ split pass and product count once) and
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -51,6 +64,74 @@ VARIANTS = {"fma": (0, torch.float32), "mma_sync": (1, torch.bfloat16),
 _OLDER = tuple(D for D in HEAD_DIMS if D not in (80, 192))
 VARIANT_HEAD_DIMS = {"fma": _OLDER, "mma_sync": _OLDER,
                      "wgmma": HEAD_DIMS, "tf32x3": HEAD_DIMS}
+# the Hopper variants' tiles: query rows (64 a warpgroup) by keys, where
+# the block's shared memory fits the card's 232,448 bytes a block
+TILE_BQ = (64, 128)
+TILE_BK = (32, 64, 128)
+SMEM_MAX = 232448
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashTile:
+    """The instance a call launches: ``variant`` at a ``bq`` x ``bk`` tile,
+    with its ring's ``stages``, its dynamic ``smem_bytes`` and its block's
+    ``threads``, as ``csrc/flash_attention.cuh`` lays it out."""
+    variant: str
+    bq: int
+    bk: int
+    stages: int
+    smem_bytes: int
+    threads: int
+
+
+def _layout(name, D, bq, bk):
+    """(stages, shared bytes, threads) of variant ``name`` at head dim
+    ``D`` and tile (bq, bk), as the kernel's ``Tiles*`` structs compute
+    them; stages 0 where tf32x3's block has no room for a 2-stage ring."""
+    if name == "wgmma":   # Q, one stage of K and one of V, in 64-column boxes
+        dp = -(-D // 64) * 64
+        return 1, 1024 + 2 * dp * (bq + 2 * bk) + 4 * 8, 2 * bq
+    if name == "tf32x3":   # Q and P hi/lo, a ring of K/V^T items, 32 columns
+        dp = -(-D // 32) * 32
+        most = 4 if D <= 64 else 3 if D <= 128 else 2
+
+        def size(stages):
+            return (1024 + 8 * bq * dp + stages * 4 * bk * dp + 8 * bq * bk
+                    + 12 * stages + 8)
+        stages = next((s for s in (most, most - 1, most - 2)
+                       if s >= 2 and size(s) <= SMEM_MAX), 0)
+        return stages, size(max(stages, 2)), 2 * bq
+    if name == "fma":   # Q, K padded to D + 1, V, P padded to bk + 1
+        return 1, 4 * (bq * (D + 1) + bk * (D + 1) + bk * D
+                       + bq * (bk + 1)), 256
+    return 1, 2 * (bq + 2 * bk) * (D + 8), 128   # mma_sync, rows of D + 8
+
+
+def default_tile(name, D):
+    """The tile a call of variant ``name`` at head dim ``D`` takes with bq =
+    bk = 0: 64 x 64, or 64 x 32 above D 128 for tf32x3 and the older
+    kernels."""
+    return 64, 32 if D > 128 and name != "wgmma" else 64
+
+
+def _fits(name, D, bq, bk):
+    stages, smem, _ = _layout(name, D, bq, bk)
+    return stages > 0 and smem <= SMEM_MAX
+
+
+@functools.cache
+def tiles(name, D):
+    """The (bq, bk) tiles variant ``name`` instantiates at head dim ``D``,
+    the default first: for the Hopper variants, every one of ``TILE_BQ`` x
+    ``TILE_BK`` whose block fits in shared memory; the older kernels only
+    their default.  Empty off the variant's head dims."""
+    if name not in VARIANTS or D not in VARIANT_HEAD_DIMS[name]:
+        return ()
+    first = default_tile(name, D)
+    if name not in ("wgmma", "tf32x3"):
+        return (first,)
+    return (first, *((bq, bk) for bq in TILE_BQ for bk in TILE_BK
+                     if (bq, bk) != first and _fits(name, D, bq, bk)))
 
 
 def variant(D, dtype):
@@ -69,20 +150,63 @@ def variant(D, dtype):
 def _lib():
     lib = _build.load("flash_attention")
     lib.flash_attention_fwd.argtypes = [ctypes.c_void_p] * 5 \
-        + [ctypes.c_longlong] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        + [ctypes.c_longlong] + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     lib.flash_attention_fwd.restype = ctypes.c_int
     lib.flash_attention_workspace.argtypes = [ctypes.c_int] * 5
     lib.flash_attention_workspace.restype = ctypes.c_longlong
+    lib.flash_attention_tile.argtypes = [ctypes.c_int] * 4 \
+        + [ctypes.POINTER(ctypes.c_int)]
+    lib.flash_attention_tile.restype = ctypes.c_int
     return lib
 
 
-def flash_attention(q, k, v, *, causal=True, window=0, kernel=None):
+def instance(name, D, bq=0, bk=0):
+    """What the library reports of variant ``name``'s instance at head dim
+    ``D`` and tile (bq, bk) (0, 0: the default), on the card: a dict of its
+    ring's ``stages``, dynamic ``smem_bytes``, ``threads`` a block,
+    ``regs`` a thread and ``local_bytes`` a thread (spills), or None where
+    the library has no such instance."""
+    out = (ctypes.c_int * 5)()
+    if _lib().flash_attention_tile(VARIANTS[name][0], D, bq, bk, out):
+        return None
+    return dict(zip(("stages", "smem_bytes", "threads", "regs",
+                     "local_bytes"), out))
+
+
+@functools.lru_cache(maxsize=1024)
+def tile_of(D, dtype, *, bq=0, bk=0, kernel=None):
+    """The :class:`FlashTile` a call takes: the variant ``kernel`` (default
+    ``variant(D, dtype)``'s) at the tile (bq, bk), its default where both
+    are 0.  Raises ``TypeError`` for a type the kernel lacks, and
+    ``ValueError`` for a head dim it lacks, a variant that does not take
+    ``dtype`` or is not built at ``D``, or a tile not in ``tiles(variant,
+    D)`` (one value without the other too).  Cached by its arguments: the
+    wrapper asks on every call."""
+    name = variant(D, dtype)   # raises on a head dim or type the kernel lacks
+    if kernel is not None:
+        name = kernel
+    if name not in VARIANTS or VARIANTS[name][1] != dtype:
+        raise ValueError(f"kernel variant {name!r} does not take {dtype}")
+    if D not in VARIANT_HEAD_DIMS[name]:
+        raise ValueError(f"kernel variant {name!r} is not built for head "
+                         f"dim {D}; it takes {VARIANT_HEAD_DIMS[name]}")
+    tile = (bq, bk) if bq or bk else default_tile(name, D)
+    if tile not in tiles(name, D):
+        raise ValueError(f"flash_attention variant {name!r} has no tile "
+                         f"(bq, bk) = {(bq, bk)} at head dim {D}; "
+                         f"tiles({name!r}, {D}) = {tiles(name, D)}")
+    return FlashTile(name, *tile, *_layout(name, D, *tile))
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, bq=0, bk=0,
+                    kernel=None):
     """q: (B, H, S, D); k, v: (B, Hkv, S, D) with ``H % Hkv == 0``, all on
     one CUDA device, all float32 or all bfloat16.  ``window > 0`` adds the
-    sliding-window mask ``qpos - kpos < window``.  ``kernel`` names a
-    variant other than ``variant(D, dtype)`` (to time one against another);
-    it must take the inputs' type.
-    Returns (B, H, S, D)."""
+    sliding-window mask ``qpos - kpos < window``.  ``bq``, ``bk``: the
+    block's tile, one of ``tiles(variant, D)``, or 0, 0 for the default.
+    ``kernel`` names a variant other than ``variant(D, dtype)`` (to time one
+    against another); it must take the inputs' type.  ``tile_of`` says what
+    raises.  Returns (B, H, S, D)."""
     _build.refuse_grad("flash_attention", q, k, v)
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention kernel takes q, k, v on one CUDA "
@@ -100,15 +224,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, kernel=None):
     if Hkv == 0 or H % Hkv or (k.shape[0], k.shape[2], k.shape[3]) != (B, S, D):
         raise ValueError(f"k, v must be (B, Hkv, S, D) with H % Hkv == 0 for "
                          f"q {tuple(q.shape)}, got {tuple(k.shape)}")
-    name = variant(D, q.dtype)   # raises on a head dim the kernel lacks
-    if kernel is not None:
-        name = kernel
-    if name not in VARIANTS or VARIANTS[name][1] != q.dtype:
-        raise ValueError(f"kernel variant {name!r} does not take "
-                         f"{q.dtype}")
-    if D not in VARIANT_HEAD_DIMS[name]:
-        raise ValueError(f"kernel variant {name!r} is not built for head "
-                         f"dim {D}; it takes {VARIANT_HEAD_DIMS[name]}")
+    t = tile_of(D, q.dtype, bq=bq, bk=bk, kernel=kernel)
+    name = t.variant
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     # contiguous, and 16-byte aligned for the bf16 kernel's vector loads
@@ -126,10 +243,10 @@ def flash_attention(q, k, v, *, causal=True, window=0, kernel=None):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(), n_ws, B, H, Hkv, S, D,
             int(causal), int(window), _DTYPES[q.dtype], VARIANTS[name][0],
-            torch.cuda.current_stream().cuda_stream)
+            t.bq, t.bk, torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"cudaError_t {rc}")
+                           f"cudaError_t {rc} ({name} tile {(t.bq, t.bk)})")
     flash_attention.launches += 1
     flash_attention.launches_by_variant[name] += 1
     return out

@@ -11,6 +11,13 @@ functions: the forward launches the kernel, and the backward is the
 gradient of the plain version, recomputed from the saved inputs
 (``ref.flash_attention_bwd_ref``, ``ref.mamba_scan_bwd_ref``).  So an
 output that needs a gradient gets the plain version's.
+
+Each entry point takes the kernel's block shapes as the reference's
+``ops`` does (``**kw``: the matmul's ``bm``, ``bn``, ``bk``, flash
+attention's ``bq``, ``bk``, the scan's ``bd``, ``chunk``) and forwards them
+to the kernel on the card; on the CPU they are checked as the kernel checks
+them, so that a tile it does not instantiate raises on both devices, and
+change nothing else.
 """
 from __future__ import annotations
 
@@ -48,61 +55,91 @@ def matmul(a, b, **kw):
                      **kw)
 
 
+def _no_grads(ctx, grads):
+    """``grads`` followed by a None for each of forward's other inputs."""
+    return (*grads, *(None,) * (len(ctx.needs_input_grad) - len(grads)))
+
+
 class _FlashAttention(torch.autograd.Function):
-    """The flash kernel forward; the plain version's gradient backward."""
+    """The flash kernel forward at the tile given (``kw``: ``bq``, ``bk``,
+    ``kernel``); the plain version's gradient backward, which has no
+    tile."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, kw=None):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
-        return _flash.flash_attention(q, k, v, causal=causal, window=window)
+        return _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                      **(kw or {}))
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v = ctx.saved_tensors
-        return (*ref.flash_attention_bwd_ref(q, k, v, dout, causal=ctx.causal,
-                                             window=ctx.window), None, None)
+        return _no_grads(ctx, ref.flash_attention_bwd_ref(
+            q, k, v, dout, causal=ctx.causal, window=ctx.window))
 
 
 class _MambaScan(torch.autograd.Function):
-    """The scan kernel forward; the plain version's gradient backward."""
+    """The scan kernel forward at the tile given (``kw``: ``bd``,
+    ``chunk``); the plain version's gradient backward, which has no
+    tile."""
 
     @staticmethod
-    def forward(ctx, x, dt, B, C, A, D, h0, return_state):
+    def forward(ctx, x, dt, B, C, A, D, h0, return_state, kw=None):
         ctx.save_for_backward(x, dt, B, C, A, D, h0)
         ctx.return_state = return_state
         return _mamba.mamba_scan(x, dt, B, C, A, D, h0=h0,
-                                 return_state=return_state)
+                                 return_state=return_state, **(kw or {}))
 
     @staticmethod
     def backward(ctx, dy, dh=None):
         x, dt, B, C, A, D, h0 = ctx.saved_tensors
-        return (*ref.mamba_scan_bwd_ref(x, dt, B, C, A, D, h0, dy,
-                                        dh if ctx.return_state else None),
-                None)
+        return _no_grads(ctx, ref.mamba_scan_bwd_ref(
+            x, dt, B, C, A, D, h0, dy, dh if ctx.return_state else None))
 
 
-def _flash_apply(q, k, v, *, causal, window):
-    return _FlashAttention.apply(q, k, v, causal, window)
+def _flash_apply(q, k, v, *, causal, window, **kw):
+    return _FlashAttention.apply(q, k, v, causal, window, kw)
 
 
-def _scan_apply(x, dt, B, C, A, D, *, h0, return_state):
-    return _MambaScan.apply(x, dt, B, C, A, D, h0, return_state)
+def _scan_apply(x, dt, B, C, A, D, *, h0, return_state, **kw):
+    return _MambaScan.apply(x, dt, B, C, A, D, h0, return_state, kw)
 
 
-def flash_attention(q, k, v, *, causal=True, window=0):
+def _flash_plain(q, k, v, *, causal, window, **kw):
+    """The plain version, after the check the kernel makes of the tile
+    given."""
+    if kw:
+        _flash.tile_of(q.shape[-1], q.dtype, **kw)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+
+def _scan_plain(x, dt, B, C, A, D, *, h0, return_state, **kw):
+    """The plain version, after the check the kernel makes of the tile
+    given."""
+    if kw:
+        _mamba.tile_of(**kw)
+    return ref.mamba_scan_ref(x, dt, B, C, A, D, h0=h0,
+                              return_state=return_state)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, **kw):
     """q: (B, H, S, D); k, v: (B, Hkv, S, D).  KV stays at its native
-    ``Hkv`` heads on both paths."""
-    return _dispatch("flash_attention", ref.flash_attention_ref,
-                     _flash_apply, q.device, q, k, v, causal=causal,
-                     window=window)
+    ``Hkv`` heads on both paths.  ``kw`` (``bq``, ``bk``, ``kernel``) goes
+    to the kernel (``flash_attention.flash_attention``), as the reference's
+    ``ops.flash_attention`` forwards it; ``flash_attention.tile_of`` says
+    what raises."""
+    return _dispatch("flash_attention", _flash_plain, _flash_apply,
+                     q.device, q, k, v, causal=causal, window=window, **kw)
 
 
-def mamba_scan(x, dt, B, C, A, D, h0=None, return_state=False):
+def mamba_scan(x, dt, B, C, A, D, h0=None, return_state=False, **kw):
     """x, dt: (b, S, d); B, C: (b, S, N); A: (d, N) and D: (d,) float32;
     h0: the starting state (b, d, N) float32, zeros if None.  Returns y:
     (b, S, d) in x's dtype, and with ``return_state`` the pair (y, h_S),
-    h_S the final state (b, d, N) float32."""
-    return _dispatch("mamba_scan", ref.mamba_scan_ref, _scan_apply,
-                     x.device, x, dt, B, C, A, D, h0=h0,
-                     return_state=return_state)
+    h_S the final state (b, d, N) float32.  ``kw`` (``bd``, ``chunk``) goes
+    to the kernel (``mamba_scan.mamba_scan``), as the reference's
+    ``ops.mamba_scan`` forwards it; ``mamba_scan.tile_of`` says what
+    raises."""
+    return _dispatch("mamba_scan", _scan_plain, _scan_apply, x.device, x,
+                     dt, B, C, A, D, h0=h0, return_state=return_state, **kw)

@@ -229,3 +229,32 @@ def test_cli_writes_report_on_cpu(tmp_path, capsys):
     for fit in report["kernels"].values():
         assert fit["table_max_rel_err"] == 0.0
     assert "fitted_mape" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("grid,tiles", [
+    ("quick", {"attention": {"bq": 64, "bk": 64}}),
+    ("full", {"attention": {"bq": 64, "bk": 64}}),
+    ("model", {})])
+def test_samples_carry_the_reference_tiles(grid, tiles, monkeypatch):
+    """Attention is timed at bq = bk = 64 on the reference's ``quick`` and
+    ``full`` grids, as ``repro/kernels/calibrate.py`` times it; the port's
+    own ``model`` grid passes no tile (the kernels' defaults).  The calls
+    are recorded, not run: the ``model`` grid is cut to its first shapes'
+    smallest stand-ins."""
+    calls = []
+
+    def record(kernel):
+        def call(*args, **kw):
+            calls.append((kernel, kw))
+            return args[0]
+        return call
+    monkeypatch.setattr(tcal, "_CALLS",
+                        {k: record(k) for k in tcal._CALLS})
+    if grid == "model":
+        monkeypatch.setitem(tcal.GRIDS, "model", tcal.QUICK_GRIDS)
+    tcal.measure(grid=grid, repeat=1, device="cpu")
+    assert {k for k, _ in calls} == set(tcal.KERNELS)
+    for kernel, kw in calls:
+        assert kw == tiles.get(kernel, {}), (kernel, kw)
+    assert tcal.GRID_TILES == {g: {"attention": {"bq": 64, "bk": 64}}
+                               for g in ("quick", "full")}

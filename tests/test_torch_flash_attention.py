@@ -2,10 +2,13 @@
 
 On the CPU the port's ``ops.flash_attention`` runs its plain PyTorch version;
 it is compared with the JAX Pallas kernel in interpret mode at every
-``tests/test_kernels.py`` flash parametrization, at that file's tolerances
-(fp32 1e-4, bf16 3e-2), and with the JAX package's chunked attention on a
-ragged length.  ``tests/test_torch_gpu.py`` holds the CUDA kernel against
-the plain version on the card.
+``tests/test_kernels.py`` flash parametrization, each package given that
+case's tile (bq, bk), at that file's tolerances (fp32 1e-4, bf16 3e-2), and
+with the JAX package's chunked attention on a ragged length.  Every tile
+the kernel instantiates is taken on the CPU, any other raises as on the
+card, and ``ops`` forwards the tile through its autograd function.
+``tests/test_torch_gpu.py`` holds the CUDA kernel against the plain version
+on the card.
 """
 from pathlib import Path
 
@@ -69,7 +72,7 @@ def test_flash_attention_matches_jax_kernel(B, H, Hkv, S, D, bq, bk, causal,
     expect = jops.flash_attention(*(jnp.asarray(a).astype(jdt) for a in arrays),
                                   causal=causal, window=window, bq=bq, bk=bk)
     out = ops.flash_attention(*(torch.from_numpy(a).to(tdt) for a in arrays),
-                              causal=causal, window=window)
+                              causal=causal, window=window, bq=bq, bk=bk)
     assert out.dtype == tdt and out.shape == (B, H, S, D)
     np.testing.assert_allclose(_np(out), _np(expect), rtol=tol, atol=tol)
 
@@ -368,3 +371,133 @@ def test_flash_bound_counts_the_exponentials(monkeypatch):
     ms, by, terms = chip_smoke.bound(4, 4, 1, 1024, 256, 0, torch.bfloat16,
                                      "wgmma")[:3]
     assert by == "operations" and terms["operations"] > terms["exp"]
+
+
+# ---------------------------------------------------------------------------
+# the block's tile from the caller
+
+
+HOPPER = ("wgmma", "tf32x3")
+VARIANT_DTYPE = {name: dtype for name, (_, dtype) in fa.VARIANTS.items()}
+EVERY_TILE = [(name, D, tile) for name in fa.VARIANTS
+              for D in fa.VARIANT_HEAD_DIMS[name] for tile in fa.tiles(name, D)]
+
+
+def test_tile_set_holds_the_reference_sweep_and_fits():
+    """Both Hopper variants instantiate, at every head dim, the default
+    (64, 64), or 64 x 32 for tf32x3 above D 128, first; at D 32 and 64 every
+    tile of ``tests/test_kernels.py``'s flash sweep; at D 256 tf32x3 only
+    its default.  Every tile's block fits the card's 232,448 bytes, and
+    every other (bq, bk) of the set that is left out does not."""
+    for name in HOPPER:
+        for D in fa.HEAD_DIMS:
+            tiles = fa.tiles(name, D)
+            assert tiles[0] == (64, 32 if D > 128 and name == "tf32x3"
+                                else 64)
+            assert len(set(tiles)) == len(tiles)
+            for bq in fa.TILE_BQ:
+                for bk in fa.TILE_BK:
+                    stages, smem, _ = fa._layout(name, D, bq, bk)
+                    fits = smem <= fa.SMEM_MAX and stages >= 1
+                    assert ((bq, bk) in tiles) == fits, (name, D, bq, bk)
+                    assert fits == fa._fits(name, D, bq, bk)
+        for D in (32, 64):
+            assert {(64, 64), (64, 32), (128, 64)} <= set(fa.tiles(name, D))
+    assert len(fa.tiles("wgmma", 256)) == 6
+    assert fa.tiles("tf32x3", 256) == ((64, 32),)
+    for name in ("fma", "mma_sync"):
+        assert all(fa.tiles(name, D) == (fa.default_tile(name, D),)
+                   for D in fa.VARIANT_HEAD_DIMS[name])
+        assert fa.tiles(name, 80) == fa.tiles(name, 192) == ()
+
+
+@pytest.mark.parametrize("name,D,bq,bk,stages,smem", [
+    # csrc/flash_attention.cuh's table of the default tiles, bytes exactly
+    ("tf32x3", 16, 64, 64, 4, 83000), ("tf32x3", 64, 64, 64, 4, 132152),
+    ("tf32x3", 96, 64, 64, 3, 156716), ("tf32x3", 128, 64, 64, 3, 197676),
+    ("tf32x3", 192, 64, 32, 2, 164896), ("tf32x3", 256, 64, 32, 2, 214048),
+    # other tiles: stages where shared memory ends
+    ("tf32x3", 80, 128, 64, 2, 214048), ("tf32x3", 192, 64, 64, 2, 230432),
+    ("tf32x3", 64, 64, 128, 4, 230456),
+    ("wgmma", 256, 64, 64, 1, 99360), ("wgmma", 256, 128, 128, 1, 197664),
+    ("wgmma", 16, 64, 32, 1, 17440)])
+def test_tile_layout(name, D, bq, bk, stages, smem):
+    t = fa.tile_of(D, VARIANT_DTYPE[name], bq=bq, bk=bk)
+    assert (t.variant, t.bq, t.bk, t.stages, t.smem_bytes, t.threads) == \
+        (name, bq, bk, stages, smem, 2 * bq)
+
+
+@pytest.mark.parametrize("name,D,tile", EVERY_TILE)
+def test_every_tile_is_taken_on_the_cpu(name, D, tile):
+    """Each tile of ``tiles(name, D)`` passes ``ops.flash_attention``'s
+    check on the CPU and gives the plain version's output unchanged."""
+    dtype = VARIANT_DTYPE[name]
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(7, 1, 2, 1, 40, D))
+    expect = ref.flash_attention_ref(q, k, v, causal=True, window=0)
+    out = ops.flash_attention(q, k, v, bq=tile[0], bk=tile[1], kernel=name)
+    assert torch.equal(out, expect)
+    t = fa.tile_of(D, dtype, bq=tile[0], bk=tile[1], kernel=name)
+    assert (t.variant, t.bq, t.bk) == (name, *tile)
+
+
+@pytest.mark.parametrize("D,dtype,kw", [
+    (64, torch.bfloat16, dict(bq=256, bk=256)),
+    (64, torch.bfloat16, dict(bq=64, bk=48)),
+    (64, torch.float32, dict(bq=64)),            # one value without the other
+    (64, torch.float32, dict(bk=64)),
+    (256, torch.float32, dict(bq=128, bk=64)),   # does not fit at D 256
+    (128, torch.float32, dict(bq=128, bk=128)),
+    (64, torch.bfloat16, dict(bq=128, bk=64, kernel="mma_sync")),
+    (256, torch.float32, dict(bq=64, bk=64, kernel="fma")),
+    (80, torch.float32, dict(kernel="fma")),     # not built at 80
+    (64, torch.float32, dict(bq=64, bk=64, kernel="wgmma")),   # bf16 only
+])
+def test_a_tile_not_instantiated_raises_on_the_cpu(D, dtype, kw):
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(8, 1, 2, 1, 16, D))
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, v, **kw)
+    with pytest.raises(ValueError):
+        fa.tile_of(D, dtype, **kw)
+
+
+def _card_path(monkeypatch, seen):
+    """``ops`` sends CPU tensors down the card's path (its autograd
+    function) with the kernel replaced by the plain version, recording the
+    keywords the kernel gets."""
+    def kernel(q, k, v, *, causal, window, **kw):
+        assert not torch.is_grad_enabled()
+        seen.append(kw)
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    monkeypatch.setattr(fa, "flash_attention", kernel)
+    monkeypatch.setattr(ops, "_dispatch", lambda name, plain, kern, device,
+                        *args, **kw: kern(*args, **kw))
+
+
+def test_ops_forwards_the_tile_to_the_kernel(monkeypatch):
+    """``ops.flash_attention`` passes ``bq``, ``bk`` and ``kernel`` through
+    ``_FlashAttention`` to the kernel, and nothing where none is given."""
+    seen = []
+    _card_path(monkeypatch, seen)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(9, 1, 2, 1, 40, 64))
+    ops.flash_attention(q, k, v, bq=128, bk=64)
+    ops.flash_attention(q, k, v, window=8, bq=64, bk=32, kernel="tf32x3")
+    ops.flash_attention(q, k, v)
+    assert seen == [{"bq": 128, "bk": 64},
+                    {"bq": 64, "bk": 32, "kernel": "tf32x3"}, {}]
+
+
+@pytest.mark.parametrize("tile", [(128, 64), (64, 32), (128, 128)])
+def test_gradient_with_a_tile_equals_the_gradient_without(monkeypatch, tile):
+    """The backward is the plain version's gradient, which has no tile: on
+    the card's path the gradients with a tile given are those without."""
+    _card_path(monkeypatch, [])
+    arrays = _qkv(10, 1, 4, 2, 70, 32)
+    dout = torch.from_numpy(_qkv(11, 1, 4, 4, 70, 32)[0])
+
+    def grads(**kw):
+        ts = [torch.from_numpy(a).requires_grad_() for a in arrays]
+        out = ops.flash_attention(*ts, window=30, **kw)
+        return [out.detach(), *torch.autograd.grad(out, ts, dout)]
+    for got, expect in zip(grads(bq=tile[0], bk=tile[1]), grads()):
+        assert torch.equal(got, expect)
+

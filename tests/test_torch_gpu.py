@@ -740,7 +740,7 @@ def test_cuda_flash_tf32x3_refuses_a_short_workspace(cuda, B, H, Hkv, S, D,
         return lib.flash_attention_fwd(q.data_ptr(), k.data_ptr(),
                                        k.data_ptr(), o.data_ptr(),
                                        ws.data_ptr(), n, B, H, Hkv, S, D, 1,
-                                       0, 0, code, stream)
+                                       0, 0, code, 0, 0, stream)
 
     assert call(n_ws - 1) == 1 and call(0) == 1
     torch.cuda.synchronize()
@@ -1514,3 +1514,94 @@ def test_train_lm_example_step_on_card_matches_cpu(cuda, monkeypatch):
         parted += float(((a - b0) - (b - b0)).pow(2).sum())
         moved += float((b - b0).pow(2).sum())
     assert moved > 0 and parted <= 0.25 ** 2 * moved, (parted, moved)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' block shapes from the caller
+
+FLASH_TILES = [(name, D, tile) for name in ("wgmma", "tf32x3")
+               for D in fa.HEAD_DIMS for tile in fa.tiles(name, D)]
+FLASH_DTYPE = {"wgmma": "bfloat16", "tf32x3": "float32"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,D,tile", FLASH_TILES)
+def test_cuda_flash_every_tile_matches_plain(cuda, name, D, tile):
+    """Every tile of both Hopper variants, at ragged S with GQA, S below one
+    tile, a window edge off the tile grid and no causal mask, at
+    tests/test_kernels.py's tolerance, each call one launch of its
+    variant; the library's instance has ``tile_of``'s layout."""
+    tdt, tol = TOL[FLASH_DTYPE[name]]
+    rng = np.random.default_rng(1)
+    for B, H, Hkv, S, causal, window in ((1, 4, 2, 100, True, 0),
+                                         (1, 2, 1, 40, True, 0),
+                                         (1, 4, 1, 300, True, 70),
+                                         (1, 2, 2, 100, False, 0)):
+        q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32))
+                   .to(cuda, tdt)
+                   for s in ((B, H, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+        before = dict(fa.flash_attention.launches_by_variant)
+        out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  bq=tile[0], bk=tile[1])
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches_by_variant[name] \
+            == before[name] + 1
+        expect = ref.flash_attention_ref(q, k, v, causal=causal,
+                                         window=window)
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   expect.float().cpu().numpy(), rtol=tol,
+                                   atol=tol)
+    t = fa.tile_of(D, tdt, bq=tile[0], bk=tile[1])
+    got = fa.instance(name, D, *tile)
+    assert (got["stages"], got["smem_bytes"], got["threads"]) == \
+        (t.stages, t.smem_bytes, t.threads)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,D,tile", [
+    ("wgmma", 64, (256, 256)), ("wgmma", 64, (64, 48)),
+    ("tf32x3", 256, (128, 64)), ("tf32x3", 128, (128, 128)),
+    ("mma_sync", 64, (128, 64)), ("fma", 256, (64, 64))])
+def test_cuda_flash_library_refuses_a_tile_it_lacks(cuda, name, D, tile):
+    """cudaErrorInvalidValue (1) from the C entry itself, before a launch,
+    and no instance; the wrapper raises ValueError first."""
+    dtype = fa.VARIANTS[name][1]
+    q, o = (torch.zeros(1, 2, 64, D, dtype=dtype, device=cuda)
+            for _ in range(2))
+    k = v = torch.zeros(1, 1, 64, D, dtype=dtype, device=cuda)
+    lib = fa._lib()
+    n_ws = lib.flash_attention_workspace(1, 2, 1, 64, D)
+    ws = torch.empty(n_ws, device=cuda)
+    rc = lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        ws.data_ptr(), n_ws, 1, 2, 1, 64, D, 1, 0,
+        0 if dtype == torch.float32 else 1, fa.VARIANTS[name][0], *tile,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 1 and fa.instance(name, D, *tile) is None
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, v, bq=tile[0], bk=tile[1], kernel=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(SCAN_TOL))
+@pytest.mark.parametrize("tile", ms.tiles())
+def test_cuda_mamba_scan_every_tile_matches_plain(cuda, tile, dtype):
+    """Every (bd, chunk) at S 77, d 40 with h0 in and h_S out, at both N;
+    tiles the library lacks return cudaErrorInvalidValue."""
+    tdt, tol = SCAN_TOL[dtype]
+    for N in ms.STATE_DIMS:
+        *args, h0 = _scan_args(cuda, 2, 77, 40, N, tdt, seed=3)
+        before = ms.mamba_scan.launches
+        y, h = ops.mamba_scan(*args, h0=h0, return_state=True, bd=tile[0],
+                              chunk=tile[1])
+        torch.cuda.synchronize()
+        assert ms.mamba_scan.launches == before + 1
+        y_ref, h_ref = ref.mamba_scan_ref(*args, h0=h0, return_state=True)
+        for got, expect in ((y, y_ref), (h, h_ref)):
+            np.testing.assert_allclose(got.float().cpu().numpy(),
+                                       expect.float().cpu().numpy(),
+                                       rtol=tol, atol=4 * tol)
+        assert ms.instance(tdt, N, *tile)["local_bytes"] >= 0
+    assert ms.instance(tdt, 16, 48, 16) is None
+    assert ms.instance(tdt, 16, tile[0], 0) is None
