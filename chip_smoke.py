@@ -220,9 +220,7 @@ printing a result:
    ``SERVE``, with exactly 9 x 2 = 18 ``wgmma`` launches at D = 80 and
    every logit finite; profile one prefill batch and 8 decode steps as in
    phase 6: the busy share, flash's share, and the shares of the Mamba2
-   mixer and of its chunked SSD (``record_function`` ranges that
-   ``chip_smoke._ranges`` wraps around ``models/ssm.py``'s functions only
-   while profiling);
+   mixer and of its chunked SSD (the program's spans, ``SSM_RANGES``);
 35. time flash at zamba2_2_7b's prefill shape (4, 32, 32, 1024, 80) causal
    in bf16 ``wgmma`` and float32 ``tf32x3``, beside the plain version,
    SDPA (bf16 and fp32, yardsticks only), the bound and the wrapper's host
@@ -246,7 +244,7 @@ printing a result:
    launches at D = 64, 24 of them non-causal; profile one prefill batch
    and 8 decode steps as in phase 6: the busy share, flash's share, and
    the shares of the encoder, the plain cross-attention in prefill and
-   in decode (``record_function`` ranges, only while profiling);
+   in decode (the program's spans, ``ENCODER_RANGES``, ``XATTN_RANGES``);
 38. run internvl2_26b (the vlm family: the InternLM2-20B decoder, d_model
    6144, 48 heads on 8 of head dim 128, over 256 precomputed patch
    embeddings ahead of the tokens) cut to 2 layers at full width on the
@@ -523,12 +521,12 @@ from repro_torch.train import TrainConfig, make_train_step  # noqa: E402
 from repro_torch.train import step as step_mod  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
-from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve.policy import get_policy  # noqa: E402
 from repro_torch.serve.step import (greedy, make_decode_step,  # noqa: E402
                                     make_prefill_step, prefill_inputs,
                                     prompt_positions)
+from repro_torch.core import spans  # noqa: E402
 from repro_torch.core.tensor import TensorSpec  # noqa: E402
 from repro_torch.core.tiling import H100 as H100_TILING  # noqa: E402
 from repro_torch.core.tiling import choose_tiling  # noqa: E402
@@ -674,11 +672,12 @@ TRAIN_FULL = dict(batch=8, seq=4096, microbatches=2, steps=4)
 # phase 44: gemma3_1b's decode steps compared with windowed_attention on
 # and off (teacher-forced, the off run's greedy tokens)
 WINDOWED_STEPS = 8
-# the stages of a training step profiled in ranges of their own: the plain
-# attention backward (repro_torch.kernels.ref) and the optimizer
-# (repro_torch.train.step's names)
-BWD_RANGES = {"attention backward (plain)": "flash_attention_bwd_ref"}
-OPT_RANGES = {"clip": "clip_by_global_norm", "optimizer": "adamw_update"}
+# the stages of a training step read from the program's spans
+# (repro_torch.core.spans), label -> span: the plain attention backward
+# (kernels.ref) and the optimizer (optim.optimizers)
+BWD_RANGES = {"attention backward (plain)": "repro_torch.attn.bwd_ref"}
+OPT_RANGES = {"clip": "repro_torch.optim.clip",
+              "optimizer": "repro_torch.optim.adamw"}
 # tests/test_kernels.py tolerances: matmul rtol tol, atol tol * sqrt(K);
 # scan rtol tol, atol 4 tol
 MM_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
@@ -1511,78 +1510,34 @@ def time_flash_f32(smi):
     return rows
 
 
-# the stages profiled in ranges of their own, while a model whose blocks
-# hold them is profiled: range name -> function of the module.  The MoE
-# layer's (repro_torch.models.moe), and the Mamba2 mixer's with its chunked
-# SSD (repro_torch.models.ssm)
-MOE_RANGES = {"moe layer": "_moe_local", "moe routing": "_route",
-              "moe dispatch indices": "_dispatch_indices",
-              "moe experts": "_expert_ffn"}
-SSM_RANGES = {"mamba2 mixer": "mamba2_forward", "mamba2 ssd": "_ssd_chunks",
-              "mamba2 decode": "mamba2_decode"}
-# the encdec family's: its encoder (repro_torch.models.transformer), and
-# its cross-attention in plain torch (repro_torch.models.attention):
-# ``chunked_attention`` in prefill (nothing else calls it), and the calls
-# of ``gqa_decode`` that take the encoder's keys in decode
-ENCODER_RANGES = {"encoder": "_encoder_forward"}
-XATTN_RANGES = {"cross-attention": "chunked_attention",
-                "cross-attention decode": (
-                    "gqa_decode", lambda kw: kw.get("xa_kv") is not None)}
-RANGES = {**MOE_RANGES, **SSM_RANGES, **ENCODER_RANGES, **XATTN_RANGES}
-
-
-@contextlib.contextmanager
-def _ranges(module, ranges):
-    """Wraps each function of ``ranges`` (of ``module``; a name, or a name
-    and a test of the call's keywords that picks the calls to wrap) in
-    ``record_function`` for the length of the block (callers reach them
-    through the module: ``_moe_local`` the MoE stages, the model the
-    Mamba2 functions and ``mamba2_forward`` the SSD, so the wrapped ones
-    run)."""
-    from torch.profiler import record_function
-    spec = {label: (v, None) if isinstance(v, str) else v
-            for label, v in ranges.items()}
-    saved = {fn: getattr(module, fn) for fn, _ in spec.values()}
-
-    def ranged(label, fn, when):
-        def call(*args, **kw):
-            if when is not None and not when(kw):
-                return fn(*args, **kw)
-            with record_function(label):
-                return fn(*args, **kw)
-        return call
-
-    for label, (fn, when) in spec.items():
-        setattr(module, fn, ranged(label, saved[fn], when))
-    try:
-        yield
-    finally:
-        for fn, f in saved.items():
-            setattr(module, fn, f)
-
-
-def _profiled_ranges(cfg):
-    """The ranges of ``cfg``'s stages, or none."""
-    if cfg.moe is not None:
-        return _ranges(moe_mod, MOE_RANGES)
-    if cfg.ssm is not None and cfg.ssm.version == 2:
-        return _ranges(ssm_mod, SSM_RANGES)
-    if cfg.family == "encdec":
-        stack = contextlib.ExitStack()
-        stack.enter_context(_ranges(T, ENCODER_RANGES))
-        stack.enter_context(_ranges(attn_mod, XATTN_RANGES))
-        return stack
-    return contextlib.nullcontext()
+# the stages read from the program's spans (repro_torch.core.spans) while
+# a model whose blocks hold them is profiled, label -> span.  The MoE
+# layer's (models.moe), and the Mamba2 mixer's with its chunked SSD
+# (models.ssm)
+MOE_RANGES = {"moe layer": "repro_torch.moe.layer",
+              "moe routing": "repro_torch.moe.route",
+              "moe dispatch indices": "repro_torch.moe.dispatch",
+              "moe experts": "repro_torch.moe.experts"}
+SSM_RANGES = {"mamba2 mixer": "repro_torch.ssm.mamba2",
+              "mamba2 ssd": "repro_torch.ssm.ssd",
+              "mamba2 decode": "repro_torch.ssm.mamba2_decode"}
+# the encdec family's: its encoder (models.transformer), and its
+# cross-attention in plain torch (models.attention): ``chunked_attention``
+# in prefill (where nothing else calls it), and the decoder's calls of
+# ``gqa_decode`` on the encoder's keys in decode
+ENCODER_RANGES = {"encoder": "repro_torch.encoder"}
+XATTN_RANGES = {"cross-attention": "repro_torch.attn.chunked",
+                "cross-attention decode": "repro_torch.attn.cross_decode"}
 
 
 def _range_ms(averages, ranges):
-    """The device time (ms) under each range of ``ranges``: the kernels
-    launched inside it."""
+    """The device time (ms) under each span of ``ranges`` (label -> span):
+    the kernels launched inside it."""
     from torch.autograd import DeviceType
     return {label: sum(e.device_time_total for e in averages
-                       if e.key == label
+                       if e.key == name
                        and e.device_type == DeviceType.CPU) / 1e3
-            for label in ranges}
+            for label, name in ranges.items()}
 
 
 def _log_shares(ms_of, busy_ms, phase):
@@ -1592,13 +1547,13 @@ def _log_shares(ms_of, busy_ms, phase):
 
 
 def _log_moe_shares(averages, busy_ms, phase):
-    """The device time under each ``MOE_RANGES`` range and its share of
+    """The device time under each ``MOE_RANGES`` span and its share of
     the phase's device time; dispatch is the MoE layer less routing and the
     experts' products: the one-hot cumsum, the scatter of buffer slots, the
     gather into the buffers and the weighted combine."""
     ms_of = _range_ms(averages, MOE_RANGES)
     if not ms_of["moe layer"]:
-        log("  MoE ranges: no device time under them (not measured)")
+        log("  MoE spans: no device time under them (not measured)")
         return
     ms_of["moe dispatch (cumsum, scatter, gather, combine)"] = (
         ms_of["moe layer"] - ms_of["moe routing"] - ms_of["moe experts"])
@@ -1606,13 +1561,13 @@ def _log_moe_shares(averages, busy_ms, phase):
 
 
 def _log_range_shares(averages, busy_ms, phase, ranges, what):
-    """The device time under each range of ``ranges`` that ran in the
+    """The device time under each span of ``ranges`` that ran in the
     phase (Mamba2's mixer and its SSD in prefill, the mixer's step in
     decode; whisper's encoder and cross-attention in prefill, its
     cross-attention in decode) and its share of the phase's device time."""
     ms_of = {k: t for k, t in _range_ms(averages, ranges).items() if t}
     if not ms_of:
-        log(f"  {what} ranges: no device time under them (not measured)")
+        log(f"  {what} spans: no device time under them (not measured)")
         return
     _log_shares(ms_of, busy_ms, phase)
 
@@ -1623,14 +1578,14 @@ def profile_serving(cfg, params, smi, kernel=None):
     the profiled region (the profiler's own host cost lengthens the wall
     time, so the share is a lower bound).  With ``kernel``, also the share
     of the device time taken by the kernels whose name holds it; for a MoE
-    model, the share of each MoE stage (``_log_moe_shares``; the ranges add
-    host time to the wall time, so the busy share is lower still).  For a
-    model of Mamba2 blocks, the shares of the Mamba2 mixer and its SSD;
-    for whisper, of its encoder and its cross-attention
-    (``_log_range_shares``).  The prompts are ``_serve_of(cfg.name)``'s,
-    with the stub frontends' inputs of the launcher.  Returns the busy
-    share of each phase and its device ms (a prefill batch; a decode
-    step), None where not measured."""
+    model, the share of each MoE stage (``_log_moe_shares``; the program's
+    spans add host time to the wall time under the profiler, so the busy
+    share is lower still).  For a model of Mamba2 blocks, the shares of the
+    Mamba2 mixer and its SSD; for whisper, of its encoder and its
+    cross-attention (``_log_range_shares``).  The prompts are
+    ``_serve_of(cfg.name)``'s, with the stub frontends' inputs of the
+    launcher.  Returns the busy share of each phase and its device ms (a
+    prefill batch; a decode step), None where not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     kw = _serve_of(cfg.name)
@@ -1646,9 +1601,8 @@ def profile_serving(cfg, params, smi, kernel=None):
         logits, cache = prefill(params, batch)
         tok = greedy(logits)
         torch.cuda.synchronize()
-        ranges = _profiled_ranges(cfg)
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof, ranges:
+                                 ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             if phase == "prefill":
                 prefill(params, batch)
@@ -1658,14 +1612,14 @@ def profile_serving(cfg, params, smi, kernel=None):
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
         # device-side kernels only: a CPU op's device time repeats the
-        # time of the kernels it launched, and a range's device-side
+        # time of the kernels it launched, and a span's device-side
         # annotation spans kernels counted already
         averages = prof.key_averages()
         events = [e for e in averages
                   if e.device_type == DeviceType.CUDA
                   and e.self_device_time_total > 0
                   and not getattr(e, "is_user_annotation", False)
-                  and e.key not in RANGES]
+                  and e.key not in spans.NAMES]
         busy_ms = sum(e.self_device_time_total for e in events) / 1e3
         if not events:
             log(f"profile {phase}: no device time in the trace (not measured)")
@@ -3443,11 +3397,8 @@ def train_full(smi):
     batch = {k: torch.from_numpy(v).to("cuda") for k, v in synthetic_batch(
         cfg, kw["batch"], kw["seq"], np.random.default_rng(9)).items()}
     torch.cuda.synchronize()
-    stack = contextlib.ExitStack()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof, stack:
-        stack.enter_context(_ranges(ref, BWD_RANGES))
-        stack.enter_context(_ranges(step_mod, OPT_RANGES))
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step(params, opt, batch, kw["steps"])
         torch.cuda.synchronize()
@@ -3457,7 +3408,7 @@ def train_full(smi):
     events = [e for e in averages if e.device_type == DeviceType.CUDA
               and e.self_device_time_total > 0
               and not getattr(e, "is_user_annotation", False)
-              and e.key not in labels]
+              and e.key not in spans.NAMES]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     if not events:
         log("profile train step: no device time in the trace (not measured)")

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.spans import spanned
 from repro_torch.kernels.mamba_scan import check_state
 
 NEG_INF = -1e30
@@ -51,6 +52,7 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0):
     return out.reshape(B, H, S, D).to(q.dtype)
 
 
+@spanned("repro_torch.attn.bwd_ref")
 def flash_attention_bwd_ref(q, k, v, dout, *, causal=True, window=0):
     """The gradient of ``flash_attention_ref`` at (q, k, v) against the
     output gradient ``dout`` (B, H, S, D): returns (dq, dk, dv) in q's, k's

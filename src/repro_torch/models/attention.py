@@ -52,6 +52,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.config import ModelConfig
+from repro_torch.core.spans import spanned
 from repro_torch.dist import context as dist_ctx
 from repro_torch.dist import tp
 from repro_torch.kernels import ops
@@ -90,6 +91,7 @@ def _rope_heads(x, cos, sin):
     return apply_rope(x, cos[None, None], sin[None, None])
 
 
+@spanned("repro_torch.attn.chunked")
 def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
                       kv_valid=None, chunk=512):
     """q: (B, H, Sq, D); k, v: (B, Hkv, Skv, D) with ``H % Hkv == 0``.
@@ -188,6 +190,7 @@ def windowed_attention(q, k, v, *, window: int, chunk: int = 512,
     return torch.cat(outs, 3).reshape(B, H, Sq, D)
 
 
+@spanned("repro_torch.attn.decode")
 def decode_attention(q, k_cache, v_cache, *, pos, window=0, k_pos=None,
                      dim_split=False, seq=None):
     """Single-token decode.  q: (B, H, 1, D); caches: (B, Hkv, S, D).

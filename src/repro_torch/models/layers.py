@@ -16,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.spans import spanned
 from repro_torch.dist import tp
 
 
@@ -50,6 +51,7 @@ def layernorm(x, scale, eps=1e-5):
     return ((x32 - mu) * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
+@spanned("repro_torch.norm")
 def apply_norm(kind, x, scale):
     return rmsnorm(x, scale) if kind == "rmsnorm" else layernorm(x, scale)
 
@@ -62,6 +64,7 @@ def rope_tables(positions, dim, theta):
     return torch.cos(ang), torch.sin(ang)
 
 
+@spanned("repro_torch.rope")
 def apply_rope(x, cos, sin):
     """x: (..., S, D); cos/sin: broadcastable (..., S, D/2).  Rotates the two
     halves of D (not interleaved pairs)."""

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.config import ModelConfig
+from repro_torch.core.spans import spanned
 from repro_torch.dist import context as dist_ctx
 from repro_torch.dist import tp
 from repro_torch.models.layers import dense_init, mlp_apply, mlp_init
@@ -75,6 +76,7 @@ def _probs(x32, router_w, top_k):
     return logits, probs, w, idx
 
 
+@spanned("repro_torch.moe.route")
 def _route(x32, router_w, n_experts, top_k):
     """x32: (T, d) float32.  Returns (weights (T, k) float32, experts (T, k),
     aux dict): the k most probable experts of each token, most probable
@@ -132,6 +134,7 @@ def _routing(x32, router_w, e):
             (x32.shape[0], None))
 
 
+@spanned("repro_torch.moe.dispatch")
 def _dispatch_indices(e_idx, n_experts, e_start, e_local, capacity,
                       offset=None):
     """Capacity-buffer coordinates for the experts ``e_start`` ..
@@ -167,6 +170,7 @@ def _dispatch_indices(e_idx, n_experts, e_start, e_local, capacity,
         slot_of.reshape(T, k)
 
 
+@spanned("repro_torch.moe.experts")
 def _expert_ffn(gate, up, down, xb):
     """xb: (E, C, d) -> (E, C, d): each expert's swiglu FFN on its buffer."""
     g = F.silu(torch.bmm(xb, gate))
@@ -178,6 +182,7 @@ def _capacity(T, e):
     return max(1, math.ceil(T * e.top_k * e.capacity_factor / e.n_experts))
 
 
+@spanned("repro_torch.moe.layer")
 def _moe_local(p, x, cfg: ModelConfig, e_start=0, e_local=None,
                partial=False):
     """x: (T, d) tokens.  Returns (out (T, d) float32, aux).  With

@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.config import ModelConfig
+from repro_torch.core.spans import span, spanned
 from repro_torch.dist import context as dist_ctx
 from repro_torch.dist import tp
 from repro_torch.kernels import ops
@@ -210,8 +211,9 @@ def mamba1_forward(p, x_seq, cfg: ModelConfig, impl="scan", state=None):
     # conv tail = last (k-1) pre-conv inputs, for decode continuation; a
     # copy, since a view would hold the whole xz for as long as the state
     conv_tail = xz[:, -(s.d_conv - 1):, :d_in].transpose(1, 2).contiguous()
-    x, z, dt, Bm, Cm, A = _ssm_coeffs1(p, xz, cfg, split)
-    xf = x.float()
+    with span("repro_torch.ssm.coeffs"):
+        x, z, dt, Bm, Cm, A = _ssm_coeffs1(p, xz, cfg, split)
+        xf = x.float()
     h0 = None if state is None else state["ssm"]
 
     if impl == "scan":
@@ -231,7 +233,8 @@ def mamba1_forward(p, x_seq, cfg: ModelConfig, impl="scan", state=None):
         else:
             raise ValueError(f"unknown mamba1 impl {impl!r}")
         y = y + p["D"][None, None] * xf
-    y = (y * F.silu(z.float())).to(x_seq.dtype)
+    with span("repro_torch.ssm.gate"):
+        y = (y * F.silu(z.float())).to(x_seq.dtype)
     return tp.tp_project(y, p["out_proj"]), \
         {"ssm": hT, "conv": conv_tail.to(torch.bfloat16)}
 
@@ -303,6 +306,7 @@ def _silu(x):
     return x * (1 / (1 + torch.exp(-x)))
 
 
+@spanned("repro_torch.ssm.ssd")
 def _ssd_chunks(loga, x, Bm, Cm, dt, h, c):
     """The SSD over chunks of c steps, all float32.  loga, dt: (B, S, H);
     x: (B, S, H, P); Bm, Cm: (B, S, N); h: the starting state (B, H, P, N).
@@ -334,6 +338,7 @@ def _ssd_chunks(loga, x, Bm, Cm, dt, h, c):
     return torch.cat(ys, 1), h
 
 
+@spanned("repro_torch.ssm.mamba2")
 def mamba2_forward(p, x_seq, cfg: ModelConfig, state=None):
     """x_seq: (B, S, d_model) -> (out, final state dict(ssm (B, H, P, N)
     float32, conv (B, d_in + 2N, k-1) bf16: the last k-1 pre-conv inputs)).
@@ -419,6 +424,7 @@ def _mamba2_rank_heads(p, cfg: ModelConfig):
     return out
 
 
+@spanned("repro_torch.ssm.mamba2_decode")
 def mamba2_decode(p, x_t, state, cfg: ModelConfig):
     """One-token decode.  x_t: (B, 1, d).  state: dict(conv (B, d_in + 2N,
     k-1), ssm (B, H, P, N)).

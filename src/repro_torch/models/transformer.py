@@ -78,6 +78,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core import tree
 from repro_torch.core.config import ModelConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.core.spans import span, spanned
 from repro_torch.dist import context as dist_ctx
 from repro_torch.dist import tp
 from repro_torch.models import attention as attn
@@ -345,6 +346,7 @@ def _logits(cfg: ModelConfig, p, x):
     return x @ w
 
 
+@spanned("repro_torch.encoder")
 def _encoder_forward(cfg: ModelConfig, p, frames):
     """Whisper's encoder over ``frames`` (B, n_ctx, d), the audio stub's
     precomputed embeddings: the sinusoid table added in float32, then bf16
@@ -823,10 +825,11 @@ def decode_forward(cfg: ModelConfig, params, cache, tokens, pos: int,
                 seq=_seq_split(layout, "k", cache))
         x = x + h
         if cfg.family == "encdec":
-            h, _, _ = attn.gqa_decode(
-                pl["xattn"], apply_norm(cfg.norm, x, pl["norm_x"]), None,
-                None, None, None, cfg=cfg, pos=pos,
-                xa_kv=(cache["xk"][li], cache["xv"][li]))
+            with span("repro_torch.attn.cross_decode"):
+                h, _, _ = attn.gqa_decode(
+                    pl["xattn"], apply_norm(cfg.norm, x, pl["norm_x"]), None,
+                    None, None, None, cfg=cfg, pos=pos,
+                    xa_kv=(cache["xk"][li], cache["xv"][li]))
             x = x + h
         x = x + _ffn(cfg, pl, apply_norm(cfg.norm, x, pl["norm2"]))[0]
     return _logits(cfg, params, x), cache

@@ -17,6 +17,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.core import tree
+from repro_torch.core.spans import spanned
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int):
@@ -31,6 +32,7 @@ def cosine_schedule(base_lr: float, warmup: int, total: int):
     return lr
 
 
+@spanned("repro_torch.optim.clip")
 @torch.no_grad()
 def clip_by_global_norm(grads, max_norm: float, sharded=None):
     """Scales every gradient of ``grads`` IN PLACE by min(1, max_norm /
@@ -73,6 +75,7 @@ def adamw_init(params) -> Dict[str, Any]:
             "count": _count(params)}
 
 
+@spanned("repro_torch.optim.adamw")
 @torch.no_grad()
 def adamw_update(grads, state, params, *, lr, b1=0.9, b2=0.95, eps=1e-8,
                  weight_decay=0.1):

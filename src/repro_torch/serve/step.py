@@ -36,6 +36,7 @@ import contextlib
 import torch
 
 from repro_torch.core import tree
+from repro_torch.core.spans import spanned
 from repro_torch.core.config import ModelConfig
 from repro_torch.dist import context as dist_ctx
 from repro_torch.dist import sharding
@@ -187,6 +188,7 @@ def _mesh_decode(cfg, params, cache, tokens, pos, rules):
 
 
 def make_prefill_step(cfg: ModelConfig, max_seq: int):
+    @spanned("repro_torch.serve.prefill")
     def prefill_step(params, batch):
         """Returns (last-token logits (B, 1, V), cache); on the rules'
         shards the logits and the cache as ``DTensor``s."""
@@ -198,6 +200,7 @@ def make_prefill_step(cfg: ModelConfig, max_seq: int):
 
 
 def make_decode_step(cfg: ModelConfig):
+    @spanned("repro_torch.serve.decode")
     def decode_step(params, cache, tokens, pos):
         """Returns (next tokens (B, 1), cache, logits): the logits are
         returned too so that the caller can check them.  On the rules'
