@@ -442,6 +442,14 @@ printing a result:
    the default's, timed in turns a b b a in one call, at the shape the
    PERF.md row of its variant and head dim times (the scan's serving shape
    with h_S out), with its bound.
+59. the Mamba1 mixer's coefficient kernels (``kernels/mamba_coeffs.py``):
+   one falcon_mamba_7b prefill at full width and depth, 1 x 1024 tokens,
+   launching conv1d_silu, dt_softplus and the scan exactly once a layer;
+   then at its served prefill shapes (8, 1024 / 2048 / 4000, 8192), x read
+   in place from the (8, S, 16384) ``in_proj`` product, conv1d_silu within
+   one bf16 ulp of the chain in float32 and dt_softplus within 2 float32
+   ulps of its plain version, and each kernel's ms beside its bound
+   (bytes), the plain chain's ms and the wrapper's host us a call.
 
 Kernel times are CUDA events around back-to-back calls queued behind a
 device-side wait (``torch.cuda._sleep``) that outlasts their enqueue, so
@@ -507,6 +515,7 @@ from repro_torch.convert import to_device  # noqa: E402
 from repro_torch.core import graph_ops, tree  # noqa: E402
 from repro_torch.kernels import _build, calibrate, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import mamba_coeffs as mc  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.kernels import nvdla_matmul as mm  # noqa: E402
 from repro_torch.launch import camera  # noqa: E402
@@ -5528,12 +5537,113 @@ def block_tiles_phase(smi):
              "shape": list(TILE_SCAN_SHAPE), "rows": scan_rows})
 
 
+# phase 59: falcon_mamba_7b's served prefill shapes (the benchmark's
+# prefill_pool: batches of 8 prompts of 1024, 2048 and 4000 tokens)
+COEFF_SHAPES = [(8, S, 8192) for S in (1024, 2048, 4000)]
+
+
+def coeff_bound(b, S, d, name):
+    """Least ms of a coefficient kernel, at the HBM rate: conv1d_silu reads
+    x (bf16) and writes y (bf16) and yf (float32) once, with the taps and
+    the bias (bf16, k 4); dt_softplus reads the product (bf16) and writes
+    float32 once, with the float32 bias."""
+    n = b * S * d
+    nbytes = n * (2 + 2 + 4) + 2 * 5 * d if name == "conv1d_silu" \
+        else n * (2 + 4) + 4 * d
+    return 1e3 * nbytes / hw.HBM_BW
+
+
+def mamba1_coeffs_phase(smi, params=None):
+    """Phase 59: the Mamba1 mixer's coefficient kernels.  (a) One
+    falcon_mamba_7b prefill at full width and depth (params from seed 0
+    made on the card, or ``params``), 1 x 1024 tokens: each kernel and the
+    scan launched once a layer.  (b) At ``COEFF_SHAPES``, x read in place
+    from a (b, S, 2 d) product: conv1d_silu within one bf16 ulp of the
+    chain in float32, dt_softplus within 2 float32 ulps of the plain
+    version; each kernel's ms beside its bound, the plain chain's ms and
+    the wrapper's host us a call.  Returns {"launches": {kernel: count},
+    kernel: {S: row}}."""
+    cfg = get_config("falcon_mamba_7b")
+    if params is None:
+        params = T.init_params(cfg, seed=0, device="cuda")
+    d, k = cfg.ssm.expand * cfg.d_model, cfg.ssm.d_conv
+    g = torch.Generator("cuda").manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab, (1, 1024), generator=g,
+                           device="cuda")
+
+    def counts():
+        return {"conv1d_silu": mc.conv1d_silu.launches,
+                "dt_softplus": mc.dt_softplus.launches,
+                "mamba_scan": ms.mamba_scan.launches}
+    before = counts()
+    with torch.no_grad():
+        T.prefill_forward(cfg, params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    launches = {name: n - before[name] for name, n in counts().items()}
+    log(f"phase 59: one {cfg.name} prefill (1 x 1024, {cfg.n_layers} "
+        f"layers) launches {launches}")
+    if set(launches.values()) != {cfg.n_layers}:
+        raise AssertionError(f"{launches}, expected {cfg.n_layers} each")
+    del params
+    torch.cuda.empty_cache()
+    w = (0.2 * torch.randn(d, k, generator=g, device="cuda")).bfloat16()
+    bias = (0.5 * torch.randn(d, generator=g, device="cuda")).bfloat16()
+    dt_bias = torch.randn(d, generator=g, device="cuda") - 4.6
+    out = {"launches": launches}
+    for b, S, _ in COEFF_SHAPES:
+        xz = torch.randn(b, S, 2 * d, generator=g, device="cuda").bfloat16()
+        x = xz[..., :d]
+        p = (4 * torch.randn(b, S, d, generator=g, device="cuda")).bfloat16()
+        with torch.no_grad():
+            y, _ = mc.conv1d_silu(x, w, bias)
+            e32 = ref.conv1d_silu_ref(x.float(), w.float(), bias.float())[1]
+            conv_ulps = ((y.float() - e32).abs()
+                         / ulp(e32, 8)).max().item()
+            e = ref.dt_softplus_ref(p, dt_bias)
+            dt_ulps = ((mc.dt_softplus(p, dt_bias) - e).abs()
+                       / ulp(e, 24)).max().item()
+        del y, e32, e
+        log(f"phase 59 ({b}, {S}, {d}): conv1d_silu within {conv_ulps:.3f} "
+            f"bf16 ulps of the chain in float32, dt_softplus within "
+            f"{dt_ulps:.3f} float32 ulps of the plain version")
+        if not (conv_ulps <= 1 and dt_ulps <= 2):
+            raise AssertionError(f"conv1d_silu {conv_ulps} ulps, dt_softplus"
+                                 f" {dt_ulps} ulps")
+        for name, kernel, plain in (
+                ("conv1d_silu", lambda: mc.conv1d_silu(x, w, bias),
+                 lambda: ref.conv1d_silu_ref(x, w, bias)),
+                ("dt_softplus", lambda: mc.dt_softplus(p, dt_bias),
+                 lambda: ref.dt_softplus_ref(p, dt_bias))):
+            kernel_ms, host = cuda_ms(kernel, 20), host_us(kernel)
+            plain_ms = cuda_ms(plain, 5, hold=False)
+            bound_ms = coeff_bound(b, S, d, name)
+            log(f"{name} ({b}, {S}, {d}): kernel {kernel_ms:.4f} ms (host "
+                f"{host:.1f} us a call), plain {plain_ms:.4f} ms, library "
+                f"none, bound {bound_ms:.4f} ms by bytes = "
+                f"{100 * bound_ms / kernel_ms:.2f}% of bound; card {smi}")
+            out.setdefault(name, {})[S] = dict(
+                ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, host_us=host, bound_by="bytes")
+        del xz, x, p
+        torch.cuda.empty_cache()
+    return out
+
+
+def ulp(v, mantissa_bits):
+    """One unit in the last place at each value of float32 ``v`` for a
+    type of ``mantissa_bits`` (with the implicit bit): bf16 8, float32
+    24."""
+    _, e = torch.frexp(v.abs().clamp(min=torch.finfo(torch.float32).tiny))
+    return torch.ldexp(torch.ones_like(v), e - mantissa_bits)
+
+
 def _counts():
     """Every kernel wrapper's launch count."""
     return (mm.matmul.launches, dict(mm.matmul.launches_by_variant),
             fa.flash_attention.launches,
             dict(fa.flash_attention.launches_by_variant),
-            ms.mamba_scan.launches)
+            ms.mamba_scan.launches, mc.conv1d_silu.launches,
+            mc.dt_softplus.launches)
 
 
 def _mean_row(rows):
@@ -5783,6 +5893,8 @@ def main():
     tiling_entry = tiling_phase(smi)
     # phase 58: the flash and scan kernels' block shapes from the caller
     flash_tiles, scan_tiles = block_tiles_phase(smi)
+    # phase 59: the Mamba1 mixer's coefficient kernels
+    coeffs = mamba1_coeffs_phase(smi)
     log(f"training: grad errors {grad_err:.3e} (Functions), {train_err:.3e} "
         f"(card vs CPU); tinyllama_1_1b {train_ms:.1f} ms a step, "
         f"{train_tok_s:.0f} tok/s, {train_gib:.3f} GiB, device ms a step "
@@ -5881,7 +5993,15 @@ def main():
         **scan_rows["h_S"], "shape": list(serve_shape),
         "ms_by_state": {name: r["ms"] for name, r in scan_rows.items()},
         "model_grid": _mean_row(new_rows["mamba_scan"]),
-        "tiles": scan_tiles}]}))
+        "tiles": scan_tiles}, *({
+            # falcon_mamba_7b's largest served prefill, 8 x 4000
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mamba_coeffs.cu",
+            "replaces": None, "launches": coeffs["launches"][name],
+            **coeffs[name][COEFF_SHAPES[-1][1]],
+            "shape": list(COEFF_SHAPES[-1]),
+            "ms_by_length": {S: r["ms"] for S, r in coeffs[name].items()}}
+            for name in ("conv1d_silu", "dt_softplus"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -6,11 +6,12 @@ hand-written kernel, or raises if its build or its launch fails: there is
 no fallback from the card to the plain version.
 
 The kernels compute forward passes only, as the Pallas kernels they port
-do.  On the card ``flash_attention`` and ``mamba_scan`` are autograd
-functions: the forward launches the kernel, and the backward is the
-gradient of the plain version, recomputed from the saved inputs
-(``ref.flash_attention_bwd_ref``, ``ref.mamba_scan_bwd_ref``).  So an
-output that needs a gradient gets the plain version's.
+do.  On the card ``flash_attention``, ``mamba_scan``, ``conv1d_silu`` and
+``dt_softplus`` are autograd functions: the forward launches the kernel,
+and the backward is the gradient of the plain version, recomputed from the
+saved inputs (``ref.flash_attention_bwd_ref``, ``ref.mamba_scan_bwd_ref``,
+``ref.recomputed_grads``).  So an output that needs a gradient gets the
+plain version's.
 
 Each entry point takes the kernel's block shapes as the reference's
 ``ops`` does (``**kw``: the matmul's ``bm``, ``bn``, ``bk``, flash
@@ -24,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import mamba_coeffs as _coeffs
 from repro_torch.kernels import mamba_scan as _mamba
 from repro_torch.kernels import nvdla_matmul as _matmul
 from repro_torch.kernels import ref
@@ -98,6 +100,36 @@ class _MambaScan(torch.autograd.Function):
             x, dt, B, C, A, D, h0, dy, dh if ctx.return_state else None))
 
 
+class _Conv1dSilu(torch.autograd.Function):
+    """The conv1d_silu kernel forward; the plain version's gradient
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w, b)
+        return _coeffs.conv1d_silu(x, w, b)
+
+    @staticmethod
+    def backward(ctx, dy, dyf):
+        return ref.recomputed_grads(ref.conv1d_silu_ref, ctx.saved_tensors,
+                                    (dy, dyf))
+
+
+class _DtSoftplus(torch.autograd.Function):
+    """The dt_softplus kernel forward; the plain version's gradient
+    backward."""
+
+    @staticmethod
+    def forward(ctx, p, bias):
+        ctx.save_for_backward(p, bias)
+        return _coeffs.dt_softplus(p, bias)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return ref.recomputed_grads(ref.dt_softplus_ref, ctx.saved_tensors,
+                                    (dout,))
+
+
 def _flash_apply(q, k, v, *, causal, window, **kw):
     return _FlashAttention.apply(q, k, v, causal, window, kw)
 
@@ -143,3 +175,21 @@ def mamba_scan(x, dt, B, C, A, D, h0=None, return_state=False, **kw):
     raises."""
     return _dispatch("mamba_scan", _scan_plain, _scan_apply, x.device, x,
                      dt, B, C, A, D, h0=h0, return_state=return_state, **kw)
+
+
+def conv1d_silu(x, w, b):
+    """Mamba1's causal conv, bias and silu.  x: (b, S, d), rows at any
+    stride (the in_proj product's first d columns, read in place on the
+    card); w: (d, k); b: (d,).  Returns (y, yf): y (b, S, d) in x's type,
+    yf its float32 widening.  The card's kernel takes bf16 and rounds once
+    (``mamba_coeffs.conv1d_silu``); the plain version rounds each op
+    (``ref.conv1d_silu_ref``)."""
+    return _dispatch("conv1d_silu", ref.conv1d_silu_ref, _Conv1dSilu.apply,
+                     x.device, x, w, b)
+
+
+def dt_softplus(p, bias):
+    """Mamba1's dt: softplus(float(p) + bias), float32.  p: (..., d) the
+    dt_proj product; bias: (d,) float32."""
+    return _dispatch("dt_softplus", ref.dt_softplus_ref, _DtSoftplus.apply,
+                     p.device, p, bias)

@@ -5,14 +5,21 @@ CPU path of ``repro_torch.kernels.ops`` runs them, and the tests and
 ``chip_smoke.py`` hold each kernel against them on the card.
 
 The kernels compute forward passes only, as the Pallas kernels they port
-do.  ``flash_attention_bwd_ref`` and ``mamba_scan_bwd_ref`` are the
-backward passes that ``ops``' autograd functions run on the card: each
-recomputes the plain forward from the saved inputs and differentiates it,
-as the JAX package trains through its jnp attention and scan.
+do.  ``flash_attention_bwd_ref``, ``mamba_scan_bwd_ref`` and
+``recomputed_grads`` are the backward passes that ``ops``' autograd
+functions run on the card: each recomputes the plain forward from the
+saved inputs and differentiates it, as the JAX package trains through its
+jnp attention and scan.
+
+``conv1d_silu_ref`` and ``dt_softplus_ref``, the Mamba1 mixer's
+coefficients, are the chain ``models.ssm`` ran in plain torch before its
+kernels, op for op: in bf16 each op rounds, where the conv1d_silu kernel
+rounds once.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.spans import spanned
 from repro_torch.kernels.mamba_scan import check_state
@@ -122,22 +129,55 @@ def mamba_scan_ref(x, dt, B, C, A, D, h0=None, return_state=False):
     return (y, h) if return_state else y
 
 
+def causal_conv1d(x, w, b):
+    """x: (B, S, C); w: (C, k); returns (B, S, C): the causal depthwise
+    conv as a sum of k shifts, zeros before the first step, each op in x's
+    type."""
+    k, S = w.shape[1], x.shape[1]
+    out = x * w[None, None, :, -1]
+    for i in range(1, k):
+        shifted = F.pad(x, (0, 0, i, 0))[:, :S]
+        out = out + shifted * w[None, None, :, -1 - i]
+    return out + b[None, None]
+
+
+def conv1d_silu_ref(x, w, b):
+    """Mamba1's conv, bias and silu: ``F.silu(causal_conv1d(x, w, b))`` in
+    x's type, and its float32 widening.  Returns (y, y.float())."""
+    y = F.silu(causal_conv1d(x, w, b))
+    return y, y.float()
+
+
+def dt_softplus_ref(p, bias):
+    """Mamba1's dt: ``F.softplus(p.float() + bias)``, float32."""
+    return F.softplus(p.float() + bias)
+
+
+def recomputed_grads(fn, inputs, grads):
+    """The gradients of ``fn(*inputs)`` (a tensor or a tuple of them)
+    against the output gradients ``grads``, the forward recomputed from
+    ``inputs``: one per input, in its dtype (zeros where it plays no
+    part)."""
+    ins = [t.detach().requires_grad_() for t in inputs]
+    with torch.enable_grad():
+        outs = fn(*ins)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        got = torch.autograd.grad(outs, ins, grads, allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g
+                 for g, t in zip(got, ins))
+
+
 def mamba_scan_bwd_ref(x, dt, B, C, A, D, h0, dy, dh=None):
     """The gradient of ``mamba_scan_ref(x, dt, B, C, A, D, h0,
     return_state=True)`` against the output gradients ``dy`` (of y) and
     ``dh`` (of h_S; None when h_S was not asked for): returns (dx, ddt, dB,
     dC, dA, dD, dh0), each in its input's dtype, dh0 None when h0 is None.
     The scan is recomputed from the inputs and differentiated."""
-    ins = [t.detach().requires_grad_() for t in (x, dt, B, C, A, D)]
-    if h0 is not None:
-        ins.append(h0.detach().requires_grad_())
-    with torch.enable_grad():
-        y, h = mamba_scan_ref(*ins[:6], h0=ins[6] if h0 is not None else None,
+    ins = (x, dt, B, C, A, D) + (() if h0 is None else (h0,))
+
+    def scan(*ts):
+        y, h = mamba_scan_ref(*ts[:6], h0=ts[6] if h0 is not None else None,
                               return_state=True)
-        outs, grads = [y], [dy]
-        if dh is not None:
-            outs.append(h)
-            grads.append(dh)
-        got = torch.autograd.grad(outs, ins, grads, allow_unused=True)
-    got = [torch.zeros_like(t) if g is None else g for g, t in zip(got, ins)]
+        return y if dh is None else (y, h)
+    got = recomputed_grads(scan, ins, (dy,) if dh is None else (dy, dh))
     return (*got[:6], got[6] if h0 is not None else None)

@@ -17,7 +17,10 @@ sequence mix, as in the reference:
 for parity with the reference; the serving path runs ``scan``.  Types follow
 the reference: projections and the causal conv in bf16, dt, B and C in
 float32, x widened to float32 for the scan, the final state float32 and the
-conv tail bf16.
+conv tail bf16.  On the card Mamba1's conv, bias and silu, and dt's bias
+and softplus, run as two kernels (``kernels.ops.conv1d_silu``,
+``kernels.ops.dt_softplus``): the conv's taps are summed in float32 and
+rounded once to bf16, where the plain version rounds each op.
 
 In the train step over a ``model`` axis (``dist.tp``) a mixer computes
 this rank's ``d_inner`` channels (Mamba2: its heads): the scan kernel runs
@@ -48,6 +51,7 @@ from repro_torch.core.spans import span, spanned
 from repro_torch.dist import context as dist_ctx
 from repro_torch.dist import tp
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import causal_conv1d
 from repro_torch.models.layers import dense_init, norm_init, rmsnorm
 
 
@@ -108,17 +112,9 @@ def mamba2_init(gen, cfg: ModelConfig, dtype=torch.bfloat16):
 
 
 # ---------------------------------------------------------------------------
-# causal depthwise conv (kernel k, as a sum of shifts — k is 4)
-
-
-def causal_conv1d(x, w, b):
-    """x: (B, S, C); w: (C, k); returns (B, S, C)."""
-    k, S = w.shape[1], x.shape[1]
-    out = x * w[None, None, :, -1]
-    for i in range(1, k):
-        shifted = F.pad(x, (0, 0, i, 0))[:, :S]
-        out = out + shifted * w[None, None, :, -1 - i]
-    return out + b[None, None]
+# causal depthwise conv (kernel k, as a sum of shifts — k is 4):
+# ``kernels.ref.causal_conv1d``; Mamba1's prompt runs it with its bias and
+# silu as ``kernels.ops.conv1d_silu``
 
 
 def conv1d_step(x_t, conv_state, w, b):
@@ -138,19 +134,21 @@ def _ssm_coeffs1(p, xz, cfg: ModelConfig, split=False):
     N = s.d_state
     dt_rank = p["dt_proj"].shape[0]
     x, z = xz[..., :d_in], xz[..., d_in:]
-    x = F.silu(causal_conv1d(x, p["conv_w"], p["conv_b"]))
+    # the conv, its bias and silu on x where xz holds it, and x widened to
+    # float32 for the scan
+    x, xf = ops.conv1d_silu(x, p["conv_w"], p["conv_b"])
     proj = x @ p["x_proj"]
     if split:
         # x_proj is row-parallel inside the block: dt, B and C are summed
         # over the ranks' channels, then each rank uses them for its own
         proj = dist_ctx.summed(proj, "model")
     # the bf16 product plus the float32 bias is float32, as in the reference
-    dt = F.softplus((proj[..., :dt_rank] @ p["dt_proj"]).float()
-                    + p["dt_bias"])                             # (B, S, d_in)
+    dt = ops.dt_softplus(proj[..., :dt_rank] @ p["dt_proj"],
+                         p["dt_bias"])                          # (B, S, d_in)
     Bm = proj[..., dt_rank:dt_rank + N].float()                 # (B, S, N)
     Cm = proj[..., dt_rank + N:].float()                        # (B, S, N)
     A = -torch.exp(p["A_log"])                                  # (d_in, N)
-    return x, z, dt, Bm, Cm, A
+    return xf, z, dt, Bm, Cm, A
 
 
 def _scan_unrolled(da, dbx, Cm, h, U):
@@ -212,8 +210,7 @@ def mamba1_forward(p, x_seq, cfg: ModelConfig, impl="scan", state=None):
     # copy, since a view would hold the whole xz for as long as the state
     conv_tail = xz[:, -(s.d_conv - 1):, :d_in].transpose(1, 2).contiguous()
     with span("repro_torch.ssm.coeffs"):
-        x, z, dt, Bm, Cm, A = _ssm_coeffs1(p, xz, cfg, split)
-        xf = x.float()
+        xf, z, dt, Bm, Cm, A = _ssm_coeffs1(p, xz, cfg, split)
     h0 = None if state is None else state["ssm"]
 
     if impl == "scan":

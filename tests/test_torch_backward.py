@@ -255,11 +255,11 @@ def test_card_path_train_step_matches_plain(arch, monkeypatch):
     tensors through its autograd functions, the kernels replaced by their
     plain versions under no grad, so that every block's forward and its
     checkpointed recompute call the "kernel".  One train step in 2
-    microbatches: each attention (or scan) layer's kernel runs twice a
-    microbatch, and the loss, the grad norm (2e-2) and every gradient leaf
+    microbatches: each attention (or scan) layer's kernel, and a Mamba1
+    layer's two coefficient kernels, run twice a microbatch, and the loss, the grad norm (2e-2) and every gradient leaf
     (relative L2 3e-2, the bf16 bound of ``_torch_grads.py``) match the
     plain path's."""
-    calls = {"flash": 0, "scan": 0}
+    calls = {"flash": 0, "scan": 0, "conv1d_silu": 0, "dt_softplus": 0}
 
     def kernel(plain, key):
         def run(*args, **kw):
@@ -271,6 +271,9 @@ def test_card_path_train_step_matches_plain(arch, monkeypatch):
                         kernel(ref.flash_attention_ref, "flash"))
     monkeypatch.setattr(ops._mamba, "mamba_scan",
                         kernel(ref.mamba_scan_ref, "scan"))
+    for name in ("conv1d_silu", "dt_softplus"):
+        monkeypatch.setattr(ops._coeffs, name,
+                            kernel(getattr(ref, f"{name}_ref"), name))
     card_path = {"on": False}
     dispatch = ops._dispatch
 
@@ -300,7 +303,10 @@ def test_card_path_train_step_matches_plain(arch, monkeypatch):
         if on:
             key = "scan" if cfg.family == "ssm" else "flash"
             n = cfg.n_layers if key == "scan" else _attention_layers(cfg)
-            assert calls[key] == 2 * 2 * n and sum(calls.values()) == calls[key]
+            ran = (key, "conv1d_silu", "dt_softplus") if key == "scan" \
+                else (key,)
+            assert all(calls[k] == 2 * 2 * n for k in ran)
+            assert sum(calls.values()) == len(ran) * calls[key]
     for key in ("loss", "grad_norm"):
         np.testing.assert_allclose(float(metrics[0][key]),
                                    float(metrics[1][key]), rtol=2e-2)

@@ -22,6 +22,7 @@ from repro_torch.convert import to_device
 from repro_torch.core import graph_ops, tree
 from repro_torch.kernels import calibrate, ops, ref
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mamba_coeffs as mc
 from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import nvdla_matmul as mm
 from repro_torch.launch import camera
@@ -33,7 +34,7 @@ from repro_torch.serve.policy import StaticBatching
 from repro_torch.train import TrainConfig, make_train_step
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from chip_smoke import load_example  # noqa: E402  (the examples' loader)
+from chip_smoke import load_example, ulp  # noqa: E402
 
 TOL = {"float32": (torch.float32, 1e-4),        # tests/test_kernels.py
        "bfloat16": (torch.bfloat16, 3e-2)}
@@ -300,17 +301,20 @@ def test_cuda_mamba_scan_refuses_a_mismatched_state(cuda):
 @pytest.mark.gpu
 def test_serving_falcon_mamba_on_card(cuda):
     """The SMOKE falcon_mamba_7b served on the card: every prefill runs the
-    scan kernel once a layer.  Then one prefill and 2 decode steps on the
-    card and on the CPU (plain path) from the same params and prompts:
-    logits and cache agree to bf16 precision (2e-2, as in
-    tests/test_torch_serve.py)."""
+    scan kernel and the two coefficient kernels once a layer.  Then one
+    prefill and 2 decode steps on the card and on the CPU (plain path) from
+    the same params and prompts: logits and cache agree to bf16 precision
+    (2e-2, as in tests/test_torch_serve.py)."""
     cfg = get_smoke_config("falcon_mamba_7b")
     params = T.init_params(cfg, seed=0, device="cpu")
     gpu = to_device(params, cuda)
-    before = ms.mamba_scan.launches
+    before = (ms.mamba_scan.launches, mc.conv1d_silu.launches,
+              mc.dt_softplus.launches)
     stats = serve(cfg, requests=6, batch=4, prompt_len=40, max_new=3,
                   device=cuda, params=gpu, log=lambda *a: None)
-    assert ms.mamba_scan.launches - before == cfg.n_layers * 2
+    assert (ms.mamba_scan.launches - before[0],
+            mc.conv1d_silu.launches - before[1],
+            mc.dt_softplus.launches - before[2]) == (cfg.n_layers * 2,) * 3
     assert stats["finite"] and stats["requests"] == 6
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab, (4, 37)))
@@ -365,6 +369,123 @@ def test_cuda_mamba_scan_refuses_other_state_dims(cuda):
     with pytest.raises(ValueError, match="state dim"):
         ms.mamba_scan(x, x, B, B, torch.zeros(8, 12, device=cuda),
                       torch.zeros(8, device=cuda))
+
+
+# the Mamba1 mixer's coefficient kernels (kernels/mamba_coeffs.py)
+COEFF_CASES = [
+    (2, 512, 8192, 4),       # falcon_mamba_7b's d_inner
+    (2, 300, 4096, 4),       # its shard over model 2
+    (1, 77, 2048, 4),        # over model 4
+    (3, 77, 40, 4),          # ragged S, d a multiple of 8
+    (2, 33, 37, 4), (1, 5, 130, 4),   # d off the 16-byte vector
+    (1, 1, 8, 4), (1, 3, 16, 4),      # S below the conv's width
+    (1, 70, 64, 1), (1, 70, 64, 2), (1, 70, 64, 3),   # other conv widths
+]
+DT_CASES = sorted({case[:3] for case in COEFF_CASES})
+
+
+def _conv_args(cuda, b, S, d, k, seed=0):
+    """xz (b, S, 2d) bf16 and x its first d columns, as the mixer reads
+    them; w (d, k) and the bias bf16."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    xz = torch.randn(b, S, 2 * d, generator=g, device=cuda).bfloat16()
+    w = (0.2 * torch.randn(d, k, generator=g, device=cuda)).bfloat16()
+    bias = (0.5 * torch.randn(d, generator=g, device=cuda)).bfloat16()
+    return xz, xz[..., :d], w, bias
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,S,d,k", COEFF_CASES)
+def test_cuda_conv1d_silu_matches_plain(cuda, b, S, d, k):
+    """Within one bf16 ulp of the chain evaluated in float32 (the kernel
+    rounds once), at the bf16 tolerance of the plain bf16 chain, which
+    rounds each op; yf the float32 widening of y exactly.  x read in place
+    at xz's row stride, one launch."""
+    _, x, w, bias = _conv_args(cuda, b, S, d, k)
+    before = mc.conv1d_silu.launches
+    y, yf = ops.conv1d_silu(x, w, bias)
+    torch.cuda.synchronize()
+    assert mc.conv1d_silu.launches == before + 1
+    assert y.dtype == torch.bfloat16 and yf.dtype == torch.float32
+    assert y.shape == yf.shape == (b, S, d) and y.is_contiguous()
+    assert torch.equal(yf, y.float())
+    e32 = ref.conv1d_silu_ref(x.float(), w.float(), bias.float())[1]
+    assert bool(((y.float() - e32).abs() <= ulp(e32, 8)).all())
+    ey, _ = ref.conv1d_silu_ref(x, w, bias)
+    tol = TOL["bfloat16"][1]
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               ey.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,S,d", DT_CASES)
+def test_cuda_dt_softplus_matches_plain(cuda, b, S, d):
+    """Within 2 float32 ulps of ``F.softplus(p.float() + bias)`` on the
+    card, sums past the threshold 20 and far below 0 included; one
+    launch."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    p = (12 * torch.randn(b, S, d, generator=g, device=cuda)).bfloat16()
+    bias = torch.randn(d, generator=g, device=cuda) - 4.6
+    before = mc.dt_softplus.launches
+    out = ops.dt_softplus(p, bias)
+    torch.cuda.synchronize()
+    assert mc.dt_softplus.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == p.shape
+    expect = ref.dt_softplus_ref(p, bias)
+    assert bool(((out - expect).abs() <= 2 * ulp(expect, 24)).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,S,d", [(2, 96, 256), (1, 40, 37)])
+def test_cuda_coeff_functions_gradients_match_plain(cuda, b, S, d):
+    """``ops.conv1d_silu`` and ``ops.dt_softplus`` on tensors that require
+    grad: one launch each, and the gradients of x (through xz), w, the
+    bias, the dt product and dt's bias are the plain versions', which the
+    backward recomputes, bit for bit."""
+    xz, _, w, bias = _conv_args(cuda, b, S, d, 4, seed=2)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    p = torch.randn(b, S, d, generator=g, device=cuda).bfloat16()
+    dt_bias = torch.randn(d, generator=g, device=cuda) - 4.6
+    douts = (torch.randn(b, S, d, generator=g, device=cuda).bfloat16(),
+             torch.randn(b, S, d, generator=g, device=cuda))
+
+    def conv(fn):
+        return lambda xz, w, bias: fn(xz[..., :d], w, bias)
+    before = (mc.conv1d_silu.launches, mc.dt_softplus.launches)
+    _, grads = _grads(conv(ops.conv1d_silu), (xz, w, bias), douts)
+    _, dt_grads = _grads(ops.dt_softplus, (p, dt_bias), douts[1:])
+    torch.cuda.synchronize()
+    assert (mc.conv1d_silu.launches, mc.dt_softplus.launches) == \
+        (before[0] + 1, before[1] + 1)
+    _, expect = _grads(conv(ref.conv1d_silu_ref), (xz, w, bias), douts)
+    _, dt_expect = _grads(ref.dt_softplus_ref, (p, dt_bias), douts[1:])
+    for got, e in zip(grads + dt_grads, expect + dt_expect):
+        assert got.dtype == e.dtype and torch.equal(got, e)
+
+
+@pytest.mark.gpu
+def test_cuda_coeff_wrappers_refuse(cuda):
+    """Another type, a shape or a conv width the kernels do not take, and
+    an input that requires grad while autograd records: no launch."""
+    _, x, w, bias = _conv_args(cuda, 1, 8, 16, 4)
+    p = torch.zeros(1, 8, 16, device=cuda).bfloat16()
+    dt_bias = torch.zeros(16, device=cuda)
+    before = (mc.conv1d_silu.launches, mc.dt_softplus.launches)
+    for args, err in (((x.float(), w, bias), TypeError),
+                      ((x, w[:8], bias), ValueError),
+                      ((x, torch.zeros(16, mc.K_MAX + 1, device=cuda)
+                        .bfloat16(), bias), ValueError),
+                      ((x, w.cpu(), bias), ValueError),
+                      ((x.clone().requires_grad_(), w, bias), RuntimeError)):
+        with pytest.raises(err):
+            mc.conv1d_silu(*args)
+    for args, err in (((p.half(), dt_bias), TypeError),
+                      ((p, dt_bias[:8]), ValueError),
+                      ((p, dt_bias.cpu()), ValueError),
+                      ((p, dt_bias.clone().requires_grad_()), RuntimeError)):
+        with pytest.raises(err):
+            mc.dt_softplus(*args)
+    assert (mc.conv1d_silu.launches, mc.dt_softplus.launches) == before
 
 
 @pytest.mark.gpu
