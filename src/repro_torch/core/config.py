@@ -2,14 +2,19 @@
 
 Every architecture is described by a frozen ``ModelConfig`` with the same
 fields, defaults and meaning as the JAX package's, so a config file reads the
-same in both packages.  The registry in ``repro_torch.configs`` maps
-``--arch <id>`` strings to full and reduced (smoke) configs.  ``SHAPES``
-are the reference's workload shapes (sequence length, global batch, kind),
-which the training launcher takes by name.
+same in both packages.  The port adds options of its own, each defaulting to
+the JAX package's behaviour: ``MoEConfig.norm_topk_prob`` and
+``MoEConfig.dropless`` (``models.moe``), and ``ModelConfig.rope_scaling``, a
+``YarnConfig`` (``models.transformer._rope_for``, ``models.attention``'s
+MLA).  A sub-config may be given as a dict of its fields, as a JSON file
+holds it; ``ModelConfig`` turns it into its dataclass.  The registry in
+``repro_torch.configs`` maps ``--arch <id>`` strings to full and reduced
+(smoke) configs.  ``SHAPES`` are the reference's workload shapes (sequence
+length, global batch, kind), which the training launcher takes by name.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Optional, Tuple
 
 
@@ -22,6 +27,12 @@ class MoEConfig:
     capacity_factor: float = 1.25
     router_z_coef: float = 1e-3
     aux_loss_coef: float = 1e-2
+    # the top-k probabilities divided by their sum (False: the softmax's
+    # probabilities themselves weigh the experts, DeepSeek-V2's
+    # norm_topk_prob false)
+    norm_topk_prob: bool = True
+    # every assignment computed, no capacity (one-device serving only)
+    dropless: bool = False
 
 
 @dataclass(frozen=True)
@@ -46,10 +57,28 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class YarnConfig:
+    """YaRN rope scaling as DeepSeek-V2 configures it (``rope_scaling`` of
+    its config.json, ``type`` yarn): the rope frequencies blended between
+    the original and ``factor`` times slower, the softmax scale multiplied
+    by ``(0.1 mscale_all_dim ln factor + 1)**2``."""
+    factor: float = 1.0
+    original_max_position_embeddings: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+
+@dataclass(frozen=True)
 class EncoderConfig:
     """Encoder stack for enc-dec models (whisper)."""
     n_layers: int = 12
     n_ctx: int = 1500           # audio frames after conv stub
+
+
+_SUB_CONFIGS = {"moe": MoEConfig, "mla": MLAConfig, "ssm": SSMConfig,
+                "encoder": EncoderConfig, "rope_scaling": YarnConfig}
 
 
 @dataclass(frozen=True)
@@ -81,6 +110,22 @@ class ModelConfig:
     # vlm: number of prefix patch embeddings supplied by the (stub) vision tower
     n_patches: int = 0
     dtype: str = "bfloat16"
+    # YaRN rope scaling of the rope tables, its softmax factor in MLA
+    # (None: plain rope)
+    rope_scaling: Optional[YarnConfig] = None
+
+    def __post_init__(self):
+        """Turns a sub-config given as a dict into its dataclass; a key
+        the dataclass lacks raises ``TypeError``."""
+        for name, cls in _SUB_CONFIGS.items():
+            value = getattr(self, name)
+            if isinstance(value, dict):
+                known = {f.name for f in fields(cls)}
+                unknown = sorted(set(value) - known)
+                if unknown:
+                    raise TypeError(f"{name}: unknown keys {unknown} of "
+                                    f"{cls.__name__}")
+                object.__setattr__(self, name, cls(**value))
 
     @property
     def resolved_head_dim(self) -> int:

@@ -35,12 +35,14 @@ NAMES = (
     # widths), softplus, the float32 casts and A; then the gate
     "repro_torch.ssm.coeffs",
     "repro_torch.ssm.gate",
-    # the MoE layer (models.moe) and its routing, dispatch indices and
-    # expert products
+    # the MoE layer (models.moe) and its routing, dispatch indices (the
+    # dropless path's sort, counts and gather of rows), expert products,
+    # and the dropless path's weighted combine
     "repro_torch.moe.layer",
     "repro_torch.moe.route",
     "repro_torch.moe.dispatch",
     "repro_torch.moe.experts",
+    "repro_torch.moe.combine",
     # Mamba2's mixer, its chunked SSD and its decode step (models.ssm)
     "repro_torch.ssm.mamba2",
     "repro_torch.ssm.ssd",

@@ -57,7 +57,7 @@ from repro_torch.dist import context as dist_ctx
 from repro_torch.dist import tp
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (apply_rope, dense_init, norm_init,
-                                       rmsnorm)
+                                       rmsnorm, yarn_softmax_factor)
 
 NEG_INF = -1e30
 
@@ -413,8 +413,10 @@ def mla_forward(p, x, cos, sin, *, cfg: ModelConfig):
     ``qk_rope_dim``.  RoPE turns q's rope part and the one key rope part
     that all heads share; k is (k_nope, k_rope) per head and v is padded
     with zeros from ``v_head_dim`` to the q/k width for the flash kernel,
-    whose output is sliced back.  Returns (out, (c_kv (B, S, lora), k_rope
-    (B, S, dr))) for the cache."""
+    whose output is sliced back.  Under ``cfg.rope_scaling`` (YaRN) q is
+    multiplied by ``yarn_softmax_factor`` before the kernel, which scales
+    by ``(dn + dr)^-0.5``.  Returns (out, (c_kv (B, S, lora), k_rope (B,
+    S, dr))) for the cache."""
     m = cfg.mla
     dn, dr, dv, R = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim, m.kv_lora_rank
     split = tp.shard_dim(p["q"]) == 1
@@ -436,6 +438,10 @@ def mla_forward(p, x, cos, sin, *, cfg: ModelConfig):
     kvb = (c_kv @ kv_b).reshape(B, S, H, dn + dv).transpose(1, 2)
     k = torch.cat([kvb[..., :dn], k_rope[:, None].expand(B, H, S, dr)], -1)
     qf = torch.cat([q[..., :dn], q_rope], -1)
+    # the kernel scales by (dn + dr)^-0.5; YaRN's factor rides on q
+    factor = yarn_softmax_factor(cfg.rope_scaling)
+    if factor != 1.0:
+        qf = qf * factor
     v = F.pad(kvb[..., dn:], (0, dn + dr - dv))
     out = ops.flash_attention(qf, k, v, causal=True)[..., :dv]
     out = out.transpose(1, 2).reshape(B, S, H * dv)
@@ -445,7 +451,8 @@ def mla_forward(p, x, cos, sin, *, cfg: ModelConfig):
 def mla_decode(p, x, cache_ckv, cache_krope, cos, sin, *, cfg: ModelConfig,
                pos, seq=None):
     """One-token MLA decode in the absorbed form: attention runs in the
-    compressed space, in float32.  x: (B, 1, d); cache_ckv: (B, S, lora);
+    compressed space, in float32, at the softmax scale ``(dn + dr)^-0.5``
+    times ``yarn_softmax_factor``.  x: (B, 1, d); cache_ckv: (B, S, lora);
     cache_krope: (B, S, dr).  Writes this token's c_kv and k_rope into the
     caches IN PLACE at ``pos`` and returns (out, cache_ckv, cache_krope).
     On the rules' shards (the serving steps) the query heads and ``kv_b``
@@ -458,7 +465,7 @@ def mla_decode(p, x, cache_ckv, cache_krope, cos, sin, *, cfg: ModelConfig,
     x = tp.enter(x, split)
     kv_b = tp.part(p["kv_b"], 1) if split else p["kv_b"]
     H = p["q"].shape[1] // (dn + dr)     # this rank's heads
-    scale = (dn + dr) ** -0.5
+    scale = (dn + dr) ** -0.5 * yarn_softmax_factor(cfg.rope_scaling)
     q = (x @ p["q"]).reshape(B, 1, H, dn + dr).transpose(1, 2)
     q_nope, q_rope = q[..., :dn], _rope_heads(q[..., dn:], cos, sin)
     kv = x @ p["kv_a"]

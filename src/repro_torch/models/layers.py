@@ -56,12 +56,57 @@ def apply_norm(kind, x, scale):
     return rmsnorm(x, scale) if kind == "rmsnorm" else layernorm(x, scale)
 
 
-def rope_tables(positions, dim, theta):
-    """positions: (...,) integer -> cos/sin of shape positions.shape + (dim/2,)."""
+def rope_tables(positions, dim, theta, scaling=None):
+    """positions: (...,) integer -> cos/sin of shape positions.shape + (dim/2,).
+    ``scaling``: None, or a ``YarnConfig``: DeepSeek-V2's YaRN frequencies
+    (``yarn_inv_freq``), the tables times ``yarn_mscale(factor, mscale) /
+    yarn_mscale(factor, mscale_all_dim)``."""
     inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
                                         device=positions.device) / dim))
+    if scaling is not None:
+        inv = yarn_inv_freq(inv, dim, theta, scaling)
     ang = positions.float()[..., None] * inv
-    return torch.cos(ang), torch.sin(ang)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    if scaling is not None:
+        m = yarn_mscale(scaling.factor, scaling.mscale) \
+            / yarn_mscale(scaling.factor, scaling.mscale_all_dim)
+        cos, sin = cos * m, sin * m
+    return cos, sin
+
+
+def yarn_mscale(factor, mscale):
+    """YaRN's attention factor ``0.1 mscale ln(factor) + 1`` (1 where
+    ``factor`` <= 1)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_softmax_factor(scaling):
+    """What DeepSeek-V2 multiplies its softmax scale by under ``scaling``
+    (None or a ``YarnConfig``): ``yarn_mscale(factor, mscale_all_dim)**2``,
+    or 1."""
+    if scaling is None or not scaling.mscale_all_dim:
+        return 1.0
+    return yarn_mscale(scaling.factor, scaling.mscale_all_dim) ** 2
+
+
+def yarn_inv_freq(inv, dim, theta, scaling):
+    """DeepSeek-V2's YaRN frequencies from the plain ones ``inv`` (dim/2,):
+    a frequency whose wavelength fits ``beta_fast`` times into the original
+    context is kept, one that fits fewer than ``beta_slow`` times is
+    divided by ``factor``, and those between are blended along a linear
+    ramp over their indices."""
+    orig = scaling.original_max_position_embeddings
+
+    def corr(rotations):
+        return dim * math.log(orig / (rotations * 2 * math.pi)) \
+            / (2 * math.log(theta))
+    low = max(math.floor(corr(scaling.beta_fast)), 0)
+    high = min(math.ceil(corr(scaling.beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    i = torch.arange(dim // 2, dtype=torch.float32, device=inv.device)
+    ramp = ((i - low) / (high - low)).clamp(0, 1)
+    return inv / scaling.factor * ramp + inv * (1 - ramp)
 
 
 @spanned("repro_torch.rope")

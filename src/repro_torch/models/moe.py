@@ -1,8 +1,9 @@
 """Mixture of Experts: top-k routing, capacity-buffer dispatch, expert FFNs.
 
 The JAX package's ``repro.models.moe`` on one device.  Every token is routed
-to its ``top_k`` experts (float32 router, softmax, top-k, renormalised
-weights); each expert takes at most ``capacity = ceil(T k cf / E)``
+to its ``top_k`` experts (float32 router, softmax, top-k, the weights
+renormalised to sum to 1 unless ``MoEConfig.norm_topk_prob`` is False);
+each expert takes at most ``capacity = ceil(T k cf / E)``
 assignments, filled in token-major order, and drops the rest, as the
 reference does.  The experts run as batched bf16 products over their
 capacity buffers, and the outputs are combined in float32, one of the k
@@ -29,6 +30,16 @@ route the global batch from each rank's shard of it: the capacity comes
 from the global token count, each rank's buffer slots follow the earlier
 shards' assignments, and the aux terms are global, as the reference's jit
 computes them at a ``model`` axis of 1.
+
+With ``MoEConfig.dropless`` (the port's own option, for serving on one
+device) nothing is dropped and a token's output does not depend on its
+batch mates (``_moe_dropless``): the T k assignments are sorted stably by
+expert, each expert's rows gathered in token order, and the three expert
+products run over the experts' ragged groups, on the card as
+``torch._grouped_mm`` with the groups' ends on the device (no host sync),
+on the CPU as one product an expert; a float32 ``index_add_`` of gate x
+row combines them.  It raises ``NotImplementedError`` under a mesh, expert
+parallelism or autograd.
 """
 from __future__ import annotations
 
@@ -77,12 +88,15 @@ def _probs(x32, router_w, top_k):
 
 
 @spanned("repro_torch.moe.route")
-def _route(x32, router_w, n_experts, top_k):
+def _route(x32, router_w, n_experts, top_k, norm_topk_prob=True):
     """x32: (T, d) float32.  Returns (weights (T, k) float32, experts (T, k),
     aux dict): the k most probable experts of each token, most probable
-    first, their probabilities renormalised to sum to 1, and the
-    Switch-style load-balance term and the router z-loss."""
+    first, their probabilities (renormalised to sum to 1 with
+    ``norm_topk_prob``), and the Switch-style load-balance term and the
+    router z-loss."""
     logits, probs, w, idx = _probs(x32, router_w, top_k)
+    if not norm_topk_prob:
+        w = probs.gather(-1, idx)
     me = probs.mean(0)
     ce = F.one_hot(idx[:, 0], n_experts).float().mean(0)
     aux = {"load_balance": n_experts * (me * ce).sum(),
@@ -99,7 +113,8 @@ def _expert_counts(idx, n_experts):
         0, idx, torch.ones(idx.shape, dtype=torch.float32, device=idx.device))
 
 
-def _route_global(x32, router_w, n_experts, top_k, axes):
+def _route_global(x32, router_w, n_experts, top_k, axes,
+                  norm_topk_prob=True):
     """``_route`` of this rank's shard x32 of a global batch over the mesh
     axes ``axes``, and (n_tokens, offset): the global token count, and (E,)
     each expert's assignments on the shards before this one (token-major
@@ -107,6 +122,8 @@ def _route_global(x32, router_w, n_experts, top_k, axes):
     all comes from one ``all_reduce`` over ``axes``."""
     index, count = dist_ctx.shard_of(axes)
     logits, probs, w, idx = _probs(x32, router_w, top_k)
+    if not norm_topk_prob:
+        w = probs.gather(-1, idx)
     E, n = n_experts, x32.shape[0] * count
     table = probs.new_zeros(count, E)
     table[index] = _expert_counts(idx.reshape(-1), E)
@@ -129,8 +146,9 @@ def _routing(x32, router_w, e):
     batch's (``_route_global``)."""
     axes = dist_ctx.global_batch_axes()
     if dist_ctx.shard_of(axes)[1] > 1:
-        return _route_global(x32, router_w, e.n_experts, e.top_k, axes)
-    return (*_route(x32, router_w, e.n_experts, e.top_k),
+        return _route_global(x32, router_w, e.n_experts, e.top_k, axes,
+                             e.norm_topk_prob)
+    return (*_route(x32, router_w, e.n_experts, e.top_k, e.norm_topk_prob),
             (x32.shape[0], None))
 
 
@@ -216,6 +234,78 @@ def _moe_local(p, x, cfg: ModelConfig, e_start=0, e_local=None,
     return out, aux
 
 
+@spanned("repro_torch.moe.dispatch")
+def _sorted_rows(x, idx, n_experts):
+    """x: (T, d) tokens; idx: (T, k) their experts.  Returns (order, token,
+    ends, rows): the T k flat assignments sorted stably by expert (so that
+    an expert's tokens stay in token order), the token of each, each
+    expert's end among them (E,) int32 on the device, and the tokens' rows
+    in that order (T k, d)."""
+    flat = idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    token = order // idx.shape[1]
+    ends = torch.cumsum(_expert_counts(flat, n_experts), 0).to(torch.int32)
+    return order, token, ends, x[token]
+
+
+def _grouped_mm(rows, w, ends, bounds):
+    """rows: (N, K) in groups, group e ending at ``ends[e]``; w: (E, K, M).
+    Returns (N, M), each group's rows times its w[e]: ``torch._grouped_mm``
+    where ``bounds`` is None, else a product a group at the host's
+    ``bounds`` (``ends``' values)."""
+    if bounds is None:
+        return torch._grouped_mm(rows, w, offs=ends)
+    out = rows.new_empty(rows.shape[0], w.shape[-1])
+    start = 0
+    for e, end in enumerate(bounds):
+        if end > start:
+            out[start:end] = rows[start:end] @ w[e]
+        start = end
+    return out
+
+
+@spanned("repro_torch.moe.experts")
+def _grouped_ffn(gate, up, down, rows, ends):
+    """rows: (N, d) sorted by expert, ``ends`` (E,) each expert's end ->
+    (N, d): each expert's swiglu FFN on its rows.  On the card the three
+    products are grouped products over the experts' ragged groups, their
+    ends read on the device; elsewhere one product an expert."""
+    bounds = None if rows.is_cuda else ends.tolist()
+    g = F.silu(_grouped_mm(rows, gate, ends, bounds))
+    u = _grouped_mm(rows, up, ends, bounds)
+    return _grouped_mm(g * u, down, ends, bounds)
+
+
+@spanned("repro_torch.moe.combine")
+def _combine(y, w, order, token, T):
+    """(T, d) float32: each token's sum of its assignments' rows ``y`` (in
+    ``order``), each times its gate in ``w`` (T, k)."""
+    gates = w.reshape(-1)[order]
+    out = torch.zeros(T, y.shape[1], dtype=torch.float32, device=y.device)
+    return out.index_add_(0, token, y.float() * gates[:, None])
+
+
+@spanned("repro_torch.moe.layer")
+def _moe_dropless(p, x, cfg: ModelConfig):
+    """x: (T, d) tokens.  Returns (out (T, d) float32, aux): every one of
+    the T k assignments computed (no capacity), so that a token's output
+    does not depend on the other tokens.  One device, no autograd."""
+    e = cfg.moe
+    if dist_ctx.get_mesh() is not None or tp.shard_dim(p["gate"]) == 0:
+        raise NotImplementedError(
+            "MoEConfig.dropless serves on one device: no mesh, no expert "
+            "parallelism")
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            p[k].requires_grad for k in ("router", "gate", "up", "down"))):
+        raise NotImplementedError(
+            "MoEConfig.dropless serves: it has no backward")
+    w, idx, aux = _route(x.float(), p["router"], e.n_experts, e.top_k,
+                         e.norm_topk_prob)
+    order, token, ends, rows = _sorted_rows(x, idx, e.n_experts)
+    y = _grouped_ffn(p["gate"], p["up"], p["down"], rows, ends)
+    return _combine(y, w, order, token, x.shape[0]), aux
+
+
 def _moe_ep(p, x, cfg: ModelConfig, ep_size: int):
     """Expert parallelism over the mesh's ``model`` axis, the reference's
     ``shard_map`` region as manual SPMD.  x: (B, S, d), this rank's shard of
@@ -272,11 +362,9 @@ def _moe_einsum(p, xf, cfg: ModelConfig):
     return out.to(xf.dtype), aux
 
 
-def moe_apply(p, x, cfg: ModelConfig, dispatch=None):
-    """x: (B, S, d) -> (out (B, S, d), aux dict of the load-balance and
-    router-z terms).  ``dispatch``: ``"gather"`` or ``"einsum"``, both the
-    same function (capacity drops included); None reads
-    ``PerfFlags.moe_dispatch``."""
+def _moe_capacity(p, x, cfg: ModelConfig, dispatch):
+    """``moe_apply``'s routed experts through the capacity dispatches, the
+    shared expert left out: (out (B, S, d), aux)."""
     dispatch = dispatch or dist_ctx.perf_flags().moe_dispatch
     if dispatch not in ("gather", "einsum"):
         raise ValueError(f"dispatch must be 'gather' or 'einsum', got "
@@ -307,6 +395,21 @@ def moe_apply(p, x, cfg: ModelConfig, dispatch=None):
                           for k in ("gate", "up", "down")})
             out, aux = _moe_einsum(q, xs.reshape(B * S, d), cfg)
         out = tp.leave(out.reshape(B, S, d), False)
+    return out, aux
+
+
+def moe_apply(p, x, cfg: ModelConfig, dispatch=None):
+    """x: (B, S, d) -> (out (B, S, d), aux dict of the load-balance and
+    router-z terms).  ``dispatch``: ``"gather"`` or ``"einsum"``, both the
+    same function (capacity drops included); None reads
+    ``PerfFlags.moe_dispatch``.  With ``MoEConfig.dropless`` neither:
+    ``_moe_dropless``."""
+    if cfg.moe.dropless:
+        B, S, d = x.shape
+        out, aux = _moe_dropless(p, x.reshape(B * S, d), cfg)
+        out = out.to(x.dtype).reshape(B, S, d)
+    else:
+        out, aux = _moe_capacity(p, x, cfg, dispatch)
     if "shared" in p:
         out = out + mlp_apply(p["shared"], x, "swiglu")
     return out, aux

@@ -264,7 +264,7 @@ def _rope_for(cfg: ModelConfig, positions):
     if cfg.rope_theta <= 0:
         return None, None
     dim = cfg.mla.qk_rope_dim if cfg.mla is not None else cfg.resolved_head_dim
-    return rope_tables(positions, dim, cfg.rope_theta)
+    return rope_tables(positions, dim, cfg.rope_theta, cfg.rope_scaling)
 
 
 class _Gather(torch.autograd.Function):
