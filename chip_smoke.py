@@ -450,6 +450,15 @@ printing a result:
    one bf16 ulp of the chain in float32 and dt_softplus within 2 float32
    ulps of its plain version, and each kernel's ms beside its bound
    (bytes), the plain chain's ms and the wrapper's host us a call.
+60. the dropless MoE's combine kernel (``kernels/moe_combine.py``): one
+   deepseek_v2_lite_16b prefill at full width and depth, dropless as
+   published, 1 x 1024 tokens, launching moe_combine exactly once a layer
+   (27); then at its served prefill batches (8,192, 15,200 and 32,000
+   tokens, top-6 of 64 experts, d 2048) from a real sort of random
+   routing, the kernel within the summation-order slack of its plain
+   version (``combine_err``), bit-equal to the float32 loop in routing
+   order and to a second launch, and its ms beside its bound (bytes), the
+   plain version's ms and the wrapper's host us a call.
 
 Kernel times are CUDA events around back-to-back calls queued behind a
 device-side wait (``torch.cuda._sleep``) that outlasts their enqueue, so
@@ -471,7 +480,8 @@ flash entry's ``tiles`` and the scan's phase 58's rows;
 the scan's entry:
 its launches by path, calibration, falcon_mamba_7b serving, phase
 49a's TP step and phase 51's sampled loops, and its
-times at the serving shape); the last line is ``{"ok": true, "device":
+times at the serving shape; the coefficient kernels' and moe_combine's
+entries, phases 59 and 60); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 from __future__ import annotations
@@ -517,6 +527,7 @@ from repro_torch.kernels import _build, calibrate, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba_coeffs as mc  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
+from repro_torch.kernels import moe_combine as mo  # noqa: E402
 from repro_torch.kernels import nvdla_matmul as mm  # noqa: E402
 from repro_torch.launch import camera  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
@@ -1526,7 +1537,8 @@ def time_flash_f32(smi):
 MOE_RANGES = {"moe layer": "repro_torch.moe.layer",
               "moe routing": "repro_torch.moe.route",
               "moe dispatch indices": "repro_torch.moe.dispatch",
-              "moe experts": "repro_torch.moe.experts"}
+              "moe experts": "repro_torch.moe.experts",
+              "moe combine": "repro_torch.moe.combine"}
 SSM_RANGES = {"mamba2 mixer": "repro_torch.ssm.mamba2",
               "mamba2 ssd": "repro_torch.ssm.ssd",
               "mamba2 decode": "repro_torch.ssm.mamba2_decode"}
@@ -1557,15 +1569,17 @@ def _log_shares(ms_of, busy_ms, phase):
 
 def _log_moe_shares(averages, busy_ms, phase):
     """The device time under each ``MOE_RANGES`` span and its share of
-    the phase's device time; dispatch is the MoE layer less routing and the
-    experts' products: the one-hot cumsum, the scatter of buffer slots, the
-    gather into the buffers and the weighted combine."""
+    the phase's device time; dispatch is the MoE layer less routing, the
+    experts' products and the dropless path's combine: the one-hot cumsum,
+    the scatter of buffer slots, the gather into the buffers, and on the
+    capacity path its weighted combine, which has no span of its own."""
     ms_of = _range_ms(averages, MOE_RANGES)
     if not ms_of["moe layer"]:
         log("  MoE spans: no device time under them (not measured)")
         return
-    ms_of["moe dispatch (cumsum, scatter, gather, combine)"] = (
-        ms_of["moe layer"] - ms_of["moe routing"] - ms_of["moe experts"])
+    ms_of["moe dispatch (cumsum, scatter, gather; capacity combine)"] = (
+        ms_of["moe layer"] - ms_of["moe routing"] - ms_of["moe experts"]
+        - ms_of["moe combine"])
     _log_shares(ms_of, busy_ms, phase)
 
 
@@ -5629,6 +5643,128 @@ def mamba1_coeffs_phase(smi, params=None):
     return out
 
 
+# phase 60: deepseek_v2_lite_16b's served prefill batches (the benchmark's
+# prefill_pool: 8 prompts of 1024 tokens, the mix's mean batch, 8 of 4000),
+# top-6 of 64 experts at d_model 2048
+COMBINE_SHAPES = [(n_tok, 6, 2048) for n_tok in (8192, 15200, 32000)]
+COMBINE_EXPERTS = 64
+
+
+def combine_inputs(n_tok, k, d, n_experts, gen, empty=None):
+    """The dropless combine's inputs from a real dispatch of random routing
+    on ``gen``'s device: each of ``n_tok`` tokens routed to its ``k`` most
+    probable of ``n_experts`` experts under random logits (expert ``empty``
+    chosen by none), w the top-k probabilities (float32), and inv from
+    ``models.moe._sorted_rows``'s stable sort by expert; y (T k, d) random
+    bf16 rows in that order.  Returns (y, w, inv)."""
+    dev = gen.device
+    logits = torch.randn(n_tok, n_experts, generator=gen, device=dev)
+    if empty is not None:
+        logits[:, empty] = -torch.inf
+    w, idx = torch.softmax(logits, -1).topk(k, -1)
+    inv, _, _ = moe_mod._sorted_rows(torch.zeros(n_tok, 1, device=dev),
+                                     idx, n_experts)
+    y = torch.randn(n_tok * k, d, generator=gen, device=dev).bfloat16()
+    return y, w, inv
+
+
+def routing_order_sum(y, w, inv):
+    """The combine in float32 in routing order, each product and sum
+    rounded on its own, from 0, then rounded once to bf16: what the kernel
+    computes, as a loop over the k assignments."""
+    acc = torch.zeros(w.shape[0], y.shape[1], dtype=torch.float32,
+                      device=y.device)
+    for j in range(w.shape[1]):
+        acc = acc + w[:, j:j + 1] * y[inv[:, j].long()].float()
+    return acc.to(torch.bfloat16)
+
+
+def combine_err(got, expect, y, w, inv):
+    """The largest of |got - expect| over the distance two combines may lie
+    apart that sum the same float32 products in other orders, each rounded
+    once to bf16: one bf16 ulp at the larger of the two, plus 2 k float32
+    units (2^-24) of the sum of the products' magnitudes (each order's
+    float32 sum lies within (k - 1) units of it from the exact sum).  At
+    most 1 where the two differ by summation order alone."""
+    k = w.shape[1]
+    mag = torch.zeros_like(expect, dtype=torch.float32)
+    for j in range(k):
+        mag += (w[:, j:j + 1] * y[inv[:, j].long()].float()).abs()
+    a, b = got.float(), expect.float()
+    slack = ulp(torch.maximum(a.abs(), b.abs()), 8) + 2 * k * 2.0 ** -24 * mag
+    return float(((a - b).abs() / slack).max())
+
+
+def combine_bound(n_tok, k, d):
+    """Least ms of the combine, at the HBM rate: y's T k bf16 rows read once,
+    the float32 gates and int32 indices, the (T, d) bf16 output written
+    once."""
+    nbytes = n_tok * k * d * 2 + n_tok * k * (4 + 4) + n_tok * d * 2
+    return 1e3 * nbytes / hw.HBM_BW
+
+
+def moe_combine_phase(smi):
+    """Phase 60: the dropless MoE's combine kernel.  (a) One
+    deepseek_v2_lite_16b prefill at full width and depth, dropless with
+    gates not renormalised as published (params from seed 0 made on the
+    card), 1 x 1024 tokens: the kernel launched once a layer.  (b) At
+    ``COMBINE_SHAPES``, inputs from ``combine_inputs``: the kernel within
+    ``combine_err`` 1 of the plain version, bit-equal to
+    ``routing_order_sum`` and to a second launch; its ms beside its bound,
+    the plain version's ms and the wrapper's host us a call.  Returns
+    {"launches": count, "max_err": worst combine_err, T: row}."""
+    cfg = get_config("deepseek_v2_lite_16b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, dropless=True, norm_topk_prob=False))
+    params = T.init_params(cfg, seed=0, device="cuda")
+    g = torch.Generator("cuda").manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab, (1, 1024), generator=g,
+                           device="cuda")
+    before = mo.moe_combine.launches
+    with torch.no_grad():
+        T.prefill_forward(cfg, params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    launches = mo.moe_combine.launches - before
+    log(f"phase 60: one {cfg.name} prefill (1 x 1024, {cfg.n_layers} "
+        f"layers, dropless) launches moe_combine {launches} times")
+    if launches != cfg.n_layers:
+        raise AssertionError(f"{launches} moe_combine launches, expected "
+                             f"{cfg.n_layers}")
+    del params
+    torch.cuda.empty_cache()
+    out = {"launches": launches, "max_err": 0.0}
+    for n_tok, k, d in COMBINE_SHAPES:
+        y, w, inv = combine_inputs(n_tok, k, d, COMBINE_EXPERTS, g)
+        with torch.no_grad():
+            got = mo.moe_combine(y, w, inv)
+            err = combine_err(got, ref.moe_combine_ref(y, w, inv), y, w, inv)
+            loop = torch.equal(got.view(torch.int16),
+                               routing_order_sum(y, w, inv).view(torch.int16))
+            again = torch.equal(got.view(torch.int16),
+                                mo.moe_combine(y, w, inv).view(torch.int16))
+        out["max_err"] = max(out["max_err"], err)
+        log(f"phase 60 ({n_tok} x {k}, {d}): moe_combine at {err:.3f} of "
+            f"the summation-order slack from the plain version, bit-equal to "
+            f"the routing-order loop {loop}, to a second launch {again}")
+        if not (err <= 1 and loop and again):
+            raise AssertionError(f"moe_combine: err {err}, loop {loop}, "
+                                 f"again {again}")
+        kernel_ms = cuda_ms(lambda: mo.moe_combine(y, w, inv), 20)
+        host = host_us(lambda: mo.moe_combine(y, w, inv))
+        plain_ms = cuda_ms(lambda: ref.moe_combine_ref(y, w, inv), 5,
+                           hold=False)
+        bound_ms = combine_bound(n_tok, k, d)
+        log(f"moe_combine ({n_tok} x {k}, {d}): kernel {kernel_ms:.4f} ms "
+            f"(host {host:.1f} us a call), plain {plain_ms:.4f} ms, library "
+            f"none, bound {bound_ms:.4f} ms by bytes = "
+            f"{100 * bound_ms / kernel_ms:.2f}% of bound; card {smi}")
+        out[n_tok] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+                       bound_ms=bound_ms, host_us=host, bound_by="bytes")
+        del y, w, inv, got
+        torch.cuda.empty_cache()
+    return out
+
+
 def ulp(v, mantissa_bits):
     """One unit in the last place at each value of float32 ``v`` for a
     type of ``mantissa_bits`` (with the implicit bit): bf16 8, float32
@@ -5643,7 +5779,7 @@ def _counts():
             fa.flash_attention.launches,
             dict(fa.flash_attention.launches_by_variant),
             ms.mamba_scan.launches, mc.conv1d_silu.launches,
-            mc.dt_softplus.launches)
+            mc.dt_softplus.launches, mo.moe_combine.launches)
 
 
 def _mean_row(rows):
@@ -5895,6 +6031,8 @@ def main():
     flash_tiles, scan_tiles = block_tiles_phase(smi)
     # phase 59: the Mamba1 mixer's coefficient kernels
     coeffs = mamba1_coeffs_phase(smi)
+    # phase 60: the dropless MoE's combine kernel
+    combine = moe_combine_phase(smi)
     log(f"training: grad errors {grad_err:.3e} (Functions), {train_err:.3e} "
         f"(card vs CPU); tinyllama_1_1b {train_ms:.1f} ms a step, "
         f"{train_tok_s:.0f} tok/s, {train_gib:.3f} GiB, device ms a step "
@@ -6001,7 +6139,15 @@ def main():
             **coeffs[name][COEFF_SHAPES[-1][1]],
             "shape": list(COEFF_SHAPES[-1]),
             "ms_by_length": {S: r["ms"] for S, r in coeffs[name].items()}}
-            for name in ("conv1d_silu", "dt_softplus"))]}))
+            for name in ("conv1d_silu", "dt_softplus")), {
+        # deepseek_v2_lite_16b's largest served prefill, 8 x 4000 tokens
+        "name": "moe_combine", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_combine.cu",
+        "replaces": None, "launches": combine["launches"],
+        "max_err": combine["max_err"], **combine[COMBINE_SHAPES[-1][0]],
+        "shape": list(COMBINE_SHAPES[-1]),
+        "ms_by_tokens": {n_tok: combine[n_tok]["ms"]
+                         for n_tok, _, _ in COMBINE_SHAPES}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -44,6 +44,19 @@ def refuse_grad(name, *tensors):
             f"would carry none; call repro_torch.kernels.ops.{name}, whose "
             f"autograd function has the backward")
 
+
+def on_card(name, *tensors):
+    """Raises unless every tensor lies on one CUDA device."""
+    if not all(t.is_cuda and t.device == tensors[0].device for t in tensors):
+        raise ValueError(f"{name} kernel takes its inputs on one CUDA "
+                         f"device, got {[str(t.device) for t in tensors]}")
+
+
+def aligned(t):
+    """Whether ``t``'s data starts on a 16-byte boundary (one vector)."""
+    return t.data_ptr() % 16 == 0
+
+
 _lock = threading.Lock()
 
 

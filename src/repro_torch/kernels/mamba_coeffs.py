@@ -49,16 +49,6 @@ def _lib():
     return lib
 
 
-def _on_card(name, *ts):
-    if not all(t.is_cuda and t.device == ts[0].device for t in ts):
-        raise ValueError(f"{name} kernel takes its inputs on one CUDA "
-                         f"device, got {[str(t.device) for t in ts]}")
-
-
-def _aligned(t):
-    return t.data_ptr() % 16 == 0
-
-
 def conv1d_silu(x, w, b):
     """x: (b, S, d) bf16 with unit channel stride and any row and batch
     strides (``xz[..., :d]``); w: (d, k) bf16, 1 <= k <= ``K_MAX``; b: (d,)
@@ -77,13 +67,13 @@ def conv1d_silu(x, w, b):
     if not 1 <= k <= K_MAX:
         raise ValueError(f"conv1d_silu kernel takes a conv width k of 1 to "
                          f"{K_MAX}, got {k}")
-    _on_card("conv1d_silu", x, w, b)
+    _build.on_card("conv1d_silu", x, w, b)
     if x.stride(2) != 1:
         x = x.contiguous()
     w, b = w.contiguous(), b.contiguous()
     bsz, S, d = x.shape
     vec = _VEC if d % _VEC == 0 and x.stride(0) % _VEC == 0 \
-        and x.stride(1) % _VEC == 0 and _aligned(x) else 1
+        and x.stride(1) % _VEC == 0 and _build.aligned(x) else 1
     y = torch.empty(bsz, S, d, dtype=torch.bfloat16, device=x.device)
     yf = torch.empty(bsz, S, d, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
@@ -109,11 +99,11 @@ def dt_softplus(p, bias):
     if p.dim() < 1 or p.numel() == 0 or bias.shape != (p.shape[-1],):
         raise ValueError("dt_softplus takes p (..., d) and bias (d,), got "
                          f"{tuple(p.shape)}, {tuple(bias.shape)}")
-    _on_card("dt_softplus", p, bias)
+    _build.on_card("dt_softplus", p, bias)
     p, bias = p.contiguous(), bias.contiguous()
     d = p.shape[-1]
     out = torch.empty(p.shape, dtype=torch.float32, device=p.device)
-    vec = _VEC if d % _VEC == 0 and _aligned(p) else 1
+    vec = _VEC if d % _VEC == 0 and _build.aligned(p) else 1
     with torch.cuda.device(p.device):
         rc = _lib().dt_softplus_fwd(
             p.data_ptr(), bias.data_ptr(), out.data_ptr(), p.numel(), d, vec,

@@ -11,7 +11,8 @@ do.  On the card ``flash_attention``, ``mamba_scan``, ``conv1d_silu`` and
 and the backward is the gradient of the plain version, recomputed from the
 saved inputs (``ref.flash_attention_bwd_ref``, ``ref.mamba_scan_bwd_ref``,
 ``ref.recomputed_grads``).  So an output that needs a gradient gets the
-plain version's.
+plain version's.  ``moe_combine`` launches its kernel directly: the
+dropless MoE it serves has no backward.
 
 Each entry point takes the kernel's block shapes as the reference's
 ``ops`` does (``**kw``: the matmul's ``bm``, ``bn``, ``bk``, flash
@@ -27,6 +28,7 @@ import torch
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import mamba_coeffs as _coeffs
 from repro_torch.kernels import mamba_scan as _mamba
+from repro_torch.kernels import moe_combine as _moe
 from repro_torch.kernels import nvdla_matmul as _matmul
 from repro_torch.kernels import ref
 
@@ -193,3 +195,16 @@ def dt_softplus(p, bias):
     dt_proj product; bias: (d,) float32."""
     return _dispatch("dt_softplus", ref.dt_softplus_ref, _DtSoftplus.apply,
                      p.device, p, bias)
+
+
+def moe_combine(y, w, inv):
+    """The dropless MoE's combine.  y: (T k, d), the experts' rows in the
+    dispatch's sorted order; w: (T, k) float32 gates in routing order; inv:
+    (T, k) int32, the row of y of each assignment.  Returns (T, d) in y's
+    type: each token's rows times their gates, summed in float32 and
+    rounded once.  The card's kernel takes bf16 and sums in routing order
+    (``moe_combine.moe_combine``); the plain version ``index_add_``s in the
+    sorted order (``ref.moe_combine_ref``).  Forward only: the dropless
+    path serves."""
+    return _dispatch("moe_combine", ref.moe_combine_ref, _moe.moe_combine,
+                     y.device, y, w, inv)

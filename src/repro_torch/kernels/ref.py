@@ -14,7 +14,9 @@ jnp attention and scan.
 ``conv1d_silu_ref`` and ``dt_softplus_ref``, the Mamba1 mixer's
 coefficients, are the chain ``models.ssm`` ran in plain torch before its
 kernels, op for op: in bf16 each op rounds, where the conv1d_silu kernel
-rounds once.
+rounds once.  ``moe_combine_ref`` is the chain ``models.moe`` ran for the
+dropless combine before its kernel: a float32 ``index_add_`` in the sorted
+order, where the kernel sums each token's rows in routing order.
 """
 from __future__ import annotations
 
@@ -151,6 +153,21 @@ def conv1d_silu_ref(x, w, b):
 def dt_softplus_ref(p, bias):
     """Mamba1's dt: ``F.softplus(p.float() + bias)``, float32."""
     return F.softplus(p.float() + bias)
+
+
+def moe_combine_ref(y, w, inv):
+    """The dropless MoE's combine.  y: (T k, d), the experts' rows in the
+    dispatch's sorted order; w: (T, k) float32 gates; inv: (T, k) the row
+    of y of each assignment.  Returns (T, d) in y's type: each row widened
+    to float32 and times its gate, the rows ``index_add_``-ed into their
+    tokens in the sorted order, and the float32 sums cast once."""
+    T, k = w.shape
+    order = torch.empty(T * k, dtype=torch.long, device=y.device)
+    order[inv.reshape(-1).long()] = torch.arange(T * k, device=y.device)
+    gates = w.reshape(-1)[order]
+    out = torch.zeros(T, y.shape[1], dtype=torch.float32, device=y.device)
+    out.index_add_(0, order // k, y.float() * gates[:, None])
+    return out.to(y.dtype)
 
 
 def recomputed_grads(fn, inputs, grads):

@@ -37,9 +37,11 @@ batch mates (``_moe_dropless``): the T k assignments are sorted stably by
 expert, each expert's rows gathered in token order, and the three expert
 products run over the experts' ragged groups, on the card as
 ``torch._grouped_mm`` with the groups' ends on the device (no host sync),
-on the CPU as one product an expert; a float32 ``index_add_`` of gate x
-row combines them.  It raises ``NotImplementedError`` under a mesh, expert
-parallelism or autograd.
+on the CPU as one product an expert; ``ops.moe_combine`` combines them,
+each token's k rows times their gates summed in float32 and rounded once
+to the rows' type (on the card one kernel that sums in routing order, on
+the CPU a float32 ``index_add_`` in the sorted order).  It raises
+``NotImplementedError`` under a mesh, expert parallelism or autograd.
 """
 from __future__ import annotations
 
@@ -52,6 +54,7 @@ from repro_torch.core.config import ModelConfig
 from repro_torch.core.spans import spanned
 from repro_torch.dist import context as dist_ctx
 from repro_torch.dist import tp
+from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, mlp_apply, mlp_init
 
 
@@ -236,16 +239,18 @@ def _moe_local(p, x, cfg: ModelConfig, e_start=0, e_local=None,
 
 @spanned("repro_torch.moe.dispatch")
 def _sorted_rows(x, idx, n_experts):
-    """x: (T, d) tokens; idx: (T, k) their experts.  Returns (order, token,
-    ends, rows): the T k flat assignments sorted stably by expert (so that
-    an expert's tokens stay in token order), the token of each, each
-    expert's end among them (E,) int32 on the device, and the tokens' rows
-    in that order (T k, d)."""
+    """x: (T, d) tokens; idx: (T, k) their experts.  Returns (inv, ends,
+    rows): with the T k flat assignments sorted stably by expert (so that
+    an expert's tokens stay in token order), the place of each assignment
+    in that order (T, k) int32, each expert's end in it (E,) int32 on the
+    device, and the tokens' rows in that order (T k, d)."""
     flat = idx.reshape(-1)
     order = torch.argsort(flat, stable=True)
-    token = order // idx.shape[1]
+    inv = torch.empty_like(flat, dtype=torch.int32).scatter_(
+        0, order, torch.arange(flat.numel(), dtype=torch.int32,
+                               device=flat.device))
     ends = torch.cumsum(_expert_counts(flat, n_experts), 0).to(torch.int32)
-    return order, token, ends, x[token]
+    return inv.reshape(idx.shape), ends, x[order // idx.shape[1]]
 
 
 def _grouped_mm(rows, w, ends, bounds):
@@ -277,18 +282,18 @@ def _grouped_ffn(gate, up, down, rows, ends):
 
 
 @spanned("repro_torch.moe.combine")
-def _combine(y, w, order, token, T):
-    """(T, d) float32: each token's sum of its assignments' rows ``y`` (in
-    ``order``), each times its gate in ``w`` (T, k)."""
-    gates = w.reshape(-1)[order]
-    out = torch.zeros(T, y.shape[1], dtype=torch.float32, device=y.device)
-    return out.index_add_(0, token, y.float() * gates[:, None])
+def _combine(y, w, inv):
+    """(T, d) in y's type: each token's sum of its assignments' rows of
+    ``y`` (the rows in sorted order, token t's at ``inv[t]``), each times
+    its gate in ``w`` (T, k), in float32, rounded once
+    (``ops.moe_combine``)."""
+    return ops.moe_combine(y, w, inv)
 
 
 @spanned("repro_torch.moe.layer")
 def _moe_dropless(p, x, cfg: ModelConfig):
-    """x: (T, d) tokens.  Returns (out (T, d) float32, aux): every one of
-    the T k assignments computed (no capacity), so that a token's output
+    """x: (T, d) tokens.  Returns (out (T, d) in x's type, aux): every one
+    of the T k assignments computed (no capacity), so that a token's output
     does not depend on the other tokens.  One device, no autograd."""
     e = cfg.moe
     if dist_ctx.get_mesh() is not None or tp.shard_dim(p["gate"]) == 0:
@@ -301,9 +306,9 @@ def _moe_dropless(p, x, cfg: ModelConfig):
             "MoEConfig.dropless serves: it has no backward")
     w, idx, aux = _route(x.float(), p["router"], e.n_experts, e.top_k,
                          e.norm_topk_prob)
-    order, token, ends, rows = _sorted_rows(x, idx, e.n_experts)
+    inv, ends, rows = _sorted_rows(x, idx, e.n_experts)
     y = _grouped_ffn(p["gate"], p["up"], p["down"], rows, ends)
-    return _combine(y, w, order, token, x.shape[0]), aux
+    return _combine(y, w, inv), aux
 
 
 def _moe_ep(p, x, cfg: ModelConfig, ep_size: int):

@@ -24,6 +24,7 @@ from repro_torch.kernels import calibrate, ops, ref
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mamba_coeffs as mc
 from repro_torch.kernels import mamba_scan as ms
+from repro_torch.kernels import moe_combine as mo
 from repro_torch.kernels import nvdla_matmul as mm
 from repro_torch.launch import camera
 from repro_torch.launch.serve import serve
@@ -34,7 +35,8 @@ from repro_torch.serve.policy import StaticBatching
 from repro_torch.train import TrainConfig, make_train_step
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from chip_smoke import load_example, ulp  # noqa: E402
+from chip_smoke import (combine_err, combine_inputs,  # noqa: E402
+                        load_example, routing_order_sum, ulp)
 
 TOL = {"float32": (torch.float32, 1e-4),        # tests/test_kernels.py
        "bfloat16": (torch.bfloat16, 3e-2)}
@@ -486,6 +488,126 @@ def test_cuda_coeff_wrappers_refuse(cuda):
         with pytest.raises(err):
             mc.dt_softplus(*args)
     assert (mc.conv1d_silu.launches, mc.dt_softplus.launches) == before
+
+
+# the dropless MoE's combine kernel (kernels/moe_combine.py): tokens, k, d,
+# experts, the expert no token chooses
+COMBINE_CASES = [
+    (32000, 6, 2048, 64, None),   # deepseek_v2_lite_16b's 8 x 4000 prefill
+    (300, 6, 2048, 64, 5),        # an expert with no rows
+    (77, 8, 40, 16, None),        # k 8
+    (50, 1, 37, 4, None),         # k 1, d off the 16-byte vector
+    (33, 3, 130, 8, 0),
+]
+
+
+def _combine_gen(cuda, seed=0):
+    return torch.Generator(device=cuda).manual_seed(seed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,k,d,n_experts,empty", COMBINE_CASES)
+def test_cuda_moe_combine_matches_plain(cuda, T, k, d, n_experts, empty):
+    """Inputs from a real sort of random routing.  Against the plain
+    version (``index_add_`` in the sorted order, with float32 atomics in no
+    fixed order on the card): within ``combine_err`` 1, one bf16 ulp of the
+    larger result plus 2 k float32 units of the products' magnitudes, since
+    the two float32 sums differ in order alone and each rounds once to
+    bf16.  Bit-equal to the float32 loop in routing order
+    (``routing_order_sum``), the kernel's arithmetic op by op.  One
+    launch."""
+    y, w, inv = combine_inputs(T, k, d, n_experts, _combine_gen(cuda), empty)
+    before = mo.moe_combine.launches
+    out = ops.moe_combine(y, w, inv)
+    torch.cuda.synchronize()
+    assert mo.moe_combine.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (T, d)
+    assert combine_err(out, ref.moe_combine_ref(y, w, inv), y, w, inv) <= 1
+    assert torch.equal(out.view(torch.int16),
+                       routing_order_sum(y, w, inv).view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [2048, 40])
+def test_cuda_moe_combine_takes_an_unaligned_base(cuda, d):
+    """y 6 bytes past a 16-byte boundary: the one-channel instance, equal to
+    the aligned copy's output bit for bit."""
+    y, w, inv = combine_inputs(100, 6, d, 16, _combine_gen(cuda, 1))
+    buf = torch.empty(y.numel() + 8, dtype=torch.bfloat16, device=cuda)
+    shifted = buf[3:3 + y.numel()].view(y.shape)
+    shifted.copy_(y)
+    assert shifted.data_ptr() % 16 == 6 and shifted.is_contiguous()
+    assert torch.equal(mo.moe_combine(shifted, w, inv).view(torch.int16),
+                       mo.moe_combine(y, w, inv).view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_cuda_moe_combine_is_bit_identical_run_to_run(cuda):
+    """Two launches on the same inputs, at the mix's mean batch: the same
+    bits (the atomics' sum was not)."""
+    y, w, inv = combine_inputs(15200, 6, 2048, 64, _combine_gen(cuda, 2))
+    a, b = mo.moe_combine(y, w, inv), mo.moe_combine(y, w, inv)
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_cuda_moe_combine_token_ignores_its_batch_mates(cuda):
+    """A token's output is bit-identical when every other token's rows and
+    gates change.  The combine alone: the grouped products upstream may
+    tile by the groups' sizes."""
+    g = _combine_gen(cuda, 3)
+    y, w, inv = combine_inputs(4000, 6, 2048, 64, g)
+    mine = torch.tensor([0, 1234, 3999], device=cuda)
+    own = torch.zeros(y.shape[0], dtype=torch.bool, device=cuda)
+    own[inv[mine].long().reshape(-1)] = True
+    y2 = torch.where(own[:, None], y, torch.randn(
+        y.shape, generator=g, device=cuda).bfloat16())
+    w2 = torch.rand(w.shape, generator=g, device=cuda)
+    w2[mine] = w[mine]
+    out, out2 = mo.moe_combine(y, w, inv), mo.moe_combine(y2, w2, inv)
+    assert torch.equal(out[mine].view(torch.int16),
+                       out2[mine].view(torch.int16))
+    assert not torch.equal(out, out2)
+
+
+@pytest.mark.gpu
+def test_cuda_moe_combine_refuses(cuda):
+    """Another device, type or layout and an input that requires grad:
+    no launch; the library's entry refuses k outside 1-8, no tokens and a
+    vector the width does not take (cudaErrorInvalidValue)."""
+    y, w, inv = combine_inputs(8, 3, 16, 4, _combine_gen(cuda, 4))
+    before = mo.moe_combine.launches
+    for args, err in (((y, w.cpu(), inv), ValueError),
+                      ((y, w.clone().requires_grad_(), inv), RuntimeError),
+                      ((y.float(), w, inv), TypeError),
+                      ((y, w, inv.long()), TypeError),
+                      ((y.t().contiguous().t(), w, inv), ValueError)):
+        with pytest.raises(err):
+            mo.moe_combine(*args)
+    assert mo.moe_combine.launches == before
+    out = torch.empty(8, 16, dtype=torch.bfloat16, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    for T, k, d, vec in ((8, 9, 16, 8), (8, 0, 16, 8), (0, 3, 16, 8),
+                         (8, 3, 12, 8), (8, 3, 16, 4)):
+        assert mo._lib().moe_combine_fwd(
+            y.data_ptr(), w.data_ptr(), inv.data_ptr(), out.data_ptr(), T,
+            k, d, vec, stream) == 1
+
+
+@pytest.mark.gpu
+def test_cuda_dropless_prefill_combines_once_a_layer(cuda):
+    """The dropless SMOKE deepseek's prefill on the card launches the
+    combine kernel once a layer."""
+    cfg = MOE_SMOKE["deepseek_v2_lite_16b dropless"]
+    params = T.init_params(cfg, seed=0, device=cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 30), device=cuda,
+                           generator=_combine_gen(cuda, 5))
+    before = mo.moe_combine.launches
+    with torch.no_grad():
+        logits, _ = T.prefill_forward(cfg, params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert mo.moe_combine.launches - before == cfg.n_layers
+    assert bool(torch.isfinite(logits).all())
 
 
 @pytest.mark.gpu
@@ -1012,13 +1134,18 @@ def test_costmodel_torch_backend_on_the_card(cuda):
 
 # the moe family's smoke configs, served on the card; deepseek's with
 # qk_nope 24, so that its MLA q/k width (24 + 8 = 32) is a head dim of the
-# kernel (the smoke config's 16 + 8 = 24 is not)
+# kernel (the smoke config's 16 + 8 = 24 is not); and that one dropless
+# with gates not renormalised, as the benchmark serves DeepSeek-V2-Lite
+_DSV2_SMOKE = dataclasses.replace(
+    get_smoke_config("deepseek_v2_lite_16b"),
+    mla=dataclasses.replace(get_smoke_config("deepseek_v2_lite_16b").mla,
+                            qk_nope_dim=24))
 MOE_SMOKE = {
     "granite_moe_1b_a400m": get_smoke_config("granite_moe_1b_a400m"),
-    "deepseek_v2_lite_16b": dataclasses.replace(
-        get_smoke_config("deepseek_v2_lite_16b"),
-        mla=dataclasses.replace(get_smoke_config("deepseek_v2_lite_16b").mla,
-                                qk_nope_dim=24)),
+    "deepseek_v2_lite_16b": _DSV2_SMOKE,
+    "deepseek_v2_lite_16b dropless": dataclasses.replace(
+        _DSV2_SMOKE, moe=dataclasses.replace(
+            _DSV2_SMOKE.moe, dropless=True, norm_topk_prob=False)),
 }
 
 
